@@ -1,21 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and hold its
+"""Drive the PyTorch port's solver paths on one NVIDIA card and hold its
 kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
-Phases, each printing one line with its elapsed seconds:
-  build   compile every CUDA kernel of the path (one nvcc call each)
-  kernel  each kernel against its plain version at the main path's shape,
-          on random structured operands; its time from CUDA events
+Phases, each printing one JSON line with its elapsed seconds:
+  build   compile every CUDA source (one nvcc call each, all at once) and
+          print ptxas' registers, shared memory and spills
+  kernel  the momentum kernel against its plain version at the main
+          path's shape, on random structured operands; its time from CUDA
+          events
   case    the 512 x 2048 cylinder channel and the sm_ref512 surrogate
-  kernel-real  the kernel against its plain version on the operands of
-          the case's first step
-  step    the hybrid PISO main path (run_piso_eager, MG bf16 backend,
-          sm_ref512 warm start) for a few steps, with every launch counter
-          set to 0 just before and read just after
+  kernel-real  the momentum kernel on the operands of the case's first step
+  kernel-pressure  each pressure-stencil kernel (jacobi_multisweep,
+          smooth_residual, corr_smooth) in float32 and bfloat16 against its
+          plain version at the six kernel levels of the multigrid
+          hierarchy, on the case's first-corrector operator, and on random
+          operands at 512 x 2048 with the most sweeps it takes; its time at
+          the finest level
+  step    the hybrid PISO main path (run_piso_eager, MG bf16 backend with
+          the plain smoother, sm_ref512 warm start) for a few steps
+  step-fused  the same path with MGBackend(smoother="kernel-fused")
+  step-mgcg   the pure solver, MGCGBackend(rtol=1e-6, maxiter=60,
+          smoother="kernel"), from the impulsive start
   parity  one step with the plain momentum smoother against one with the
           kernel, from the same state
+  parity-pressure  one step with each kernel smoother against one with
+          the plain smoother, from the same state
+Each step phase sets every launch counter to 0 just before its timed
+steps and holds the counts to the steps, predictions and multigrid cycles
+it ran.
 
 It imports torch, numpy and tpufoam_torch only. It exits non-zero without
 a result line when there is no CUDA device or any check fails; otherwise
@@ -23,6 +37,7 @@ the line before the last is the card's name and power limit and the last
 line is the result object.
 """
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -36,9 +51,16 @@ T0 = time.time()
 NY, NX = 512, 2048            # the main path's grid (bench.py)
 SWEEPS = 8
 N_WARM, N_STEPS = 2, 10
+N_MGCG = 3                    # pure-solver steps from the impulsive start
+KERNEL_LEVELS = 6             # levels 512x2048 .. 16x64; 8x32 is plain
 MEM_RATE = 3.35e12            # H100 SXM HBM3, bytes/s (published peak)
 F32_RATE = 67e12              # H100 SXM f32 outside the tensor cores
 KERNEL_REL_TOL = 1e-5
+# Pressure-stencil kernels against their plain versions, max |err| /
+# max |plain|. Both round at the same places (csrc/pressure_stencil.cu),
+# so they should agree bit for bit; the bounds allow a few float32
+# roundings, and one bf16 ulp (2^-8) of the largest value.
+STENCIL_TOL = {"f32": 1e-5, "bf16": 2.0 ** -8}
 # Step parity, max |kernel - plain| / max |plain| per field. The two steps
 # differ only in the momentum smoother, whose outputs agree to ~1e-7
 # relative. The pressure equation's right-hand side is a divergence, a
@@ -48,6 +70,34 @@ KERNEL_REL_TOL = 1e-5
 # there is a dozen bf16 ulps.
 PARITY_TOL = {"bf16": {"u": 5e-2, "v": 5e-2, "p": 5e-2},
               "f32": {"u": 1e-4, "v": 1e-4, "p": 1e-3}}
+# Smoother parity: a kernel smoother computes x + omega (b - A x) / diag
+# where the plain one multiplies by 1/diag, so the two multigrid solves
+# round differently. In f32 that is PARITY_TOL["f32"]. The bf16 correction
+# form leaves a relative residual near its 0.1 noise floor after two
+# cycles, and two roundings of it may land anywhere inside that floor:
+# 1e-1. MGCG stops both solves at a relative residual of 1e-6: u and v
+# agree to PARITY_TOL["f32"], while p is fixed only to that residual times
+# the operator's condition, which grows 4x per doubling of the grid
+# (tests/test_torch_piso.py measures 2.5e-3 at 64 x 256 between two
+# frameworks): 5e-2.
+SMOOTHER_PARITY_TOL = {"bf16": {"u": 1e-1, "v": 1e-1, "p": 1e-1},
+                       "f32": PARITY_TOL["f32"],
+                       "mgcg": {"u": 1e-4, "v": 1e-4, "p": 5e-2}}
+# pressure kernels: (operands read, outputs written, operations per cell
+# and sweep, operations per cell once) and the TPU kernel each replaces
+STENCIL = {
+    "jacobi_multisweep": (7, 1, 13, 0, "tpufoam/ops/stencil.py:302"),
+    "smooth_residual": (7, 2, 13, 10, "tpufoam/ops/stencil.py:578"),
+    "corr_smooth": (8, 1, 13, 1, "tpufoam/ops/stencil.py:672"),
+}
+# the dtype of each kernel's path (MGCG's f32 V(1,1) for the multisweep,
+# the hybrid's bf16 V(2,2) for the fused legs), and the sweeps per launch
+# in each dtype: the multisweep runs 2 in the bf16 hybrid (path 3)
+PATH_DTYPE = {"jacobi_multisweep": "f32", "smooth_residual": "bf16",
+              "corr_smooth": "bf16"}
+PATH_SWEEPS = {"jacobi_multisweep": {"f32": 1, "bf16": 2},
+               "smooth_residual": {"f32": 2, "bf16": 2},
+               "corr_smooth": {"f32": 2, "bf16": 2}}
 
 
 def say(phase, **kv):
@@ -77,9 +127,17 @@ def time_ms(fn, n, torch):
 
 def compare(out, ref):
     """(max abs err, max abs err / max |ref|) over a tuple of tensors."""
-    err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-    scale = max(float(r.abs().max()) for r in ref)
+    err = max(float((o.float() - r.float()).abs().max())
+              for o, r in zip(out, ref))
+    scale = max(float(r.float().abs().max()) for r in ref)
     return err, err / max(scale, 1e-30)
+
+
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time on the card."""
+    t_mem, t_ops = n_bytes / MEM_RATE, n_ops / F32_RATE
+    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops \
+        else "operations"
 
 
 def main() -> int:
@@ -93,14 +151,16 @@ def main() -> int:
     from tpufoam_torch.core.geometry import channel_case_geometry
     from tpufoam_torch.fv.case import build_channel_case, initial_flow
     from tpufoam_torch.fv.momentum import momentum_coeffs
-    from tpufoam_torch.fv.pressure import pressure_gradient
+    from tpufoam_torch.fv.pressure import PressureCoeffs, pressure_gradient
     from tpufoam_torch.ops import build
+    from tpufoam_torch.ops import stencil as st
     from tpufoam_torch.ops.momentum import (momentum_multisweep,
                                             momentum_multisweep_plain)
     from tpufoam_torch.piso.engine import (PisoConfig, continuity_error,
                                            courant_number, piso_step,
                                            run_piso_eager)
-    from tpufoam_torch.solvers.backends import MGBackend
+    from tpufoam_torch.solvers import multigrid as mg
+    from tpufoam_torch.solvers.backends import MGBackend, MGCGBackend
     from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
                                                   make_predictor)
 
@@ -114,19 +174,39 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     say("start", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    counters = {"momentum_multisweep": momentum_multisweep,
+                "jacobi_multisweep": st.jacobi_multisweep,
+                "smooth_residual": st.smooth_residual,
+                "corr_smooth": st.corr_smooth}
+
+    def reset_counts(predictor=None):
+        for fn in counters.values():
+            fn.launches = 0
+        mg.v_cycle.cycles = 0
+        if predictor is not None:
+            predictor.calls = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
 
     # ---- build ----------------------------------------------------------
     t = time.time()
-    _, log = build.build("momentum_multisweep")
-    say("build", kernel="momentum_multisweep", seconds=round(time.time() - t, 3),
-        ptxas=[ln for ln in log.splitlines() if "registers" in ln
-               or "smem" in ln or "spill" in ln])
+    sources = ("momentum_multisweep", "pressure_stencil")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        logs = dict(zip(sources, pool.map(lambda n: build.build(n)[1],
+                                          sources)))
+    say("build", kernels=list(sources), seconds=round(time.time() - t, 3),
+        ptxas={name: [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "smem" in ln
+                      or "spill" in ln or "Compiling entry" in ln]
+               for name, log in logs.items()})
 
-    # ---- kernel vs plain, random structured operands ---------------------
+    # ---- momentum kernel vs plain, random structured operands ------------
     rng = np.random.default_rng(0)
 
-    def field(lo, hi):
-        return torch.as_tensor(rng.uniform(lo, hi, (NY, NX)).astype(
+    def field(lo, hi, shape=(NY, NX)):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(
             np.float32), device=dev)
 
     a_e, a_w, a_n, a_s = (field(0.0, 1.0) for _ in range(4))
@@ -151,11 +231,8 @@ def main() -> int:
                                                          sweeps=SWEEPS),
                        20, torch)
     n_cells = NY * NX
-    bytes_moved = (9 + 2) * n_cells * 4
-    flops = SWEEPS * 2 * 9 * n_cells
-    bound_ms = max(bytes_moved / MEM_RATE, flops / F32_RATE) * 1e3
-    bound_by = "bytes" if bytes_moved / MEM_RATE >= flops / F32_RATE \
-        else "operations"
+    bound_ms, bound_by = bound((9 + 2) * n_cells * 4,
+                               SWEEPS * 2 * 9 * n_cells)
     say("kernel", max_abs_err=err_rand, rel_err=rel_rand, ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         share_of_bound=bound_ms / ms)
@@ -175,7 +252,7 @@ def main() -> int:
     say("case", ny=NY, nx=NX, seconds=round(t_case, 3),
         fluid_cells=int(case.fluid.sum()))
 
-    # ---- kernel vs plain on the first step's operands --------------------
+    # ---- momentum kernel vs plain on the first step's operands -----------
     cfg = PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3)
     backend = MGBackend(cycles=2, precision="bf16")
     p = flow0.p
@@ -200,43 +277,182 @@ def main() -> int:
         plain_ms=plain_ms_real, bound_ms=bound_ms,
         share_of_bound=bound_ms / ms_real)
 
-    # ---- the main path ---------------------------------------------------
-    with torch.no_grad():
-        flow = run_piso_eager(case, flow0, N_WARM, cfg=cfg, backend=backend,
-                              sm_predict=predictor)
-        torch.cuda.synchronize()
-        momentum_multisweep.launches = 0
-        predictor.calls = 0
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        t = time.time()
-        ev0.record()
-        flow = run_piso_eager(case, flow, N_STEPS, cfg=cfg, backend=backend,
-                              sm_predict=predictor)
-        ev1.record()
-        torch.cuda.synchronize()
-        host_s = time.time() - t
-        launches = momentum_multisweep.launches
-        sm_calls = predictor.calls
-    step_ms = ev0.elapsed_time(ev1) / N_STEPS
-    finite = all(bool(torch.isfinite(getattr(flow, f)).all())
-                 for f in ("u", "v", "p", "phi_x", "phi_y"))
-    cont = float(continuity_error(case, flow))
-    co = float(courant_number(case, flow))
-    say("step", steps=N_STEPS, ms_per_step=step_ms,
-        host_ms_per_step=host_s * 1e3 / N_STEPS, continuity_error=cont,
-        courant=co, t_sim=float(flow.t), dt=float(flow.dt),
-        kernel_launches=launches, sm_predict_calls=sm_calls,
-        finite=finite)
-    check(finite, "non-finite field after the main path")
-    check(cont < 1e-4, f"continuity error {cont:.3e} >= 1e-4")
-    check(co <= 0.5 + 1e-3, f"Courant number {co:.4f} > 0.501")
-    check(launches == N_STEPS,
-          f"momentum kernel launched {launches} times in {N_STEPS} steps")
-    check(sm_calls == N_STEPS,
-          f"surrogate predicted {sm_calls} times in {N_STEPS} steps")
+    # ---- pressure-stencil kernels vs plain -------------------------------
+    # the first corrector's pressure system of the main path's first step
+    first = []
 
-    # ---- one step, plain smoother vs kernel, from the same state ---------
+    def capture(case_, pcoef_, rhs_, p_prev_, aux_):
+        if not first:
+            first.append((pcoef_, rhs_))
+        return backend(case_, pcoef_, rhs_, p_prev_, aux_)
+
+    with torch.no_grad():
+        piso_step(case, flow0, cfg, capture, predictor.bind(case))
+    pcoef, rhs = first[0]
+    levels = mg.build_hierarchy(pcoef)
+    check(len(levels) == KERNEL_LEVELS + 1,
+          f"hierarchy has {len(levels)} levels, not {KERNEL_LEVELS + 1}")
+    rhs_levels = [rhs]
+    for _ in range(KERNEL_LEVELS - 1):
+        rhs_levels.append(mg.restrict(rhs_levels[-1]))
+    fine = list(zip(levels[:-1], rhs_levels))
+
+    def stencil_call(name, coef_, x, b, corr, iters, plain=False):
+        fn = getattr(st, f"{name}_plain" if plain else name)
+        if name == "corr_smooth":
+            out_ = fn(coef_, x, corr, b, iters)
+        else:
+            out_ = fn(coef_, x, b, iters)
+        return out_ if isinstance(out_, tuple) else (out_,)
+
+    def cast(coef_, dt):
+        return PressureCoeffs(*(getattr(coef_, f.name).to(dt)
+                                for f in dataclasses.fields(coef_)))
+
+    def level_operands(coef_, b, dt):
+        """A level's real operator and right-hand side in `dt`, x from one
+        Jacobi step of them, and a correction field."""
+        x = b / coef_.diag
+        return (cast(coef_, dt), x.to(dt), b.to(dt),
+                (0.1 * torch.roll(x, 1, 1)).to(dt))
+
+    def random_operands(dt):
+        """Conductances in [0, 1), nonzero on the domain's edges too, diag
+        above their sum; x, b and a correction."""
+        c = [field(0.0, 1.0) for _ in range(4)]
+        diag = c[0] + c[1] + c[2] + c[3] + field(0.1, 1.0)
+        return (cast(PressureCoeffs(*c, torch.zeros_like(diag), diag), dt),
+                field(-1, 1).to(dt), field(-1, 1).to(dt),
+                field(-0.1, 0.1).to(dt))
+
+    def held(name, prec, ops, iters, where):
+        """The kernel against its plain version; (max abs err, rel err)."""
+        got = stencil_call(name, *ops, iters)
+        torch.cuda.synchronize()
+        err, rel = compare(got, stencil_call(name, *ops, iters, True))
+        check(rel <= STENCIL_TOL[prec],
+              f"{name} {prec} {where}, iters {iters}: rel err {rel:.3e}")
+        return err, rel
+
+    stencil_rows = {}
+    for name, (n_in, n_out, ops_sweep, ops_once, _) in STENCIL.items():
+        row = {"max_abs_err": 0.0}
+        for prec, dt in dtypes.items():
+            iters = PATH_SWEEPS[name][prec]
+            per_level = []
+            for coef_l, b_l in fine:
+                ops = level_operands(coef_l, b_l, dt)
+                err, rel = held(name, prec, ops, iters,
+                                f"level {tuple(b_l.shape)}")
+                per_level.append({"shape": list(b_l.shape),
+                                  "max_abs_err": err, "rel_err": rel})
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+            # random operands at the finest shape, the most sweeps taken
+            top = st._halo_for(dt) - (name == "smooth_residual")
+            err_r, rel_r = held(name, prec, random_operands(dt), top,
+                                "random")
+            row["max_abs_err"] = max(row["max_abs_err"], err_r)
+            # time at the finest level, with this dtype's sweeps
+            ops = level_operands(*fine[0], dt)
+            k_ms = time_ms(lambda: stencil_call(name, *ops, iters), 200,
+                           torch)
+            p_ms = time_ms(lambda: stencil_call(name, *ops, iters, True),
+                           20, torch)
+            size = torch.tensor([], dtype=dt).element_size()
+            b_ms, b_by = bound((n_in + n_out) * n_cells * size,
+                               (ops_sweep * iters + ops_once) * n_cells)
+            say("kernel-pressure", kernel=name, dtype=prec, iters=iters,
+                levels=per_level, random={"iters": top, "max_abs_err": err_r,
+                                          "rel_err": rel_r},
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                share_of_bound=b_ms / k_ms)
+            if prec == PATH_DTYPE[name]:
+                row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by)
+        stencil_rows[name] = row
+
+    # ---- the main path ---------------------------------------------------
+    def drive(label, flow, n, be, sm, warm=0):
+        """`warm` steps, then `n` steps with the counters set to 0 just
+        before and read just after; checks the step's health."""
+        with torch.no_grad():
+            if warm:
+                flow = run_piso_eager(case, flow, warm, cfg=cfg, backend=be,
+                                      sm_predict=sm)
+            torch.cuda.synchronize()
+            reset_counts(predictor)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            t = time.time()
+            ev0.record()
+            flow = run_piso_eager(case, flow, n, cfg=cfg, backend=be,
+                                  sm_predict=sm)
+            ev1.record()
+            torch.cuda.synchronize()
+            host_s = time.time() - t
+            launched, cycles = counts(), mg.v_cycle.cycles
+            sm_calls = predictor.calls
+        finite = all(bool(torch.isfinite(getattr(flow, f)).all())
+                     for f in ("u", "v", "p", "phi_x", "phi_y"))
+        cont = float(continuity_error(case, flow))
+        co = float(courant_number(case, flow))
+        stats = dict(steps=n, ms_per_step=ev0.elapsed_time(ev1) / n,
+                     host_ms_per_step=host_s * 1e3 / n,
+                     continuity_error=cont, courant=co, t_sim=float(flow.t),
+                     dt=float(flow.dt), kernel_launches=launched,
+                     v_cycles=cycles, sm_predict_calls=sm_calls,
+                     finite=finite)
+        check(finite, f"{label}: non-finite field")
+        check(cont < 1e-4, f"{label}: continuity error {cont:.3e} >= 1e-4")
+        check(co <= 0.5 + 1e-3, f"{label}: Courant number {co:.4f} > 0.501")
+        check(launched["momentum_multisweep"] == n,
+              f"{label}: momentum kernel launched "
+              f"{launched['momentum_multisweep']} times in {n} steps")
+        check(sm_calls == (n if sm is not None else 0),
+              f"{label}: surrogate predicted {sm_calls} times in {n} steps")
+        return flow, stats
+
+    flow, stats = drive("step", flow0, N_STEPS, backend, predictor,
+                        warm=N_WARM)
+    say("step", **stats)
+    launches = stats["kernel_launches"]["momentum_multisweep"]
+    check(stats["kernel_launches"]["jacobi_multisweep"]
+          + stats["kernel_launches"]["smooth_residual"]
+          + stats["kernel_launches"]["corr_smooth"] == 0,
+          "the plain smoother launched a pressure kernel")
+
+    # ---- path 1: the fused V-cycle legs in bf16 --------------------------
+    fused_be = MGBackend(cycles=2, precision="bf16", smoother="kernel-fused")
+    flow_f, stats = drive("step-fused", flow0, N_STEPS, fused_be, predictor,
+                          warm=N_WARM)
+    say("step-fused", **stats)
+    k = stats["kernel_launches"]
+    legs = KERNEL_LEVELS * stats["v_cycles"]
+    check(stats["v_cycles"] > 0 and k["smooth_residual"] == legs
+          and k["corr_smooth"] == legs and k["jacobi_multisweep"] == 0,
+          f"step-fused: launches {k} for {stats['v_cycles']} V-cycles")
+    fused_launches = k
+
+    # ---- path 2: MGCG with the multisweep kernel in f32 ------------------
+    mgcg_be = MGCGBackend(rtol=1e-6, maxiter=60, smoother="kernel")
+    cg_iters = []
+
+    def mgcg_counted(*args):
+        c0 = mg.v_cycle.cycles
+        p_ = mgcg_be(*args)
+        cg_iters.append(mg.v_cycle.cycles - c0 - 1)  # one cycle per iter + 1
+        return p_
+
+    _, stats = drive("step-mgcg", flow0, N_MGCG, mgcg_counted, None)
+    say("step-mgcg", cg_iters_per_solve=cg_iters, **stats)
+    k = stats["kernel_launches"]
+    check(stats["v_cycles"] > 0
+          and k["jacobi_multisweep"] == 2 * KERNEL_LEVELS * stats["v_cycles"]
+          and k["smooth_residual"] + k["corr_smooth"] == 0,
+          f"step-mgcg: launches {k} for {stats['v_cycles']} V-cycles")
+    mgcg_launches = k
+
+    # ---- one step, plain momentum smoother vs kernel, same state ---------
     # with the path's bf16 multigrid, and with f32 multigrid, which keeps
     # the two steps' difference at the kernel's own rounding
     plain_cfg = dataclasses.replace(cfg, momentum_smoother="plain")
@@ -254,6 +470,42 @@ def main() -> int:
             check(d <= PARITY_TOL[label][name],
                   f"step parity ({label} MG) {name}: rel diff {d:.3e}")
 
+    # ---- one step, each kernel smoother vs the plain one, same state -----
+    parity_cases = [
+        ("kernel-fused", "bf16", lambda s: MGBackend(
+            cycles=2, precision="bf16", smoother=s), bound_sm),
+        ("kernel-fused", "f32", lambda s: MGBackend(cycles=2, smoother=s),
+         bound_sm),
+        ("kernel", "bf16", lambda s: MGBackend(
+            cycles=2, precision="bf16", smoother=s), bound_sm),
+        ("kernel", "mgcg", lambda s: MGCGBackend(
+            rtol=1e-6, maxiter=60, smoother=s), None),
+    ]
+    for smoother, label, make, sm in parity_cases:
+        with torch.no_grad():
+            f_plain = piso_step(case, flow_f, cfg, make("plain"), sm)
+            torch.cuda.synchronize()
+            reset_counts()
+            f_kern = piso_step(case, flow_f, cfg, make(smoother), sm)
+            torch.cuda.synchronize()
+        k, cycles = counts(), mg.v_cycle.cycles
+        legs = KERNEL_LEVELS * cycles
+        fused = legs if smoother == "kernel-fused" else 0
+        expect = {"jacobi_multisweep": 2 * legs - 2 * fused,
+                  "smooth_residual": fused, "corr_smooth": fused}
+        check(cycles > 0 and all(k[n] == v for n, v in expect.items()),
+              f"parity-pressure {smoother} {label}: launches {k} for "
+              f"{cycles} cycles")
+        diffs = {name: compare((getattr(f_kern, name),),
+                               (getattr(f_plain, name),))[1]
+                 for name in ("u", "v", "p")}
+        tol = SMOOTHER_PARITY_TOL[label]
+        say("parity-pressure", smoother=smoother, mg=label, v_cycles=cycles,
+            kernel_launches=k, rel_diff=diffs, tol=tol)
+        for name, d in diffs.items():
+            check(d <= tol[name], f"smoother parity ({smoother}, {label}) "
+                  f"{name}: rel diff {d:.3e}")
+
     kernels = [{
         "name": "momentum_multisweep",
         "route": "cuda",
@@ -267,7 +519,24 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
     }]
-    say("done")
+    path_launches = {"jacobi_multisweep": mgcg_launches,
+                     "smooth_residual": fused_launches,
+                     "corr_smooth": fused_launches}
+    for name, row in stencil_rows.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpufoam_torch/ops/csrc/pressure_stencil.cu",
+            "replaces": STENCIL[name][4],
+            "launches": path_launches[name][name],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
+    say("done", total_s=round(time.time() - T0, 3))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Card-only tests of tpufoam_torch: the hand-written CUDA kernels against
-their plain versions, and the port's step on the card against the same
-step on the CPU. They skip without a CUDA device.
+their plain versions, and the port's step and multigrid solve on the card
+against the same on the CPU. They skip without a CUDA device.
 
 Run them on a machine with a card (no JAX needed; --noconftest keeps the
 JAX test configuration out):
@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from tpufoam_torch.fv.pressure import PressureCoeffs
 from tpufoam_torch.ops import momentum as tmom
+from tpufoam_torch.ops import stencil as ts
 
 pytestmark = pytest.mark.gpu
 
@@ -110,3 +112,117 @@ def test_hybrid_step_on_card_matches_cpu(cuda):
         # f32 everywhere; differences are float32 rounding amplified by
         # the pressure equation's cancellation (see chip_smoke.py parity)
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+# ---- pressure-stencil kernels -------------------------------------------
+
+# The kernels round at the same places as their plain versions (see
+# csrc/pressure_stencil.cu), so they should agree bit for bit; the bounds
+# allow a few float32 roundings, and one bf16 ulp (2^-8) of max |plain|.
+STENCIL_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+
+
+def _pressure_operands(ny, nx, dtype, seed, device):
+    """Random SPD-like operands: conductances in [0, 1) (nonzero on the
+    domain's edges too), diag above their sum, x, b and a correction."""
+    rng = np.random.default_rng(seed)
+
+    def f(lo, hi):
+        return torch.as_tensor(rng.uniform(lo, hi, (ny, nx)).astype(
+            np.float32), device=device)
+
+    c = [f(0, 1) for _ in range(4)]
+    diag = c[0] + c[1] + c[2] + c[3] + f(0.1, 1.0)
+    coef = PressureCoeffs(*(t.to(dtype) for t in c),
+                          torch.zeros_like(diag, dtype=dtype),
+                          diag.to(dtype))
+    return coef, f(-1, 1).to(dtype), f(-1, 1).to(dtype), \
+        f(-0.1, 0.1).to(dtype)
+
+
+def _stencil_pair(kernel, coef, x, b, corr, iters):
+    if kernel == "jacobi_multisweep":
+        return ((ts.jacobi_multisweep(coef, x, b, iters),),
+                (ts.jacobi_multisweep_plain(coef, x, b, iters),))
+    if kernel == "smooth_residual":
+        return (ts.smooth_residual(coef, x, b, iters),
+                ts.smooth_residual_plain(coef, x, b, iters))
+    return ((ts.corr_smooth(coef, x, corr, b, iters),),
+            (ts.corr_smooth_plain(coef, x, corr, b, iters),))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(512, 2048), (37, 70), (1, 70),
+                                   (70, 1)])
+@pytest.mark.parametrize("kernel", ["jacobi_multisweep", "smooth_residual",
+                                    "corr_smooth"])
+def test_pressure_kernels_match_plain(cuda, kernel, shape, dtype):
+    top = ts._halo_for(dtype) - (kernel == "smooth_residual")
+    ops = _pressure_operands(*shape, dtype, seed=sum(shape), device=cuda)
+    counter = getattr(ts, kernel)
+    for iters in (0, 1, 2, top):
+        before = counter.launches
+        got, ref = _stencil_pair(kernel, *ops, iters)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        for g, r in zip(got, ref):
+            assert g.dtype == dtype and g.is_cuda
+            err = float((g.float() - r.float()).abs().max())
+            scale = float(r.float().abs().max())
+            assert err <= STENCIL_RTOL[dtype] * scale, (iters, err, scale)
+
+
+def test_pressure_kernels_reject_what_they_cannot_take(cuda):
+    coef, x, b, corr = _pressure_operands(16, 24, torch.float32, 0, cuda)
+    with pytest.raises(ValueError):     # dtype the kernels do not take
+        ts.jacobi_multisweep(coef, x.double(), b.double())
+    with pytest.raises(ValueError):     # mixed dtypes
+        ts.smooth_residual(coef, x, b.to(torch.bfloat16))
+    with pytest.raises(ValueError):     # not contiguous
+        ts.corr_smooth(coef, x, corr.t().contiguous().t(), b)
+    with pytest.raises(ValueError):     # CPU and CUDA operands
+        ts.jacobi_multisweep(coef, x, b.cpu())
+    for kernel, top in (("jacobi_multisweep", 8), ("smooth_residual", 7),
+                        ("corr_smooth", 8)):
+        with pytest.raises(ValueError):  # iters beyond the halo
+            _stencil_pair(kernel, coef, x, b, corr, top + 1)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_mg_solve_kernel_fused_on_card_matches_cpu(cuda, precision):
+    """Two V-cycles with the fused legs on the card (the kernels) and on
+    the CPU (their plain versions), on the 128 x 512 cylinder channel's
+    pressure operator. Tolerances as in tests/test_torch_solvers.py: 1e-4
+    in f32, 2e-2 in the bf16 correction form (the CPU and the card may
+    round the bf16 transfers' sums differently)."""
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.fv.case import build_channel_case
+    from tpufoam_torch.fv.pressure import pressure_coeffs
+    from tpufoam_torch.solvers import multigrid as tmg
+
+    ny, nx = 128, 512
+    geom = channel_case_geometry("cylinder", length=nx * 2.0 / ny,
+                                 height=2.0, obstacle_size=0.5, nu=8e-3)
+    rng = np.random.default_rng(5)
+    rau = torch.as_tensor(rng.uniform(0.5, 1.5, (ny, nx)).astype(
+        np.float32)) * 1e-4
+    b = torch.as_tensor(rng.standard_normal((ny, nx)).astype(np.float32))
+    dtype = torch.bfloat16 if precision == "bf16" else None
+    out = {}
+    for dev in ("cpu", cuda):
+        case = build_channel_case(geom, delta=2.0 / ny, device=dev)
+        coef = pressure_coeffs(case, rau.to(dev) * case.fluid)
+        bb = b.to(dev) * case.fluid
+        n_levels = len(tmg.build_hierarchy(coef))
+        before = (ts.smooth_residual.launches, ts.corr_smooth.launches)
+        out[str(dev)] = tmg.mg_solve(coef, bb, torch.zeros_like(bb),
+                                     cycles=2, dtype=dtype,
+                                     smoother="kernel-fused")
+        launched = (ts.smooth_residual.launches - before[0],
+                    ts.corr_smooth.launches - before[1])
+        expect = (0, 0) if dev == "cpu" else (2 * (n_levels - 1),) * 2
+        assert launched == expect, (dev, launched)
+    got, ref = out["cuda"].cpu(), out["cpu"]
+    tol = 2e-2 if precision == "bf16" else 1e-4
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())

@@ -1,1 +1,2 @@
-"""Pressure solvers: geometric multigrid and its backend."""
+"""Pressure solvers: geometric multigrid, conjugate gradient and the
+pressure backends."""

@@ -1,15 +1,41 @@
-"""Pressure backends: `(case, coef, rhs, p_prev, aux) -> p`.
+"""Pressure backends behind one interface: `(case, coef, rhs, p_prev, aux)
+-> p`, where `aux` carries the extra fields a surrogate needs (u, v, ...).
 
-Only the main path's backend is ported so far: `MGBackend`, a fixed number
-of geometric-multigrid V-cycles (optionally bf16 residual-correction).
+  CGBackend        Jacobi-preconditioned CG to tolerance.
+  MGBackend        a fixed number of geometric-multigrid V-cycles.
+  MGCGBackend      V-cycle-preconditioned CG to tolerance.
+  AutoBackend      the fixed bf16 polish, escalated to a capped MGCG
+                   where its residual stays high.
+  SurrogateBackend the surrogate's prediction alone.
+  HybridBackend    surrogate prediction, then a capped PCG polish.
+
+The multigrid backends take `smoother`, named after the JAX package's
+values: "plain" (JAX "xla", the default), "kernel" (JAX "pallas": the
+multisweep kernel) and "kernel-fused" (JAX "pallas-fused": the fused
+down- and up-leg kernels); see `multigrid`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import Callable
 
 import torch
+
+from ..fv.pressure import pressure_matvec
+from .cg import pcg_fixed_iters, pcg_pressure
+from .multigrid import mg_solve, mgcg_pressure
+
+
+@dataclasses.dataclass(frozen=True)
+class CGBackend:
+    rtol: float = 1e-6
+    maxiter: int = 1000
+
+    def __call__(self, case, coef, rhs, p_prev, aux):
+        return pcg_pressure(coef, rhs, x0=p_prev, rtol=self.rtol,
+                            maxiter=self.maxiter).x * case.fluid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,11 +43,14 @@ class MGBackend:
     """Fixed V-cycle geometric multigrid, O(n) per solve.
 
     pre+post is clamped to >= 3: V(1,1) with damped Jacobi is not a
-    contraction on this operator as a standalone solver."""
+    contraction on this operator as a standalone solver. `smoother` is
+    "plain" (JAX "xla"), "kernel" (JAX "pallas") or "kernel-fused" (JAX
+    "pallas-fused")."""
     cycles: int = 4
     pre: int = 2
     post: int = 2
     precision: str = "f32"   # "bf16": f32 residual, bf16 correction
+    smoother: str = "plain"  # multigrid.SMOOTHERS
     max_levels: int = 12     # hierarchy depth cap
     coarse_iters: int = 40   # Jacobi sweeps on the coarsest level
     rtol: float = 0.0        # > 0: `cycles` becomes the maximum and the
@@ -29,7 +58,6 @@ class MGBackend:
                              # clears rtol (mg_solve)
 
     def __call__(self, case, coef, rhs, p_prev, aux):
-        from .multigrid import mg_solve
         dtype = torch.bfloat16 if self.precision == "bf16" else None
         pre, post = self.pre, self.post
         if pre < 1 or post < 1 or pre + post < 3:
@@ -45,6 +73,89 @@ class MGBackend:
                 "bf16, or precision='f32'.", stacklevel=2)
         return mg_solve(coef, rhs, p_prev, cycles=self.cycles,
                         pre=pre, post=post, dtype=dtype,
-                        max_levels=self.max_levels,
+                        smoother=self.smoother, max_levels=self.max_levels,
                         coarse_iters=self.coarse_iters,
                         rtol=self.rtol) * case.fluid
+
+
+@dataclasses.dataclass(frozen=True)
+class MGCGBackend:
+    """V-cycle-preconditioned CG to tolerance. `smoother` is "plain" (JAX
+    "xla"), "kernel" (JAX "pallas") or "kernel-fused" (JAX
+    "pallas-fused"). precision="bf16" runs the preconditioner in bf16,
+    which can stall plain CG at rtol 1e-6. cycle_type="w" takes a W cycle,
+    whose pre/post default to 2 (1 for "v"); keep pre == post."""
+    rtol: float = 1e-6
+    maxiter: int = 60
+    smoother: str = "plain"
+    precision: str = "f32"
+    cycle_type: str = "v"
+    pre: int | None = None
+    post: int | None = None
+
+    def __call__(self, case, coef, rhs, p_prev, aux):
+        dtype = torch.bfloat16 if self.precision == "bf16" else None
+        default = 2 if self.cycle_type == "w" else 1
+        pre = default if self.pre is None else self.pre
+        post = default if self.post is None else self.post
+        if pre != post:
+            raise ValueError(
+                f"MGCGBackend resolved to an asymmetric V({pre},{post}) "
+                f"preconditioner (pre={self.pre}, post={self.post}, "
+                f"cycle default {default}); plain CG requires pre == post "
+                f"— set both explicitly")
+        return mgcg_pressure(coef, rhs, x0=p_prev, rtol=self.rtol,
+                             maxiter=self.maxiter, dtype=dtype,
+                             pre=pre, post=post, smoother=self.smoother,
+                             cycle_type=self.cycle_type).x * case.fluid
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoBackend:
+    """The fixed `cycles`-cycle polish, escalated per solve to MGCG at
+    `rtol` and `maxiter`, warm-started from the polished result, when the
+    polish leaves a relative residual above `tau` or a non-finite one.
+    The residual probe is read on the host (JAX's lax.cond becomes a host
+    branch)."""
+    cycles: int = 2
+    tau: float = 0.05
+    rtol: float = 1e-3
+    maxiter: int = 6
+    precision: str = "bf16"          # fast-path polish precision
+    escalate_precision: str = "f32"  # preconditioner dtype inside MGCG
+
+    def __call__(self, case, coef, rhs, p_prev, aux):
+        dtype = torch.bfloat16 if self.precision == "bf16" else None
+        p1 = mg_solve(coef, rhs, p_prev, cycles=self.cycles,
+                      dtype=dtype) * case.fluid
+        r = torch.linalg.norm((rhs - pressure_matvec(coef, p1)) * case.fluid)
+        b = torch.linalg.norm(rhs * case.fluid)
+        # NaN compares False: escalate on a non-finite residual too
+        if bool(r <= self.tau * b):
+            return p1
+        edtype = torch.bfloat16 if self.escalate_precision == "bf16" \
+            else None
+        return mgcg_pressure(coef, rhs, x0=p1, rtol=self.rtol,
+                             maxiter=self.maxiter,
+                             dtype=edtype).x * case.fluid
+
+
+@dataclasses.dataclass(frozen=True)
+class SurrogateBackend:
+    """The surrogate's pressure alone: p = predict(case, p_prev, aux)."""
+    predict: Callable
+
+    def __call__(self, case, coef, rhs, p_prev, aux):
+        return self.predict(case, p_prev, aux) * case.fluid
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridBackend:
+    """Surrogate initial guess, then `polish_iters` PCG iterations."""
+    predict: Callable
+    polish_iters: int = 6
+
+    def __call__(self, case, coef, rhs, p_prev, aux):
+        p_guess = self.predict(case, p_prev, aux) * case.fluid
+        return pcg_fixed_iters(coef, rhs, p_guess,
+                               iters=self.polish_iters).x * case.fluid

@@ -6,9 +6,20 @@ smoother and transfer is a stencil pass; the smoother is damped Jacobi.
 Galerkin-lite coarsening: coarse-level face conductances are built by
 summing the fine conductances across each coarse face, so solid-blanked
 cells and Dirichlet outlet coefficients coarsen without re-discretization.
-Every level smooths with `jacobi_smooth` (the JAX package's default
-smoother; its Pallas smoothers are not on this path yet).
 Odd level sizes are zero-padded to even with solid cells (`_pad_even`).
+
+The smoother of every level but the coarsest is chosen by `smoother`
+(the JAX package's name in brackets):
+  "plain"         (xla)           `jacobi_smooth`, plain PyTorch;
+  "kernel"        (pallas)        the `ops.stencil.jacobi_multisweep`
+                                  kernel, all sweeps in one launch;
+  "kernel-fused"  (pallas-fused)  the fused legs `ops.stencil.
+                                  smooth_residual` (pre-smooth + residual)
+                                  and `ops.stencil.corr_smooth` (correction
+                                  add + post-smooth).
+The coarsest level always takes `coarse_iters` sweeps of `jacobi_smooth`.
+Used standalone (`mg_solve`) or as the preconditioner of CG
+(`mgcg_pressure`).
 """
 
 from __future__ import annotations
@@ -19,6 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from ..fv.pressure import PressureCoeffs, pressure_matvec
+from ..ops import stencil
+from .cg import CGResult
+
+SMOOTHERS = ("plain", "kernel", "kernel-fused")
 
 
 def _can_coarsen(ny: int, nx: int, min_size: int = 8) -> bool:
@@ -147,10 +162,48 @@ def build_hierarchy(coef: PressureCoeffs, min_size: int = 8,
     return levels
 
 
+def _smooth(coef: PressureCoeffs, x: torch.Tensor, b: torch.Tensor,
+            iters: int, smoother: str = "plain",
+            omega: float = 0.8) -> torch.Tensor:
+    """One level's smoother. smoother="kernel" takes the multisweep kernel
+    where the JAX package takes its Pallas kernel: when the kernel fits the
+    level (`kernel_available_for`) and iters <= `_halo_for(dtype)`; other
+    levels, and other smoothers, take `jacobi_smooth`. This is the same
+    deterministic choice the JAX package makes, not a fallback on failure:
+    on a CUDA tensor the kernel launches or raises."""
+    if (smoother == "kernel"
+            and stencil.kernel_available_for(tuple(x.shape), x.dtype,
+                                             "jacobi")
+            and iters <= stencil._halo_for(x.dtype)):
+        return stencil.jacobi_multisweep(coef, x, b, iters=iters,
+                                         omega=omega)
+    return jacobi_smooth(coef, x, b, iters, omega)
+
+
+def _fused_ok(coef: PressureCoeffs, pre: int, smoother: str) -> bool:
+    """Whether a level takes the fused legs (smoother="kernel-fused"): both
+    kernels fit the level and the down leg's extra residual ring stays
+    inside the halo. Otherwise the level takes `_smooth` and a plain
+    residual, as in the JAX package."""
+    if smoother != "kernel-fused":
+        return False
+    shape, dt = tuple(coef.diag.shape), coef.diag.dtype
+    return (pre <= stencil._halo_for(dt) - 1
+            and stencil.kernel_available_for(shape, dt, "smooth_residual")
+            and stencil.kernel_available_for(shape, dt, "corr_smooth"))
+
+
 def v_cycle(levels: list[PressureCoeffs], b: torch.Tensor, x: torch.Tensor,
-            pre: int = 2, post: int = 2,
-            coarse_iters: int = 40) -> torch.Tensor:
-    """One V(pre, post) cycle over the level list."""
+            pre: int = 2, post: int = 2, coarse_iters: int = 40,
+            smoother: str = "plain", cycle_type: str = "v") -> torch.Tensor:
+    """One V(pre, post) cycle over the level list, or a W cycle with
+    cycle_type="w" (each coarse level visited twice per visit of the level
+    above; with pre == post it stays a symmetric preconditioner).
+    `v_cycle.cycles` counts the cycles run."""
+    if smoother not in SMOOTHERS:
+        raise ValueError(f"smoother {smoother!r} not in {SMOOTHERS}")
+    v_cycle.cycles += 1
+
     def fluid_mask(coef: PressureCoeffs) -> torch.Tensor:
         return ((coef.c_e + coef.c_w + coef.c_n + coef.c_s + coef.c_out)
                 > 0).to(b.dtype)
@@ -159,17 +212,29 @@ def v_cycle(levels: list[PressureCoeffs], b: torch.Tensor, x: torch.Tensor,
         coef = levels[lvl]
         if lvl == len(levels) - 1:
             return jacobi_smooth(coef, x, b, coarse_iters)
-        x = jacobi_smooth(coef, x, b, pre)
-        r = b - pressure_matvec(coef, x)
+        fused = _fused_ok(coef, pre, smoother)
+        if fused:
+            x, r = stencil.smooth_residual(coef, x, b, iters=pre)
+        else:
+            x = _smooth(coef, x, b, pre, smoother)
+            r = b - pressure_matvec(coef, x)
         rc = restrict(r)
         ec = cycle(lvl + 1, rc, torch.zeros_like(rc))
+        if cycle_type == "w" and lvl + 1 < len(levels) - 1:
+            ec = cycle(lvl + 1, rc, ec)
         # mask the interpolated correction so it cannot leak into solid
-        # cells; crop it back to the (possibly odd) fine shape
+        # cells; crop it back to the (possibly odd) fine shape; make it
+        # contiguous for the kernels (prolong's movedim leaves it strided)
         ny, nx = coef.diag.shape
-        corr = prolong(ec)[:ny, :nx] * fluid_mask(coef)
-        return jacobi_smooth(coef, x + corr, b, post)
+        corr = (prolong(ec)[:ny, :nx] * fluid_mask(coef)).contiguous()
+        if fused:
+            return stencil.corr_smooth(coef, x, corr, b, iters=post)
+        return _smooth(coef, x + corr, b, post, smoother)
 
     return cycle(0, b, x)
+
+
+v_cycle.cycles = 0
 
 
 def _cast_levels(levels: list[PressureCoeffs],
@@ -181,22 +246,26 @@ def _cast_levels(levels: list[PressureCoeffs],
 
 def v_cycle_correction(levels: list[PressureCoeffs], levels_lp,
                        r: torch.Tensor, pre: int, post: int, dtype,
+                       smoother: str = "plain", cycle_type: str = "v",
                        coarse_iters: int = 40) -> torch.Tensor:
-    """e ~= A^-1 r by one V-cycle from a zero guess, in `dtype` when given
+    """e ~= A^-1 r by one cycle from a zero guess, in `dtype` when given
     (the correction is built in reduced precision from an f32 residual;
     the outer iterate and residual stay f32)."""
     if dtype is None:
         return v_cycle(levels, r, torch.zeros_like(r), pre, post,
-                       coarse_iters=coarse_iters)
+                       coarse_iters=coarse_iters, smoother=smoother,
+                       cycle_type=cycle_type)
     e = v_cycle(levels_lp, r.to(dtype), torch.zeros_like(r, dtype=dtype),
-                pre, post, coarse_iters=coarse_iters)
+                pre, post, coarse_iters=coarse_iters, smoother=smoother,
+                cycle_type=cycle_type)
     return e.to(r.dtype)
 
 
 def mg_solve(coef: PressureCoeffs, b: torch.Tensor, x0: torch.Tensor,
              cycles: int = 4, pre: int = 2, post: int = 2,
-             min_size: int = 8, dtype=None, max_levels: int = 12,
-             coarse_iters: int = 40, rtol: float = 0.0) -> torch.Tensor:
+             min_size: int = 8, dtype=None, smoother: str = "plain",
+             max_levels: int = 12, coarse_iters: int = 40,
+             rtol: float = 0.0) -> torch.Tensor:
     """A fixed number of V-cycles. With `dtype` (e.g. torch.bfloat16) each
     cycle runs in residual-correction form: f32 residual, reduced-precision
     correction.
@@ -215,15 +284,59 @@ def mg_solve(coef: PressureCoeffs, b: torch.Tensor, x0: torch.Tensor,
             if not bool(torch.linalg.norm(r) > gate):
                 break
             x = x + v_cycle_correction(levels, levels_lp, r, pre, post,
-                                       dtype, coarse_iters=coarse_iters)
+                                       dtype, smoother=smoother,
+                                       coarse_iters=coarse_iters)
             r = b - pressure_matvec(coef, x)
         return x
     x = x0
     for _ in range(cycles):
         if dtype is None:
-            x = v_cycle(levels, b, x, pre, post, coarse_iters=coarse_iters)
+            x = v_cycle(levels, b, x, pre, post, coarse_iters=coarse_iters,
+                        smoother=smoother)
         else:
             r = b - pressure_matvec(coef, x)
             x = x + v_cycle_correction(levels, levels_lp, r, pre, post,
-                                       dtype, coarse_iters=coarse_iters)
+                                       dtype, smoother=smoother,
+                                       coarse_iters=coarse_iters)
     return x
+
+
+def mgcg_pressure(coef: PressureCoeffs, b: torch.Tensor,
+                  x0: torch.Tensor | None = None, rtol: float = 1e-6,
+                  atol: float = 1e-12, maxiter: int = 60, pre: int = 1,
+                  post: int = 1, min_size: int = 8, dtype=None,
+                  smoother: str = "plain",
+                  cycle_type: str = "v") -> CGResult:
+    """CG preconditioned by one V-cycle (a W cycle with cycle_type="w").
+    `dtype` runs the preconditioner cycle in reduced precision; the CG
+    vectors stay f32. Keep pre == post: an asymmetric cycle is not a
+    symmetric preconditioner and stalls plain CG. The loop reads the
+    residual norm on the host once per iteration."""
+    levels = build_hierarchy(coef, min_size=min_size)
+    levels_lp = _cast_levels(levels, dtype) if dtype is not None else None
+    x = torch.zeros_like(b) if x0 is None else x0
+
+    def precond(r):
+        return v_cycle_correction(levels, levels_lp, r, pre, post, dtype,
+                                  smoother=smoother, cycle_type=cycle_type)
+
+    r = b - pressure_matvec(coef, x)
+    z = precond(r)
+    p = z
+    rz = torch.dot(r.flatten(), z.flatten())
+    b_norm = torch.clamp(torch.linalg.norm(b), min=atol)
+    gate = float(torch.clamp(rtol * b_norm, min=atol))
+    k = 0
+    while k < maxiter and float(torch.linalg.norm(r)) > gate:
+        ap = pressure_matvec(coef, p)
+        alpha = rz / torch.clamp(torch.dot(p.flatten(), ap.flatten()),
+                                 min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = precond(r)
+        rz_new = torch.dot(r.flatten(), z.flatten())
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p = z + beta * p
+        rz = rz_new
+        k += 1
+    return CGResult(x=x, iters=k, residual=torch.linalg.norm(r) / b_norm)

@@ -1,14 +1,20 @@
-"""Profile the hybrid PISO main path on one CUDA card.
+"""Profile a PISO path at 512 x 2048 on one CUDA card.
 
-    python -m tpufoam_torch.tools.profile_step [--steps 3] [--out DIR]
+    python -m tpufoam_torch.tools.profile_step [--backend mg|mgcg]
+        [--smoother plain|kernel|kernel-fused] [--steps 3] [--out DIR]
 
-Builds the 512 x 2048 cylinder channel with the sm_ref512 surrogate, takes
-two warm-up steps, then traces `--steps` steps with torch.profiler. Prints
-one JSON line: wall ms per step (host clock around synchronised steps),
-device busy ms per step (the sum of kernel times), the device's idle share,
-the kernel launches and pressure solves per step (two correctors, plus the
-residual safeguard's rescue solves), and the kernels that take the most
-device time. Writes the full key_averages table to DIR/profile_step.txt.
+`--backend mg` (the default) is the hybrid path: MGBackend(cycles=2,
+precision="bf16", smoother=...) with the sm_ref512 surrogate warm start,
+two warm-up steps from the impulsive start. `--backend mgcg` is the pure
+solver: MGCGBackend(rtol=1e-6, maxiter=60, smoother=...) with no
+surrogate, one warm-up step. Then `--steps` steps are traced with
+torch.profiler. Prints one JSON line: wall ms per step (host clock around
+synchronised steps), device busy ms per step (the sum of kernel times),
+the device's idle share, the kernel launches, pressure solves (two
+correctors, plus the residual safeguard's rescue solves) and multigrid
+cycles per step, the launches per step of each hand-written kernel, and
+the kernels that take the most device time. Writes the full key_averages
+table to DIR/profile_step_<backend>_<smoother>.txt.
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--backend", choices=["mg", "mgcg"], default="mg")
+    ap.add_argument("--smoother", default="plain",
+                    choices=["plain", "kernel", "kernel-fused"])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
     args = ap.parse_args()
@@ -37,8 +46,10 @@ def main() -> None:
 
     from ..core.geometry import channel_case_geometry
     from ..fv.case import build_channel_case, initial_flow
+    from ..ops import momentum, stencil
     from ..piso.engine import PisoConfig, run_piso_eager
-    from ..solvers.backends import MGBackend
+    from ..solvers import multigrid
+    from ..solvers.backends import MGBackend, MGCGBackend
     from ..surrogate.pipeline import SurrogateBundle, make_predictor
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -47,20 +58,32 @@ def main() -> None:
     geom = channel_case_geometry("cylinder", length=nx * delta, height=2.0,
                                  obstacle_size=0.5, nu=8e-3)
     case = build_channel_case(geom, delta=delta)
-    pred = make_predictor(SurrogateBundle.load(
-        os.path.join(ROOT, "artifacts", "sm_ref512")))
     cfg = PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3)
-    mg = MGBackend(cycles=2, precision="bf16")
+    if args.backend == "mg":
+        pred = make_predictor(SurrogateBundle.load(
+            os.path.join(ROOT, "artifacts", "sm_ref512")))
+        solver, warm = MGBackend(cycles=2, precision="bf16",
+                                 smoother=args.smoother), 2
+    else:
+        pred, warm = None, 1
+        solver = MGCGBackend(rtol=1e-6, maxiter=60, smoother=args.smoother)
     solves = [0]
+    kernels_fn = {"momentum_multisweep": momentum.momentum_multisweep,
+                  "jacobi_multisweep": stencil.jacobi_multisweep,
+                  "smooth_residual": stencil.smooth_residual,
+                  "corr_smooth": stencil.corr_smooth}
 
     def backend(*a):
         solves[0] += 1
-        return mg(*a)
+        return solver(*a)
 
-    flow = run_piso_eager(case, initial_flow(case, dt0=5e-4), 2, cfg=cfg,
+    flow = run_piso_eager(case, initial_flow(case, dt0=5e-4), warm, cfg=cfg,
                           backend=backend, sm_predict=pred)
     torch.cuda.synchronize()
     solves[0] = 0
+    multigrid.v_cycle.cycles = 0
+    for fn in kernels_fn.values():
+        fn.launches = 0
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -79,17 +102,22 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_step.txt"), "w") as f:
+    name = f"profile_step_{args.backend}_{args.smoother}.txt"
+    with open(os.path.join(args.out, name), "w") as f:
         f.write(f"{card}\n")
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
     busy_ms = dev_us / 1e3 / args.steps
     print(json.dumps({
-        "card": card, "steps": args.steps, "wall_ms_per_step": wall_ms,
+        "card": card, "backend": args.backend, "smoother": args.smoother,
+        "steps": args.steps, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms if dev_us else "not measured",
         "device_idle_share": 1.0 - busy_ms / wall_ms if dev_us
         else "not measured",
         "kernel_launches_per_step": launches / args.steps,
         "pressure_solves_per_step": solves[0] / args.steps,
+        "v_cycles_per_step": multigrid.v_cycle.cycles / args.steps,
+        "hand_written_launches_per_step": {
+            k: fn.launches / args.steps for k, fn in kernels_fn.items()},
         "top_kernels": [{"name": e.key[:80], "count": e.count / args.steps,
                          "ms_per_step": e.self_device_time_total / 1e3
                          / args.steps} for e in top],
