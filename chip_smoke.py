@@ -27,6 +27,18 @@ Phases, each printing one JSON line with its elapsed seconds:
           kernel, from the same state
   parity-pressure  one step with each kernel smoother against one with
           the plain smoother, from the same state
+  kernel-fleet  the momentum kernel's batched launch on (4, 512, 2048)
+          random structured operands, against its plain version and
+          against four single-case launches (bit for bit); its time
+  fleet-case  the four cases of scripts/bench_fleet_ab.py (cylinder,
+          rectangle, triangle, ellipse at 512 x 2048), stacked
+  step-fleet  the fleet path (run_piso_batched_eager, MG bf16, sm_ref512,
+          the momentum kernel) for a few locksteps, and the same four
+          cases stepped one after another through run_piso_eager
+  parity-fleet  one lockstep against four single-case steps from the
+          same state
+  step-fleet-mgcg  run_piso_batched with its default MGCGBackend(rtol=
+          1e-5) on four 256 x 1024 cases: per-case CG iterations
 Each step phase sets every launch counter to 0 just before its timed
 steps and holds the counts to the steps, predictions and multigrid cycles
 it ran.
@@ -52,6 +64,29 @@ NY, NX = 512, 2048            # the main path's grid (bench.py)
 SWEEPS = 8
 N_WARM, N_STEPS = 2, 10
 N_MGCG = 3                    # pure-solver steps from the impulsive start
+# the fleet of scripts/bench_fleet_ab.py: (shape, obstacle size) at
+# 512 x 2048, delta 2/512, nu 8e-3; its locksteps; the MGCG fleet's grid.
+# In the impulsive start the damped dt control (setDeltaT) leaves the
+# post-step Courant number alternating about maxCo, above it after odd
+# steps (cylinder alone: 0.5915, 0.4318, 0.5544, ..., 0.5104 after step
+# 7, 0.4862 after step 8, tools/fleet_probe.py; the fleet's cases the
+# same): the Courant gate holds
+# after an even number of steps, as the single-case phases' 2 + 10 does,
+# so the fleet takes 3 + 5.
+FLEET = (("cylinder", 0.5), ("rectangle", 0.4), ("triangle", 0.45),
+         ("ellipse", 0.6))
+N_FLEET_WARM, N_FLEET_STEPS = 3, 5
+MGCG_FLEET_NY, N_MGCG_FLEET = 256, 2
+# A lockstep against the four single-case steps from the same state. The
+# momentum kernel's batched launch equals the single launches bit for
+# bit, the predictor predicts a fleet case by case, and every other
+# operation acts per cell or per case, so the two should agree bit for
+# bit: the hybrid's bf16 multigrid turns a one-ulp difference into
+# percents (tools/fleet_probe.py). Bounded at the bf16 parity of two
+# single-case smoothers (the kernel and the plain one: below 1e-2 on the
+# card); dt comes from the same incoming state, a maximum and scalar
+# arithmetic: 1e-6.
+FLEET_PARITY_TOL = {"u": 1e-2, "v": 1e-2, "p": 1e-2, "dt": 1e-6}
 KERNEL_LEVELS = 6             # levels 512x2048 .. 16x64; 8x32 is plain
 MEM_RATE = 3.35e12            # H100 SXM HBM3, bytes/s (published peak)
 F32_RATE = 67e12              # H100 SXM f32 outside the tensor cores
@@ -253,7 +288,8 @@ def main() -> int:
         fluid_cells=int(case.fluid.sum()))
 
     # ---- momentum kernel vs plain on the first step's operands -----------
-    cfg = PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3)
+    cfg = PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3,
+                     momentum_smoother="kernel")
     backend = MGBackend(cycles=2, precision="bf16")
     p = flow0.p
     gpx, gpy = pressure_gradient(case, p)
@@ -506,6 +542,202 @@ def main() -> int:
             check(d <= tol[name], f"smoother parity ({smoother}, {label}) "
                   f"{name}: rel diff {d:.3e}")
 
+    # ---- the fleet: the momentum kernel's batched launch ----------------
+    n_fleet = len(FLEET)
+    per_case_ops = []
+    for _ in range(n_fleet):
+        a_e, a_w, a_n, a_s = (field(0.0, 1.0) for _ in range(4))
+        a_e[:, -1] = 0.0
+        a_w[:, 0] = 0.0
+        a_n[-1, :] = 0.0
+        a_s[0, :] = 0.0
+        fl = torch.as_tensor((rng.uniform(size=(NY, NX)) > 0.02).astype(
+            np.float32), device=dev)
+        per_case_ops.append((a_e, a_w, a_n, a_s,
+                             fl / (a_e + a_w + a_n + a_s + field(0.5, 2.0)),
+                             field(-1, 1), field(-1, 1), field(-1, 1) * fl,
+                             field(-1, 1) * fl))
+    ops_fleet = [torch.stack(x) for x in zip(*per_case_ops)]
+    out = momentum_multisweep(*ops_fleet, sweeps=SWEEPS)
+    torch.cuda.synchronize()
+    err_fleet, rel_fleet = compare(
+        out, momentum_multisweep_plain(*ops_fleet, sweeps=SWEEPS))
+    check(rel_fleet <= KERNEL_REL_TOL,
+          f"batched kernel vs plain: rel err {rel_fleet:.3e}")
+    single_diff = 0.0
+    for k, ops_k in enumerate(per_case_ops):
+        one = momentum_multisweep(*ops_k, sweeps=SWEEPS)
+        single_diff = max(single_diff, max(
+            float((o[k] - r).abs().max()) for o, r in zip(out, one)))
+    check(single_diff == 0.0, "batched launch vs single launches: max "
+          f"|diff| {single_diff:.3e}, not 0")
+    ms_fleet = time_ms(lambda: momentum_multisweep(*ops_fleet,
+                                                   sweeps=SWEEPS), 200, torch)
+    plain_ms_fleet = time_ms(lambda: momentum_multisweep_plain(
+        *ops_fleet, sweeps=SWEEPS), 10, torch)
+    bound_ms_fleet, bound_by_fleet = bound((9 + 2) * n_fleet * n_cells * 4,
+                                           SWEEPS * 2 * 9 * n_fleet * n_cells)
+    say("kernel-fleet", shape=list(ops_fleet[0].shape), sweeps=SWEEPS,
+        max_abs_err=err_fleet, rel_err=rel_fleet,
+        max_abs_diff_vs_single_launches=single_diff, ms=ms_fleet,
+        plain_ms=plain_ms_fleet, bound_ms=bound_ms_fleet,
+        bound_by=bound_by_fleet, share_of_bound=bound_ms_fleet / ms_fleet)
+    del ops_fleet, per_case_ops, out
+
+    # ---- the fleet's cases ----------------------------------------------
+    from tpufoam_torch.fv.case import fleet_member
+    from tpufoam_torch.piso.batched import (run_piso_batched,
+                                            run_piso_batched_eager,
+                                            stack_cases, stack_flows)
+    from tpufoam_torch.solvers import backends as backends_mod
+
+    def fleet_cases(ny):
+        d = 2.0 / ny
+        return [build_channel_case(channel_case_geometry(
+            shape, length=4 * ny * d, height=2.0, obstacle_size=size,
+            nu=8e-3), delta=d, device=dev) for shape, size in FLEET]
+
+    def fleet_health(case_b_, flow_b_):
+        """(all fields finite, per-case continuity, per-case Courant)."""
+        finite = all(bool(torch.isfinite(getattr(flow_b_, name)).all())
+                     for name in ("u", "v", "p", "phi_x", "phi_y", "dt"))
+        return (finite, continuity_error(case_b_, flow_b_).tolist(),
+                courant_number(case_b_, flow_b_).tolist())
+
+    def check_fleet_health(label, finite, cont_, co_=()):
+        check(finite, f"{label}: non-finite field")
+        for k, c_ in enumerate(cont_):
+            check(c_ < 1e-4, f"{label} case {k}: continuity {c_:.3e}")
+        for k, o_ in enumerate(co_):
+            check(o_ <= 0.5 + 1e-3, f"{label} case {k}: Courant {o_:.4f}")
+
+    t = time.time()
+    fcases = fleet_cases(NY)
+    case_b = stack_cases(fcases)
+    flow_b0 = stack_flows([initial_flow(c, dt0=5e-4) for c in fcases])
+    torch.cuda.synchronize()
+    say("fleet-case", cases=[f"{s} {z}" for s, z in FLEET],
+        shape=list(case_b.fluid.shape), seconds=round(time.time() - t, 3),
+        fluid_cells=case_b.fluid.sum(dim=(-2, -1)).tolist())
+
+    # ---- the fleet path: lockstep, and the same cases one after another --
+    with torch.no_grad():
+        flow_b = run_piso_batched_eager(case_b, flow_b0, N_FLEET_WARM,
+                                        cfg=cfg, backend=backend,
+                                        sm_predict=predictor)
+        torch.cuda.synchronize()
+        flow_warm = flow_b
+        reset_counts(predictor)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t = time.time()
+        ev0.record()
+        flow_b = run_piso_batched_eager(case_b, flow_b, N_FLEET_STEPS,
+                                        cfg=cfg, backend=backend,
+                                        sm_predict=predictor)
+        ev1.record()
+        torch.cuda.synchronize()
+        fleet_host_s = time.time() - t
+        fleet_launches, fleet_cycles = counts(), mg.v_cycle.cycles
+        fleet_calls = predictor.calls
+        fleet_ms = ev0.elapsed_time(ev1) / N_FLEET_STEPS
+        # the A/B of scripts/bench_fleet_ab.py: the same four cases from
+        # the same state, one after another through the single-case path
+        seq = [fleet_member(flow_warm, k) for k in range(n_fleet)]
+        bound_seq = [predictor.bind(c) for c in fcases]
+        torch.cuda.synchronize()
+        reset_counts(predictor)
+        t = time.time()
+        ev0.record()
+        for k, c in enumerate(fcases):
+            seq[k] = run_piso_eager(c, seq[k], N_FLEET_STEPS, cfg=cfg,
+                                    backend=backend, sm_predict=bound_seq[k])
+        ev1.record()
+        torch.cuda.synchronize()
+        seq_host_s = time.time() - t
+        seq_ms = ev0.elapsed_time(ev1) / N_FLEET_STEPS
+        seq_launches = counts()["momentum_multisweep"]
+    finite, cont, co = fleet_health(case_b, flow_b)
+    _, _, co_seq = fleet_health(case_b, stack_flows(seq))
+    say("step-fleet", cases=n_fleet, locksteps=N_FLEET_STEPS,
+        ms_per_lockstep=fleet_ms,
+        host_ms_per_lockstep=fleet_host_s * 1e3 / N_FLEET_STEPS,
+        sequential_ms_per_4case_step=seq_ms,
+        sequential_host_ms_per_4case_step=seq_host_s * 1e3 / N_FLEET_STEPS,
+        continuity_error=cont, courant=co, dt=flow_b.dt.tolist(),
+        t_sim=flow_b.t.tolist(), kernel_launches=fleet_launches,
+        v_cycles=fleet_cycles, sm_predict_calls=fleet_calls,
+        sequential_momentum_launches=seq_launches,
+        sequential_courant=co_seq, finite=finite)
+    check_fleet_health("step-fleet", finite, cont, co)
+    check(fleet_launches["momentum_multisweep"] == N_FLEET_STEPS,
+          f"step-fleet: momentum kernel launched "
+          f"{fleet_launches['momentum_multisweep']} times in "
+          f"{N_FLEET_STEPS} locksteps")
+    check(fleet_calls == N_FLEET_STEPS,
+          f"step-fleet: surrogate predicted {fleet_calls} times in "
+          f"{N_FLEET_STEPS} locksteps")
+    check(seq_launches == n_fleet * N_FLEET_STEPS,
+          f"step-fleet sequential: {seq_launches} momentum launches")
+    fleet_step_launches = fleet_launches["momentum_multisweep"]
+
+    # ---- one lockstep against four single-case steps, same state --------
+    with torch.no_grad():
+        got = piso_step(case_b, flow_warm, cfg, backend,
+                        predictor.bind(case_b))
+        singles = [piso_step(c, fleet_member(flow_warm, k), cfg, backend,
+                             bound_seq[k]) for k, c in enumerate(fcases)]
+        torch.cuda.synchronize()
+    diffs = []
+    for k, single in enumerate(singles):
+        d = {name: compare((getattr(got, name)[k],),
+                           (getattr(single, name),))[1]
+             for name in ("u", "v", "p", "dt")}
+        diffs.append(d)
+    say("parity-fleet", rel_diff=diffs, tol=FLEET_PARITY_TOL)
+    for k, d in enumerate(diffs):
+        for name, v in d.items():
+            check(v <= FLEET_PARITY_TOL[name],
+                  f"fleet parity case {k} {name}: rel diff {v:.3e}")
+    del flow_b, flow_warm, seq, singles, got, case_b
+
+    # ---- the MGCG fleet: per-case masked CG on the card ------------------
+    mcases = fleet_cases(MGCG_FLEET_NY)
+    mcase_b = stack_cases(mcases)
+    mflow = stack_flows([initial_flow(c, dt0=5e-4) for c in mcases])
+    cg_fleet_iters = []
+    mgcg_impl = backends_mod.mgcg_pressure
+
+    def recorded(*args, **kw):
+        res = mgcg_impl(*args, **kw)
+        cg_fleet_iters.append(res.iters.tolist())
+        return res
+
+    backends_mod.mgcg_pressure = recorded
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.time()
+        with torch.no_grad():
+            mflow = run_piso_batched(mcase_b, mflow, N_MGCG_FLEET,
+                                     cfg=cfg)
+        torch.cuda.synchronize()
+        mgcg_s = time.time() - t
+    finally:
+        backends_mod.mgcg_pressure = mgcg_impl
+    k_mgcg = counts()
+    finite_m, cont_m, co_m = fleet_health(mcase_b, mflow)
+    say("step-fleet-mgcg", cases=n_fleet,
+        shape=list(mcase_b.fluid.shape), steps=N_MGCG_FLEET,
+        host_ms_per_lockstep=mgcg_s * 1e3 / N_MGCG_FLEET,
+        cg_iters_per_solve=cg_fleet_iters, continuity_error=cont_m,
+        courant=co_m, kernel_launches=k_mgcg, finite=finite_m)
+    check_fleet_health("step-fleet-mgcg", finite_m, cont_m)
+    check(len(cg_fleet_iters) == 2 * N_MGCG_FLEET
+          and k_mgcg["momentum_multisweep"] == N_MGCG_FLEET,
+          f"step-fleet-mgcg: {len(cg_fleet_iters)} solves, launches "
+          f"{k_mgcg}")
+
     kernels = [{
         "name": "momentum_multisweep",
         "route": "cuda",
@@ -536,6 +768,19 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": None,
         })
+    kernels.append({
+        "name": "momentum_multisweep (batched launch)",
+        "route": "cuda",
+        "source": "tpufoam_torch/ops/csrc/momentum_multisweep.cu",
+        "replaces": "tpufoam/ops/stencil.py:479",
+        "launches": fleet_step_launches,
+        "max_abs_err": err_fleet,
+        "ms": ms_fleet,
+        "plain_ms": plain_ms_fleet,
+        "bound_ms": bound_ms_fleet,
+        "bound_by": bound_by_fleet,
+        "library_ms": None,
+    })
     say("done", total_s=round(time.time() - T0, 3))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -79,6 +79,107 @@ def test_momentum_kernel_rejects_what_it_cannot_take(cuda):
                                  sweeps=2)
 
 
+@pytest.mark.parametrize("shape", [(4, 512, 2048), (3, 37, 70)])
+def test_batched_momentum_launch_equals_single_launches(cuda, shape):
+    """One launch over B planes against B launches over one plane: the
+    same per-cell arithmetic, so bit for bit."""
+    b_sz = shape[0]
+    per_case = [_operands(*shape[1:], seed=7 + k, device=cuda)
+                for k in range(b_sz)]
+    ops = [torch.stack(x) for x in zip(*per_case)]
+    before = tmom.momentum_multisweep.launches
+    got = tmom.momentum_multisweep(*ops, sweeps=8)
+    torch.cuda.synchronize()
+    assert tmom.momentum_multisweep.launches == before + 1
+    for k in range(b_sz):
+        ref = tmom.momentum_multisweep(*per_case[k], sweeps=8)
+        for g, r in zip(got, ref):
+            assert torch.equal(g[k], r), k
+    ref = tmom.momentum_multisweep_plain(*ops, sweeps=8)
+    for g, r in zip(got, ref):
+        err = float((g - r).abs().max())
+        assert err <= KERNEL_RTOL * float(r.abs().max()), err
+
+
+def test_fleet_step_on_card(cuda):
+    """Two locksteps of a two-case fleet at 128 x 512 with the momentum
+    kernel and the sm_ref512 warm start: finite fields, one momentum
+    launch and one prediction per lockstep."""
+    import os
+
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.fv.case import build_channel_case, initial_flow
+    from tpufoam_torch.piso.batched import (run_piso_batched_eager,
+                                            stack_cases, stack_flows)
+    from tpufoam_torch.piso.engine import PisoConfig
+    from tpufoam_torch.solvers.backends import MGBackend
+    from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
+                                                  make_predictor)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ny, nx = 128, 512
+    cases = [build_channel_case(channel_case_geometry(
+        shape, length=nx * 2.0 / ny, height=2.0, obstacle_size=size,
+        nu=8e-3), delta=2.0 / ny, device=cuda)
+        for shape, size in (("cylinder", 0.5), ("ellipse", 0.6))]
+    pred = make_predictor(SurrogateBundle.load(os.path.join(
+        os.path.dirname(__file__), "..", "artifacts", "sm_ref512"),
+        device=cuda), stitch="lstsq")
+    before = tmom.momentum_multisweep.launches
+    out = run_piso_batched_eager(
+        stack_cases(cases), stack_flows([initial_flow(c, 5e-4)
+                                         for c in cases]), 2,
+        cfg=PisoConfig(max_co=0.5, max_dt=2e-3, momentum_smoother="kernel"),
+        backend=MGBackend(cycles=2, precision="bf16"), sm_predict=pred)
+    torch.cuda.synchronize()
+    assert tmom.momentum_multisweep.launches == before + 2
+    assert pred.calls == 2
+    for name in ("u", "v", "p", "phi_x", "phi_y", "dt"):
+        assert bool(torch.isfinite(getattr(out, name)).all()), name
+    assert tuple(out.u.shape) == (2, ny, nx)
+
+
+def test_fleet_prediction_repeats_the_single_ones_bit_for_bit(cuda):
+    """The lstsq stitch adds each block's pair terms in a fixed order (no
+    atomics), so a prediction repeats bit for bit, and a fleet's is each
+    case's own."""
+    import os
+
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.fv.case import build_channel_case, initial_flow
+    from tpufoam_torch.piso.batched import stack_cases, stack_flows
+    from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
+                                                  make_predictor)
+
+    ny, nx = 128, 512
+    cases = [build_channel_case(channel_case_geometry(
+        shape, length=nx * 2.0 / ny, height=2.0, obstacle_size=size,
+        nu=8e-3), delta=2.0 / ny, device=cuda)
+        for shape, size in (("cylinder", 0.5), ("triangle", 0.45))]
+    pred = make_predictor(SurrogateBundle.load(os.path.join(
+        os.path.dirname(__file__), "..", "artifacts", "sm_ref512"),
+        device=cuda), stitch="lstsq")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    flows = []
+    for c in cases:
+        f = initial_flow(c, 5e-4)
+        noise = torch.randn(c.fluid.shape, generator=gen, device=cuda)
+        flows.append(type(f)(**{**vars(f), "u": f.u + 0.05 * noise * c.fluid,
+                                "p": noise * c.fluid}))
+
+    def aux(f):
+        return dict(u=f.u, v=f.v, p=f.p, u_prev=f.u_prev, v_prev=f.v_prev,
+                    p_prev=f.p_prev)
+
+    singles = [pred(c, f.p, aux(f)) for c, f in zip(cases, flows)]
+    again = [pred(c, f.p, aux(f)) for c, f in zip(cases, flows)]
+    fb = stack_flows(flows)
+    fleet = pred(stack_cases(cases), fb.p, aux(fb))
+    for k, single in enumerate(singles):
+        assert torch.equal(single, again[k]), k
+        assert torch.equal(fleet[k], single), k
+
+
 def test_hybrid_step_on_card_matches_cpu(cuda):
     """Three f32-multigrid steps of the 64 x 256 cylinder channel on the
     card (momentum kernel) and on the CPU (its plain version), with the
@@ -98,11 +199,12 @@ def test_hybrid_step_on_card_matches_cpu(cuda):
     ny, nx = 128, 512
     geom = channel_case_geometry("cylinder", length=nx * 2.0 / ny,
                                  height=2.0, obstacle_size=0.5, nu=8e-3)
-    cfg = PisoConfig(max_co=0.5, max_dt=2e-3)
+    cfg = PisoConfig(max_co=0.5, max_dt=2e-3, momentum_smoother="kernel")
     flows = {}
     for dev in ("cpu", cuda):
         case = build_channel_case(geom, delta=2.0 / ny, device=dev)
-        pred = make_predictor(SurrogateBundle.load(bundle_dir, device=dev))
+        pred = make_predictor(SurrogateBundle.load(bundle_dir, device=dev),
+                              stitch="lstsq")
         flows[str(dev)] = run_piso_eager(case, initial_flow(case, 5e-4), 3,
                                          cfg=cfg, backend=MGBackend(cycles=2),
                                          sm_predict=pred)

@@ -1,6 +1,7 @@
 """The momentum multisweep of tpufoam_torch.ops.momentum on the CPU: its
 plain version against the JAX package's Pallas kernel run in interpret
-mode, and the wrapper's dispatch rules.
+mode (one case, and a fleet through the kernel's batched rule), and the
+wrapper's dispatch rules.
 
 The CUDA kernel itself runs only on the card (tests/test_torch_gpu.py and
 chip_smoke.py). Tolerance: 1e-5 relative to max |u|, |v| — eight float32
@@ -84,6 +85,60 @@ def test_cpu_tensor_runs_plain_version_without_counting(operands):
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     assert tmom.momentum_multisweep.launches == before
+
+
+def _batched_operands(b_sz, ny, nx, seed):
+    """B cases of random structured operands: zero conductances on the
+    domain edges, diagonally dominant, a few solid cells."""
+    rng = np.random.default_rng(seed)
+
+    def f(lo, hi):
+        return rng.uniform(lo, hi, (b_sz, ny, nx)).astype(np.float32)
+
+    a_e, a_w, a_n, a_s = (f(0, 1) for _ in range(4))
+    a_e[..., -1] = 0
+    a_w[..., 0] = 0
+    a_n[..., -1, :] = 0
+    a_s[..., 0, :] = 0
+    fluid = (f(0, 1) > 0.05).astype(np.float32)
+    api = fluid / (a_e + a_w + a_n + a_s + f(0.5, 2.0))
+    return (a_e, a_w, a_n, a_s, api, f(-1, 1), f(-1, 1), f(-1, 1) * fluid,
+            f(-1, 1) * fluid)
+
+
+@pytest.mark.parametrize("sweeps", [1, 8])
+def test_batched_plain_equals_per_case_plain(sweeps):
+    ops = [T(a) for a in _batched_operands(3, 20, 36, seed=sweeps)]
+    got = tmom.momentum_multisweep(*ops, sweeps=sweeps)
+    for k in range(3):
+        ref = tmom.momentum_multisweep_plain(*(a[k] for a in ops),
+                                             sweeps=sweeps)
+        for g, r in zip(got, ref):
+            assert torch.equal(g[k], r)
+
+
+def test_batched_plain_matches_vmapped_pallas():
+    """jax.vmap of the Pallas kernel takes its custom_vmap rule
+    (`_msp_batched`: the cases folded into rows with zero separator rows)
+    on (3, 16, 128) operands; the port's batched plain version at
+    RTOL."""
+    import jax
+    ops = _batched_operands(3, 16, 128, seed=11)
+    ref = jax.vmap(lambda *a: momentum_multisweep_pallas(
+        *a, sweeps=8, interpret=True))(*(jnp.asarray(a) for a in ops))
+    got = tmom.momentum_multisweep_plain(*(T(a) for a in ops), sweeps=8)
+    assert tuple(got[0].shape) == (3, 16, 128)
+    _close(got, ref)
+
+
+def test_mismatched_operand_shapes_are_rejected():
+    x = torch.zeros(2, 6, 9)
+    with pytest.raises(ValueError, match="share one"):
+        tmom.momentum_multisweep(*([x] * 8), x[0], sweeps=2)
+    with pytest.raises(ValueError, match="share one"):
+        tmom.momentum_multisweep(*([x[..., :-1]] + [x] * 8), sweeps=2)
+    with pytest.raises(ValueError, match="share one"):
+        tmom.momentum_multisweep(*([x[None]] * 9), sweeps=2)
 
 
 @pytest.mark.parametrize("sweeps", [-1, 9])

@@ -38,7 +38,9 @@ from tpufoam.fv import case as jcase
 from tpufoam.piso import engine as jeng
 from tpufoam.solvers.backends import MGBackend as JMG
 from tpufoam.solvers.backends import MGCGBackend as JMGCG
+from tpufoam.surrogate import blocks as jblk
 from tpufoam.surrogate.pipeline import make_predictor as jax_make_predictor
+from tpufoam.surrogate.pipeline import surrogate_blocks_forward as jax_fwd
 from tpufoam_torch.core.geometry import channel_case_geometry
 from tpufoam_torch.fv import case as tcase
 from tpufoam_torch.models.mlp import ModelDef, params_from_numpy
@@ -46,6 +48,7 @@ from tpufoam_torch.piso import engine as teng
 from tpufoam_torch.solvers import multigrid as tmg
 from tpufoam_torch.solvers.backends import MGBackend as TMG
 from tpufoam_torch.solvers.backends import MGCGBackend as TMGCG
+from tpufoam_torch.surrogate import blocks as tblk
 from tpufoam_torch.surrogate.pca import PCAModel
 from tpufoam_torch.surrogate.pipeline import SurrogateBundle, make_predictor
 # the JAX Pallas smoothers in interpret mode, with a count of their calls
@@ -56,7 +59,8 @@ TOL = {"f32": 1e-4, "bf16": 5e-2}
 FIELDS = ("u", "v", "p", "phi_x", "phi_y", "dt", "t")
 JAX_CFG = jeng.PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3,
                           momentum_smoother="pallas")
-TORCH_CFG = teng.PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3)
+TORCH_CFG = teng.PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3,
+                            momentum_smoother="kernel")
 
 
 @pytest.fixture(autouse=True)
@@ -94,7 +98,7 @@ def setup():
                                   device="cpu")
     jb = _tiny_bundle(block_size=32)
     return jc, tc, jax_make_predictor(jb, stitch="lstsq"), \
-        make_predictor(bundle_to_torch(jb))
+        make_predictor(bundle_to_torch(jb), stitch="lstsq")
 
 
 @pytest.fixture(scope="module", params=["f32", "bf16"])
@@ -216,3 +220,65 @@ def test_kernel_smoother_paths_match_jax(setup, jax_kernels, path):
         scale = max(float(np.abs(r).max()), 1e-30)
         assert err <= tol.get(name, TOL[prec]) * scale, \
             f"{path} {name}: {err:.3e}"
+
+
+def _close_fields(got, ref, tol, what):
+    for name in FIELDS:
+        r = np.asarray(getattr(ref, name))
+        g = getattr(got, name).numpy()
+        err = float(np.abs(g - r).max())
+        scale = max(float(np.abs(r).max()), 1e-30)
+        assert err <= tol * scale, f"{what} {name}: {err:.3e}"
+
+
+def test_kernel_smoother_beyond_the_halo_runs_the_sweep_loop(setup):
+    """12 momentum sweeps with the kernel smoother: more than the kernel's
+    halo, so the port runs the sweep loop, as the JAX package does with
+    its Pallas smoother (f32 multigrid, f32 tolerance)."""
+    jc, tc, _, _ = setup
+    ref = jeng.run_piso_eager(
+        jc, jcase.initial_flow(jc, 5e-4), 1,
+        cfg=dataclasses.replace(JAX_CFG, momentum_sweeps=12),
+        backend=JMG(cycles=2))
+    got = teng.run_piso_eager(
+        tc, tcase.initial_flow(tc, 5e-4), 1,
+        cfg=teng.PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3,
+                            momentum_sweeps=12, momentum_smoother="kernel"),
+        backend=TMG(cycles=2))
+    _close_fields(got, ref, TOL["f32"], "sweeps=12")
+
+
+def test_assemble_scan_on_the_tiny_bundles_blocks(setup):
+    """The scan stitch of the tiny bundle's block predictions on the
+    64 x 256 case (32-blocks: an extra bottom row), from the same blocks
+    on both sides; float32 subtractions in the same order (1e-5)."""
+    jc, tc, jpred, _ = setup
+    jb = _tiny_bundle(block_size=32)
+    layout = jblk.build_block_layout(NY, NX, jb.block_size, jb.overlap_ratio)
+    assert layout.has_extra_row
+    flow = jcase.initial_flow(jc, 5e-4)
+    x_grid = jnp.stack([flow.u, flow.v, jc.sdf], axis=-1)
+    blocks = np.asarray(jax_fwd(jb, layout, x_grid, jc.sdf)[..., 0])
+    jmb = jblk.extract_blocks(layout, jc.sdf)
+    tl = tblk.build_block_layout(NY, NX, jb.block_size, jb.overlap_ratio)
+    ref = np.asarray(jblk.assemble_scan(layout, jnp.asarray(blocks), jmb))
+    got = tblk.assemble_scan(tl, T(blocks), tblk.extract_blocks(tl, tc.sdf))
+    assert float(np.abs(got.numpy() - ref).max()) <= \
+        1e-5 * float(np.abs(ref).max())
+
+
+def test_hybrid_step_with_the_scan_stitch_matches_jax(setup):
+    """One hybrid step with make_predictor's default stitch, the scan, on
+    both sides (f32 multigrid, f32 tolerance)."""
+    jc, tc, _, _ = setup
+    jb = _tiny_bundle(block_size=32)
+    tpred = make_predictor(bundle_to_torch(jb))
+    assert tpred.stitch == "scan"
+    ref = jeng.run_piso_eager(jc, jcase.initial_flow(jc, 5e-4), 1,
+                              cfg=JAX_CFG, backend=JMG(cycles=2),
+                              sm_predict=jax_make_predictor(jb))
+    got = teng.run_piso_eager(tc, tcase.initial_flow(tc, 5e-4), 1,
+                              cfg=TORCH_CFG, backend=TMG(cycles=2),
+                              sm_predict=tpred)
+    assert tpred.calls == 1
+    _close_fields(got, ref, TOL["f32"], "scan")

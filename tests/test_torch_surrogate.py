@@ -1,6 +1,7 @@
 """tpufoam_torch surrogate serving against the JAX package, on the CPU:
-block layout and extraction, least-squares stitching, PCA, the dense MLP,
-the bundle loader, and the predictor with the real sm_ref512 bundle.
+block layout and extraction, least-squares and scan stitching, PCA, the
+dense MLP, the bundle loader, and the predictor with the real sm_ref512
+bundle.
 
 Tolerances (relative to the reference's max magnitude):
 - layouts, extraction and masks: exact;
@@ -112,6 +113,20 @@ def test_assemble_lstsq(stitch_problem, host_op):
     ref = jblk.assemble_lstsq(jl, jnp.asarray(blocks), jmb, solve_op=jop)
     got = tblk.assemble_lstsq(tl, T(blocks), tmb, solve_op=top)
     close(got, ref, 1e-4)
+
+
+def test_assemble_scan(stitch_problem):
+    """The sequential raster corrector and overwrite placement: the same
+    float32 subtractions in the same order on both sides, from strip
+    means that may round apart (1e-5)."""
+    jl, tl, _, mask, blocks = stitch_problem
+    assert tl.has_extra_row and tl.izl != tl.overlap
+    jmb = jblk.extract_blocks(jl, jnp.asarray(mask))
+    tmb = tblk.extract_blocks(tl, T(mask))
+    close(tblk.stitch_offsets_scan(tl, T(blocks), tmb),
+          jblk.stitch_offsets_scan(jl, jnp.asarray(blocks), jmb), 1e-5)
+    close(tblk.assemble_scan(tl, T(blocks), tmb),
+          jblk.assemble_scan(jl, jnp.asarray(blocks), jmb), 1e-5)
 
 
 def test_pca_round_trip():

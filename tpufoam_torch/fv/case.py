@@ -4,6 +4,10 @@
 per-direction face apertures and wall masks, the SDF feature grid and the
 inlet profile. `Flow` is the state the PISO engine advances.
 
+A fleet of same-shape cases (piso.batched.stack_cases / stack_flows)
+holds the same dataclasses with a leading case axis on every tensor:
+fields (B, ny, nx), `inlet_u` (B, ny), `Flow.dt` and `Flow.t` (B,).
+
 Boundary model (channel with obstacle):
   west  = inlet  (fixed parabolic U, zero-grad p)
   east  = outlet (zero-grad U, fixed p = 0)
@@ -77,10 +81,27 @@ def grid_metrics(grid: Grid2D) -> GridMetrics:
 def domain_row_masks(case: Case):
     """(dom_n, dom_s): fluid cells in the top/bottom domain wall rows."""
     dom_n = torch.zeros_like(case.fluid)
-    dom_n[-1, :] = 1.0
+    dom_n[..., -1, :] = 1.0
     dom_s = torch.zeros_like(case.fluid)
-    dom_s[0, :] = 1.0
+    dom_s[..., 0, :] = 1.0
     return dom_n * case.fluid, dom_s * case.fluid
+
+
+def fleet_member(stacked, k: int):
+    """Case or Flow k of a stacked fleet (piso.batched): every tensor
+    field indexed on its case axis."""
+    return dataclasses.replace(stacked, **{
+        f.name: getattr(stacked, f.name)[k]
+        for f in dataclasses.fields(stacked)
+        if isinstance(getattr(stacked, f.name), torch.Tensor)})
+
+
+def per_case(s):
+    """A per-case scalar tensor, shape () or (B,), shaped to broadcast
+    against ([B,] ny, nx) fields; a Python number as it is."""
+    if not isinstance(s, torch.Tensor):
+        return s
+    return s.reshape(s.shape + (1, 1))
 
 
 @dataclasses.dataclass
@@ -236,25 +257,26 @@ def fluxes_from_velocity(case: Case, u: torch.Tensor, v: torch.Tensor):
     """Linear face interpolation of U dotted with face areas (fvc::flux).
 
     x-face j (of nx+1) sits between cells j-1 and j; its openness is
-    open_w[:, j]. Inlet face = fixed profile, outlet face = zero-grad
+    open_w[..., j]. Inlet face = fixed profile, outlet face = zero-grad
     (upwind cell value), wall/solid faces = 0.
     """
     grid = case.grid
     dy, dx = grid.dy, grid.dx
-    face_val_x = 0.5 * (u[:, :-1] + u[:, 1:])      # faces j=1..nx-1
-    face_val_y = 0.5 * (v[:-1, :] + v[1:, :])      # faces i=1..ny-1
+    face_val_x = 0.5 * (u[..., :-1] + u[..., 1:])      # faces j=1..nx-1
+    face_val_y = 0.5 * (v[..., :-1, :] + v[..., 1:, :])  # faces i=1..ny-1
     dy_col = dy * torch.ones((grid.ny, 1), dtype=u.dtype, device=u.device)
 
     phi_x = torch.cat([
-        case.inlet_u[:, None] * case.fluid[:, :1] * dy_col,
-        face_val_x * case.open_w[:, 1:] * dy,
-        u[:, -1:] * case.fluid[:, -1:] * dy_col,
-    ], dim=1)
+        case.inlet_u[..., :, None] * case.fluid[..., :1] * dy_col,
+        face_val_x * case.open_w[..., 1:] * dy,
+        u[..., -1:] * case.fluid[..., -1:] * dy_col,
+    ], dim=-1)
 
-    zrow = torch.zeros((1, grid.nx), dtype=u.dtype, device=u.device)
+    zrow = torch.zeros(u.shape[:-2] + (1, grid.nx), dtype=u.dtype,
+                       device=u.device)
     phi_y = torch.cat([
         zrow,
-        face_val_y * case.open_s[1:, :] * dx,
+        face_val_y * case.open_s[..., 1:, :] * dx,
         zrow,
-    ], dim=0)
+    ], dim=-2)
     return phi_x, phi_y

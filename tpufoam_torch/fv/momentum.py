@@ -4,7 +4,8 @@ Implicit FV discretization of
     ddt(U) + div(phi, U) - laplacian(nu, U) == -grad(p)
 with Euler ddt, upwind implicit convection plus a limitedLinearV deferred
 correction, and central diffusion on a cut-cell uniform grid (the main
-path's settings). The solve is a fixed number of Jacobi sweeps.
+path's settings). The solve is a fixed number of Jacobi sweeps. Fields
+are ([B,] ny, nx): a leading case axis, or none.
 
 Units: integrated FV (a in m^2/s for 2D unit depth); aP/V == UEqn.A(),
 (sum a_nb U_nb + b)/V == UEqn.H().
@@ -16,8 +17,8 @@ import dataclasses
 
 import torch
 
-from ..ops.momentum import momentum_multisweep
-from .case import Case, domain_row_masks, grid_metrics
+from ..ops.momentum import MAX_SWEEPS, momentum_multisweep
+from .case import Case, domain_row_masks, grid_metrics, per_case
 from .operators import nb_e, nb_n, nb_s, nb_w
 
 
@@ -105,7 +106,8 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
     """Laminar UEqn coefficients: Euler ddt, upwind implicit matrix with the
     limitedLinearV-1 deferred correction in the explicit source, no-slip
     walls (half-cell domain walls, embedded-wall link nu L_w / d_w on the
-    obstacle), fixed-velocity inlet."""
+    obstacle), fixed-velocity inlet. `dt` is one per case: () or (B,)."""
+    dt = per_case(dt)
     grid = case.grid
     nu = case.nu
     m = grid_metrics(grid)
@@ -119,10 +121,10 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
     d_cx = nu * dy / dx
     d_cy = nu * dx / dy
 
-    f_e = phi_x[:, 1:]
-    f_w = phi_x[:, :-1]
-    f_n = phi_y[1:, :]
-    f_s = phi_y[:-1, :]
+    f_e = phi_x[..., 1:]
+    f_w = phi_x[..., :-1]
+    f_n = phi_y[..., 1:, :]
+    f_s = phi_y[..., :-1, :]
 
     # face apertures scale the diffusive conductances; the convective
     # fluxes already carry the aperture, so the upwind coefficients only
@@ -149,7 +151,7 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
     ddt_v = (volc / dt) * v_old
     a_p = (a_e + a_w + a_n + a_s + wall_contrib + a_wall + a_in + div_f
            + 1.0 * volc / dt) * case.fluid + (1.0 - case.fluid)
-    b_u = (ddt_u + a_in * case.inlet_u[:, None]) * case.fluid
+    b_u = (ddt_u + a_in * case.inlet_u[..., :, None]) * case.fluid
     b_v = ddt_v * case.fluid
     cu, cv = _limited_linear_corrections(case, f_e, f_w, f_n, f_s,
                                          u_old, v_old)
@@ -171,20 +173,22 @@ def h_operator(coef: MomentumCoeffs, u: torch.Tensor, v: torch.Tensor):
 def jacobi_momentum(coef: MomentumCoeffs, case: Case,
                     u0: torch.Tensor, v0: torch.Tensor,
                     src_u: torch.Tensor, src_v: torch.Tensor,
-                    sweeps: int = 8, smoother: str = "kernel"):
+                    sweeps: int = 4, smoother: str = "plain"):
     """Solve a_P U - sum a_nb U_nb = b + src by `sweeps` Jacobi sweeps.
 
     `src_*` carries the -grad(p)*V term. smoother='kernel' runs all sweeps
     in one call of ops.momentum.momentum_multisweep (the hand-written
-    kernel on a CUDA tensor, its plain version on a CPU tensor);
-    'plain' runs the sweep loop here, one stencil pass per sweep."""
+    kernel on a CUDA tensor, its plain version on a CPU tensor), one call
+    for every case of a (B, ny, nx) fleet; beyond the kernel's
+    MAX_SWEEPS it runs the sweep loop, as the JAX package does. 'plain'
+    runs the sweep loop here, one stencil pass per sweep."""
+    if smoother not in ("kernel", "plain"):
+        raise ValueError(f"unknown momentum smoother {smoother!r}")
     inv_ap = 1.0 / coef.a_p
-    if smoother == "kernel":
+    if smoother == "kernel" and sweeps <= MAX_SWEEPS:
         return momentum_multisweep(
             coef.a_e, coef.a_w, coef.a_n, coef.a_s, inv_ap * case.fluid,
             coef.b_u + src_u, coef.b_v + src_v, u0, v0, sweeps=sweeps)
-    if smoother != "plain":
-        raise ValueError(f"unknown momentum smoother {smoother!r}")
     u, v = u0, v0
     for _ in range(sweeps):
         hu, hv = h_operator(coef, u, v)

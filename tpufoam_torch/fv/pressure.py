@@ -9,6 +9,7 @@
 
 BCs: zero-grad p on walls/inlet (closed coefficient), fixed p = 0 on the
 outlet via a half-distance Dirichlet coefficient folded into the diagonal.
+Every function takes ([B,] ny, nx) fields (a leading case axis or none).
 """
 
 from __future__ import annotations
@@ -82,10 +83,11 @@ def correct_fluxes(case: Case, coef: PressureCoeffs, p: torch.Tensor,
     phi_x = phi_x.clone()
     phi_y = phi_y.clone()
     # x-faces j=1..nx-1 between cells j-1, j: flux_p = c*(p_j - p_{j-1})
-    phi_x[:, 1:-1] += -(coef.c_w[:, 1:] * (p[:, 1:] - p[:, :-1]))
+    phi_x[..., 1:-1] += -(coef.c_w[..., 1:] * (p[..., 1:] - p[..., :-1]))
     # outlet faces: p_face = 0 Dirichlet
-    phi_x[:, -1] += -(coef.c_out[:, -1] * (0.0 - p[:, -1]))
-    phi_y[1:-1, :] += -(coef.c_s[1:, :] * (p[1:, :] - p[:-1, :]))
+    phi_x[..., -1] += -(coef.c_out[..., -1] * (0.0 - p[..., -1]))
+    phi_y[..., 1:-1, :] += -(coef.c_s[..., 1:, :]
+                             * (p[..., 1:, :] - p[..., :-1, :]))
     return phi_x, phi_y
 
 

@@ -6,6 +6,9 @@ PyTorch version.
 (the same for v with bv) in one launch of csrc/momentum_multisweep.cu on
 CUDA tensors, and `momentum_multisweep_plain` on CPU tensors. Neighbours
 beyond the domain read as 0; ap_inv = fluid / a_P keeps solid cells at 0.
+Operands are (ny, nx), or (B, ny, nx) for a fleet of B cases: one launch
+then sweeps every case (the JAX package's batched rule `_msp_batched`),
+each case as if alone.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ def _kernel():
     lib = build.load(_NAME)
     fn = lib.momentum_multisweep_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.momentum_multisweep_error_string.argtypes = [ctypes.c_int]
@@ -49,33 +52,38 @@ def _kernel():
 
 def momentum_multisweep(a_e, a_w, a_n, a_s, ap_inv, bu, bv, u0, v0,
                         sweeps: int = 8):
-    """`sweeps` coupled Jacobi momentum sweeps; returns (u, v).
+    """`sweeps` coupled Jacobi momentum sweeps on (ny, nx) or (B, ny, nx)
+    operands; returns (u, v).
 
-    On CUDA tensors this launches the kernel (and raises if it cannot);
-    on CPU tensors it runs `momentum_multisweep_plain`."""
+    On CUDA tensors this launches the kernel once, whatever B (and raises
+    if it cannot); on CPU tensors it runs `momentum_multisweep_plain`.
+    Both check that the nine operands share one shape."""
     ops = (a_e, a_w, a_n, a_s, ap_inv, bu, bv, u0, v0)
     if not 0 <= sweeps <= MAX_SWEEPS:
         raise ValueError(f"sweeps={sweeps} outside [0, {MAX_SWEEPS}]")
+    if u0.dim() not in (2, 3) or any(t.shape != u0.shape for t in ops):
+        raise ValueError("momentum operands must share one (ny, nx) or "
+                         f"(B, ny, nx) shape; got "
+                         f"{[tuple(t.shape) for t in ops]}")
     if u0.device.type == "cpu":
         return momentum_multisweep_plain(*ops, sweeps=sweeps)
     if u0.device.type != "cuda":
         raise ValueError(f"no momentum kernel for device {u0.device}")
-    if u0.dim() != 2:
-        raise ValueError(f"expected (ny, nx) fields, got {tuple(u0.shape)}")
     for t in ops:
         if t.device != u0.device or t.dtype != torch.float32 \
-                or t.shape != u0.shape or not t.is_contiguous():
+                or not t.is_contiguous():
             raise ValueError(
-                "momentum kernel takes contiguous float32 (ny, nx) tensors "
-                f"on one device; got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device} (contiguous={t.is_contiguous()})")
+                "momentum kernel takes contiguous float32 tensors on one "
+                f"device; got {t.dtype} {tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
     lib, fn = _kernel()
-    ny, nx = u0.shape
+    *lead, ny, nx = u0.shape
+    planes = lead[0] if lead else 1
     u_out = torch.empty_like(u0)
     v_out = torch.empty_like(v0)
     stream = torch.cuda.current_stream(u0.device).cuda_stream
     err = fn(*(t.data_ptr() for t in ops), u_out.data_ptr(),
-             v_out.data_ptr(), ny, nx, sweeps, stream)
+             v_out.data_ptr(), planes, ny, nx, sweeps, stream)
     if err != 0:
         msg = lib.momentum_multisweep_error_string(err).decode()
         raise RuntimeError(f"momentum_multisweep launch failed: {msg}")

@@ -5,6 +5,12 @@ prediction before the momentum predictor (Algorithm 2 of the DLPoissonFoam
 coupling), the implicit momentum predictor (UEqn), and nCorrectors PISO
 pressure corrections (pEqn). PyTorch runs it eagerly; the only host
 synchronisation per step is the residual safeguard's gate.
+
+The step takes one case, or a stacked fleet of cases (piso.batched) with
+a leading case axis on every field and `dt`, `t` of shape (B,). Each case
+then evolves as if alone, with the semantics of the JAX package's
+`jax.vmap` of the step: per-case dt, per-case gates, and a rescue that
+acts only on the cases that need it.
 """
 
 from __future__ import annotations
@@ -13,12 +19,13 @@ import dataclasses
 
 import torch
 
-from ..fv.case import Case, Flow
+from ..fv.case import Case, Flow, per_case
 from ..fv.momentum import h_operator, jacobi_momentum, momentum_coeffs
 from ..fv.operators import divergence
 from ..fv.pressure import (correct_fluxes, face_fluxes_hbya, pressure_coeffs,
                            pressure_gradient, pressure_matvec, pressure_rhs)
-from ..solvers.backends import MGBackend
+from ..solvers.backends import CGBackend
+from ..solvers.cg import _norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,13 +33,15 @@ class PisoConfig:
     """The step's knobs: nCorrectors 2, maxCo 0.5, limitedLinearV
     convection and Euler ddt (fixed in fv.momentum)."""
     n_correctors: int = 2
-    momentum_sweeps: int = 8          # <= 8 for the kernel
+    momentum_sweeps: int = 8          # the kernel takes <= 8; more run
+                                      # the sweep loop
     max_co: float = 0.5
     max_dt: float = 0.05
-    momentum_smoother: str = "kernel"  # 'kernel': ops.momentum (CUDA
-                                       # kernel on the card, its plain
-                                       # version on the CPU); 'plain': the
-                                       # sweep loop of fv.momentum
+    momentum_smoother: str = "plain"  # 'plain' (JAX 'xla'): the sweep
+                                      # loop of fv.momentum; 'kernel' (JAX
+                                      # 'pallas'): ops.momentum (the CUDA
+                                      # kernel on the card, its plain
+                                      # version on the CPU)
     sm_safeguard: float = 0.5         # residual gate on the first SM-warm-
                                       # started corrector solve: above it
                                       # (or NaN) the solve restarts from the
@@ -41,21 +50,26 @@ class PisoConfig:
 
 
 def courant_number(case: Case, flow: Flow) -> torch.Tensor:
-    """max Courant number from face fluxes (CourantNo.H semantics)."""
+    """max Courant number from face fluxes (CourantNo.H semantics), per
+    case: () or (B,)."""
     grid = case.grid
-    sum_phi = (torch.abs(flow.phi_x[:, 1:]) + torch.abs(flow.phi_x[:, :-1])
-               + torch.abs(flow.phi_y[1:, :]) + torch.abs(flow.phi_y[:-1, :]))
+    sum_phi = (torch.abs(flow.phi_x[..., 1:])
+               + torch.abs(flow.phi_x[..., :-1])
+               + torch.abs(flow.phi_y[..., 1:, :])
+               + torch.abs(flow.phi_y[..., :-1, :]))
     # cut cells: floor alpha at 0.5 so sliver cells don't collapse dt
     alpha_co = torch.clamp(case.alpha, min=0.5)
     vol = grid.dx * grid.dy
-    return 0.5 * torch.max(sum_phi * case.fluid / alpha_co) / vol * flow.dt
+    return 0.5 * torch.amax(sum_phi * case.fluid / alpha_co,
+                            dim=(-2, -1)) / vol * flow.dt
 
 
 def continuity_error(case: Case, flow: Flow) -> torch.Tensor:
-    """Mean |div phi| over fluid cells — the step's health diagnostic."""
+    """Mean |div phi| over fluid cells — the step's health diagnostic, per
+    case: () or (B,)."""
     div = divergence(flow.phi_x, flow.phi_y) * case.fluid
-    return torch.sum(torch.abs(div)) / torch.clamp(torch.sum(case.fluid),
-                                                   min=1.0)
+    return torch.sum(torch.abs(div), dim=(-2, -1)) / torch.clamp(
+        torch.sum(case.fluid, dim=(-2, -1)), min=1.0)
 
 
 def _next_dt(case: Case, flow: Flow, cfg: PisoConfig) -> torch.Tensor:
@@ -69,8 +83,9 @@ def _next_dt(case: Case, flow: Flow, cfg: PisoConfig) -> torch.Tensor:
 def _gate_sm_prediction(p_sm: torch.Tensor, p_prev: torch.Tensor,
                         fluid: torch.Tensor) -> torch.Tensor:
     """Reject a non-finite surrogate prediction wholesale (fall back to the
-    incoming pressure), on the device."""
-    return torch.where(torch.isfinite(p_sm).all(), p_sm, p_prev) * fluid
+    incoming pressure), per case, on the device."""
+    ok = torch.isfinite(p_sm).flatten(-2).all(dim=-1)
+    return torch.where(per_case(ok), p_sm, p_prev) * fluid
 
 
 def _rescue_if_unconverged(case: Case, pcoef, rhs, p_cand, p_fallback,
@@ -80,26 +95,35 @@ def _rescue_if_unconverged(case: Case, pcoef, rhs, p_cand, p_fallback,
     (or NaN), restart from the previous-step pressure: apply the backend
     once, then up to sm_safeguard_extra - 1 more times until the gate
     clears (a do-while). Healthy steps pay one matvec, two norms and one
-    host read."""
-    def rnorm(p):
-        return torch.linalg.norm((rhs - pressure_matvec(pcoef, p))
-                                 * case.fluid)
+    host read.
 
-    gate = cfg.sm_safeguard * (torch.linalg.norm(rhs * case.fluid) + 1e-30)
-    if bool(rnorm(p_cand) <= gate):      # NaN compares unconverged
+    Per case for a fleet: the rescue runs when any case is bad, and only
+    the bad cases take its result; a case whose rescue has cleared the
+    gate is frozen while the others go on (the JAX package's vmapped
+    lax.cond and lax.while_loop give each case the same result)."""
+    def ok(p):                           # NaN compares unconverged
+        return _norm((rhs - pressure_matvec(pcoef, p)) * case.fluid) <= gate
+
+    gate = cfg.sm_safeguard * (_norm(rhs * case.fluid) + 1e-30)
+    bad = ~ok(p_cand)
+    if not bool(bad.any()):
         return p_cand
     pc = backend(case, pcoef, rhs, p_fallback * case.fluid, aux)
-    i = 1
-    while i < cfg.sm_safeguard_extra and not bool(rnorm(pc) <= gate):
-        pc = backend(case, pcoef, rhs, pc, aux)
-        i += 1
-    return pc
+    for _ in range(cfg.sm_safeguard_extra - 1):
+        todo = bad & ~ok(pc)
+        if not bool(todo.any()):
+            break
+        pc = torch.where(per_case(todo), backend(case, pcoef, rhs, pc, aux),
+                         pc)
+    return torch.where(per_case(bad), pc, p_cand)
 
 
 def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
-              backend=MGBackend(), sm_predict=None) -> Flow:
+              backend=CGBackend(), sm_predict=None) -> Flow:
     """Advance one PISO timestep (the JAX package's `_piso_step_impl`;
-    PyTorch runs it eagerly, so no jit wrapper sits around it).
+    PyTorch runs it eagerly, so no jit wrapper sits around it). For a
+    stacked fleet it advances every case in lockstep, with one momentum
+    launch and one prediction for all of them.
 
     `backend(case, coef, rhs, p_prev, aux) -> p` solves the pressure
     equation each corrector. `sm_predict(case, p_prev, aux) -> p`
@@ -164,7 +188,7 @@ def _bind_sm(sm_predict, case: Case):
 
 
 def run_piso_eager(case: Case, flow: Flow, n_steps: int,
-                   cfg: PisoConfig = PisoConfig(), backend=MGBackend(),
+                   cfg: PisoConfig = PisoConfig(), backend=CGBackend(),
                    sm_predict=None) -> Flow:
     """Forward rollout of n_steps PISO steps."""
     if sm_predict is not None:

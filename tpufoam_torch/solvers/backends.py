@@ -13,6 +13,11 @@ The multigrid backends take `smoother`, named after the JAX package's
 values: "plain" (JAX "xla", the default), "kernel" (JAX "pallas": the
 multisweep kernel) and "kernel-fused" (JAX "pallas-fused": the fused
 down- and up-leg kernels); see `multigrid`.
+
+CGBackend, MGBackend and MGCGBackend also take a fleet's (B, ny, nx)
+operands (piso.batched), with the plain smoother. The kernel smoothers,
+AutoBackend, SurrogateBackend and HybridBackend take one case and raise
+on a case axis: their batched forms are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +31,14 @@ import torch
 from ..fv.pressure import pressure_matvec
 from .cg import pcg_fixed_iters, pcg_pressure
 from .multigrid import mg_solve, mgcg_pressure
+
+
+def _one_case(backend, rhs: torch.Tensor) -> None:
+    if rhs.dim() != 2:
+        raise ValueError(
+            f"{type(backend).__name__} takes one case's (ny, nx) operands, "
+            f"got {tuple(rhs.shape)}: its batched form is not ported; a "
+            "fleet runs CGBackend, MGBackend or MGCGBackend")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +138,7 @@ class AutoBackend:
     escalate_precision: str = "f32"  # preconditioner dtype inside MGCG
 
     def __call__(self, case, coef, rhs, p_prev, aux):
+        _one_case(self, rhs)
         dtype = torch.bfloat16 if self.precision == "bf16" else None
         p1 = mg_solve(coef, rhs, p_prev, cycles=self.cycles,
                       dtype=dtype) * case.fluid
@@ -146,6 +160,7 @@ class SurrogateBackend:
     predict: Callable
 
     def __call__(self, case, coef, rhs, p_prev, aux):
+        _one_case(self, rhs)
         return self.predict(case, p_prev, aux) * case.fluid
 
 
@@ -156,6 +171,7 @@ class HybridBackend:
     polish_iters: int = 6
 
     def __call__(self, case, coef, rhs, p_prev, aux):
+        _one_case(self, rhs)
         p_guess = self.predict(case, p_prev, aux) * case.fluid
         return pcg_fixed_iters(coef, rhs, p_guess,
                                iters=self.polish_iters).x * case.fluid

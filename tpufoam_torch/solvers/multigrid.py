@@ -20,18 +20,27 @@ The smoother of every level but the coarsest is chosen by `smoother`
 The coarsest level always takes `coarse_iters` sweeps of `jacobi_smooth`.
 Used standalone (`mg_solve`) or as the preconditioner of CG
 (`mgcg_pressure`).
+
+Every function takes ([B,] ny, nx) operands: a leading case axis (the
+batched fleet) or none. The kernel smoothers take only (ny, nx) operands
+and raise on a case axis. The loops that stop on a residual (`mg_solve`
+with rtol, `mgcg_pressure`) stop per case: a finished case is frozen
+while any other still runs, as a batched lax.while_loop freezes it, so
+each case takes the iterations it would take alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..fv.case import per_case
 from ..fv.pressure import PressureCoeffs, pressure_matvec
 from ..ops import stencil
-from .cg import CGResult
+from .cg import CGResult, _dot, _iters, _keep, _norm, _running
 
 SMOOTHERS = ("plain", "kernel", "kernel-fused")
 
@@ -41,8 +50,8 @@ def _can_coarsen(ny: int, nx: int, min_size: int = 8) -> bool:
 
 
 def _pool2x2(f: torch.Tensor) -> torch.Tensor:
-    ny, nx = f.shape
-    return f.reshape(ny // 2, 2, nx // 2, 2).sum(dim=(1, 3))
+    *lead, ny, nx = f.shape
+    return f.reshape(*lead, ny // 2, 2, nx // 2, 2).sum(dim=(-3, -1))
 
 
 def _pad_even(a: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
@@ -50,7 +59,7 @@ def _pad_even(a: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
     cells are solid (zero conductance, diag 1); zero-padding the residual
     before restriction and cropping the prolonged correction are adjoint
     maps, so the cycle stays symmetric."""
-    ny, nx = a.shape
+    ny, nx = a.shape[-2:]
     py, px = ny % 2, nx % 2
     if py or px:
         a = F.pad(a, (0, px, 0, py), value=fill)
@@ -58,7 +67,7 @@ def _pad_even(a: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
 
 
 def _pad_coeffs_even(coef: PressureCoeffs) -> PressureCoeffs:
-    ny, nx = coef.diag.shape
+    ny, nx = coef.diag.shape[-2:]
     if ny % 2 == 0 and nx % 2 == 0:
         return coef
     return PressureCoeffs(
@@ -82,7 +91,7 @@ def coarsen_coeffs(coef: PressureCoeffs) -> PressureCoeffs:
     coarse level has shape (ceil(ny/2), ceil(nx/2)).
     """
     coef = _pad_coeffs_even(coef)
-    ny, nx = coef.diag.shape
+    ny, nx = coef.diag.shape[-2:]
     col_odd = _parity(nx, coef.diag)[None, :]
     row_odd = _parity(ny, coef.diag)[:, None]
 
@@ -104,8 +113,8 @@ def coarsen_coeffs(coef: PressureCoeffs) -> PressureCoeffs:
 
 
 def _prolong1d(e: torch.Tensor, axis: int) -> torch.Tensor:
-    """Cell-centred linear interpolation along one axis (weights 3/4, 1/4;
-    edge-replicated at boundaries)."""
+    """Cell-centred linear interpolation along one axis (-2: y, -1: x;
+    weights 3/4, 1/4; edge-replicated at boundaries)."""
     e = torch.movedim(e, axis, 0)
     up = torch.cat([e[:1], e[:-1]], dim=0)      # e[I-1]
     dn = torch.cat([e[1:], e[-1:]], dim=0)      # e[I+1]
@@ -117,7 +126,7 @@ def _prolong1d(e: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def _restrict1d_gather(r: torch.Tensor, axis: int) -> torch.Tensor:
-    """Adjoint of `_prolong1d` along one axis, pre-pool form: g such that
+    """Adjoint of `_prolong1d` along one axis (-2: y, -1: x), pre-pool form: g such that
     coarse[I] = g[2I] + g[2I+1]. The cross-pair taps land on parity slots
     (r[2I-1] on the even slot, r[2I+2] on the odd slot), with edge
     replication at the boundary rows."""
@@ -133,13 +142,13 @@ def restrict(r: torch.Tensor) -> torch.Tensor:
     """Full-weighting restriction = adjoint of bilinear prolongation (row
     sums 2, pairing with the summed coarse operator). Odd inputs are
     zero-padded to even (adjoint of the crop in v_cycle)."""
-    return _pool2x2(_restrict1d_gather(_restrict1d_gather(_pad_even(r), 0),
-                                       1))
+    return _pool2x2(_restrict1d_gather(
+        _restrict1d_gather(_pad_even(r), -2), -1))
 
 
 def prolong(e: torch.Tensor) -> torch.Tensor:
     """Cell-centred bilinear prolongation (9/16, 3/16, 3/16, 1/16)."""
-    return _prolong1d(_prolong1d(e, 0), 1)
+    return _prolong1d(_prolong1d(e, -2), -1)
 
 
 def jacobi_smooth(coef: PressureCoeffs, x: torch.Tensor, b: torch.Tensor,
@@ -155,7 +164,7 @@ def build_hierarchy(coef: PressureCoeffs, min_size: int = 8,
                     max_levels: int = 12) -> list[PressureCoeffs]:
     levels = [coef]
     while len(levels) < max_levels:
-        ny, nx = levels[-1].diag.shape
+        ny, nx = levels[-1].diag.shape[-2:]
         if not _can_coarsen(ny, nx, min_size):
             break
         levels.append(coarsen_coeffs(levels[-1]))
@@ -202,6 +211,11 @@ def v_cycle(levels: list[PressureCoeffs], b: torch.Tensor, x: torch.Tensor,
     `v_cycle.cycles` counts the cycles run."""
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother {smoother!r} not in {SMOOTHERS}")
+    if smoother != "plain" and b.dim() != 2:
+        raise ValueError(
+            f"smoother {smoother!r} takes (ny, nx) operands, got "
+            f"{tuple(b.shape)}: the batched launch of the pressure kernels "
+            "is not ported; use smoother='plain' for a fleet")
     v_cycle.cycles += 1
 
     def fluid_mask(coef: PressureCoeffs) -> torch.Tensor:
@@ -225,8 +239,8 @@ def v_cycle(levels: list[PressureCoeffs], b: torch.Tensor, x: torch.Tensor,
         # mask the interpolated correction so it cannot leak into solid
         # cells; crop it back to the (possibly odd) fine shape; make it
         # contiguous for the kernels (prolong's movedim leaves it strided)
-        ny, nx = coef.diag.shape
-        corr = (prolong(ec)[:ny, :nx] * fluid_mask(coef)).contiguous()
+        ny, nx = coef.diag.shape[-2:]
+        corr = (prolong(ec)[..., :ny, :nx] * fluid_mask(coef)).contiguous()
         if fused:
             return stencil.corr_smooth(coef, x, corr, b, iters=post)
         return _smooth(coef, x + corr, b, post, smoother)
@@ -273,20 +287,22 @@ def mg_solve(coef: PressureCoeffs, b: torch.Tensor, x0: torch.Tensor,
     `rtol > 0` (residual-correction form, any `dtype`): `cycles` becomes
     the maximum and the loop exits once ||b - A x|| <= rtol * ||b||. The
     bf16 correction form has a noise floor near 0.10 relative residual;
-    an rtol below it runs the full cycle cap."""
+    an rtol below it runs the full cycle cap. With a case axis each case
+    exits on its own residual."""
     levels = build_hierarchy(coef, min_size=min_size, max_levels=max_levels)
     levels_lp = _cast_levels(levels, dtype) if dtype is not None else None
     if rtol and rtol > 0.0:
-        gate = rtol * (torch.linalg.norm(b) + 1e-30)
+        gate = rtol * (_norm(b) + 1e-30)
         x = x0
         r = b - pressure_matvec(coef, x)
-        for _ in range(cycles):
-            if not bool(torch.linalg.norm(r) > gate):
-                break
-            x = x + v_cycle_correction(levels, levels_lp, r, pre, post,
-                                       dtype, smoother=smoother,
-                                       coarse_iters=coarse_iters)
+        k = np.zeros(b.shape[:-2], dtype=np.int64)
+        while (active := _running(_norm(r) > gate, k, cycles)).any():
+            x_new = x + v_cycle_correction(levels, levels_lp, r, pre, post,
+                                           dtype, smoother=smoother,
+                                           coarse_iters=coarse_iters)
+            x, = _keep(active, (x_new,), (x,))
             r = b - pressure_matvec(coef, x)
+            k += active
         return x
     x = x0
     for _ in range(cycles):
@@ -311,7 +327,8 @@ def mgcg_pressure(coef: PressureCoeffs, b: torch.Tensor,
     `dtype` runs the preconditioner cycle in reduced precision; the CG
     vectors stay f32. Keep pre == post: an asymmetric cycle is not a
     symmetric preconditioner and stalls plain CG. The loop reads the
-    residual norm on the host once per iteration."""
+    residual norms on the host once per iteration; with a case axis each
+    case stops on its own residual and `iters` counts per case."""
     levels = build_hierarchy(coef, min_size=min_size)
     levels_lp = _cast_levels(levels, dtype) if dtype is not None else None
     x = torch.zeros_like(b) if x0 is None else x0
@@ -323,20 +340,20 @@ def mgcg_pressure(coef: PressureCoeffs, b: torch.Tensor,
     r = b - pressure_matvec(coef, x)
     z = precond(r)
     p = z
-    rz = torch.dot(r.flatten(), z.flatten())
-    b_norm = torch.clamp(torch.linalg.norm(b), min=atol)
-    gate = float(torch.clamp(rtol * b_norm, min=atol))
-    k = 0
-    while k < maxiter and float(torch.linalg.norm(r)) > gate:
+    rz = _dot(r, z)
+    b_norm = torch.clamp(_norm(b), min=atol)
+    gate = torch.clamp(rtol * b_norm, min=atol)
+    k = np.zeros(b.shape[:-2], dtype=np.int64)
+    while (active := _running(_norm(r) > gate, k, maxiter)).any():
         ap = pressure_matvec(coef, p)
-        alpha = rz / torch.clamp(torch.dot(p.flatten(), ap.flatten()),
-                                 min=1e-30)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = precond(r)
-        rz_new = torch.dot(r.flatten(), z.flatten())
-        beta = rz_new / torch.clamp(rz, min=1e-30)
-        p = z + beta * p
-        rz = rz_new
-        k += 1
-    return CGResult(x=x, iters=k, residual=torch.linalg.norm(r) / b_norm)
+        alpha = per_case(rz / torch.clamp(_dot(p, ap), min=1e-30))
+        x_new = x + alpha * p
+        r_new = r - alpha * ap
+        z = precond(r_new)
+        rz_new = _dot(r_new, z)
+        beta = per_case(rz_new / torch.clamp(rz, min=1e-30))
+        p_new = z + beta * p
+        x, r, p, rz = _keep(active, (x_new, r_new, p_new, rz_new),
+                            (x, r, p, rz))
+        k += active
+    return CGResult(x=x, iters=_iters(k), residual=_norm(r) / b_norm)

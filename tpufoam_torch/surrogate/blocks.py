@@ -2,10 +2,19 @@
 
 The grid is cut into S x S blocks with overlap (right-to-left within a row,
 an extra clamped leftmost block, an extra bottom row anchored to the
-domain bottom). The surrogate predicts per-block zero-mean pressure;
-`assemble_lstsq` reconstructs the global field: per-block offsets solved
-in closed form from all pairwise overlap mismatches (a small SPD system),
-then smooth cosine-window blending.
+domain bottom). The surrogate predicts per-block zero-mean pressure; two
+stitchers reconstruct the global field:
+
+  assemble_scan   the reference's sequential raster corrector (each block
+                  offset from its already-corrected left and upper
+                  neighbours), then overwrite placement in raster order;
+  assemble_lstsq  per-block offsets solved in closed form from all
+                  pairwise overlap mismatches (a small SPD system), then
+                  smooth cosine-window blending.
+
+Both end with the global outlet anchor. Every device operation here is
+deterministic (no atomic accumulation), so a prediction repeats bit for
+bit.
 """
 
 from __future__ import annotations
@@ -183,8 +192,8 @@ def _masked_mean(x: torch.Tensor, m: torch.Tensor, dims):
 
 def _strip_means(layout: BlockLayout, blocks: torch.Tensor,
                  masks: torch.Tensor) -> dict:
-    """Masked means (and fluid counts) of every overlap strip the offset
-    solve compares, vectorized over blocks."""
+    """Masked means (and fluid counts) of every overlap strip the
+    stitchers compare, vectorized over blocks."""
     o, s, p_i, izl = layout.overlap, layout.size, layout.p_i, layout.izl
     izl = min(izl, s)
     m = (masks != 0).to(blocks.dtype)
@@ -194,6 +203,7 @@ def _strip_means(layout: BlockLayout, blocks: torch.Tensor,
         return _masked_mean(blocks[:, sl_y, sl_x], m[:, sl_y, sl_x], dims)
 
     out = {
+        "right_col": mm(slice(None), slice(-1, None)),   # outlet anchor
         "right_o": mm(slice(None), slice(-o, None)),
         "left_o": mm(slice(None), slice(0, o)),
         "right_izl": mm(slice(None), slice(-izl, None)),
@@ -204,7 +214,99 @@ def _strip_means(layout: BlockLayout, blocks: torch.Tensor,
     if layout.has_extra_row:
         out["bot_pi"] = mm(slice(-(s - p_i), None), slice(None))
         out["excl_pi"] = mm(slice(0, s - p_i), slice(None))
+        # fluid fraction of the strip itself (o * s cells), as the JAX
+        # package normalizes it (see its stitch_offsets_scan)
+        out["up_frac"] = m[:, -p_i - o:-p_i, :].sum(dim=dims) / float(o * s)
     return out
+
+
+def stitch_offsets_scan(layout: BlockLayout, blocks: torch.Tensor,
+                        masks: torch.Tensor,
+                        ref_bc: float = 0.0) -> torch.Tensor:
+    """Per-block additive corrections by the reference's sequential raster
+    corrector: the JAX package's lax.scan over blocks, here a loop over
+    the blocks in the same order, with the same two deviations from the
+    reference (the full-overlap strip for the last row's rightmost block,
+    and the up-strip fluid fraction normalized by the strip's size).
+
+    The strip means are taken on the blocks' device; the recurrence, a
+    few float32 scalar operations per block, runs on a host copy of them.
+    Returns corr (N,) such that corrected block k = blocks[k] - corr[k]."""
+    sm = _strip_means(layout, blocks, masks)
+    n_x, n_y = layout.n_x, layout.n_y
+    last_row_i = n_y + 1 if layout.has_extra_row else -1
+    names = ("right_col", "right_o", "left_o", "right_izl", "left_izl",
+             "top_o", "bot_o")
+    stats = [sm[k][0] for k in names]
+    zero = torch.zeros_like(stats[0])
+    if layout.has_extra_row:
+        stats += [sm["bot_pi"][0], sm["excl_pi"][0], sm["up_frac"]]
+    else:
+        stats += [zero, zero, zero]
+    x = dict(zip(names + ("bot_pi", "excl_pi", "up_frac"),
+                 torch.stack(stats).to(torch.float32).cpu()))
+    zero = torch.zeros((), dtype=torch.float32)
+
+    bc_ups = [zero] * (n_x + 1)   # upward overlap mean stored per column
+    bc_set = [False] * (n_x + 1)
+    old_left_o = old_left_izl = zero
+    corr = []
+    for k in range(layout.n_blocks):
+        i, j = layout.idx_i[k], layout.idx_j[k]
+
+        def g(name, k=k):
+            return x[name][k]
+
+        side = (g("right_izl") - old_left_izl if j == 0
+                else g("right_o") - old_left_o)
+        if i == 0:                              # first row
+            c = g("right_col") - ref_bc if k == 0 and j != 0 else side
+        elif i == last_row_i:                   # extra bottom row
+            c = g("excl_pi") - bc_ups[j]
+            if j != n_x:
+                c = torch.where(g("up_frac") < 0.1, side, c)
+        elif bc_set[j] or j == n_x:             # middle rows
+            c = g("top_o") - bc_ups[j]
+        else:
+            c = side
+        if i != last_row_i:
+            bc_ups[j] = (g("bot_pi") if i == n_y else g("bot_o")) - c
+            bc_set[j] = True
+        old_left_o = g("left_o") - c
+        old_left_izl = g("left_izl") - c
+        corr.append(c)
+    return torch.stack(corr).to(device=blocks.device, dtype=blocks.dtype)
+
+
+def _place_blocks(layout: BlockLayout, blocks: torch.Tensor) -> torch.Tensor:
+    """Overwrite placement in raster order: later blocks win the overlap;
+    last-row blocks contribute only their bottom p_i rows."""
+    s, p_i = layout.size, layout.p_i
+    last_row_i = layout.n_y + 1 if layout.has_extra_row else -1
+    result = torch.zeros((layout.ny, layout.nx), dtype=blocks.dtype,
+                         device=blocks.device)
+    for k in range(layout.n_blocks):
+        y0, x0 = layout.y0s[k], layout.x0s[k]
+        if layout.idx_i[k] == last_row_i:
+            result[y0 + s - p_i:y0 + s, x0:x0 + s] = blocks[k, s - p_i:, :]
+        else:
+            result[y0:y0 + s, x0:x0 + s] = blocks[k]
+    return result
+
+
+def _outlet_anchor(result: torch.Tensor) -> torch.Tensor:
+    """Shift the field so that the pressure extrapolated to the outlet
+    face, (3 p[-1] - p[-2]) / 2 averaged over rows, is zero."""
+    return result - torch.mean(3.0 * result[:, -1] - result[:, -2]) / 3.0
+
+
+def assemble_scan(layout: BlockLayout, blocks: torch.Tensor,
+                  masks: torch.Tensor, ref_bc: float = 0.0) -> torch.Tensor:
+    """The reference's reconstruction: sequential corrections, overwrite
+    placement and the global outlet anchor (the JAX package's default
+    stitch; its optional Gaussian filter is not ported)."""
+    corr = stitch_offsets_scan(layout, blocks, masks, ref_bc)
+    return _outlet_anchor(_place_blocks(layout, blocks - corr[:, None, None]))
 
 
 def _neighbor_pairs(layout: BlockLayout):
@@ -233,6 +335,35 @@ def _neighbor_pairs(layout: BlockLayout):
     return pairs
 
 
+@functools.lru_cache(maxsize=16)
+def _pair_groups(layout: BlockLayout):
+    """The neighbour pairs grouped by the strips they compare: a list of
+    (strip of a, strip of b, a's blocks, b's blocks), and the
+    concatenated (ia, ib) in that order."""
+    pairs = _neighbor_pairs(layout)
+    groups = []
+    for sa, sb in sorted({(p[2], p[3]) for p in pairs}):
+        ka = np.asarray([p[0] for p in pairs if (p[2], p[3]) == (sa, sb)])
+        kb = np.asarray([p[1] for p in pairs if (p[2], p[3]) == (sa, sb)])
+        groups.append((sa, sb, ka, kb))
+    return (groups, np.concatenate([g[2] for g in groups]),
+            np.concatenate([g[3] for g in groups]))
+
+
+@functools.lru_cache(maxsize=16)
+def _incidence(layout: BlockLayout) -> np.ndarray:
+    """(n, d) indices into the 2P + 1 signed pair terms [w d, -w d, 0]:
+    the pairs block k is the first of, then the pairs it is the second
+    of, padded with the zero term. d, a block's most pairs, is at most 4."""
+    _, ia, ib = _pair_groups(layout)
+    n_pairs = len(ia)
+    rows = [[p for p in range(n_pairs) if ia[p] == k]
+            + [n_pairs + p for p in range(n_pairs) if ib[p] == k]
+            for k in range(layout.n_blocks)]
+    d = max(len(r) for r in rows)
+    return np.asarray([r + [2 * n_pairs] * (d - len(r)) for r in rows])
+
+
 def _stitch_pair_system(layout: BlockLayout, blocks: torch.Tensor,
                         masks: torch.Tensor):
     """The pairwise overlap-mean constraint set (ia, ib, ws, diffs): block
@@ -240,23 +371,19 @@ def _stitch_pair_system(layout: BlockLayout, blocks: torch.Tensor,
     mismatches. ws depends only on `masks`; `blocks` enter only through
     `diffs`."""
     sm = _strip_means(layout, blocks, masks)
-    pairs = _neighbor_pairs(layout)
+    groups, ia_np, ib_np = _pair_groups(layout)
     dev = blocks.device
 
-    ia_l, ib_l, mean_a_l, cnt_a_l, mean_b_l, cnt_b_l = [], [], [], [], [], []
-    for sa, sb in sorted({(p[2], p[3]) for p in pairs}):
-        ka = np.asarray([p[0] for p in pairs if (p[2], p[3]) == (sa, sb)])
-        kb = np.asarray([p[1] for p in pairs if (p[2], p[3]) == (sa, sb)])
-        ia_l.append(ka)
-        ib_l.append(kb)
+    mean_a_l, cnt_a_l, mean_b_l, cnt_b_l = [], [], [], []
+    for sa, sb, ka, kb in groups:
         ka_t = torch.as_tensor(ka, device=dev)
         kb_t = torch.as_tensor(kb, device=dev)
         mean_a_l.append(sm[sa][0][ka_t])
         cnt_a_l.append(sm[sa][1][ka_t])
         mean_b_l.append(sm[sb][0][kb_t])
         cnt_b_l.append(sm[sb][1][kb_t])
-    ia = torch.as_tensor(np.concatenate(ia_l), device=dev)
-    ib = torch.as_tensor(np.concatenate(ib_l), device=dev)
+    ia = torch.as_tensor(ia_np, device=dev)
+    ib = torch.as_tensor(ib_np, device=dev)
     diffs = torch.cat(mean_a_l) - torch.cat(mean_b_l)
     ws = torch.minimum(torch.cat(cnt_a_l), torch.cat(cnt_b_l)) \
         / float(layout.size**2)
@@ -299,12 +426,18 @@ def stitch_offsets_lstsq(layout: BlockLayout, blocks: torch.Tensor,
         min_c  sum_pairs w_ab ((m_a - c_a) - (m_b - c_b))^2
 
     solved with one dense solve of the normal equations, or one matvec
-    with the host-precomputed `solve_op`."""
+    with the host-precomputed `solve_op`. The right-hand side gathers each
+    block's at most 4 pair terms and adds them in a fixed order (an
+    index_add_ would accumulate them atomically, in no fixed order, on a
+    CUDA tensor)."""
     n = layout.n_blocks
     ia, ib, ws, diffs = _stitch_pair_system(layout, blocks, masks)
-    rhs = torch.zeros(n, dtype=blocks.dtype, device=blocks.device)
-    rhs.index_add_(0, ia, ws * diffs)
-    rhs.index_add_(0, ib, -ws * diffs)
+    wd = ws * diffs
+    terms = torch.cat([wd, -wd, torch.zeros_like(wd[:1])])
+    g = terms[torch.as_tensor(_incidence(layout), device=blocks.device)]
+    rhs = g[:, 0]
+    for j in range(1, g.shape[1]):
+        rhs = rhs + g[:, j]
     if solve_op is not None:
         c = solve_op @ rhs
     else:
@@ -357,5 +490,4 @@ def assemble_lstsq(layout: BlockLayout, blocks: torch.Tensor,
         v = F.pad(v, (0, gs - s, 0, gs - s))
         v = torch.movedim(v, 1, 2).reshape(my * gs, mx * gs)
         num[ys_g[0]:ys_g[0] + my * gs, xs_g[0]:xs_g[0] + mx * gs] += v
-    result = num[:layout.ny, :layout.nx] * inv_den
-    return result - torch.mean(3.0 * result[:, -1] - result[:, -2]) / 3.0
+    return _outlet_anchor(num[:layout.ny, :layout.nx] * inv_den)

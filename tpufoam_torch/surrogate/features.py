@@ -4,8 +4,9 @@ Only the main path's family is ported so far:
 
   deltaU_deltaP : [dUx/Um, dUy/Um, SDF] -> dp/Um^2   (per-block zero-mean)
 
-with Um the instantaneous max |U|. The input builder maps (ny, nx) fields
-to (ny, nx, C); the dataset's max-abs scaling lives in the artifact bundle.
+with Um the instantaneous max |U|. The input function maps ([B,] ny, nx)
+fields to ([B,] ny, nx, C), with one Um per case; the dataset's max-abs
+scaling lives in the artifact bundle.
 Training targets are not ported.
 """
 
@@ -16,11 +17,13 @@ from typing import Callable
 
 import torch
 
-from ..fv.case import Case
+from ..fv.case import per_case
 
 
 def u_max_norm(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.max(torch.sqrt(u * u + v * v)), min=1e-12)
+    """max |U| per case: () for (ny, nx) fields, (B,) for (B, ny, nx)."""
+    return torch.clamp(torch.amax(torch.sqrt(u * u + v * v), dim=(-2, -1)),
+                       min=1e-12)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +39,7 @@ class FamilyConfig:
 def _in_deltas(case, fields):
     du = fields["u"] - fields["u_prev"]
     dv = fields["v"] - fields["v_prev"]
-    um = u_max_norm(fields["u"], fields["v"])
+    um = per_case(u_max_norm(fields["u"], fields["v"]))
     return torch.stack([du / um, dv / um, case.sdf], dim=-1)
 
 

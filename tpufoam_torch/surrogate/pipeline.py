@@ -3,9 +3,9 @@
 `make_predictor` builds `predict(case, p_prev, aux) -> p` with the call
 chain: feature grid -> max-abs rescale -> overlapping blocks -> PCA encode
 -> standardize -> MLP -> de-standardize -> PCA decode -> per-block
-zero-mean -> least-squares stitch -> outlet anchor -> redimensionalize by
-max_abs_p * U_max^2 -> near-wall guard + non-finite fallback to the
-previous pressure.
+zero-mean -> stitch (the reference's sequential scan, or least squares)
+-> outlet anchor -> redimensionalize by max_abs_p * U_max^2 -> near-wall
+guard + non-finite fallback to the previous pressure.
 """
 
 from __future__ import annotations
@@ -19,11 +19,14 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_DEVICE
-from ..fv.case import Case
+from ..fv.case import Case, fleet_member
 from ..models.mlp import ModelDef, apply_model, params_from_numpy
-from .blocks import (BlockLayout, assemble_lstsq, block_zero_mean,
-                     build_block_layout, extract_blocks, stitch_solve_op)
+from .blocks import (BlockLayout, assemble_lstsq, assemble_scan,
+                     block_zero_mean, build_block_layout, extract_blocks,
+                     stitch_solve_op)
 from .features import FAMILIES, u_max_norm
+
+STITCHES = ("scan", "lstsq")
 from .pca import PCAModel
 
 
@@ -136,22 +139,44 @@ class Predictor:
 
     The least-squares stitch operator depends only on the case's masks, so
     it is inverted once per case on the host: `bind(case)` returns a
-    closure that holds it. `calls` counts predictions."""
+    closure that holds it. The scan stitch has no operator.
+
+    A stacked fleet case (piso.batched) is predicted case by case, each as
+    if alone, so that every case's prediction equals its single-case
+    prediction bit for bit: the hybrid step's bf16 multigrid turns a
+    one-ulp change of the warm start into a percent-level change of the
+    step, and B x N blocks through one matrix product (or one reduction)
+    round differently from N. `calls` counts calls, one per lockstep."""
 
     NEAR_WALL_DIST = 0.05   # keep p_prev where the SDF is below this
 
-    def __init__(self, bundle: SurrogateBundle):
+    def __init__(self, bundle: SurrogateBundle, stitch: str = "scan"):
         self.bundle = bundle
         self.family = FAMILIES[bundle.family]
+        self.stitch = stitch
         self.calls = 0
         self._ops: "OrderedDict[int, tuple]" = OrderedDict()
 
+    def _layout(self, case: Case) -> BlockLayout:
+        return build_block_layout(case.grid.ny, case.grid.nx,
+                                  self.bundle.block_size,
+                                  self.bundle.overlap_ratio)
+
     def _predict(self, case: Case, p_prev: torch.Tensor, aux: dict,
-                 solve_op: torch.Tensor) -> torch.Tensor:
+                 solve_ops: list) -> torch.Tensor:
         self.calls += 1
+        if p_prev.dim() == 2:
+            return self._predict_case(case, p_prev, aux, solve_ops[0])
+        return torch.stack([
+            self._predict_case(fleet_member(case, k), p_prev[k],
+                               {n: a[k] for n, a in aux.items()},
+                               solve_ops[k])
+            for k in range(p_prev.shape[0])])
+
+    def _predict_case(self, case: Case, p_prev: torch.Tensor, aux: dict,
+                      solve_op: torch.Tensor | None) -> torch.Tensor:
         bundle, family = self.bundle, self.family
-        layout = build_block_layout(case.grid.ny, case.grid.nx,
-                                    bundle.block_size, bundle.overlap_ratio)
+        layout = self._layout(case)
         fields = dict(aux)
         fields.setdefault("p", p_prev)
         um = u_max_norm(fields["u"], fields["v"])
@@ -159,9 +184,12 @@ class Predictor:
         x_grid = family.build_inputs(case, fields)
         mask = case.sdf
         y_blocks = surrogate_blocks_forward(bundle, layout, x_grid, mask)
-        field = assemble_lstsq(layout, y_blocks[..., 0],
-                               extract_blocks(layout, mask),
-                               solve_op=solve_op)
+        mb = extract_blocks(layout, mask)
+        if self.stitch == "scan":
+            field = assemble_scan(layout, y_blocks[..., 0], mb)
+        else:
+            field = assemble_lstsq(layout, y_blocks[..., 0], mb,
+                                   solve_op=solve_op)
 
         # redimensionalize: p * max_abs_p * U_max^2
         field = field * bundle.maxs_out[0] * um**2
@@ -173,24 +201,30 @@ class Predictor:
         return torch.where(torch.isfinite(p_new), p_new, p_prev)
 
     def bind(self, case: Case):
-        """The predictor for this case, with its stitch operator resolved;
-        the same case gives the same operator."""
-        key = id(case.sdf)
-        hit = self._ops.get(key)
-        if hit is None or hit[0] is not case.sdf:
-            layout = build_block_layout(case.grid.ny, case.grid.nx,
-                                        self.bundle.block_size,
-                                        self.bundle.overlap_ratio)
-            hit = (case.sdf, stitch_solve_op(
-                layout, extract_blocks(layout, case.sdf)))
-            self._ops[key] = hit
-            while len(self._ops) > 8:
-                self._ops.popitem(last=False)
-        op = hit[1]
+        """The predictor for this case, with its stitch operator resolved
+        (one per case of a stacked fleet); the same case gives the same
+        operators. JAX's vmapped predictor solves the offset system
+        in-graph instead: the same least-squares solution, up to
+        rounding."""
+        members = ([case] if case.sdf.dim() == 2 else
+                   [fleet_member(case, k) for k in range(case.sdf.shape[0])])
+        if self.stitch == "scan":
+            ops = [None] * len(members)
+        else:
+            key = id(case.sdf)
+            hit = self._ops.get(key)
+            if hit is None or hit[0] is not case.sdf:
+                layout = self._layout(case)
+                hit = (case.sdf, [stitch_solve_op(
+                    layout, extract_blocks(layout, m.sdf)) for m in members])
+                self._ops[key] = hit
+                while len(self._ops) > 8:
+                    self._ops.popitem(last=False)
+            ops = hit[1]
 
         def bound(case: Case, p_prev: torch.Tensor,
                   aux: dict) -> torch.Tensor:
-            return self._predict(case, p_prev, aux, op)
+            return self._predict(case, p_prev, aux, ops)
 
         return bound
 
@@ -200,12 +234,13 @@ class Predictor:
 
 
 def make_predictor(bundle: SurrogateBundle,
-                   stitch: str = "lstsq") -> Predictor:
-    """Build the surrogate pressure predictor. Only the least-squares
-    stitch (stitch='lstsq') and the deltaU_deltaP family are ported."""
-    if stitch != "lstsq":
-        raise NotImplementedError(f"stitch={stitch!r} is not ported; "
-                                  "use 'lstsq'")
+                   stitch: str = "scan") -> Predictor:
+    """Build the surrogate pressure predictor. stitch='scan' reproduces the
+    reference's sequential corrector; 'lstsq' takes the least-squares
+    offsets and blended placement. Only the deltaU_deltaP family is
+    ported."""
+    if stitch not in STITCHES:
+        raise ValueError(f"stitch={stitch!r} not in {STITCHES}")
     if bundle.family not in FAMILIES:
         raise NotImplementedError(f"family {bundle.family!r} is not ported")
-    return Predictor(bundle)
+    return Predictor(bundle, stitch)

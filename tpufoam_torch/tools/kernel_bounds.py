@@ -2,6 +2,7 @@
 every level of the multigrid hierarchy of the main path's grid.
 
     python -m tpufoam_torch.tools.kernel_bounds [--ny 512] [--nx 2048]
+        [--fleet 4]
 
 Each (ny, nx) operand is read once and each output written once, at the
 H100 SXM's published 3.35 TB/s; the operations (counted per cell and
@@ -10,8 +11,9 @@ sweep, at the sweeps each kernel runs on its path) go at the f32 rate,
 float32 registers. The bound is the larger of the two times. The pressure
 kernels are listed at each level of `build_hierarchy` that is not the
 coarsest (the coarsest level takes plain sweeps); the momentum kernel runs
-at the finest level only. Prints one JSON line. Runs anywhere; it
-measures nothing.
+at the finest level only, and its batched launch over a fleet of `--fleet`
+cases (piso.batched) moves that many planes in one launch. Prints one
+JSON line. Runs anywhere; it measures nothing.
 """
 
 from __future__ import annotations
@@ -53,33 +55,37 @@ def level_shapes(ny: int, nx: int, min_size: int = 8,
     return shapes
 
 
-def bound(name: str, shape, dtype: str) -> dict:
+def bound(name: str, shape, dtype: str, planes: int = 1) -> dict:
     n_in, n_out, per_sweep, once, sweeps = KERNELS[name]
-    cells = shape[0] * shape[1]
+    cells = planes * shape[0] * shape[1]
     n_bytes = (n_in + n_out) * cells * SIZES[dtype]
     n_ops = (per_sweep * sweeps[dtype] + once) * cells
     t_mem, t_ops = n_bytes / MEM_RATE, n_ops / F32_RATE
-    return {"shape": list(shape), "sweeps": sweeps[dtype], "bytes": n_bytes,
+    return {"shape": [planes, *shape] if planes > 1 else list(shape),
+            "sweeps": sweeps[dtype], "bytes": n_bytes,
             "bound_us": max(t_mem, t_ops) * 1e6,
             "bound_by": "bytes" if t_mem >= t_ops else "operations"}
 
 
-def bounds(ny: int, nx: int) -> dict:
+def bounds(ny: int, nx: int, fleet: int = 4) -> dict:
     shapes = level_shapes(ny, nx)
     out = {}
     for name, spec in KERNELS.items():
         on = shapes[:1] if name == "momentum_multisweep" else shapes[:-1]
         out[name] = {dt: [bound(name, s, dt) for s in on] for dt in spec[4]}
-    return {"levels": [list(s) for s in shapes], "kernels": out}
+    return {"levels": [list(s) for s in shapes], "kernels": out,
+            "fleet": {"cases": fleet, "momentum_multisweep": bound(
+                "momentum_multisweep", (ny, nx), "f32", planes=fleet)}}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ny", type=int, default=512)
     ap.add_argument("--nx", type=int, default=2048)
+    ap.add_argument("--fleet", type=int, default=4)
     args = ap.parse_args()
     print(json.dumps({"ny": args.ny, "nx": args.nx,
-                      **bounds(args.ny, args.nx)}))
+                      **bounds(args.ny, args.nx, args.fleet)}))
 
 
 if __name__ == "__main__":

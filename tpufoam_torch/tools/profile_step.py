@@ -1,20 +1,25 @@
 """Profile a PISO path at 512 x 2048 on one CUDA card.
 
     python -m tpufoam_torch.tools.profile_step [--backend mg|mgcg]
-        [--smoother plain|kernel|kernel-fused] [--steps 3] [--out DIR]
+        [--smoother plain|kernel|kernel-fused] [--fleet N] [--steps 3]
+        [--out DIR]
 
 `--backend mg` (the default) is the hybrid path: MGBackend(cycles=2,
-precision="bf16", smoother=...) with the sm_ref512 surrogate warm start,
-two warm-up steps from the impulsive start. `--backend mgcg` is the pure
-solver: MGCGBackend(rtol=1e-6, maxiter=60, smoother=...) with no
-surrogate, one warm-up step. Then `--steps` steps are traced with
-torch.profiler. Prints one JSON line: wall ms per step (host clock around
+precision="bf16", smoother=...) with the sm_ref512 surrogate warm start
+(lstsq stitch), two warm-up steps from the impulsive start. `--backend
+mgcg` is the pure solver: MGCGBackend(rtol=1e-6, maxiter=60,
+smoother=...) with no surrogate, one warm-up step. Both take the momentum
+kernel. `--fleet N` steps the first N cases of the fleet of
+scripts/bench_fleet_ab.py (cylinder 0.5, rectangle 0.4, triangle 0.45,
+ellipse 0.6) in lockstep through `run_piso_batched_eager` instead of the
+cylinder alone; a "step" is then one lockstep of all N cases. Then
+`--steps` steps are traced with torch.profiler. Prints one JSON line: wall ms per step (host clock around
 synchronised steps), device busy ms per step (the sum of kernel times),
 the device's idle share, the kernel launches, pressure solves (two
 correctors, plus the residual safeguard's rescue solves) and multigrid
 cycles per step, the launches per step of each hand-written kernel, and
 the kernels that take the most device time. Writes the full key_averages
-table to DIR/profile_step_<backend>_<smoother>.txt.
+table to DIR/profile_step_<backend>_<smoother>[_fleetN].txt.
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# scripts/bench_fleet_ab.py's four geometries (shape, obstacle size)
+FLEET = (("cylinder", 0.5), ("rectangle", 0.4), ("triangle", 0.45),
+         ("ellipse", 0.6))
 
 
 def main() -> None:
@@ -36,6 +44,8 @@ def main() -> None:
     ap.add_argument("--backend", choices=["mg", "mgcg"], default="mg")
     ap.add_argument("--smoother", default="plain",
                     choices=["plain", "kernel", "kernel-fused"])
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="step this many fleet cases in lockstep")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
     args = ap.parse_args()
@@ -47,6 +57,8 @@ def main() -> None:
     from ..core.geometry import channel_case_geometry
     from ..fv.case import build_channel_case, initial_flow
     from ..ops import momentum, stencil
+    from ..piso.batched import (run_piso_batched_eager, stack_cases,
+                                stack_flows)
     from ..piso.engine import PisoConfig, run_piso_eager
     from ..solvers import multigrid
     from ..solvers.backends import MGBackend, MGCGBackend
@@ -55,13 +67,21 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     ny, nx = 512, 2048
     delta = 2.0 / ny
-    geom = channel_case_geometry("cylinder", length=nx * delta, height=2.0,
-                                 obstacle_size=0.5, nu=8e-3)
-    case = build_channel_case(geom, delta=delta)
-    cfg = PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3)
+    geoms = FLEET[:args.fleet] if args.fleet else FLEET[:1]
+    cases = [build_channel_case(channel_case_geometry(
+        shape, length=nx * delta, height=2.0, obstacle_size=size, nu=8e-3),
+        delta=delta) for shape, size in geoms]
+    flow0 = [initial_flow(c, dt0=5e-4) for c in cases]
+    if args.fleet:
+        case, flow0, run = stack_cases(cases), stack_flows(flow0), \
+            run_piso_batched_eager
+    else:
+        case, flow0, run = cases[0], flow0[0], run_piso_eager
+    cfg = PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3,
+                     momentum_smoother="kernel")
     if args.backend == "mg":
         pred = make_predictor(SurrogateBundle.load(
-            os.path.join(ROOT, "artifacts", "sm_ref512")))
+            os.path.join(ROOT, "artifacts", "sm_ref512")), stitch="lstsq")
         solver, warm = MGBackend(cycles=2, precision="bf16",
                                  smoother=args.smoother), 2
     else:
@@ -77,8 +97,7 @@ def main() -> None:
         solves[0] += 1
         return solver(*a)
 
-    flow = run_piso_eager(case, initial_flow(case, dt0=5e-4), warm, cfg=cfg,
-                          backend=backend, sm_predict=pred)
+    flow = run(case, flow0, warm, cfg=cfg, backend=backend, sm_predict=pred)
     torch.cuda.synchronize()
     solves[0] = 0
     multigrid.v_cycle.cycles = 0
@@ -88,8 +107,8 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.time()
-        flow = run_piso_eager(case, flow, args.steps, cfg=cfg,
-                              backend=backend, sm_predict=pred)
+        flow = run(case, flow, args.steps, cfg=cfg, backend=backend,
+                   sm_predict=pred)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t) * 1e3 / args.steps
 
@@ -102,14 +121,15 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    name = f"profile_step_{args.backend}_{args.smoother}.txt"
+    name = f"profile_step_{args.backend}_{args.smoother}" \
+        + (f"_fleet{args.fleet}" if args.fleet else "") + ".txt"
     with open(os.path.join(args.out, name), "w") as f:
         f.write(f"{card}\n")
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
     busy_ms = dev_us / 1e3 / args.steps
     print(json.dumps({
         "card": card, "backend": args.backend, "smoother": args.smoother,
-        "steps": args.steps, "wall_ms_per_step": wall_ms,
+        "fleet": args.fleet, "steps": args.steps, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms if dev_us else "not measured",
         "device_idle_share": 1.0 - busy_ms / wall_ms if dev_us
         else "not measured",
