@@ -8,8 +8,7 @@ Phases, each printing one JSON line with its elapsed seconds:
   build   compile every CUDA source (one nvcc call each, all at once) and
           print ptxas' registers, shared memory and spills
   kernel  the momentum kernel against its plain version at the main
-          path's shape, on random structured operands; its time from CUDA
-          events
+          path's shape, on random structured operands; its time
   case    the 512 x 2048 cylinder channel and the sm_ref512 surrogate
   kernel-real  the momentum kernel on the operands of the case's first step
   kernel-pressure  each pressure-stencil kernel (jacobi_multisweep,
@@ -18,6 +17,20 @@ Phases, each printing one JSON line with its elapsed seconds:
           hierarchy, on the case's first-corrector operator, and on random
           operands at 512 x 2048 with the most sweeps it takes; its time at
           the finest level
+  case-st  the Schaefer-Turek 2D-2 case of artifacts/validation/
+          st_2d2_hybrid_d62_auto.json (256 x 1375) and the sm_st128
+          surrogate; its SDF on the card against the CPU's (bit for bit)
+  kernel-matvec  the stencil_matvec kernel against its plain version at
+          every level of both multigrid hierarchies (512 x 2048 .. 8 x 32
+          and 256 x 1375 .. 8 x 43, each on its case's first-corrector
+          operator) and on random operands of odd shapes, in float32 and
+          bfloat16, one case and a (4, ny, nx) stack: bit for bit; its
+          time at both finest levels, beside the library's sparse
+          product (CSR) of the same operator in float32
+  kernel-sweep  the jacobi_sweep kernel (one sweep a launch) against its
+          plain version and against the jacobi_multisweep kernel, iters 1,
+          2 and 8, float32 and bfloat16, at the same levels: bit for bit;
+          its time per sweep
   step    the hybrid PISO main path (run_piso_eager, MG bf16 backend with
           the plain smoother, sm_ref512 warm start) for a few steps
   step-fused  the same path with MGBackend(smoother="kernel-fused")
@@ -27,6 +40,12 @@ Phases, each printing one JSON line with its elapsed seconds:
           kernel, from the same state
   parity-pressure  one step with each kernel smoother against one with
           the plain smoother, from the same state
+  step-st the Schaefer-Turek hybrid path (BDF2, AutoBackend, sm_st128,
+          sm_trust 1.0, the momentum kernel) for 2 + 10 steps, with the
+          drag and lift after each
+  st-series  run_force_series to t = 0.01, and again to 0.005, saved,
+          loaded and continued to 0.01: the two equal bit for bit; and the
+          2D-3 ramp from rest, landing on t_end
   kernel-fleet  the momentum kernel's batched launch on (4, 512, 2048)
           random structured operands, against its plain version and
           against four single-case launches (bit for bit); its time
@@ -39,9 +58,15 @@ Phases, each printing one JSON line with its elapsed seconds:
           same state
   step-fleet-mgcg  run_piso_batched with its default MGCGBackend(rtol=
           1e-5) on four 256 x 1024 cases: per-case CG iterations
+A kernel's time is its device time from torch.profiler with the L2
+cache flushed before each call (ms, plain_ms: the plain version's kernels
+summed) beside the per-call span on the
+stream from CUDA events (call_ms, plain_call_ms), which holds the host's
+cost of each call. Step times are CUDA events around the steps.
 Each step phase sets every launch counter to 0 just before its timed
 steps and holds the counts to the steps, predictions and multigrid cycles
-it ran.
+it ran. On the card every pressure matvec of every path is a launch of
+the stencil_matvec kernel.
 
 It imports torch, numpy and tpufoam_torch only. It exits non-zero without
 a result line when there is no CUDA device or any check fails; otherwise
@@ -64,6 +89,22 @@ NY, NX = 512, 2048            # the main path's grid (bench.py)
 SWEEPS = 8
 N_WARM, N_STEPS = 2, 10
 N_MGCG = 3                    # pure-solver steps from the impulsive start
+# the Schaefer-Turek 2D-2 hybrid run of artifacts/validation/
+# st_2d2_hybrid_d62_auto.json (scripts/validate_schafer_turek.py): D/delta
+# 62.5, 256 x 1375; its PisoConfig and AutoBackend(cycles=2, tau=0.05).
+# Its maxCo is 0.4; the Courant gate holds after an even number of steps
+# from the impulsive start (see FLEET below), so 2 + 10.
+ST_DELTA = 0.0016
+ST_CFG = dict(max_co=0.4, max_dt=5e-3, ddt="backward",
+              momentum_smoother="kernel", sm_safeguard=0.5,
+              sm_safeguard_extra=3, sm_trust=1.0)
+ST_DT0 = 2e-4
+N_ST_WARM, N_ST_STEPS = 2, 10
+ST_T_END, ST_T_SPLIT, ST_SAMPLE = 0.01, 0.005, 10
+ST_RAMP_T_END = 0.004
+# odd shapes of random operands for the single-pass kernels
+ODD_SHAPES = ((37, 70), (1, 70), (43, 8), (255, 1377))
+SWEEP_ITERS = (1, 2, 8)
 # the fleet of scripts/bench_fleet_ab.py: (shape, obstacle size) at
 # 512 x 2048, delta 2/512, nu 8e-3; its locksteps; the MGCG fleet's grid.
 # In the impulsive start the damped dt control (setDeltaT) leaves the
@@ -145,8 +186,27 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def time_ms(fn, n, torch):
-    """Mean ms per call of fn over n calls, from CUDA events, warmed."""
+def time_ms(fn, n, torch, flush):
+    """(device ms, call ms) per call of fn over n calls, warmed. Device ms
+    is the sum of the times of the kernels fn launches, from
+    torch.profiler, with `flush` run before each call so that fn finds
+    the 50 MB L2 cache cold, as the bound assumes (the flush's kernel,
+    the only bitwise-not, is left out of the sum by its name; taking its
+    name from a separate profile of the flush once let its ~0.07 ms into
+    the sum). Call ms is the span on the stream
+    from CUDA events, without flushes, which also holds the host's cost of
+    issuing each call; for a kernel of a few microseconds that cost is
+    most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(body):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -157,7 +217,24 @@ def time_ms(fn, n, torch):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
+
+    def cold():
+        for _ in range(n):
+            flush()
+            fn()
+
+    times = device_us(cold)
+    dev_us = sum(t for k, t in times.items() if "bitwise_not" not in k)
+    check(dev_us > 0, "torch.profiler recorded no device time")
+    return dev_us / 1e3 / n, a.elapsed_time(b) / n
+
+
+def timings(kernel_fn, plain_fn, n_kernel, n_plain, torch, flush):
+    """The kernel's and its plain version's times (see time_ms)."""
+    ms, call_ms = time_ms(kernel_fn, n_kernel, torch, flush)
+    plain_ms, plain_call_ms = time_ms(plain_fn, n_plain, torch, flush)
+    return dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms,
+                plain_call_ms=plain_call_ms)
 
 
 def compare(out, ref):
@@ -184,18 +261,23 @@ def main() -> int:
     import numpy as np
 
     from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.eval import benchmark as bench
     from tpufoam_torch.fv.case import build_channel_case, initial_flow
+    from tpufoam_torch.fv.forces import obstacle_force
     from tpufoam_torch.fv.momentum import momentum_coeffs
     from tpufoam_torch.fv.pressure import PressureCoeffs, pressure_gradient
     from tpufoam_torch.ops import build
     from tpufoam_torch.ops import stencil as st
     from tpufoam_torch.ops.momentum import (momentum_multisweep,
                                             momentum_multisweep_plain)
+    from tpufoam_torch.piso import engine
     from tpufoam_torch.piso.engine import (PisoConfig, continuity_error,
                                            courant_number, piso_step,
                                            run_piso_eager)
+    from tpufoam_torch.solvers import backends as backends_mod
     from tpufoam_torch.solvers import multigrid as mg
-    from tpufoam_torch.solvers.backends import MGBackend, MGCGBackend
+    from tpufoam_torch.solvers.backends import (AutoBackend, MGBackend,
+                                                MGCGBackend)
     from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
                                                   make_predictor)
 
@@ -203,6 +285,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    # writing 96 MiB evicts the card's 50 MB L2 cache before each timed call
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev).bitwise_not_
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -211,6 +295,8 @@ def main() -> int:
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     counters = {"momentum_multisweep": momentum_multisweep,
+                "stencil_matvec": st.stencil_matvec,
+                "jacobi_sweep": st.jacobi_sweep,
                 "jacobi_multisweep": st.jacobi_multisweep,
                 "smooth_residual": st.smooth_residual,
                 "corr_smooth": st.corr_smooth}
@@ -260,17 +346,16 @@ def main() -> int:
     err_rand, rel_rand = compare(out, ref)
     check(rel_rand <= KERNEL_REL_TOL,
           f"kernel vs plain (random): rel err {rel_rand:.3e}")
-    ms = time_ms(lambda: momentum_multisweep(*ops_rand, sweeps=SWEEPS), 200,
-                 torch)
-    plain_ms = time_ms(lambda: momentum_multisweep_plain(*ops_rand,
-                                                         sweeps=SWEEPS),
-                       20, torch)
+    t_rand = timings(
+        lambda: momentum_multisweep(*ops_rand, sweeps=SWEEPS),
+        lambda: momentum_multisweep_plain(*ops_rand, sweeps=SWEEPS), 200, 20,
+        torch, flush)
     n_cells = NY * NX
     bound_ms, bound_by = bound((9 + 2) * n_cells * 4,
                                SWEEPS * 2 * 9 * n_cells)
-    say("kernel", max_abs_err=err_rand, rel_err=rel_rand, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        share_of_bound=bound_ms / ms)
+    say("kernel", max_abs_err=err_rand, rel_err=rel_rand, **t_rand,
+        bound_ms=bound_ms, bound_by=bound_by,
+        share_of_bound=bound_ms / t_rand["ms"])
 
     # ---- the main path's case and surrogate -----------------------------
     delta = 2.0 / NY
@@ -295,7 +380,7 @@ def main() -> int:
     gpx, gpy = pressure_gradient(case, p)
     volc = case.alpha * (case.grid.dx * case.grid.dy)
     coef = momentum_coeffs(case, flow0.phi_x, flow0.phi_y, flow0.u, flow0.v,
-                           flow0.dt)
+                           flow0.dt, convection=cfg.convection)
     ops_real = (coef.a_e, coef.a_w, coef.a_n, coef.a_s,
                 case.fluid / coef.a_p, coef.b_u - gpx * volc,
                 coef.b_v - gpy * volc, flow0.u, flow0.v)
@@ -305,13 +390,12 @@ def main() -> int:
     err_real, rel_real = compare(out, ref)
     check(rel_real <= KERNEL_REL_TOL,
           f"kernel vs plain (first step): rel err {rel_real:.3e}")
-    ms_real = time_ms(lambda: momentum_multisweep(*ops_real, sweeps=SWEEPS),
-                      200, torch)
-    plain_ms_real = time_ms(
-        lambda: momentum_multisweep_plain(*ops_real, sweeps=SWEEPS), 20, torch)
-    say("kernel-real", max_abs_err=err_real, rel_err=rel_real, ms=ms_real,
-        plain_ms=plain_ms_real, bound_ms=bound_ms,
-        share_of_bound=bound_ms / ms_real)
+    t_real = timings(
+        lambda: momentum_multisweep(*ops_real, sweeps=SWEEPS),
+        lambda: momentum_multisweep_plain(*ops_real, sweeps=SWEEPS), 200, 20,
+        torch, flush)
+    say("kernel-real", max_abs_err=err_real, rel_err=rel_real, **t_real,
+        bound_ms=bound_ms, share_of_bound=bound_ms / t_real["ms"])
 
     # ---- pressure-stencil kernels vs plain -------------------------------
     # the first corrector's pressure system of the main path's first step
@@ -390,22 +474,200 @@ def main() -> int:
             row["max_abs_err"] = max(row["max_abs_err"], err_r)
             # time at the finest level, with this dtype's sweeps
             ops = level_operands(*fine[0], dt)
-            k_ms = time_ms(lambda: stencil_call(name, *ops, iters), 200,
-                           torch)
-            p_ms = time_ms(lambda: stencil_call(name, *ops, iters, True),
-                           20, torch)
+            t_k = timings(lambda: stencil_call(name, *ops, iters),
+                          lambda: stencil_call(name, *ops, iters, True), 200,
+                          20, torch, flush)
             size = torch.tensor([], dtype=dt).element_size()
             b_ms, b_by = bound((n_in + n_out) * n_cells * size,
                                (ops_sweep * iters + ops_once) * n_cells)
             say("kernel-pressure", kernel=name, dtype=prec, iters=iters,
                 levels=per_level, random={"iters": top, "max_abs_err": err_r,
                                           "rel_err": rel_r},
-                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                share_of_bound=b_ms / k_ms)
+                **t_k, bound_ms=b_ms, bound_by=b_by,
+                share_of_bound=b_ms / t_k["ms"])
             if prec == PATH_DTYPE[name]:
-                row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                           bound_by=b_by)
+                row.update(ms=t_k["ms"], plain_ms=t_k["plain_ms"],
+                           bound_ms=b_ms, bound_by=b_by)
         stencil_rows[name] = row
+
+    # ---- the Schaefer-Turek case and its first pressure system -----------
+    t = time.time()
+    case_st, u_mean = bench.schafer_turek_case("2D-2", delta=ST_DELTA,
+                                               device=dev)
+    torch.cuda.synchronize()
+    t_case_st = time.time() - t
+    # the surrogate's near-wall guard compares the SDF with 0.05 on rows
+    # that sit 0.05 from a wall, so the card's SDF must be the CPU's (which
+    # the CPU tests hold to the JAX package's) bit for bit
+    t = time.time()
+    sdf_cpu = bench.schafer_turek_case("2D-2", delta=ST_DELTA,
+                                       device="cpu")[0].sdf
+    t_sdf_cpu = time.time() - t
+    sdf_equal = torch.equal(case_st.sdf.cpu(), sdf_cpu)
+    check(sdf_equal, "case-st: the card's SDF differs from the CPU's")
+    bundle_st = SurrogateBundle.load(os.path.join(ROOT, "artifacts",
+                                                  "sm_st128"), device=dev)
+    predictor_st = make_predictor(bundle_st, stitch="lstsq")
+    cfg_st = PisoConfig(**ST_CFG)
+    auto_be = AutoBackend(cycles=2, tau=0.05)
+    flow_st0 = initial_flow(case_st, dt0=ST_DT0)
+    first_st = []
+
+    def capture_st(case_, pcoef_, rhs_, p_prev_, aux_):
+        if not first_st:
+            first_st.append((pcoef_, rhs_))
+        return auto_be(case_, pcoef_, rhs_, p_prev_, aux_)
+
+    with torch.no_grad():
+        piso_step(case_st, flow_st0, cfg_st, capture_st,
+                  predictor_st.bind(case_st))
+    say("case-st", shape=list(case_st.grid.shape), u_mean=u_mean,
+        seconds=round(t_case_st, 3), cpu_case_seconds=round(t_sdf_cpu, 3),
+        sdf_equal_cpu=sdf_equal, fluid_cells=int(case_st.fluid.sum()))
+
+    def hierarchy(pcoef_, rhs_):
+        """Every level of the multigrid hierarchy of a pressure system,
+        the coarsest too, with the right-hand side restricted to it."""
+        levels_ = mg.build_hierarchy(pcoef_)
+        rhs_l = [rhs_]
+        for _ in levels_[1:]:
+            rhs_l.append(mg.restrict(rhs_l[-1]))
+        return list(zip(levels_, rhs_l))
+
+    all_levels = {"512x2048": hierarchy(pcoef, rhs),
+                  "256x1375": hierarchy(*first_st[0])}
+    check([tuple(b.shape) for _, b in all_levels["256x1375"]]
+          == [(256, 1375), (128, 688), (64, 344), (32, 172), (16, 86),
+              (8, 43)], "the Schaefer-Turek hierarchy is not 256 x 1375 "
+          ".. 8 x 43")
+
+    def stacked(coef_, x_, k=4):
+        """A (k, ny, nx) fleet of the operands: the coefficients scaled
+        and x shifted per case."""
+        return (PressureCoeffs(*(torch.stack([
+            getattr(coef_, f.name) * (1.0 + 0.25 * j) for j in range(k)])
+            for f in dataclasses.fields(coef_))),
+                torch.stack([torch.roll(x_, j, -1) * (1 - 2 * (j % 2))
+                             for j in range(k)]))
+
+    def random_edge_operands(shape, dt):
+        """Random conductances that are zero out of the domain, as on a
+        real case; diag above their sum; x and b."""
+        c = [field(0.0, 1.0, shape) for _ in range(4)]
+        c[0][:, -1] = 0.0
+        c[1][:, 0] = 0.0
+        c[2][-1, :] = 0.0
+        c[3][0, :] = 0.0
+        diag = c[0] + c[1] + c[2] + c[3] + field(0.1, 1.0, shape)
+        return (cast(PressureCoeffs(*c, torch.zeros_like(diag), diag), dt),
+                field(-1, 1, shape).to(dt), field(-1, 1, shape).to(dt))
+
+    def exact(label, got, ref):
+        err = compare(got, ref)[0]
+        check(err == 0.0, f"{label}: max |diff| {err:.3e}, not 0")
+        return err
+
+    # ---- B.2: stencil_matvec against its plain version, bit for bit -------
+    matvec = {"max_abs_err": 0.0, "checked": 0}
+    for prec, dt in dtypes.items():
+        for grid_name, lv in all_levels.items():
+            for coef_l, b_l in lv:
+                c_, x_, _, _ = level_operands(coef_l, b_l, dt)
+                where = f"stencil_matvec {prec} {tuple(b_l.shape)}"
+                got = st.stencil_matvec(c_, x_)
+                torch.cuda.synchronize()
+                matvec["max_abs_err"] = max(matvec["max_abs_err"], exact(
+                    where, (got,), (st.stencil_matvec_plain(c_, x_),)))
+                cb, xb = stacked(c_, x_)
+                got = st.stencil_matvec(cb, xb)
+                torch.cuda.synchronize()
+                exact(where + " x4", (got,),
+                      (st.stencil_matvec_plain(cb, xb),))
+                matvec["checked"] += 2
+        for shape in ODD_SHAPES:
+            c_, x_, _ = random_edge_operands(shape, dt)
+            got = st.stencil_matvec(c_, x_)
+            torch.cuda.synchronize()
+            matvec["max_abs_err"] = max(matvec["max_abs_err"], exact(
+                f"stencil_matvec {prec} random {shape}", (got,),
+                (st.stencil_matvec_plain(c_, x_),)))
+            matvec["checked"] += 1
+    def csr_operator(coef_):
+        """A as a (ny nx)^2 CSR matrix: the library's sparse product is
+        the yardstick of the matvec (it rounds in its own order)."""
+        ny_, nx_ = coef_.diag.shape
+        idx = torch.arange(ny_ * nx_, device=dev).reshape(ny_, nx_)
+        parts = [(idx, idx, coef_.diag),
+                 (idx[:, :-1], idx[:, 1:], -coef_.c_e[:, :-1]),
+                 (idx[:, 1:], idx[:, :-1], -coef_.c_w[:, 1:]),
+                 (idx[:-1], idx[1:], -coef_.c_n[:-1]),
+                 (idx[1:], idx[:-1], -coef_.c_s[1:])]
+        rows, cols, vals = (torch.cat([p[k].reshape(-1) for p in parts])
+                            for k in range(3))
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, cols]), vals,
+            (ny_ * nx_,) * 2).coalesce().to_sparse_csr()
+
+    matvec_times = {}
+    for grid_name, lv in all_levels.items():
+        for prec, dt in dtypes.items():
+            c_, x_, _, _ = level_operands(*lv[0], dt)
+            size = torch.tensor([], dtype=dt).element_size()
+            cells = x_.numel()
+            b_ms, b_by = bound(7 * cells * size, 9 * cells)
+            t_m = timings(lambda: st.stencil_matvec(c_, x_),
+                          lambda: st.stencil_matvec_plain(c_, x_), 200, 50,
+                          torch, flush)
+            lib = {}
+            if prec == "f32":
+                a_csr, x_col = csr_operator(c_), x_.reshape(-1, 1)
+                y_lib = (a_csr @ x_col).reshape(x_.shape)
+                lib_rel = compare((y_lib,),
+                                  (st.stencil_matvec_plain(c_, x_),))[1]
+                check(lib_rel <= KERNEL_REL_TOL,
+                      f"sparse product vs matvec: rel err {lib_rel:.3e}")
+                lib = dict(library_ms=time_ms(lambda: a_csr @ x_col, 200,
+                                              torch, flush)[0],
+                           library_rel_err=lib_rel)
+            matvec_times[f"{grid_name} {prec}"] = dict(
+                **t_m, **lib, bound_ms=b_ms, bound_by=b_by,
+                share_of_bound=b_ms / t_m["ms"])
+    say("kernel-matvec", checked=matvec["checked"],
+        max_abs_err=matvec["max_abs_err"], times=matvec_times)
+
+    # ---- B.6: jacobi_sweep against its plain version and the multisweep ---
+    sweep_err = 0.0
+    sweep_checked = 0
+    for prec, dt in dtypes.items():
+        for grid_name, lv in all_levels.items():
+            for coef_l, b_l in lv:
+                c_, x_, b_, _ = level_operands(coef_l, b_l, dt)
+                for iters in SWEEP_ITERS:
+                    where = (f"jacobi_sweep {prec} {tuple(b_l.shape)} "
+                             f"iters {iters}")
+                    got = st.jacobi_sweep(c_, x_, b_, iters)
+                    multi = st.jacobi_multisweep(c_, x_, b_, iters)
+                    torch.cuda.synchronize()
+                    sweep_err = max(sweep_err, exact(
+                        where, (got,),
+                        (st.jacobi_sweep_plain(c_, x_, b_, iters),)))
+                    exact(where + " vs jacobi_multisweep", (got,), (multi,))
+                    sweep_checked += 2
+    sweep_times = {}
+    for grid_name, lv in all_levels.items():
+        for prec, dt in dtypes.items():
+            c_, x_, b_, _ = level_operands(*lv[0], dt)
+            size = torch.tensor([], dtype=dt).element_size()
+            cells = x_.numel()
+            b_ms, b_by = bound(8 * cells * size, 13 * cells)
+            t_s = timings(lambda: st.jacobi_sweep(c_, x_, b_, 1),
+                          lambda: st.jacobi_sweep_plain(c_, x_, b_, 1), 200,
+                          50, torch, flush)
+            sweep_times[f"{grid_name} {prec}"] = dict(
+                **t_s, bound_ms=b_ms, bound_by=b_by,
+                share_of_bound=b_ms / t_s["ms"])
+    say("kernel-sweep", checked=sweep_checked, iters=list(SWEEP_ITERS),
+        max_abs_err=sweep_err, times_per_sweep=sweep_times)
 
     # ---- the main path ---------------------------------------------------
     def drive(label, flow, n, be, sm, warm=0):
@@ -452,6 +714,7 @@ def main() -> int:
                         warm=N_WARM)
     say("step", **stats)
     launches = stats["kernel_launches"]["momentum_multisweep"]
+    step_launches = stats["kernel_launches"]
     check(stats["kernel_launches"]["jacobi_multisweep"]
           + stats["kernel_launches"]["smooth_residual"]
           + stats["kernel_launches"]["corr_smooth"] == 0,
@@ -542,6 +805,149 @@ def main() -> int:
             check(d <= tol[name], f"smoother parity ({smoother}, {label}) "
                   f"{name}: rel diff {d:.3e}")
 
+    # ---- the Schaefer-Turek hybrid path ---------------------------------
+    # AutoBackend escalates to MGCG through backends.mgcg_pressure, and the
+    # trust gate is engine._gate_sm_prediction: both are counted here, the
+    # gate's verdicts kept on the device until the timed steps are done
+    mgcg_impl, gate_impl = backends_mod.mgcg_pressure, \
+        engine._gate_sm_prediction
+    escalations, rejected = [0], []
+
+    def mgcg_counted(*args, **kw):
+        escalations[0] += 1
+        return mgcg_impl(*args, **kw)
+
+    def gate_counted(p_sm, p_prev, fluid, trust=0.0):
+        out_ = gate_impl(p_sm, p_prev, fluid, trust)
+        rejected.append((out_ != p_sm * fluid).any())
+        return out_
+
+    def st_health(label, flow_, co_max):
+        finite_ = all(bool(torch.isfinite(getattr(flow_, f)).all())
+                      for f in ("u", "v", "p", "phi_x", "phi_y"))
+        cont_ = float(continuity_error(case_st, flow_))
+        co_ = float(courant_number(case_st, flow_))
+        check(finite_, f"{label}: non-finite field")
+        check(cont_ < 1e-4, f"{label}: continuity error {cont_:.3e}")
+        if co_max is not None:
+            check(co_ <= co_max + 1e-3, f"{label}: Courant number {co_:.4f}")
+        return cont_, co_
+
+    backends_mod.mgcg_pressure = mgcg_counted
+    engine._gate_sm_prediction = gate_counted
+    try:
+        with torch.no_grad():
+            flow_st = run_piso_eager(case_st, flow_st0, N_ST_WARM,
+                                     cfg=cfg_st, backend=auto_be,
+                                     sm_predict=predictor_st)
+            bound_st = predictor_st.bind(case_st)
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(N_ST_STEPS)]
+            forces = []
+            torch.cuda.synchronize()
+            reset_counts(predictor_st)
+            escalations[0] = 0
+            rejected.clear()
+            t = time.time()
+            for e0, e1 in ev:
+                e0.record()
+                flow_st = run_piso_eager(case_st, flow_st, 1, cfg=cfg_st,
+                                         backend=auto_be,
+                                         sm_predict=bound_st)
+                e1.record()
+                rep = obstacle_force(case_st, flow_st.u, flow_st.v,
+                                     flow_st.p, u_ref=u_mean,
+                                     d_ref=bench.D_CYL)
+                forces.append((rep.cd, rep.cl))
+            torch.cuda.synchronize()
+            st_host_s = time.time() - t
+            st_launches, st_cycles = counts(), mg.v_cycle.cycles
+            st_calls = predictor_st.calls
+            st_escalations = escalations[0]
+            st_rejections = int(sum(bool(r) for r in rejected))
+    finally:
+        backends_mod.mgcg_pressure = mgcg_impl
+        engine._gate_sm_prediction = gate_impl
+    cd_cl = [[float(cd), float(cl)] for cd, cl in forces]
+    cont_st, co_st = st_health("step-st", flow_st, ST_CFG["max_co"])
+    st_ms = sum(e0.elapsed_time(e1) for e0, e1 in ev) / N_ST_STEPS
+    say("step-st", shape=list(case_st.grid.shape), steps=N_ST_STEPS,
+        ms_per_step=st_ms, host_ms_per_step=st_host_s * 1e3 / N_ST_STEPS,
+        continuity_error=cont_st, courant=co_st, t_sim=float(flow_st.t),
+        dt=float(flow_st.dt), kernel_launches=st_launches,
+        stencil_matvec_launches_per_step=st_launches["stencil_matvec"]
+        / N_ST_STEPS, v_cycles=st_cycles, sm_predict_calls=st_calls,
+        auto_escalations=st_escalations, sm_trust_rejections=st_rejections,
+        cd_cl=cd_cl)
+    check(st_launches["momentum_multisweep"] == N_ST_STEPS,
+          f"step-st: momentum kernel launched "
+          f"{st_launches['momentum_multisweep']} times in {N_ST_STEPS} steps")
+    check(st_calls == N_ST_STEPS,
+          f"step-st: surrogate predicted {st_calls} times in {N_ST_STEPS}")
+    check(st_launches["stencil_matvec"] > 0,
+          "step-st: the pressure matvec never launched its kernel")
+    check(all(np.isfinite(cd_cl).ravel()), f"step-st: cd, cl {cd_cl}")
+    st_matvec_launches = st_launches["stencil_matvec"]
+
+    # ---- the force series: uninterrupted, and saved / loaded / resumed ---
+    def series(flow_, t_end, **kw):
+        with torch.no_grad():
+            return bench.run_force_series(
+                case_st, flow_, t_end, u_mean, cfg=cfg_st, backend=auto_be,
+                sample_steps=ST_SAMPLE, sm_predict=predictor_st, **kw)
+
+    t = time.time()
+    flow_a, ser_a = series(flow_st0, ST_T_END)
+    flow_b, ser_b1 = series(flow_st0, ST_T_SPLIT)
+    meta = dict(bench="2D-2", delta=ST_DELTA, backend="hybrid",
+                hybrid_solver="auto", **ST_CFG)
+    state = os.path.join(ROOT, "chiprun_out", "st_series_state.npz")
+    os.makedirs(os.path.dirname(state), exist_ok=True)
+    bench.save_run_state(state, flow_b, ser_b1, meta=meta)
+    flow_b, ser_b1 = bench.load_run_state(state, expect_meta=meta,
+                                          device=dev)
+    os.remove(state)
+    flow_b, ser_b2 = series(flow_b, ST_T_END)
+    ser_b = bench.merge_series(ser_b1, ser_b2)
+    torch.cuda.synchronize()
+    series_s = time.time() - t
+    same_series = all(np.array_equal(getattr(ser_a, k), getattr(ser_b, k))
+                      for k in ("t", "cd", "cl")) \
+        and ser_a.n_steps == ser_b.n_steps
+    field_diff = {f: float((getattr(flow_a, f) - getattr(flow_b, f)
+                            ).abs().max())
+                  for f in ("u", "v", "p", "phi_x", "phi_y", "dt", "t",
+                            "u_prev", "v_prev", "p_prev")}
+    cont_a, co_a = st_health("st-series", flow_a, None)
+    # the 2D-3 ramp from rest lands on float32(t_end)
+    flow_r, ser_r = bench.run_force_series(
+        case_st, initial_flow(dataclasses.replace(
+            case_st, inlet_u=case_st.inlet_u * 0.0), dt0=ST_DT0),
+        ST_RAMP_T_END, u_mean, cfg=cfg_st, backend=auto_be,
+        sample_steps=ST_SAMPLE, sm_predict=predictor_st,
+        inlet_scale=bench.ramp_2d3)
+    ramp_t = float(flow_r.t)
+    st_health("st-series ramp", flow_r, None)
+    say("st-series", steps=ser_a.n_steps, samples=len(ser_a.t),
+        t_sim=float(flow_a.t), seconds=round(series_s, 3),
+        resumed_steps=[ser_b1.n_steps, ser_b2.n_steps],
+        resumed_equal=same_series, final_field_max_abs_diff=field_diff,
+        continuity_error=cont_a, courant=co_a,
+        cd=ser_a.cd.tolist(), cl=ser_a.cl.tolist(),
+        ramp={"t_end": ST_RAMP_T_END, "t": ramp_t, "steps": ser_r.n_steps,
+              "cd": ser_r.cd.tolist(), "cl": ser_r.cl.tolist()})
+    check(same_series, "st-series: the resumed series differs from the "
+          "uninterrupted one")
+    check(all(d == 0.0 for d in field_diff.values()),
+          f"st-series: resumed final fields differ: {field_diff}")
+    check(ramp_t == float(np.float32(ST_RAMP_T_END)),
+          f"st-series: the 2D-3 ramp ended at t = {ramp_t!r}, not "
+          f"float32({ST_RAMP_T_END})")
+    check(all(np.isfinite(ser_a.cd)) and all(np.isfinite(ser_a.cl))
+          and all(np.isfinite(ser_r.cd)), "st-series: non-finite cd or cl")
+    del flow_a, flow_b, flow_r
+
     # ---- the fleet: the momentum kernel's batched launch ----------------
     n_fleet = len(FLEET)
     per_case_ops = []
@@ -571,17 +977,17 @@ def main() -> int:
             float((o[k] - r).abs().max()) for o, r in zip(out, one)))
     check(single_diff == 0.0, "batched launch vs single launches: max "
           f"|diff| {single_diff:.3e}, not 0")
-    ms_fleet = time_ms(lambda: momentum_multisweep(*ops_fleet,
-                                                   sweeps=SWEEPS), 200, torch)
-    plain_ms_fleet = time_ms(lambda: momentum_multisweep_plain(
-        *ops_fleet, sweeps=SWEEPS), 10, torch)
+    t_fleet = timings(
+        lambda: momentum_multisweep(*ops_fleet, sweeps=SWEEPS),
+        lambda: momentum_multisweep_plain(*ops_fleet, sweeps=SWEEPS), 200,
+        10, torch, flush)
     bound_ms_fleet, bound_by_fleet = bound((9 + 2) * n_fleet * n_cells * 4,
                                            SWEEPS * 2 * 9 * n_fleet * n_cells)
     say("kernel-fleet", shape=list(ops_fleet[0].shape), sweeps=SWEEPS,
         max_abs_err=err_fleet, rel_err=rel_fleet,
-        max_abs_diff_vs_single_launches=single_diff, ms=ms_fleet,
-        plain_ms=plain_ms_fleet, bound_ms=bound_ms_fleet,
-        bound_by=bound_by_fleet, share_of_bound=bound_ms_fleet / ms_fleet)
+        max_abs_diff_vs_single_launches=single_diff, **t_fleet,
+        bound_ms=bound_ms_fleet, bound_by=bound_by_fleet,
+        share_of_bound=bound_ms_fleet / t_fleet["ms"])
     del ops_fleet, per_case_ops, out
 
     # ---- the fleet's cases ----------------------------------------------
@@ -589,7 +995,6 @@ def main() -> int:
     from tpufoam_torch.piso.batched import (run_piso_batched,
                                             run_piso_batched_eager,
                                             stack_cases, stack_flows)
-    from tpufoam_torch.solvers import backends as backends_mod
 
     def fleet_cases(ny):
         d = 2.0 / ny
@@ -745,8 +1150,8 @@ def main() -> int:
         "replaces": "tpufoam/ops/stencil.py:352",
         "launches": launches,
         "max_abs_err": max(err_rand, err_real),
-        "ms": ms_real,
-        "plain_ms": plain_ms_real,
+        "ms": t_real["ms"],
+        "plain_ms": t_real["plain_ms"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
@@ -769,14 +1174,49 @@ def main() -> int:
             "library_ms": None,
         })
     kernels.append({
+        "name": "stencil_matvec",
+        "route": "cuda",
+        "source": "tpufoam_torch/ops/csrc/pressure_stencil.cu",
+        "replaces": "tpufoam/ops/stencil.py:221",
+        "launches": st_matvec_launches,
+        "max_abs_err": matvec["max_abs_err"],
+        # the finest level of its path in f32 (residuals, probes and the
+        # escalated MGCG; the bf16 polish's times are in kernel-matvec)
+        "ms": matvec_times["256x1375 f32"]["ms"],
+        "plain_ms": matvec_times["256x1375 f32"]["plain_ms"],
+        "bound_ms": matvec_times["256x1375 f32"]["bound_ms"],
+        "bound_by": matvec_times["256x1375 f32"]["bound_by"],
+        "library_ms": matvec_times["256x1375 f32"]["library_ms"],
+    })
+    # no path of either package calls jacobi_sweep: its count over every
+    # driven path, each path's counts set to 0 just before its steps
+    sweep_launches = sum(k_["jacobi_sweep"] for k_ in (
+        step_launches, fused_launches, mgcg_launches, st_launches,
+        fleet_launches, k_mgcg))
+    check(sweep_launches == 0,
+          f"a path launched jacobi_sweep {sweep_launches} times")
+    kernels.append({
+        "name": "jacobi_sweep",
+        "route": "cuda",
+        "source": "tpufoam_torch/ops/csrc/pressure_stencil.cu",
+        "replaces": "tpufoam/ops/stencil.py:245",
+        "launches": sweep_launches,
+        "max_abs_err": sweep_err,
+        "ms": sweep_times["512x2048 f32"]["ms"],
+        "plain_ms": sweep_times["512x2048 f32"]["plain_ms"],
+        "bound_ms": sweep_times["512x2048 f32"]["bound_ms"],
+        "bound_by": sweep_times["512x2048 f32"]["bound_by"],
+        "library_ms": None,
+    })
+    kernels.append({
         "name": "momentum_multisweep (batched launch)",
         "route": "cuda",
         "source": "tpufoam_torch/ops/csrc/momentum_multisweep.cu",
         "replaces": "tpufoam/ops/stencil.py:479",
         "launches": fleet_step_launches,
         "max_abs_err": err_fleet,
-        "ms": ms_fleet,
-        "plain_ms": plain_ms_fleet,
+        "ms": t_fleet["ms"],
+        "plain_ms": t_fleet["plain_ms"],
         "bound_ms": bound_ms_fleet,
         "bound_by": bound_by_fleet,
         "library_ms": None,

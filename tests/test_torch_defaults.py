@@ -79,9 +79,34 @@ def test_the_walk_finds_the_entry_points():
                   "piso.engine.PisoConfig", "piso.batched.run_piso_batched",
                   "piso.batched.run_piso_batched_eager",
                   "fv.momentum.jacobi_momentum",
+                  "fv.momentum.momentum_coeffs",
+                  "piso.engine.run_piso_chunked",
+                  "fv.case.save_flow", "fv.case.load_flow",
+                  "fv.forces.obstacle_force",
+                  "eval.benchmark.schafer_turek_case",
+                  "eval.benchmark.run_force_series",
+                  "eval.benchmark.load_run_state",
+                  "eval.benchmark.summarize_2d3",
                   "surrogate.pipeline.make_predictor",
-                  "solvers.backends.MGBackend"):
+                  "solvers.backends.MGBackend",
+                  "solvers.backends.AutoBackend"):
         assert f"tpufoam_torch.{entry}" in names, entry
+
+
+def test_piso_config_has_the_ported_fields_only():
+    """The fields of the Schaefer-Turek path are there, so the walk above
+    compares their defaults; the options that are not ported have no
+    field, so setting one raises instead of being ignored."""
+    from tpufoam.piso.engine import PisoConfig as JaxConfig
+    from tpufoam_torch.piso.engine import PisoConfig
+    port = {f.name for f in dataclasses.fields(PisoConfig)}
+    ref = {f.name for f in dataclasses.fields(JaxConfig)}
+    assert {"adjust_dt", "convection", "convection_blend", "ddt",
+            "inlet_scale_fn", "t_stop", "sm_trust"} <= port
+    assert ref - port == {"sm_before_predictor", "turb_wall_fn", "ddt_corr",
+                          "wall_order", "wall_link", "shard_mesh"}
+    with pytest.raises(TypeError):
+        PisoConfig(ddt_corr=True)
 
 
 @pytest.mark.parametrize("name,port,ref", PAIRS, ids=[p[0] for p in PAIRS])

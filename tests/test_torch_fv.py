@@ -181,7 +181,8 @@ def mom(cases, state):
                                jnp.float32(s["dt"]),
                                convection="limitedLinear")
     tco = tmom.momentum_coeffs(tc, T(s["phi_x"]), T(s["phi_y"]), T(s["u"]),
-                               T(s["v"]), torch.tensor(s["dt"]))
+                               T(s["v"]), torch.tensor(s["dt"]),
+                               convection="limitedLinear")
     return jco, tco
 
 

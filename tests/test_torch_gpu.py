@@ -328,3 +328,132 @@ def test_mg_solve_kernel_fused_on_card_matches_cpu(cuda, precision):
     got, ref = out["cuda"].cpu(), out["cpu"]
     tol = 2e-2 if precision == "bf16" else 1e-4
     assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+# ---- the single-pass kernels: stencil_matvec, jacobi_sweep ---------------
+
+def _edge_operands(shape, dtype, seed, device):
+    """_pressure_operands with the conductances that point out of the
+    domain set to 0, as on every real case."""
+    coef, x, b, _ = _pressure_operands(*shape, dtype, seed, device)
+    coef.c_e[:, -1] = 0
+    coef.c_w[:, 0] = 0
+    coef.c_n[-1, :] = 0
+    coef.c_s[0, :] = 0
+    return coef, x, b
+
+
+def _planes(coef, x, b, k=3):
+    """A (k, ny, nx) fleet: scaled coefficients, shifted x and b."""
+    return (PressureCoeffs(*(torch.stack([t * (1 + 0.5 * j)
+                                          for j in range(k)])
+                             for t in (coef.c_e, coef.c_w, coef.c_n,
+                                       coef.c_s, coef.c_out, coef.diag))),
+            torch.stack([torch.roll(x, j, -1) for j in range(k)]),
+            torch.stack([torch.roll(b, -j, -2) for j in range(k)]))
+
+
+SINGLE_PASS_SHAPES = [(512, 2048), (256, 1375), (37, 70), (1, 70), (70, 1),
+                      (8, 43)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SINGLE_PASS_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("edges", ["zero", "nonzero"])
+def test_stencil_matvec_equals_plain_bit_for_bit(cuda, shape, dtype, edges):
+    make = _edge_operands if edges == "zero" else \
+        (lambda *a: _pressure_operands(*a[0], *a[1:])[:3])
+    coef, x, b = make(shape, dtype, sum(shape), cuda)
+    for c, xx in ((coef, x), _planes(coef, x, b)[:2]):
+        before = ts.stencil_matvec.launches
+        got = ts.stencil_matvec(c, xx)
+        torch.cuda.synchronize()
+        assert ts.stencil_matvec.launches == before + 1
+        assert got.dtype == dtype and got.shape == xx.shape
+        ref = ts.stencil_matvec_plain(c, xx)
+        assert float((got.float() - ref.float()).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SINGLE_PASS_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_jacobi_sweep_equals_plain_and_multisweep(cuda, shape, dtype):
+    coef, x, b = _edge_operands(shape, dtype, sum(shape) + 1, cuda)
+    for iters in (0, 1, 2, 8):
+        before = ts.jacobi_sweep.launches
+        got = ts.jacobi_sweep(coef, x, b, iters)
+        torch.cuda.synchronize()
+        assert ts.jacobi_sweep.launches == before + iters
+        for ref in (ts.jacobi_sweep_plain(coef, x, b, iters),
+                    ts.jacobi_multisweep(coef, x, b, iters)):
+            assert float((got.float() - ref.float()).abs().max()) == 0.0
+    cb, xb, bb = _planes(coef, x, b)
+    got = ts.jacobi_sweep(cb, xb, bb, 3)
+    ref = ts.jacobi_sweep_plain(cb, xb, bb, 3)
+    assert float((got.float() - ref.float()).abs().max()) == 0.0
+
+
+def test_single_pass_kernels_reject_what_they_cannot_take(cuda):
+    coef, x, b = _edge_operands((16, 24), torch.float32, 0, cuda)
+    with pytest.raises(ValueError):     # not contiguous
+        ts.stencil_matvec(coef, x.t().contiguous().t())
+    with pytest.raises(ValueError):     # mixed dtypes
+        ts.jacobi_sweep(coef, x, b.to(torch.bfloat16), 1)
+    with pytest.raises(ValueError):     # a coefficient broadcast on a fleet
+        ts.stencil_matvec(coef, torch.stack([x, x]))
+    with pytest.raises(ValueError):     # the kernels have no backward
+        ts.stencil_matvec(coef, x.clone().requires_grad_())
+    with torch.no_grad():
+        ts.stencil_matvec(coef, x.clone().requires_grad_())
+
+
+def test_pressure_matvec_launches_the_kernel(cuda):
+    from tpufoam_torch.fv.pressure import pressure_matvec
+    coef, x, _ = _edge_operands((64, 256), torch.float32, 3, cuda)
+    before = ts.stencil_matvec.launches
+    got = pressure_matvec(coef, x)
+    assert ts.stencil_matvec.launches == before + 1
+    assert torch.equal(got, ts.stencil_matvec_plain(coef, x))
+
+
+def test_schafer_turek_hybrid_step_on_card_matches_cpu(cuda):
+    """Three steps of the Schaefer-Turek hybrid path (BDF2, AutoBackend
+    with an f32 polish, sm_st128, sm_trust 1.0) at 128 x 688 on the card
+    (every kernel) and on the CPU (their plain versions); the two cases'
+    SDFs are equal bit for bit. f32 everywhere; the bound is
+    test_hybrid_step_on_card_matches_cpu's."""
+    import os
+
+    from tpufoam_torch.eval.benchmark import schafer_turek_case
+    from tpufoam_torch.fv.case import initial_flow
+    from tpufoam_torch.piso.engine import PisoConfig, run_piso_eager
+    from tpufoam_torch.solvers.backends import AutoBackend
+    from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
+                                                  make_predictor)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle_dir = os.path.join(os.path.dirname(__file__), "..", "artifacts",
+                              "sm_st128")
+    cfg = PisoConfig(max_co=0.4, max_dt=5e-3, ddt="backward",
+                     momentum_smoother="kernel", sm_trust=1.0)
+    sdf = {}
+    flows = {}
+    for dev in ("cpu", cuda):
+        case, _ = schafer_turek_case("2D-2", delta=0.0032, device=dev)
+        sdf[str(dev)] = case.sdf.cpu()
+        pred = make_predictor(SurrogateBundle.load(bundle_dir, device=dev),
+                              stitch="lstsq")
+        before = ts.stencil_matvec.launches
+        flows[str(dev)] = run_piso_eager(
+            case, initial_flow(case, 2e-4), 3, cfg=cfg,
+            backend=AutoBackend(cycles=2, tau=0.05, precision="f32"),
+            sm_predict=pred)
+        assert (ts.stencil_matvec.launches > before) == (dev != "cpu")
+    assert torch.equal(sdf["cuda"], sdf["cpu"])
+    for name in ("u", "v", "p"):
+        a = getattr(flows["cuda"], name).cpu()
+        b = getattr(flows["cpu"], name)
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

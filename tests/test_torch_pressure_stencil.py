@@ -18,6 +18,14 @@
    padding argument the kernels rest on. Two mutations show the emulation
    can fail: a halo one short, and diag read as 0 beyond the domain.
 3. The wrappers' checks and the fit gate.
+4. The single-pass kernels' plain versions: `stencil_matvec_plain`
+   against JAX's `stencil_matvec_pallas` in interpret mode and against
+   its `pressure_matvec`, on odd shapes whose out-of-domain conductances
+   are zero (tests/test_pallas_ops.py's `_odd_shape_operands` pattern),
+   one case and a stack of three; `jacobi_sweep_plain` against
+   `jacobi_sweep_pallas` in interpret mode. The tolerances of 1. apply;
+   the port's `pressure_matvec` is `stencil_matvec` and equals the plain
+   version exactly on the CPU.
 """
 
 import jax.numpy as jnp
@@ -30,8 +38,9 @@ from tpufoam.core.geometry import channel_case_geometry as jax_geom
 from tpufoam.fv.case import build_channel_case as jax_build
 from tpufoam.fv.pressure import pressure_coeffs as jax_pressure_coeffs
 from tpufoam.fv.pressure import PressureCoeffs as JCoeffs
+from tpufoam.fv.pressure import pressure_matvec as jax_matvec
 from tpufoam.ops import stencil as jst
-from tpufoam_torch.fv.pressure import PressureCoeffs
+from tpufoam_torch.fv.pressure import PressureCoeffs, pressure_matvec
 from tpufoam_torch.ops import stencil as ts
 
 FIELDS = ("c_e", "c_w", "c_n", "c_s", "c_out", "diag")
@@ -314,7 +323,112 @@ def test_fit_gate_takes_every_2d_shape():
     assert not ts.kernel_available_for((2, 4, 4))
     assert not ts.kernel_available_for((0, 4))
     assert not ts.kernel_available_for((2**22, 4))
+    # the single-pass kernels also take a leading case axis
+    for kernel in ("matvec", "jacobi_sweep"):
+        assert ts.kernel_available_for((50, 130), kernel=kernel)
+        assert ts.kernel_available_for((3, 50, 130), torch.bfloat16, kernel)
+        assert not ts.kernel_available_for((2**22, 4), kernel=kernel)
     with pytest.raises(ValueError):
-        ts.kernel_available_for((4, 4), kernel="matvec")
+        ts.kernel_available_for((4, 4), kernel="momentum")
     assert ts._halo_for(torch.float32) == jst._halo_for(jnp.float32)
     assert ts._halo_for(torch.bfloat16) == jst._halo_for(jnp.bfloat16)
+
+
+# ---- the single-pass kernels: stencil_matvec, jacobi_sweep -----------------
+
+ODD_SHAPES = [(56, 318), (40, 129), (43, 8)]
+
+
+def _odd_operands(ny, nx, seed):
+    """Conductances pointing out of the domain are zero, as on every real
+    case; diag above the sum of the conductances; x and b."""
+    rng = np.random.default_rng(seed)
+
+    def f(scale=1.0):
+        return (rng.standard_normal((ny, nx)) * scale).astype(np.float32)
+
+    ce, cw, cn, cs = (np.abs(f()) for _ in range(4))
+    ce[:, -1] = 0.0
+    cw[:, 0] = 0.0
+    cn[-1, :] = 0.0
+    cs[0, :] = 0.0
+    diag = ce + cw + cn + cs + 1.0 + np.abs(f())
+    return dict(c_e=ce, c_w=cw, c_n=cn, c_s=cs, c_out=np.zeros_like(ce),
+                diag=diag, x=f(), b=f(), corr=f(0.1))
+
+
+def _stack_ops(ops_list):
+    return {k: np.stack([o[k] for o in ops_list]) for k in ops_list[0]}
+
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", ODD_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_stencil_matvec_plain_matches_jax(shape, prec):
+    tdt, jdt = DTYPES[prec]
+    probs = [_odd_operands(*shape, seed=k) for k in range(3)]
+    for ops in probs:
+        tcoef, tv = _torch_ops(ops, tdt)
+        jcoef, jv = _jax_ops(ops, jdt)
+        got = ts.stencil_matvec_plain(tcoef, tv["x"])
+        assert got.dtype == tdt
+        assert torch.equal(pressure_matvec(tcoef, tv["x"]), got)
+        pallas = jst.stencil_matvec_pallas(jcoef, jv["x"], interpret=True)
+        assert _rel_err(got, pallas) <= TOL[prec]
+        assert _rel_err(got, jax_matvec(jcoef, jv["x"])) <= TOL[prec]
+    # a fleet's (3, ny, nx) stack: each case as if alone
+    tcoef, tv = _torch_ops(_stack_ops(probs), tdt)
+    stacked = ts.stencil_matvec(tcoef, tv["x"])
+    for k, ops in enumerate(probs):
+        one_coef, one_v = _torch_ops(ops, tdt)
+        assert torch.equal(stacked[k],
+                           ts.stencil_matvec_plain(one_coef, one_v["x"]))
+
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("iters", [1, 2, 3])
+def test_jacobi_sweep_plain_matches_pallas(problem, iters, prec):
+    tdt, jdt = DTYPES[prec]
+    tcoef, tv = _torch_ops(problem, tdt)
+    jcoef, jv = _jax_ops(problem, jdt)
+    got = ts.jacobi_sweep(tcoef, tv["x"], tv["b"], iters=iters)
+    ref = jst.jacobi_sweep_pallas(jcoef, jv["x"], jv["b"], iters=iters,
+                                  interpret=True)
+    assert got.dtype == tdt
+    assert _rel_err(got, ref) <= TOL[prec]
+    # the one-sweep-per-launch kernel's arithmetic is the multisweep's
+    assert torch.equal(got, ts.jacobi_multisweep_plain(tcoef, tv["x"],
+                                                       tv["b"], iters))
+
+
+def test_jacobi_sweep_takes_any_iters_and_a_case_axis():
+    probs = [_odd_operands(40, 129, seed=k) for k in range(2)]
+    tcoef, tv = _torch_ops(_stack_ops(probs), torch.float32)
+    got = ts.jacobi_sweep(tcoef, tv["x"], tv["b"], iters=20)
+    for k, ops in enumerate(probs):
+        one_coef, one_v = _torch_ops(ops, torch.float32)
+        assert torch.equal(got[k], ts.jacobi_sweep_plain(
+            one_coef, one_v["x"], one_v["b"], iters=20))
+    assert torch.equal(ts.jacobi_sweep(tcoef, tv["x"], tv["b"], iters=0),
+                       tv["x"])
+
+
+def test_single_pass_wrappers_check_like_the_kernels(problem):
+    coef, v = _torch_ops(problem, torch.float32)
+    x, b = v["x"], v["b"]
+    before = (ts.stencil_matvec.launches, ts.jacobi_sweep.launches)
+    assert torch.equal(ts.stencil_matvec(coef, x),
+                       ts.stencil_matvec_plain(coef, x))
+    assert (ts.stencil_matvec.launches, ts.jacobi_sweep.launches) == before
+    with pytest.raises(ValueError, match="contiguous"):
+        ts.stencil_matvec(coef, x.t().contiguous().t())
+    with pytest.raises(ValueError):
+        ts.stencil_matvec(coef, x.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        ts.stencil_matvec(coef, x.double())
+    with pytest.raises(ValueError):      # a coefficient broadcast on a fleet
+        ts.stencil_matvec(coef, torch.stack([x, x]))
+    with pytest.raises(ValueError):
+        ts.jacobi_sweep(coef, x, b, iters=-1)
+    meta = PressureCoeffs(*(getattr(coef, f).to("meta") for f in FIELDS))
+    with pytest.raises(ValueError, match="no stencil_matvec kernel"):
+        ts.stencil_matvec(meta, x.to("meta"))

@@ -17,6 +17,7 @@ Boundary model (channel with obstacle):
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -162,9 +163,11 @@ def build_channel_case(geom: ChannelCase, delta: float,
     def on_dev(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
 
+    # chunks of 16384 rows keep the (rows x boundary points) float64
+    # temporaries of the wall set under 400 MB
     q = on_dev(pts32)
-    d_obst = sdf_min_distance(q, on_dev(obst_b))
-    d_top = sdf_min_distance(q, on_dev(top_b))
+    d_obst = sdf_min_distance(q, on_dev(obst_b), chunk=16384)
+    d_top = sdf_min_distance(q, on_dev(top_b), chunk=16384)
     sdf = (torch.minimum(d_obst, d_top) * on_dev(domain)).reshape(grid.shape)
     sdf = sdf * on_dev(fluid_np)
 
@@ -251,6 +254,33 @@ def initial_flow(case: Case, dt0: float = 1e-3) -> Flow:
     return Flow(u=u, v=v, p=p, phi_x=phi_x, phi_y=phi_y,
                 dt=torch.tensor(dt0, **scalar), t=torch.tensor(0.0, **scalar),
                 u_prev=u, v_prev=v, p_prev=p)
+
+
+_FLOW_FIELDS = ("u", "v", "p", "phi_x", "phi_y", "dt", "t",
+                "u_prev", "v_prev", "p_prev")
+
+
+def save_flow(path: str, flow: Flow, *, extra: dict | None = None) -> None:
+    """Write the full solver state for a restart to the .npz `path`, with
+    the JAX package's keys, so each package reads the other's files.
+    `extra` appends caller arrays (a force-series history). The write is
+    atomic (tmp + rename). The JAX package's `turb` (the SST state) is not
+    ported."""
+    arrays = {f: getattr(flow, f).detach().cpu().numpy()
+              for f in _FLOW_FIELDS}
+    if extra:
+        arrays.update({k: np.asarray(v) for k, v in extra.items()})
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def load_flow(path, device=DEFAULT_DEVICE) -> Flow:
+    """A Flow on `device` from a save_flow .npz path (or an opened
+    NpzFile)."""
+    d = path if hasattr(path, "files") else np.load(path)
+    return Flow(**{k: torch.as_tensor(d[k], device=device)
+                   for k in _FLOW_FIELDS})
 
 
 def fluxes_from_velocity(case: Case, u: torch.Tensor, v: torch.Tensor):

@@ -2,10 +2,11 @@
 
 Implicit FV discretization of
     ddt(U) + div(phi, U) - laplacian(nu, U) == -grad(p)
-with Euler ddt, upwind implicit convection plus a limitedLinearV deferred
-correction, and central diffusion on a cut-cell uniform grid (the main
-path's settings). The solve is a fixed number of Jacobi sweeps. Fields
-are ([B,] ny, nx): a leading case axis, or none.
+with Euler or variable-step BDF2 ddt, upwind implicit convection plus a
+deferred correction (limitedLinearV, or an unlimited central blend), and
+central diffusion on a cut-cell uniform grid, laminar. The solve is a
+fixed number of Jacobi sweeps. Fields are ([B,] ny, nx): a leading case
+axis, or none.
 
 Units: integrated FV (a in m^2/s for 2D unit depth); aP/V == UEqn.A(),
 (sum a_nb U_nb + b)/V == UEqn.H().
@@ -47,6 +48,29 @@ def _apply_shift(spec, x):
 def _safe_ratio(num, den, tiny=1e-12):
     ok = torch.abs(den) > tiny
     return torch.where(ok, num / torch.where(ok, den, 1.0), 0.0)
+
+
+def _deferred_central_correction(case: Case, f_e, f_w, f_n, f_s,
+                                 phi: torch.Tensor,
+                                 gamma: float) -> torch.Tensor:
+    """Explicit deferred correction toward central differencing,
+    -gamma * sum_f F_f (phi_f^central - phi_f^upwind) per cell; the
+    implicit matrix stays upwind. Faces are oriented L->R along the
+    positive axis: for a cell's east/north face the cell is L, for its
+    west/south face the cell is R."""
+    m = grid_metrics(case.grid)
+
+    def face_corr(f_flux, left, right, open_mask, w_left):
+        central = w_left * left + (1.0 - w_left) * right
+        upwind = torch.where(f_flux > 0, left, right)
+        # the flux already carries the face aperture: only gate on open
+        return torch.where(open_mask > 0, f_flux * (central - upwind), 0.0)
+
+    out = (face_corr(f_e, phi, nb_e(phi), case.open_e, m.wx_e)
+           - face_corr(f_w, nb_w(phi), phi, case.open_w, 1.0 - m.wx_w)
+           + face_corr(f_n, phi, nb_n(phi), case.open_n, m.wy_n)
+           - face_corr(f_s, nb_s(phi), phi, case.open_s, 1.0 - m.wy_s))
+    return -gamma * out
 
 
 def _limited_linear_corrections(case: Case, f_e, f_w, f_n, f_s,
@@ -102,11 +126,32 @@ def _limited_linear_corrections(case: Case, f_e, f_w, f_n, f_s,
 
 def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
                     u_old: torch.Tensor, v_old: torch.Tensor,
-                    dt: torch.Tensor) -> MomentumCoeffs:
-    """Laminar UEqn coefficients: Euler ddt, upwind implicit matrix with the
-    limitedLinearV-1 deferred correction in the explicit source, no-slip
-    walls (half-cell domain walls, embedded-wall link nu L_w / d_w on the
-    obstacle), fixed-velocity inlet. `dt` is one per case: () or (B,)."""
+                    dt: torch.Tensor, *, convection_blend: float = 0.0,
+                    convection: str = "blend", ddt: str = "euler",
+                    u_nm1: torch.Tensor | None = None,
+                    v_nm1: torch.Tensor | None = None,
+                    dt_prev: torch.Tensor | None = None) -> MomentumCoeffs:
+    """Laminar UEqn coefficients: an upwind implicit matrix, no-slip walls
+    (half-cell domain walls, embedded-wall link nu L_w / d_w on the
+    obstacle), fixed-velocity inlet. `dt` is one per case: () or (B,).
+
+    convection: 'limitedLinear' adds the limitedLinearV-1 deferred
+    correction to the explicit source; 'blend' adds an unlimited central
+    correction scaled by `convection_blend` (0, the default, is pure
+    upwind); 'upwind' adds none.
+
+    ddt: 'euler', or 'backward', the variable-step BDF2 from u_nm1, v_nm1
+    (u^{n-1}, the Flow.u_prev fields) and dt_prev (the previous step
+    size). With r = dt/dt_prev the implicit coefficient c1 = (1+2r)/(1+r)
+    enters a_P and the source carries (1+r) u^n - r^2/(1+r) u^{n-1}; on
+    the bootstrap step (u^{n-1} == u^n) the two cancel to Euler's.
+
+    The JAX package's turbulence (nu_t, k_turb) and wall options
+    (wall_grad_p, wall_link) are not ported."""
+    if convection not in ("limitedLinear", "blend", "upwind"):
+        raise ValueError(f"unknown convection scheme {convection!r}")
+    if ddt not in ("euler", "backward"):
+        raise ValueError(f"unknown ddt scheme {ddt!r}")
     dt = per_case(dt)
     grid = case.grid
     nu = case.nu
@@ -147,16 +192,31 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
 
     volc = case.alpha * vol
     div_f = f_e - f_w + f_n - f_s
-    ddt_u = (volc / dt) * u_old
-    ddt_v = (volc / dt) * v_old
+    if ddt == "backward":
+        r = dt / torch.clamp(per_case(dt_prev), min=1e-30)
+        c1 = (1.0 + 2.0 * r) / (1.0 + r)
+        ddt_u = (volc / dt) * ((1.0 + r) * u_old
+                               - (r * r / (1.0 + r)) * u_nm1)
+        ddt_v = (volc / dt) * ((1.0 + r) * v_old
+                               - (r * r / (1.0 + r)) * v_nm1)
+    else:
+        c1 = 1.0
+        ddt_u = (volc / dt) * u_old
+        ddt_v = (volc / dt) * v_old
     a_p = (a_e + a_w + a_n + a_s + wall_contrib + a_wall + a_in + div_f
-           + 1.0 * volc / dt) * case.fluid + (1.0 - case.fluid)
+           + c1 * volc / dt) * case.fluid + (1.0 - case.fluid)
     b_u = (ddt_u + a_in * case.inlet_u[..., :, None]) * case.fluid
     b_v = ddt_v * case.fluid
-    cu, cv = _limited_linear_corrections(case, f_e, f_w, f_n, f_s,
-                                         u_old, v_old)
-    b_u = b_u + cu * case.fluid
-    b_v = b_v + cv * case.fluid
+    if convection == "limitedLinear":
+        cu, cv = _limited_linear_corrections(case, f_e, f_w, f_n, f_s,
+                                             u_old, v_old)
+        b_u = b_u + cu * case.fluid
+        b_v = b_v + cv * case.fluid
+    elif convection == "blend" and convection_blend > 0.0:
+        b_u = b_u + _deferred_central_correction(
+            case, f_e, f_w, f_n, f_s, u_old, convection_blend) * case.fluid
+        b_v = b_v + _deferred_central_correction(
+            case, f_e, f_w, f_n, f_s, v_old, convection_blend) * case.fluid
     return MomentumCoeffs(a_e=a_e, a_w=a_w, a_n=a_n, a_s=a_s, a_p=a_p,
                           b_u=b_u, b_v=b_v)
 

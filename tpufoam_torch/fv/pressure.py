@@ -19,6 +19,7 @@ import dataclasses
 import torch
 
 from .case import Case, domain_row_masks, fluxes_from_velocity, grid_metrics
+from ..ops import stencil
 from .operators import divergence, nb_e, nb_n, nb_s, nb_w
 
 
@@ -57,10 +58,10 @@ def pressure_coeffs(case: Case, rau: torch.Tensor) -> PressureCoeffs:
 
 
 def pressure_matvec(coef: PressureCoeffs, p: torch.Tensor) -> torch.Tensor:
-    """A @ p for the SPD pressure operator."""
-    return (coef.diag * p
-            - coef.c_e * nb_e(p) - coef.c_w * nb_w(p)
-            - coef.c_n * nb_n(p) - coef.c_s * nb_s(p))
+    """A @ p for the SPD pressure operator: the `ops.stencil.stencil_matvec`
+    kernel on CUDA tensors, its plain expression on CPU tensors. The
+    operands are contiguous and of one dtype and shape."""
+    return stencil.stencil_matvec(coef, p)
 
 
 def face_fluxes_hbya(case: Case, hbya_u: torch.Tensor, hbya_v: torch.Tensor):

@@ -12,11 +12,25 @@
 //   corr_smooth        x + corr, then iters <= halo sweeps -> x
 //     replaces `corr_smooth_pallas` (l.722, body l.672)
 // with halo = 8 for float32 and 16 for bfloat16, the TPU kernels' limits.
+// Two single-pass kernels, one cell per thread, on (ny, nx) fields or on B
+// planes stacked as (B, ny, nx) (blockIdx.z is the plane):
+//
+//   stencil_matvec     y = A x                           -> y
+//     replaces `stencil_matvec_pallas` (l.221, body `_make_matvec_kernel`
+//     l.198, `_stencil` l.173)
+//   jacobi_sweep       one sweep x + omega * (b - A x) / diag -> x
+//     replaces `jacobi_sweep_pallas` (l.245, body `_make_jacobi_kernel`
+//     l.208); the wrapper launches it once per sweep, as the TPU kernel
+//     loops one pallas_call per sweep
 //
 // Bound: bytes. Each reads 7 (corr_smooth 8) fields and writes 1
 // (smooth_residual 2): 33.6 MB per jacobi_multisweep call at 512 x 2048
 // in float32, 10.0 us at 3.35 TB/s; half that in bfloat16. A few dozen
 // operations per cell and sweep stay far below the card's rates.
+// stencil_matvec reads 6 fields and writes 1 (29.4 MB at 512 x 2048 in
+// float32, 8.8 us), jacobi_sweep 7 and 1 per sweep; each thread reads its x
+// neighbours again, but the block's rows share them in L1, so device
+// memory moves each field about once.
 //
 // Design (simple and exact; speed is later work). A block owns a square
 // region of REGION x REGION cells: an output tile of (REGION - 2h)^2 cells
@@ -202,6 +216,59 @@ int launch(const T* x0, const T* corr, const T* b, const T* ce, const T* cw,
   return (int)cudaGetLastError();
 }
 
+constexpr int PASS_X = 32;   // a warp along x: coalesced rows
+constexpr int PASS_Y = 8;
+
+// One cell per thread: A x at the cell (stencil_matvec), or one damped-
+// Jacobi sweep there (jacobi_sweep). Neighbours beyond the plane read as 0
+// (the zero-padded shifts of the plain version), so the kernel never reads
+// out of range and never wraps.
+template <typename T, bool SWEEP>
+__global__ void __launch_bounds__(PASS_X * PASS_Y)
+stencil_pass_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                    const T* __restrict__ ce, const T* __restrict__ cw,
+                    const T* __restrict__ cn, const T* __restrict__ cs,
+                    const T* __restrict__ dg, T* __restrict__ out,
+                    int ny, int nx, float omega) {
+  using N = Num<T>;
+  const int gx = blockIdx.x * PASS_X + threadIdx.x;
+  const int gy = blockIdx.y * PASS_Y + threadIdx.y;
+  if (gx >= nx || gy >= ny) return;
+  const long g = (long)blockIdx.z * ny * nx + (long)gy * nx + gx;
+  const float xc = N::load(x, g);
+  const float xe = gx + 1 < nx ? N::load(x, g + 1) : 0.f;
+  const float xw = gx > 0 ? N::load(x, g - 1) : 0.f;
+  const float xn = gy + 1 < ny ? N::load(x, g + nx) : 0.f;
+  const float xs = gy > 0 ? N::load(x, g - nx) : 0.f;
+  const Coef k{N::load(ce, g), N::load(cw, g), N::load(cn, g),
+               N::load(cs, g), N::load(dg, g), SWEEP ? N::load(b, g) : 0.f};
+  const float ax = apply_a<T>(k, xc, xe, xw, xn, xs);
+  if (!SWEEP) {
+    N::store(out, g, ax);
+    return;
+  }
+  float t = N::rnd(__fsub_rn(k.b, ax));
+  t = N::rnd(__fmul_rn(omega, t));
+  t = N::rnd(__fdiv_rn(t, k.d));
+  N::store(out, g, __fadd_rn(xc, t));
+}
+
+template <typename T, bool SWEEP>
+int launch_pass(const T* x, const T* b, const T* ce, const T* cw,
+                const T* cn, const T* cs, const T* dg, T* out, int planes,
+                int ny, int nx, float omega, void* stream) {
+  if (planes <= 0 || planes > MAX_GRID_Y || ny <= 0 || nx <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((nx + PASS_X - 1) / PASS_X, (ny + PASS_Y - 1) / PASS_Y,
+                  planes);
+  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidValue;
+  stencil_pass_kernel<T, SWEEP><<<grid, dim3(PASS_X, PASS_Y), 0,
+                                  (cudaStream_t)stream>>>(
+      x, b, ce, cw, cn, cs, dg, out, ny, nx, omega);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
@@ -227,6 +294,19 @@ int launch(const T* x0, const T* corr, const T* b, const T* ce, const T* cw,
       int iters, float omega, void* stream) {                                \
     return launch<T, kCorrSmooth>(x, corr, b, ce, cw, cn, cs, dg, x_out,     \
                                   nullptr, ny, nx, iters, omega, stream);    \
+  }                                                                          \
+  extern "C" int stencil_matvec_##SUFFIX(                                    \
+      const T* x, const T* ce, const T* cw, const T* cn, const T* cs,        \
+      const T* dg, T* out, int planes, int ny, int nx, void* stream) {       \
+    return launch_pass<T, false>(x, nullptr, ce, cw, cn, cs, dg, out,        \
+                                 planes, ny, nx, 0.f, stream);               \
+  }                                                                          \
+  extern "C" int jacobi_sweep_##SUFFIX(                                      \
+      const T* x, const T* b, const T* ce, const T* cw, const T* cn,         \
+      const T* cs, const T* dg, T* out, int planes, int ny, int nx,          \
+      float omega, void* stream) {                                           \
+    return launch_pass<T, true>(x, b, ce, cw, cn, cs, dg, out, planes, ny,   \
+                                nx, omega, stream);                          \
   }
 
 PRESSURE_STENCIL_ENTRIES(f32, float)

@@ -16,6 +16,7 @@ acts only on the cases that need it.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -30,13 +31,29 @@ from ..solvers.cg import _norm
 
 @dataclasses.dataclass(frozen=True)
 class PisoConfig:
-    """The step's knobs: nCorrectors 2, maxCo 0.5, limitedLinearV
-    convection and Euler ddt (fixed in fv.momentum)."""
+    """The step's knobs, with the JAX package's defaults: nCorrectors 2,
+    maxCo 0.5, limitedLinearV convection, Euler ddt. Its options
+    ddt_corr, wall_order, wall_link, sm_before_predictor (Algorithm 1),
+    turb_wall_fn and shard_mesh are not ported and have no field."""
     n_correctors: int = 2
     momentum_sweeps: int = 8          # the kernel takes <= 8; more run
                                       # the sweep loop
     max_co: float = 0.5
     max_dt: float = 0.05
+    adjust_dt: bool = True            # False: keep the incoming dt
+    convection: str = "limitedLinear"  # | 'blend' | 'upwind'
+                                       # (fv.momentum.momentum_coeffs)
+    convection_blend: float = 0.0     # gamma for convection='blend'
+    ddt: str = "euler"                # | 'backward' (variable-step BDF2
+                                      # from u_prev, v_prev and the
+                                      # previous step size)
+    inlet_scale_fn: object = None     # optional callable t -> scale of
+                                      # case.inlet_u at the new time level
+                                      # (the 2D-3 ramp eval.benchmark.
+                                      # ramp_2d3), evaluated in the step
+    t_stop: float = 0.0               # > 0: cap dt so the run lands on
+                                      # t_stop; steps at or past it take a
+                                      # 1e-6 floor dt
     momentum_smoother: str = "plain"  # 'plain' (JAX 'xla'): the sweep
                                       # loop of fv.momentum; 'kernel' (JAX
                                       # 'pallas'): ops.momentum (the CUDA
@@ -47,6 +64,12 @@ class PisoConfig:
                                       # (or NaN) the solve restarts from the
                                       # previous-step pressure; 0 disables
     sm_safeguard_extra: int = 3       # max rescue solves per step
+    sm_trust: float = 0.0             # > 0: reject a prediction with
+                                      # ||(p_sm - p_prev) fluid|| >
+                                      # sm_trust ||p_prev fluid|| (fall
+                                      # back to p_prev) before the
+                                      # momentum predictor; an all-zero
+                                      # p_prev passes; 0 disables
 
 
 def courant_number(case: Case, flow: Flow) -> torch.Tensor:
@@ -81,10 +104,18 @@ def _next_dt(case: Case, flow: Flow, cfg: PisoConfig) -> torch.Tensor:
 
 
 def _gate_sm_prediction(p_sm: torch.Tensor, p_prev: torch.Tensor,
-                        fluid: torch.Tensor) -> torch.Tensor:
-    """Reject a non-finite surrogate prediction wholesale (fall back to the
-    incoming pressure), per case, on the device."""
+                        fluid: torch.Tensor,
+                        trust: float = 0.0) -> torch.Tensor:
+    """Reject a non-finite surrogate prediction wholesale, or with
+    `trust` > 0 one that moves the pressure by more than `trust` times its
+    norm (fall back to the incoming pressure), per case, on the device.
+    An all-zero incoming pressure (the cold start) carries no scale, so
+    the trust test passes it."""
     ok = torch.isfinite(p_sm).flatten(-2).all(dim=-1)
+    if trust > 0.0:
+        dn = _norm((p_sm - p_prev) * fluid)
+        pn = _norm(p_prev * fluid)
+        ok = ok & ((dn <= trust * pn) | (pn == 0.0))   # NaN dn: rejected
     return torch.where(per_case(ok), p_sm, p_prev) * fluid
 
 
@@ -131,7 +162,17 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
     it warm-starts the step, it does not replace the corrector solve."""
     grid = case.grid
     volc = case.alpha * (grid.dx * grid.dy)   # cut-cell fluid volumes
-    dt = _next_dt(case, flow, cfg)
+    dt = _next_dt(case, flow, cfg) if cfg.adjust_dt else flow.dt
+    if cfg.t_stop and cfg.t_stop > 0:
+        # land exactly on t_stop, whether or not dt adapts
+        dt = torch.minimum(dt, torch.clamp(cfg.t_stop - flow.t, min=1e-6)
+                           ).to(flow.dt.dtype)
+    if cfg.inlet_scale_fn is not None:
+        # the inlet at the new time level, so the implicit momentum solve
+        # sees dU_in/dt
+        scale = cfg.inlet_scale_fn(flow.t + dt)
+        case = dataclasses.replace(
+            case, inlet_u=case.inlet_u * scale.unsqueeze(-1))
 
     u, v, p = flow.u, flow.v, flow.p
     phi_x, phi_y = flow.phi_x, flow.phi_y
@@ -143,12 +184,17 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
     # --- surrogate pressure prediction (Algorithm 2: before UEqn) ---
     if sm_predict is not None:
         p_sm = sm_predict(case, p, _aux())
-        p = (_gate_sm_prediction(p_sm, p, case.fluid)
-             if cfg.sm_safeguard > 0.0 else p_sm * case.fluid)
+        p = (_gate_sm_prediction(p_sm, p, case.fluid, trust=cfg.sm_trust)
+             if cfg.sm_safeguard > 0.0 or cfg.sm_trust > 0.0
+             else p_sm * case.fluid)
 
     # --- momentum predictor: solve(UEqn == -grad p) ---
     gpx, gpy = pressure_gradient(case, p)
-    coef = momentum_coeffs(case, phi_x, phi_y, u, v, dt)
+    coef = momentum_coeffs(case, phi_x, phi_y, u, v, dt,
+                           convection_blend=cfg.convection_blend,
+                           convection=cfg.convection, ddt=cfg.ddt,
+                           u_nm1=flow.u_prev, v_nm1=flow.v_prev,
+                           dt_prev=flow.dt)
     u, v = jacobi_momentum(coef, case, u, v, -gpx * volc, -gpy * volc,
                            sweeps=cfg.momentum_sweeps,
                            smoother=cfg.momentum_smoother)
@@ -187,10 +233,32 @@ def _bind_sm(sm_predict, case: Case):
     return sm_predict if bind is None else bind(case)
 
 
+def _warn_stiff_max_dt(case: Case, cfg: PisoConfig, limit: float = 4.0):
+    """Warn when cfg.max_dt allows a momentum diffusion number
+    nu*dt/(dx*dy) above `limit`: the fixed-sweep momentum solve
+    under-converges there, and slow-flow phases (start-up, ramp feet) can
+    ring instead of decaying. It warns on the worst dt the config allows,
+    not on the dt the run will see."""
+    dx2 = float(case.grid.dx) * float(case.grid.dy)
+    d_num = float(case.nu) * float(cfg.max_dt) / dx2
+    if d_num > limit:
+        warnings.warn(
+            f"max_dt={cfg.max_dt:g} allows a momentum diffusion number "
+            f"nu*dt/(dx*dy) = {d_num:.1f} > {limit:g}; the fixed-sweep "
+            f"momentum solve under-converges there and slow-flow phases "
+            f"(startup, ramp feet) can ring instead of decaying. Lower "
+            f"max_dt to <= {limit * dx2 / float(case.nu):.2e} "
+            f"(or raise momentum sweeps) if dt reaches the cap.",
+            stacklevel=3)
+
+
 def run_piso_eager(case: Case, flow: Flow, n_steps: int,
                    cfg: PisoConfig = PisoConfig(), backend=CGBackend(),
                    sm_predict=None) -> Flow:
     """Forward rollout of n_steps PISO steps."""
+    if n_steps <= 0:
+        return flow
+    _warn_stiff_max_dt(case, cfg)
     if sm_predict is not None:
         sm_predict = _bind_sm(sm_predict, case)
     with torch.no_grad():
@@ -198,3 +266,8 @@ def run_piso_eager(case: Case, flow: Flow, n_steps: int,
             flow = piso_step(case, flow, cfg=cfg, backend=backend,
                              sm_predict=sm_predict)
     return flow
+
+
+# The JAX package's rollout in `chunk`-step jitted programs. PyTorch has
+# no such programs and runs every step eagerly: the same steps.
+run_piso_chunked = run_piso_eager

@@ -1,19 +1,22 @@
 """Least time an H100 needs for each stencil kernel of the JAX package, at
-every level of the multigrid hierarchy of the main path's grid.
+every level of the multigrid hierarchy of a grid: by default the main
+path's 512 x 2048 and the Schaefer-Turek path's 256 x 1375 (D/delta 62.5).
 
-    python -m tpufoam_torch.tools.kernel_bounds [--ny 512] [--nx 2048]
+    python -m tpufoam_torch.tools.kernel_bounds [--ny NY --nx NX]
         [--fleet 4]
 
 Each (ny, nx) operand is read once and each output written once, at the
 H100 SXM's published 3.35 TB/s; the operations (counted per cell and
 sweep, at the sweeps each kernel runs on its path) go at the f32 rate,
 67 TFLOP/s, which the kernels use in both dtypes since they compute in
-float32 registers. The bound is the larger of the two times. The pressure
-kernels are listed at each level of `build_hierarchy` that is not the
-coarsest (the coarsest level takes plain sweeps); the momentum kernel runs
-at the finest level only, and its batched launch over a fleet of `--fleet`
-cases (piso.batched) moves that many planes in one launch. Prints one
-JSON line. Runs anywhere; it measures nothing.
+float32 registers. The bound is the larger of the two times. The
+multisweep pressure kernels are listed at each level of `build_hierarchy`
+that is not the coarsest (the coarsest level takes plain sweeps); the
+matvec and the single sweep at every level (the coarsest level's plain
+sweeps are matvecs); the momentum kernel runs at the finest level only,
+and its batched launch over a fleet of `--fleet` cases (piso.batched)
+moves that many planes in one launch. Prints one JSON line, keyed by
+grid. Runs anywhere; it measures nothing.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ KERNELS = {
     "corr_smooth": (8, 1, 13, 1, {"f32": 2, "bf16": 2}),
 }
 SIZES = {"f32": 4, "bf16": 2}
+# the main path's grid and the Schaefer-Turek 2D-2 grid at D/delta 62.5
+GRIDS = ((512, 2048), (256, 1375))
+ALL_LEVELS = ("stencil_matvec", "jacobi_sweep")
 
 
 def level_shapes(ny: int, nx: int, min_size: int = 8,
@@ -71,7 +77,8 @@ def bounds(ny: int, nx: int, fleet: int = 4) -> dict:
     shapes = level_shapes(ny, nx)
     out = {}
     for name, spec in KERNELS.items():
-        on = shapes[:1] if name == "momentum_multisweep" else shapes[:-1]
+        on = shapes[:1] if name == "momentum_multisweep" else shapes \
+            if name in ALL_LEVELS else shapes[:-1]
         out[name] = {dt: [bound(name, s, dt) for s in on] for dt in spec[4]}
     return {"levels": [list(s) for s in shapes], "kernels": out,
             "fleet": {"cases": fleet, "momentum_multisweep": bound(
@@ -80,12 +87,15 @@ def bounds(ny: int, nx: int, fleet: int = 4) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ny", type=int, default=512)
-    ap.add_argument("--nx", type=int, default=2048)
+    ap.add_argument("--ny", type=int)
+    ap.add_argument("--nx", type=int)
     ap.add_argument("--fleet", type=int, default=4)
     args = ap.parse_args()
-    print(json.dumps({"ny": args.ny, "nx": args.nx,
-                      **bounds(args.ny, args.nx, args.fleet)}))
+    if (args.ny is None) != (args.nx is None):
+        ap.error("give both --ny and --nx, or neither")
+    grids = ((args.ny, args.nx),) if args.ny else GRIDS
+    print(json.dumps({f"{ny}x{nx}": bounds(ny, nx, args.fleet)
+                      for ny, nx in grids}))
 
 
 if __name__ == "__main__":
