@@ -31,8 +31,24 @@ Phases, each printing one JSON line with its elapsed seconds:
           plain version and against the jacobi_multisweep kernel, iters 1,
           2 and 8, float32 and bfloat16, at the same levels: bit for bit;
           its time per sweep
+  kernel-sharded  the sharded kernels (ops.sharded) on meshes 2x2, 4x1,
+          1x4 and 4x2 of the one card at 512 x 2048: the momentum kernel
+          per block on the random and first-step operands, the
+          jacobi_multisweep kernel per block in float32 and bfloat16,
+          iters 1, 2 and the halo, on the finest level's operator and on
+          random operands; each bit for bit against the single-device
+          kernel, and against its sharded plain version (the momentum
+          kernel within its rel tolerance: it contracts multiply-adds);
+          their times on the 2x2 mesh, the kernels' own device time and
+          the launches of a call
   step    the hybrid PISO main path (run_piso_eager, MG bf16 backend with
           the plain smoother, sm_ref512 warm start) for a few steps
+  step-sharded  the same path through parallel.mesh.make_sharded_piso_step
+          on a 2 x 2 mesh of the one card: the momentum kernel per block
+          (one launch a step), no single-device launch, no sweep loop
+  parity-sharded  one sharded step against one piso_step from the same
+          state, with the plain and with the kernel pressure smoother
+          (which the sharded step passes through): bit for bit
   step-fused  the same path with MGBackend(smoother="kernel-fused")
   step-mgcg   the pure solver, MGCGBackend(rtol=1e-6, maxiter=60,
           smoother="kernel"), from the impulsive start
@@ -56,6 +72,10 @@ Phases, each printing one JSON line with its elapsed seconds:
           cases stepped one after another through run_piso_eager
   parity-fleet  one lockstep against four single-case steps from the
           same state
+  step-fleet-sharded  the same four cases through
+          parallel.mesh.make_sharded_fleet_step on a mesh of four blocks of
+          the one card (one case each), 3 + 5 locksteps: bit for bit
+          against step-fleet's lockstep
   step-fleet-mgcg  run_piso_batched with its default MGCGBackend(rtol=
           1e-5) on four 256 x 1024 cases: per-case CG iterations
 A kernel's time is its device time from torch.profiler with the L2
@@ -129,6 +149,9 @@ MGCG_FLEET_NY, N_MGCG_FLEET = 256, 2
 # arithmetic: 1e-6.
 FLEET_PARITY_TOL = {"u": 1e-2, "v": 1e-2, "p": 1e-2, "dt": 1e-6}
 KERNEL_LEVELS = 6             # levels 512x2048 .. 16x64; 8x32 is plain
+# the sharded kernels' meshes, all of one card; the first is the sharded
+# step's (device_mesh(4) of one card) and the timed one
+SHARD_MESHES = ((2, 2), (4, 1), (1, 4), (4, 2))
 MEM_RATE = 3.35e12            # H100 SXM HBM3, bytes/s (published peak)
 F32_RATE = 67e12              # H100 SXM f32 outside the tensor cores
 KERNEL_REL_TOL = 1e-5
@@ -197,16 +220,6 @@ def time_ms(fn, n, torch, flush):
     from CUDA events, without flushes, which also holds the host's cost of
     issuing each call; for a kernel of a few microseconds that cost is
     most of it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_us(body):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            body()
-            torch.cuda.synchronize()
-        return {e.key: e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA}
-
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -218,15 +231,28 @@ def time_ms(fn, n, torch, flush):
     b.record()
     torch.cuda.synchronize()
 
-    def cold():
+    times = cold_kernels(fn, n, torch, flush)
+    dev_us = sum(t for t, _ in times.values())
+    check(dev_us > 0, "torch.profiler recorded no device time")
+    return dev_us / 1e3 / n, a.elapsed_time(b) / n
+
+
+def cold_kernels(fn, n, torch, flush):
+    """{kernel name: (device us, launches)} over n calls of fn, each after
+    `flush`, from torch.profiler; the flush's kernel (the only
+    bitwise-not) left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             flush()
             fn()
-
-    times = device_us(cold)
-    dev_us = sum(t for k, t in times.items() if "bitwise_not" not in k)
-    check(dev_us > 0, "torch.profiler recorded no device time")
-    return dev_us / 1e3 / n, a.elapsed_time(b) / n
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "bitwise_not" not in e.key}
 
 
 def timings(kernel_fn, plain_fn, n_kernel, n_plain, torch, flush):
@@ -264,12 +290,19 @@ def main() -> int:
     from tpufoam_torch.eval import benchmark as bench
     from tpufoam_torch.fv.case import build_channel_case, initial_flow
     from tpufoam_torch.fv.forces import obstacle_force
+    from tpufoam_torch.fv import momentum as fvm
     from tpufoam_torch.fv.momentum import momentum_coeffs
     from tpufoam_torch.fv.pressure import PressureCoeffs, pressure_gradient
     from tpufoam_torch.ops import build
+    from tpufoam_torch.ops import sharded as sh
     from tpufoam_torch.ops import stencil as st
     from tpufoam_torch.ops.momentum import (momentum_multisweep,
                                             momentum_multisweep_plain)
+    from tpufoam_torch.parallel.mesh import (device_mesh,
+                                             make_sharded_fleet_step,
+                                             make_sharded_piso_step,
+                                             shard_case, shard_flow,
+                                             shard_fleet, unshard_fleet)
     from tpufoam_torch.piso import engine
     from tpufoam_torch.piso.engine import (PisoConfig, continuity_error,
                                            courant_number, piso_step,
@@ -280,6 +313,7 @@ def main() -> int:
                                                 MGCGBackend)
     from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
                                                   make_predictor)
+    from tpufoam_torch.tools.kernel_bounds import sharded_bound
 
     # float32 matrix products in full float32 (the PCA and stitch matvecs)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -299,12 +333,15 @@ def main() -> int:
                 "jacobi_sweep": st.jacobi_sweep,
                 "jacobi_multisweep": st.jacobi_multisweep,
                 "smooth_residual": st.smooth_residual,
-                "corr_smooth": st.corr_smooth}
+                "corr_smooth": st.corr_smooth,
+                "momentum_multisweep_sharded": sh.momentum_multisweep_sharded,
+                "jacobi_multisweep_sharded": sh.jacobi_multisweep_sharded}
 
     def reset_counts(predictor=None):
         for fn in counters.values():
             fn.launches = 0
         mg.v_cycle.cycles = 0
+        fvm.jacobi_momentum.sweep_loops = 0
         if predictor is not None:
             predictor.calls = 0
 
@@ -669,26 +706,131 @@ def main() -> int:
     say("kernel-sweep", checked=sweep_checked, iters=list(SWEEP_ITERS),
         max_abs_err=sweep_err, times_per_sweep=sweep_times)
 
+    # ---- B.7: the sharded kernels on meshes of the one card --------------
+    def card_mesh(shape):
+        return device_mesh(shape[0] * shape[1], shape=shape,
+                           devices=[dev] * (shape[0] * shape[1]))
+
+    def own_share(times, kernel, n):
+        """The kernel's own device ms, the rest (the split, exchange,
+        stack and crop) and the launches, per call of a cold profile."""
+        own = sum(t for k, (t, _) in times.items() if kernel in k)
+        check(own > 0, f"no device time of {kernel} in the profile")
+        total = sum(t for t, _ in times.values())
+        return dict(kernel_ms=own / 1e3 / n,
+                    assembly_ms=(total - own) / 1e3 / n,
+                    launches_per_call=sum(c for _, c in times.values()) / n)
+
+    jac_ops = {prec: (("level 512x2048", level_operands(*fine[0], dt)),
+                      ("random", random_operands(dt)))
+               for prec, dt in dtypes.items()}
+    msh = {"max_abs_err": 0.0, "max_rel_err": 0.0, "checked": 0}
+    jsh = {"max_abs_err": 0.0, "checked": 0}
+    for shape in SHARD_MESHES:
+        mesh = card_mesh(shape)
+        for label, ops in (("random", ops_rand), ("first step", ops_real)):
+            where = f"momentum_multisweep_sharded {shape} {label}"
+            n0 = sh.momentum_multisweep_sharded.launches
+            got = sh.momentum_multisweep_sharded(mesh, *ops, sweeps=SWEEPS)
+            torch.cuda.synchronize()
+            check(sh.momentum_multisweep_sharded.launches == n0 + 1,
+                  f"{where}: not one launch for the card")
+            exact(where + " vs the single kernel", got,
+                  momentum_multisweep(*ops, sweeps=SWEEPS))
+            plain = sh.momentum_multisweep_sharded_plain(mesh, *ops,
+                                                         sweeps=SWEEPS)
+            exact(where + ": plain vs the global plain", plain,
+                  momentum_multisweep_plain(*ops, sweeps=SWEEPS))
+            err, rel = compare(got, plain)
+            check(rel <= KERNEL_REL_TOL,
+                  f"{where} vs plain: rel err {rel:.3e}")
+            msh["max_abs_err"] = max(msh["max_abs_err"], err)
+            msh["max_rel_err"] = max(msh["max_rel_err"], rel)
+            msh["checked"] += 1
+        for prec, dt in dtypes.items():
+            for label, (c_, x_, b_, _) in jac_ops[prec]:
+                for iters in (1, 2, st._halo_for(dt)):
+                    where = (f"jacobi_multisweep_sharded {shape} {prec} "
+                             f"{label} iters {iters}")
+                    n0 = sh.jacobi_multisweep_sharded.launches
+                    got = sh.jacobi_multisweep_sharded(mesh, c_, x_, b_,
+                                                       iters)
+                    torch.cuda.synchronize()
+                    check(sh.jacobi_multisweep_sharded.launches
+                          == n0 + mesh.size,
+                          f"{where}: not one launch per block")
+                    exact(where + " vs the single kernel", (got,),
+                          (st.jacobi_multisweep(c_, x_, b_, iters),))
+                    plain = sh.jacobi_multisweep_sharded_plain(
+                        mesh, c_, x_, b_, iters)
+                    jsh["max_abs_err"] = max(jsh["max_abs_err"], exact(
+                        where + " vs plain", (got,), (plain,)))
+                    exact(where + ": plain vs the global plain", (plain,),
+                          (st.jacobi_multisweep_plain(c_, x_, b_, iters),))
+                    jsh["checked"] += 1
+    # times on the 2 x 2 mesh: the momentum kernel on the first step's
+    # operands, the pressure kernel in float32 with one sweep (MGCG's
+    # V(1,1)), each beside its single-device kernel's row
+    mesh22 = card_mesh(SHARD_MESHES[0])
+    c_, x_, b_, _ = jac_ops["f32"][0][1]
+
+    def msh_call():
+        return sh.momentum_multisweep_sharded(mesh22, *ops_real,
+                                              sweeps=SWEEPS)
+
+    def jsh_call():
+        return sh.jacobi_multisweep_sharded(mesh22, c_, x_, b_, 1)
+
+    t_msh = timings(msh_call, lambda: sh.momentum_multisweep_sharded_plain(
+        mesh22, *ops_real, sweeps=SWEEPS), 200, 20, torch, flush)
+    t_jsh = timings(jsh_call, lambda: sh.jacobi_multisweep_sharded_plain(
+        mesh22, c_, x_, b_, 1), 200, 20, torch, flush)
+    b_msh = sharded_bound("momentum_multisweep", (NY, NX),
+                          SHARD_MESHES[0], "f32")
+    b_jsh = sharded_bound("jacobi_multisweep", (NY, NX), SHARD_MESHES[0],
+                          "f32", sweeps=1)
+    split_msh = own_share(cold_kernels(msh_call, 50, torch, flush),
+                          "momentum_multisweep_kernel", 50)
+    split_jsh = own_share(cold_kernels(jsh_call, 50, torch, flush),
+                          "pressure_stencil_kernel", 50)
+    say("kernel-sharded", meshes=[list(m) for m in SHARD_MESHES],
+        momentum={**msh, **t_msh, **split_msh,
+                  "bound_ms": b_msh["bound_us"] / 1e3,
+                  "bound_by": b_msh["bound_by"], "block": b_msh["block"],
+                  "haloed_bound_ms": b_msh["haloed_bound_us"] / 1e3,
+                  "share_of_bound": b_msh["bound_us"] / 1e3 / t_msh["ms"]},
+        jacobi={**jsh, **t_jsh, **split_jsh, "dtype": "f32", "iters": 1,
+                "bound_ms": b_jsh["bound_us"] / 1e3,
+                "bound_by": b_jsh["bound_by"], "block": b_jsh["block"],
+                "haloed_bound_ms": b_jsh["haloed_bound_us"] / 1e3,
+                "share_of_bound": b_jsh["bound_us"] / 1e3 / t_jsh["ms"]})
+
     # ---- the main path ---------------------------------------------------
-    def drive(label, flow, n, be, sm, warm=0):
+    def drive(label, flow, n, be, sm, warm=0, run=None,
+              momentum="momentum_multisweep"):
         """`warm` steps, then `n` steps with the counters set to 0 just
-        before and read just after; checks the step's health."""
+        before and read just after; checks the step's health and that the
+        `momentum` kernel launched once a step. `run(flow, k)` takes k
+        steps (run_piso_eager by default)."""
+        if run is None:
+            def run(flow_, k):
+                return run_piso_eager(case, flow_, k, cfg=cfg, backend=be,
+                                      sm_predict=sm)
         with torch.no_grad():
             if warm:
-                flow = run_piso_eager(case, flow, warm, cfg=cfg, backend=be,
-                                      sm_predict=sm)
+                flow = run(flow, warm)
             torch.cuda.synchronize()
             reset_counts(predictor)
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
             t = time.time()
             ev0.record()
-            flow = run_piso_eager(case, flow, n, cfg=cfg, backend=be,
-                                  sm_predict=sm)
+            flow = run(flow, n)
             ev1.record()
             torch.cuda.synchronize()
             host_s = time.time() - t
             launched, cycles = counts(), mg.v_cycle.cycles
+            loops = fvm.jacobi_momentum.sweep_loops
             sm_calls = predictor.calls
         finite = all(bool(torch.isfinite(getattr(flow, f)).all())
                      for f in ("u", "v", "p", "phi_x", "phi_y"))
@@ -698,14 +840,14 @@ def main() -> int:
                      host_ms_per_step=host_s * 1e3 / n,
                      continuity_error=cont, courant=co, t_sim=float(flow.t),
                      dt=float(flow.dt), kernel_launches=launched,
-                     v_cycles=cycles, sm_predict_calls=sm_calls,
-                     finite=finite)
+                     momentum_sweep_loops=loops, v_cycles=cycles,
+                     sm_predict_calls=sm_calls, finite=finite)
         check(finite, f"{label}: non-finite field")
         check(cont < 1e-4, f"{label}: continuity error {cont:.3e} >= 1e-4")
         check(co <= 0.5 + 1e-3, f"{label}: Courant number {co:.4f} > 0.501")
-        check(launched["momentum_multisweep"] == n,
-              f"{label}: momentum kernel launched "
-              f"{launched['momentum_multisweep']} times in {n} steps")
+        check(launched[momentum] == n and loops == 0,
+              f"{label}: {momentum} launched {launched[momentum]} times "
+              f"and the sweep loop ran {loops} times in {n} steps")
         check(sm_calls == (n if sm is not None else 0),
               f"{label}: surrogate predicted {sm_calls} times in {n} steps")
         return flow, stats
@@ -719,6 +861,61 @@ def main() -> int:
           + stats["kernel_launches"]["smooth_residual"]
           + stats["kernel_launches"]["corr_smooth"] == 0,
           "the plain smoother launched a pressure kernel")
+
+    # ---- the main path through the sharded step, 2 x 2 blocks of the card -
+    mesh_step = device_mesh(4, devices=[dev] * 4)
+    case_sh = shard_case(mesh_step, case)
+    step_sh = make_sharded_piso_step(mesh_step, cfg, backend,
+                                     sm_predict=predictor.bind(case))
+
+    def run_sharded(flow_, k):
+        for _ in range(k):
+            flow_ = step_sh(case_sh, flow_)
+        return flow_
+
+    _, stats_sh = drive("step-sharded", shard_flow(mesh_step, flow0),
+                        N_STEPS, backend, predictor, warm=N_WARM,
+                        run=run_sharded,
+                        momentum="momentum_multisweep_sharded")
+    k = stats_sh["kernel_launches"]
+    say("step-sharded", mesh=mesh_step.shape,
+        step_ms_per_step=stats["ms_per_step"], **stats_sh)
+    check(k["momentum_multisweep"] == 0,
+          f"step-sharded: {k['momentum_multisweep']} single-device "
+          "momentum launches")
+    sharded_step_launches = k
+
+    # ---- one sharded step against one piso_step, same state -------------
+    with torch.no_grad():
+        f_single = piso_step(case, flow, cfg, backend, predictor.bind(case))
+        f_sh = step_sh(case_sh, flow)
+        torch.cuda.synchronize()
+    diffs = {name: compare((getattr(f_sh, name),),
+                           (getattr(f_single, name),))[0]
+             for name in ("u", "v", "p", "phi_x", "phi_y", "dt")}
+    # the backend passes through the sharded step: with the multigrid's
+    # kernel smoother the pressure kernel runs on the lead device
+    kern_be = MGBackend(cycles=2, precision="bf16", smoother="kernel")
+    step_shk = make_sharded_piso_step(mesh_step, cfg, kern_be,
+                                      sm_predict=predictor.bind(case))
+    with torch.no_grad():
+        f_single_k = piso_step(case, flow, cfg, kern_be, predictor.bind(case))
+        reset_counts()
+        f_sh_k = step_shk(case_sh, flow)
+        torch.cuda.synchronize()
+        k_shk = counts()
+    diffs_k = {name: compare((getattr(f_sh_k, name),),
+                             (getattr(f_single_k, name),))[0]
+               for name in ("u", "v", "p", "phi_x", "phi_y", "dt")}
+    say("parity-sharded", max_abs_diff=diffs,
+        kernel_smoother_max_abs_diff=diffs_k,
+        kernel_smoother_launches=k_shk)
+    for name, d in [*diffs.items(), *diffs_k.items()]:
+        check(d == 0.0, f"sharded step parity {name}: max |diff| {d:.3e}")
+    check(k_shk["jacobi_multisweep"] > 0
+          and k_shk["momentum_multisweep_sharded"] == 1,
+          f"sharded step with the kernel smoother launched {k_shk}")
+    del f_single, f_sh, f_single_k, f_sh_k
 
     # ---- path 1: the fused V-cycle legs in bf16 --------------------------
     fused_be = MGBackend(cycles=2, precision="bf16", smoother="kernel-fused")
@@ -1104,7 +1301,54 @@ def main() -> int:
         for name, v in d.items():
             check(v <= FLEET_PARITY_TOL[name],
                   f"fleet parity case {k} {name}: rel diff {v:.3e}")
-    del flow_b, flow_warm, seq, singles, got, case_b
+    del flow_warm, seq, singles, got
+
+    # ---- the fleet over a mesh of four blocks of the card, one case each -
+    mesh_fleet = device_mesh(n_fleet, devices=[dev] * n_fleet)
+    fleet_step = make_sharded_fleet_step(mesh_fleet, cfg, backend,
+                                         sm_predict=predictor)
+    parts_c = shard_fleet(mesh_fleet, case_b)
+    with torch.no_grad():
+        parts_f = shard_fleet(mesh_fleet, flow_b0)
+        for _ in range(N_FLEET_WARM):
+            parts_f = fleet_step(parts_c, parts_f)
+        torch.cuda.synchronize()
+        reset_counts(predictor)
+        t = time.time()
+        ev0.record()
+        for _ in range(N_FLEET_STEPS):
+            parts_f = fleet_step(parts_c, parts_f)
+        ev1.record()
+        torch.cuda.synchronize()
+        fsh_host_s = time.time() - t
+        fsh_launches, fsh_calls = counts(), predictor.calls
+        fsh_loops = fvm.jacobi_momentum.sweep_loops
+    fsh_ms = ev0.elapsed_time(ev1) / N_FLEET_STEPS
+    flow_fsh = unshard_fleet(mesh_fleet, parts_f)
+    finite, cont, co = fleet_health(case_b, flow_fsh)
+    fsh_diff = {name: float((getattr(flow_fsh, name) - getattr(flow_b, name)
+                             ).abs().max())
+                for name in ("u", "v", "p", "phi_x", "phi_y", "dt", "t")}
+    say("step-fleet-sharded", mesh=mesh_fleet.shape,
+        cases_per_block=n_fleet // mesh_fleet.size,
+        locksteps=N_FLEET_STEPS, ms_per_lockstep=fsh_ms,
+        host_ms_per_lockstep=fsh_host_s * 1e3 / N_FLEET_STEPS,
+        step_fleet_ms_per_lockstep=fleet_ms,
+        step_fleet_sequential_ms_per_4case_step=seq_ms,
+        continuity_error=cont, courant=co, kernel_launches=fsh_launches,
+        momentum_sweep_loops=fsh_loops, sm_predict_calls=fsh_calls,
+        max_abs_diff_vs_step_fleet=fsh_diff, finite=finite)
+    check_fleet_health("step-fleet-sharded", finite, cont, co)
+    check(fsh_launches["momentum_multisweep"] == n_fleet * N_FLEET_STEPS
+          and fsh_loops == 0,
+          f"step-fleet-sharded: {fsh_launches['momentum_multisweep']} "
+          f"momentum launches, {fsh_loops} sweep loops")
+    check(fsh_calls == n_fleet * N_FLEET_STEPS,
+          f"step-fleet-sharded: surrogate predicted {fsh_calls} times")
+    for name, d in fsh_diff.items():
+        check(d == 0.0, f"step-fleet-sharded vs step-fleet {name}: max "
+              f"|diff| {d:.3e}")
+    del flow_b, case_b, parts_c, parts_f, flow_fsh
 
     # ---- the MGCG fleet: per-case masked CG on the card ------------------
     mcases = fleet_cases(MGCG_FLEET_NY)
@@ -1190,9 +1434,10 @@ def main() -> int:
     })
     # no path of either package calls jacobi_sweep: its count over every
     # driven path, each path's counts set to 0 just before its steps
-    sweep_launches = sum(k_["jacobi_sweep"] for k_ in (
-        step_launches, fused_launches, mgcg_launches, st_launches,
-        fleet_launches, k_mgcg))
+    paths = (step_launches, sharded_step_launches, fused_launches,
+             mgcg_launches, st_launches, fleet_launches, fsh_launches,
+             k_mgcg)
+    sweep_launches = sum(k_["jacobi_sweep"] for k_ in paths)
     check(sweep_launches == 0,
           f"a path launched jacobi_sweep {sweep_launches} times")
     kernels.append({
@@ -1208,6 +1453,12 @@ def main() -> int:
         "bound_by": sweep_times["512x2048 f32"]["bound_by"],
         "library_ms": None,
     })
+    # no path of either package runs the sharded pressure kernel (the
+    # sharded step's pressure solve runs whole on the lead device): its
+    # count over every driven path, as jacobi_sweep's
+    jsh_launches = sum(k_["jacobi_multisweep_sharded"] for k_ in paths)
+    check(jsh_launches == 0,
+          f"a path launched jacobi_multisweep_sharded {jsh_launches} times")
     kernels.append({
         "name": "momentum_multisweep (batched launch)",
         "route": "cuda",
@@ -1219,6 +1470,34 @@ def main() -> int:
         "plain_ms": t_fleet["plain_ms"],
         "bound_ms": bound_ms_fleet,
         "bound_by": bound_by_fleet,
+        "library_ms": None,
+    })
+    kernels.append({
+        "name": "momentum_multisweep_sharded",
+        "route": "cuda",
+        "source": "tpufoam_torch/ops/csrc/momentum_multisweep.cu",
+        "replaces": "tpufoam/ops/stencil.py:850",
+        "launches": sharded_step_launches["momentum_multisweep_sharded"],
+        "max_abs_err": msh["max_abs_err"],
+        "ms": t_msh["ms"],
+        "plain_ms": t_msh["plain_ms"],
+        "bound_ms": b_msh["bound_us"] / 1e3,
+        "bound_by": b_msh["bound_by"],
+        "haloed_bound_ms": b_msh["haloed_bound_us"] / 1e3,
+        "library_ms": None,
+    })
+    kernels.append({
+        "name": "jacobi_multisweep_sharded",
+        "route": "cuda",
+        "source": "tpufoam_torch/ops/csrc/pressure_stencil.cu",
+        "replaces": "tpufoam/ops/stencil.py:886",
+        "launches": jsh_launches,
+        "max_abs_err": jsh["max_abs_err"],
+        "ms": t_jsh["ms"],
+        "plain_ms": t_jsh["plain_ms"],
+        "bound_ms": b_jsh["bound_us"] / 1e3,
+        "bound_by": b_jsh["bound_by"],
+        "haloed_bound_ms": b_jsh["haloed_bound_us"] / 1e3,
         "library_ms": None,
     })
     say("done", total_s=round(time.time() - T0, 3))

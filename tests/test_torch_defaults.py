@@ -94,17 +94,18 @@ def test_the_walk_finds_the_entry_points():
 
 
 def test_piso_config_has_the_ported_fields_only():
-    """The fields of the Schaefer-Turek path are there, so the walk above
-    compares their defaults; the options that are not ported have no
-    field, so setting one raises instead of being ignored."""
+    """The fields of the Schaefer-Turek path and the sharded step's mesh
+    are there, so the walk above compares their defaults; the options
+    that are not ported have no field, so setting one raises instead of
+    being ignored."""
     from tpufoam.piso.engine import PisoConfig as JaxConfig
     from tpufoam_torch.piso.engine import PisoConfig
     port = {f.name for f in dataclasses.fields(PisoConfig)}
     ref = {f.name for f in dataclasses.fields(JaxConfig)}
     assert {"adjust_dt", "convection", "convection_blend", "ddt",
-            "inlet_scale_fn", "t_stop", "sm_trust"} <= port
+            "inlet_scale_fn", "t_stop", "sm_trust", "shard_mesh"} <= port
     assert ref - port == {"sm_before_predictor", "turb_wall_fn", "ddt_corr",
-                          "wall_order", "wall_link", "shard_mesh"}
+                          "wall_order", "wall_link"}
     with pytest.raises(TypeError):
         PisoConfig(ddt_corr=True)
 

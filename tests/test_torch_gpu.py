@@ -457,3 +457,70 @@ def test_schafer_turek_hybrid_step_on_card_matches_cpu(cuda):
         a = getattr(flows["cuda"], name).cpu()
         b = getattr(flows["cpu"], name)
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+# ---- the sharded kernels (ops.sharded) -------------------------------------
+
+
+def _card_mesh(shape, devices):
+    from tpufoam_torch.parallel.mesh import device_mesh
+    return device_mesh(shape[0] * shape[1], shape=shape, devices=devices)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2), (1, 4)])
+@pytest.mark.parametrize("shape", [(512, 2048), (64, 96)])
+def test_sharded_momentum_equals_the_single_kernel(cuda, shape, mesh_shape):
+    """Four or eight blocks of one card in one launch, against one launch
+    over the whole grid: bit for bit (each kept cell runs the same
+    arithmetic on the same values)."""
+    from tpufoam_torch.ops import sharded as tsh
+
+    mesh = _card_mesh(mesh_shape, [cuda] * (mesh_shape[0] * mesh_shape[1]))
+    ops = _operands(*shape, seed=3, device=cuda)
+    before = tsh.momentum_multisweep_sharded.launches
+    got = tsh.momentum_multisweep_sharded(mesh, *ops, sweeps=8)
+    torch.cuda.synchronize()
+    assert tsh.momentum_multisweep_sharded.launches == before + 1
+    ref = tmom.momentum_multisweep(*ops, sweeps=8)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2)])
+def test_sharded_jacobi_equals_the_single_kernel(cuda, mesh_shape, dtype):
+    from tpufoam_torch.ops import sharded as tsh
+
+    mesh = _card_mesh(mesh_shape, [cuda] * (mesh_shape[0] * mesh_shape[1]))
+    coef, x, b, _ = _pressure_operands(512, 2048, dtype, 5, cuda)
+    for iters in (1, 2, ts._halo_for(dtype)):
+        before = tsh.jacobi_multisweep_sharded.launches
+        got = tsh.jacobi_multisweep_sharded(mesh, coef, x, b, iters)
+        torch.cuda.synchronize()
+        assert tsh.jacobi_multisweep_sharded.launches == before + mesh.size
+        assert torch.equal(got, ts.jacobi_multisweep(coef, x, b, iters))
+
+
+def test_sharded_kernels_across_two_cards(cuda):
+    """A (1, 2) mesh over cuda:0 and cuda:1: each launcher runs on its
+    operands' card, the halos cross by peer copies, and the result equals
+    the single kernel on cuda:0 bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from tpufoam_torch.ops import sharded as tsh
+
+    mesh = _card_mesh((1, 2), ["cuda:0", "cuda:1"])
+    ops = _operands(256, 1024, seed=9, device=torch.device("cuda:0"))
+    before = tsh.momentum_multisweep_sharded.launches
+    got = tsh.momentum_multisweep_sharded(mesh, *ops, sweeps=8)
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    assert tsh.momentum_multisweep_sharded.launches == before + 2
+    for g, r in zip(got, tmom.momentum_multisweep(*ops, sweeps=8)):
+        assert torch.equal(g, r)
+    for dtype in (torch.float32, torch.bfloat16):
+        coef, x, b, _ = _pressure_operands(256, 1024, dtype, 4,
+                                           torch.device("cuda:0"))
+        got = tsh.jacobi_multisweep_sharded(mesh, coef, x, b, 2)
+        assert torch.equal(got, ts.jacobi_multisweep(coef, x, b, 2))

@@ -19,6 +19,7 @@ import dataclasses
 import torch
 
 from ..ops.momentum import MAX_SWEEPS, momentum_multisweep
+from ..ops.sharded import momentum_multisweep_sharded, sharded_available_for
 from .case import Case, domain_row_masks, grid_metrics, per_case
 from .operators import nb_e, nb_n, nb_s, nb_w
 
@@ -233,25 +234,38 @@ def h_operator(coef: MomentumCoeffs, u: torch.Tensor, v: torch.Tensor):
 def jacobi_momentum(coef: MomentumCoeffs, case: Case,
                     u0: torch.Tensor, v0: torch.Tensor,
                     src_u: torch.Tensor, src_v: torch.Tensor,
-                    sweeps: int = 4, smoother: str = "plain"):
+                    sweeps: int = 4, smoother: str = "plain", mesh=None):
     """Solve a_P U - sum a_nb U_nb = b + src by `sweeps` Jacobi sweeps.
 
     `src_*` carries the -grad(p)*V term. smoother='kernel' runs all sweeps
     in one call of ops.momentum.momentum_multisweep (the hand-written
     kernel on a CUDA tensor, its plain version on a CPU tensor), one call
-    for every case of a (B, ny, nx) fleet; beyond the kernel's
-    MAX_SWEEPS it runs the sweep loop, as the JAX package does. 'plain'
-    runs the sweep loop here, one stencil pass per sweep."""
+    for every case of a (B, ny, nx) fleet. `mesh` (a parallel.mesh.Mesh)
+    runs the kernel per block of the mesh on halo-extended blocks instead
+    (ops.sharded.momentum_multisweep_sharded) where
+    `sharded_available_for` takes the grid; a mesh it refuses runs the
+    single kernel, since the fields are whole on one device (the JAX
+    package runs its XLA loop there). 'plain' runs the sweep loop, as
+    does, as in the JAX package, a kernel smoother beyond the kernel's
+    MAX_SWEEPS. `jacobi_momentum.sweep_loops` counts the calls that ran
+    the loop."""
     if smoother not in ("kernel", "plain"):
         raise ValueError(f"unknown momentum smoother {smoother!r}")
     inv_ap = 1.0 / coef.a_p
     if smoother == "kernel" and sweeps <= MAX_SWEEPS:
-        return momentum_multisweep(
-            coef.a_e, coef.a_w, coef.a_n, coef.a_s, inv_ap * case.fluid,
-            coef.b_u + src_u, coef.b_v + src_v, u0, v0, sweeps=sweeps)
+        ops = (coef.a_e, coef.a_w, coef.a_n, coef.a_s, inv_ap * case.fluid,
+               coef.b_u + src_u, coef.b_v + src_v, u0, v0)
+        if mesh is not None and sharded_available_for(
+                tuple(u0.shape), mesh, dtype=u0.dtype, kernel="momentum"):
+            return momentum_multisweep_sharded(mesh, *ops, sweeps=sweeps)
+        return momentum_multisweep(*ops, sweeps=sweeps)
+    jacobi_momentum.sweep_loops += 1
     u, v = u0, v0
     for _ in range(sweeps):
         hu, hv = h_operator(coef, u, v)
         u, v = ((hu + src_u) * inv_ap * case.fluid,
                 (hv + src_v) * inv_ap * case.fluid)
     return u, v
+
+
+jacobi_momentum.sweep_loops = 0

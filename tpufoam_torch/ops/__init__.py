@@ -6,6 +6,9 @@
   stencil.jacobi_multisweep     damped-Jacobi pressure sweeps
   stencil.smooth_residual       V-cycle down leg (sweeps + residual)
   stencil.corr_smooth           V-cycle up leg (correction + sweeps)
+  sharded.momentum_multisweep_sharded, sharded.jacobi_multisweep_sharded
+                                the two multisweeps over a mesh of devices,
+                                per block on halo-extended blocks
 """
 
 from .momentum import momentum_multisweep, momentum_multisweep_plain

@@ -50,15 +50,11 @@ def _kernel():
     return lib, fn
 
 
-def momentum_multisweep(a_e, a_w, a_n, a_s, ap_inv, bu, bv, u0, v0,
-                        sweeps: int = 8):
-    """`sweeps` coupled Jacobi momentum sweeps on (ny, nx) or (B, ny, nx)
-    operands; returns (u, v).
-
-    On CUDA tensors this launches the kernel once, whatever B (and raises
-    if it cannot); on CPU tensors it runs `momentum_multisweep_plain`.
-    Both check that the nine operands share one shape."""
-    ops = (a_e, a_w, a_n, a_s, ap_inv, bu, bv, u0, v0)
+def _check(ops, sweeps: int) -> bool:
+    """True for CPU operands (take the plain version), False for CUDA
+    operands; raises on too many sweeps, differing shapes or another
+    device."""
+    u0 = ops[7]
     if not 0 <= sweeps <= MAX_SWEEPS:
         raise ValueError(f"sweeps={sweeps} outside [0, {MAX_SWEEPS}]")
     if u0.dim() not in (2, 3) or any(t.shape != u0.shape for t in ops):
@@ -66,9 +62,19 @@ def momentum_multisweep(a_e, a_w, a_n, a_s, ap_inv, bu, bv, u0, v0,
                          f"(B, ny, nx) shape; got "
                          f"{[tuple(t.shape) for t in ops]}")
     if u0.device.type == "cpu":
-        return momentum_multisweep_plain(*ops, sweeps=sweeps)
+        return True
     if u0.device.type != "cuda":
         raise ValueError(f"no momentum kernel for device {u0.device}")
+    return False
+
+
+def _launch(ops, sweeps: int, out=None):
+    """One launch of the kernel over the (ny, nx) or (B, ny, nx) CUDA
+    operands `ops` = (a_e, a_w, a_n, a_s, ap_inv, bu, bv, u0, v0), on the
+    card that holds them, into `out` = (u, v) (new tensors if None);
+    returns (u, v). Counts nothing: the callers count their own
+    launches."""
+    u0 = ops[7]
     for t in ops:
         if t.device != u0.device or t.dtype != torch.float32 \
                 or not t.is_contiguous():
@@ -79,16 +85,38 @@ def momentum_multisweep(a_e, a_w, a_n, a_s, ap_inv, bu, bv, u0, v0,
     lib, fn = _kernel()
     *lead, ny, nx = u0.shape
     planes = lead[0] if lead else 1
-    u_out = torch.empty_like(u0)
-    v_out = torch.empty_like(v0)
-    stream = torch.cuda.current_stream(u0.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in ops), u_out.data_ptr(),
-             v_out.data_ptr(), planes, ny, nx, sweeps, stream)
+    u_out, v_out = out if out is not None else (torch.empty_like(u0),
+                                                torch.empty_like(u0))
+    for t in (u_out, v_out):
+        if t.shape != u0.shape or t.device != u0.device \
+                or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("momentum kernel writes contiguous float32 "
+                             "outputs of its operands' shape and device")
+    with torch.cuda.device(u0.device):
+        stream = torch.cuda.current_stream(u0.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in ops), u_out.data_ptr(),
+                 v_out.data_ptr(), planes, ny, nx, sweeps, stream)
     if err != 0:
         msg = lib.momentum_multisweep_error_string(err).decode()
         raise RuntimeError(f"momentum_multisweep launch failed: {msg}")
-    momentum_multisweep.launches += 1
     return u_out, v_out
+
+
+def momentum_multisweep(a_e, a_w, a_n, a_s, ap_inv, bu, bv, u0, v0,
+                        sweeps: int = 8):
+    """`sweeps` coupled Jacobi momentum sweeps on (ny, nx) or (B, ny, nx)
+    operands; returns (u, v).
+
+    On CUDA tensors this launches the kernel once, whatever B, on the card
+    that holds them (and raises if it cannot); on CPU tensors it runs
+    `momentum_multisweep_plain`. Both check that the nine operands share
+    one shape."""
+    ops = (a_e, a_w, a_n, a_s, ap_inv, bu, bv, u0, v0)
+    if _check(ops, sweeps):
+        return momentum_multisweep_plain(*ops, sweeps=sweeps)
+    out = _launch(ops, sweeps)
+    momentum_multisweep.launches += 1
+    return out
 
 
 momentum_multisweep.launches = 0

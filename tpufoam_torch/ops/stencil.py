@@ -184,11 +184,12 @@ def _launch(name, entry, coef, fields, outs, iters, omega):
     lib, fn = _fn(f"{entry}_{_DTYPES[x.dtype]}", len(fields) + 5 + len(outs),
                   (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float))
     ny, nx = x.shape
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [t.data_ptr() for t in (*fields, coef.c_e, coef.c_w, coef.c_n,
                                    coef.c_s, coef.diag, *outs)]
-    _raise_on(lib, name, fn(*ptrs, ny, nx, iters, _omega(omega, x.dtype),
-                            stream))
+    with torch.cuda.device(x.device):   # launch on the operands' card
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*ptrs, ny, nx, iters, _omega(omega, x.dtype), stream)
+    _raise_on(lib, name, err)
 
 
 def _launch_pass(name, entry, coef, fields, out, omega=None):
@@ -198,12 +199,14 @@ def _launch_pass(name, entry, coef, fields, out, omega=None):
                                      else ())
     lib, fn = _fn(f"{entry}_{_DTYPES[x.dtype]}", len(fields) + 6, scalars)
     *lead, ny, nx = x.shape
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [t.data_ptr() for t in (*fields, coef.c_e, coef.c_w, coef.c_n,
                                    coef.c_s, coef.diag, out)]
     args = (lead[0] if lead else 1, ny, nx) \
         + ((_omega(omega, x.dtype),) if omega is not None else ())
-    _raise_on(lib, name, fn(*ptrs, *args, stream))
+    with torch.cuda.device(x.device):   # launch on the operands' card
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*ptrs, *args, stream)
+    _raise_on(lib, name, err)
 
 
 def _raise_on(lib, name, err):

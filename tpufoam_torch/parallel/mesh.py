@@ -1,0 +1,269 @@
+"""Meshes of devices, the spatially sharded PISO step and the
+case-parallel fleet: the counterpart of tpufoam/parallel/mesh.py.
+
+A mesh is a (dy, dx) grid of `torch.device`s with the JAX package's axis
+names ('data' over y, 'model' over x). One process drives every device of
+the mesh, as JAX's single controller does, and a device may repeat: on
+one card `device_mesh(4, devices=["cuda:0"] * 4)` is a 2 x 2 mesh of four
+blocks on that card; on a host with four cards `device_mesh(4)` puts one
+block on each.
+
+What is sharded. The JAX step keeps every field sharded end to end:
+GSPMD partitions every stencil and reduction and inserts the halo
+exchanges. PyTorch has no such partitioner, so here the fields stay whole
+on the mesh's lead device (`shard_case` and `shard_flow` check the
+divisibility the JAX specs demand and place them there), and the one
+per-block kernel of the JAX step, the momentum multisweep, runs
+decomposed on the mesh (ops.sharded). The numbers equal the single-device
+step's; the memory per device does not shrink with the mesh. A
+domain-decomposed engine, with fields resident per card and an exchange
+between processes, is a later piece of work.
+
+The fleet is the other layout: its case axis is split over the mesh and
+each device steps its own sub-stack of whole cases, with no exchange at
+all.
+
+Not ported: the tensor-parallel MLP (`mlp_partition_specs`,
+`make_sharded_train_step`) waits for the training port, and the sharded
+SST step (`shard_turbulence`, `make_sharded_sst_step`) for the SST model;
+they raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..fv.case import Case, Flow
+from ..piso.engine import PisoConfig, piso_step
+from ..solvers.backends import CGBackend
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A (dy, dx) grid of devices; hashable, so that a frozen PisoConfig
+    can hold it. `devices[i][j]` holds block (i, j): rows i*ny/dy.. of y
+    and columns j*nx/dx.. of x."""
+    devices: tuple
+    axis_names: tuple = ("data", "model")
+
+    def __post_init__(self):
+        rows = tuple(tuple(_device(d) for d in row) for row in self.devices)
+        if not rows or not rows[0] or len({len(r) for r in rows}) != 1:
+            raise ValueError("a mesh is a non-empty (dy, dx) grid of devices")
+        if len(self.axis_names) != 2:
+            raise ValueError(f"a mesh has two axis names, got "
+                             f"{self.axis_names!r}")
+        object.__setattr__(self, "devices", rows)
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, as JAX's `Mesh.shape`."""
+        return dict(zip(self.axis_names,
+                        (len(self.devices), len(self.devices[0]))))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices) * len(self.devices[0])
+
+    @property
+    def device_list(self) -> tuple:
+        """The devices row-major: (0, 0), (0, 1), ..."""
+        return tuple(d for row in self.devices for d in row)
+
+    @property
+    def lead(self) -> torch.device:
+        """The device that holds the global fields."""
+        return self.devices[0][0]
+
+
+def _device(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def device_mesh(n_devices: int | None = None,
+                shape: tuple[int, int] | None = None,
+                axis_names=("data", "model"), devices=None) -> Mesh:
+    """A mesh of the first `n_devices` of `devices` (every visible card
+    when None; an explicit list may repeat a device, or name the CPU), of
+    `shape`, by default the squarest factorisation, data-major (8 devices
+    make a 4 x 2 mesh)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("device_mesh: no CUDA device; pass devices= "
+                               "(e.g. ['cpu'] * n) for a mesh without one")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = list(devices)
+    n = len(devs) if n_devices is None else n_devices
+    if not 1 <= n <= len(devs):
+        raise ValueError(f"device_mesh: {n} devices asked, {len(devs)} given")
+    devs = devs[:n]
+    if shape is None:
+        d = math.isqrt(n)
+        while n % d:
+            d -= 1
+        shape = (n // d, d)
+    dy, dx = shape
+    if dy * dx != n:
+        raise ValueError(f"device_mesh: shape {shape} does not hold {n} "
+                         "devices")
+    return Mesh(tuple(tuple(devs[i * dx:(i + 1) * dx]) for i in range(dy)),
+                tuple(axis_names))
+
+
+# ---------------------------------------------------------------------------
+# spatially sharded PISO
+# ---------------------------------------------------------------------------
+
+# the axes each field is split along, by the JAX package's specs
+# (`_case_specs`, `_flow_specs`): cells over (y, x); the inlet profile
+# over y; the face fluxes only along their cell-aligned axis (phi_x has
+# nx + 1 columns, phi_y ny + 1 rows); dt and t replicated
+_CELL = ("data", "model")
+_CASE_SPLIT = {"inlet_u": ("data",)}
+_FLOW_SPLIT = {"phi_x": ("data", None), "phi_y": (None, "model"),
+               "dt": (), "t": ()}
+
+
+def _place(mesh: Mesh, tree, split: dict):
+    """Check that every tensor field of `tree` divides along the mesh axes
+    of its spec, and place it on the lead device."""
+    moved = {}
+    for f in dataclasses.fields(tree):
+        t = getattr(tree, f.name)
+        if not isinstance(t, torch.Tensor):
+            continue
+        spec = split.get(f.name, _CELL)
+        for axis, name in zip(range(-len(spec), 0), spec):
+            if name is not None and t.shape[axis] % mesh.shape[name]:
+                raise ValueError(
+                    f"{f.name} {tuple(t.shape)}: axis {axis} does not divide "
+                    f"over the mesh's {name!r} axis of {mesh.shape[name]}")
+        moved[f.name] = t.to(mesh.lead)
+    return dataclasses.replace(tree, **moved)
+
+
+def shard_flow(mesh: Mesh, flow: Flow) -> Flow:
+    """`flow` on the mesh's lead device, after checking that each field
+    divides as the JAX package's `_flow_specs` demand."""
+    return _place(mesh, flow, _FLOW_SPLIT)
+
+
+def shard_case(mesh: Mesh, case: Case) -> Case:
+    """`case` on the mesh's lead device, after checking that each field
+    divides as the JAX package's `_case_specs` demand."""
+    return _place(mesh, case, _CASE_SPLIT)
+
+
+def make_sharded_piso_step(mesh: Mesh, cfg: PisoConfig = PisoConfig(),
+                           backend=None, sm_predict=None):
+    """The PISO step over `mesh`: step(case, flow) -> flow, with the case
+    and flow of `shard_case` and `shard_flow`. With
+    momentum_smoother='kernel' the momentum kernel runs per block of the
+    mesh on halo-extended blocks (`cfg.shard_mesh`,
+    ops.sharded.momentum_multisweep_sharded); everything else, the
+    pressure solve with its kernel smoothers included, runs on the lead
+    device as in `piso_step`, and the result equals `piso_step`'s. The
+    JAX package downgrades a 'pallas' pressure smoother to 'xla' here,
+    because GSPMD cannot partition its kernel; the fields are whole on the
+    lead device here, so the backend passes through unchanged."""
+    backend = backend or CGBackend(rtol=1e-5, maxiter=200)
+    if cfg.momentum_smoother == "kernel" and cfg.shard_mesh is None:
+        cfg = dataclasses.replace(cfg, shard_mesh=mesh)
+
+    def step(case: Case, flow: Flow) -> Flow:
+        return piso_step(case, flow, cfg=cfg, backend=backend,
+                         sm_predict=sm_predict)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# case-parallel fleet farming
+# ---------------------------------------------------------------------------
+
+def _tensor_fields(tree) -> list[str]:
+    return [f.name for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)]
+
+
+def shard_fleet(mesh: Mesh, tree) -> tuple:
+    """Split a stacked fleet Case or Flow (piso.batched.stack_cases /
+    stack_flows) on its case axis into `mesh.size` sub-stacks of whole
+    cases, sub-stack k on `mesh.device_list[k]`. Requires
+    n_cases % mesh.size == 0. Where the JAX function returns one global
+    array sharded over the devices, this returns the tuple of sub-stacks;
+    `unshard_fleet` joins them."""
+    names = _tensor_fields(tree)
+    devs = mesh.device_list
+    n = getattr(tree, names[0]).shape[0]
+    if n % len(devs):
+        raise ValueError(f"shard_fleet: {n} cases do not divide over "
+                         f"{len(devs)} devices")
+    m = n // len(devs)
+    return tuple(dataclasses.replace(tree, **{
+        name: getattr(tree, name)[k * m:(k + 1) * m].to(d)
+        for name in names}) for k, d in enumerate(devs))
+
+
+def unshard_fleet(mesh: Mesh, parts):
+    """The sub-stacks of `shard_fleet` (or of a sharded fleet step) as one
+    stacked Case or Flow on the mesh's lead device."""
+    return dataclasses.replace(parts[0], **{
+        name: torch.cat([getattr(p, name).to(mesh.lead) for p in parts])
+        for name in _tensor_fields(parts[0])})
+
+
+def make_sharded_fleet_step(mesh: Mesh, cfg: PisoConfig = PisoConfig(),
+                            backend=None, sm_predict=None):
+    """Case-parallel fleet step: step(cases, flows) -> flows on the
+    sub-stacks of `shard_fleet`, each advanced by the batched `piso_step`
+    on its own device, with no exchange; every case evolves as in
+    `run_piso_batched` of the whole fleet. One process issues the
+    sub-steps one after another, and the step is bound by the host, so
+    this never beats `run_piso_batched` of the whole fleet on one card,
+    nor on several until each card has a process of its own. `sm_predict`
+    must take a sub-stack on its device."""
+    backend = backend or CGBackend(rtol=1e-5, maxiter=200)
+    # each device owns whole-domain cases: no spatial dispatch
+    cfg = dataclasses.replace(cfg, shard_mesh=None)
+
+    def step(cases, flows) -> tuple:
+        return tuple(piso_step(c, f, cfg=cfg, backend=backend,
+                               sm_predict=sm_predict)
+                     for c, f in zip(cases, flows, strict=True))
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# not ported yet
+# ---------------------------------------------------------------------------
+
+def _not_ported(what: str, waits_for: str):
+    raise NotImplementedError(f"{what} is not ported yet: it waits for "
+                              f"{waits_for}")
+
+
+def mlp_partition_specs(params):
+    _not_ported("mlp_partition_specs", "the training port")
+
+
+def make_sharded_train_step(mesh, mdef, opt, loss_scale: float = 1e6):
+    _not_ported("make_sharded_train_step", "the training port")
+
+
+def shard_turbulence(mesh, turb):
+    _not_ported("shard_turbulence", "the SST model")
+
+
+def make_sharded_sst_step(mesh, cfg: PisoConfig = PisoConfig(), backend=None,
+                          sm_predict=None):
+    _not_ported("make_sharded_sst_step", "the SST model")

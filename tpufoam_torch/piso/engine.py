@@ -33,8 +33,8 @@ from ..solvers.cg import _norm
 class PisoConfig:
     """The step's knobs, with the JAX package's defaults: nCorrectors 2,
     maxCo 0.5, limitedLinearV convection, Euler ddt. Its options
-    ddt_corr, wall_order, wall_link, sm_before_predictor (Algorithm 1),
-    turb_wall_fn and shard_mesh are not ported and have no field."""
+    ddt_corr, wall_order, wall_link, sm_before_predictor (Algorithm 1)
+    and turb_wall_fn are not ported and have no field."""
     n_correctors: int = 2
     momentum_sweeps: int = 8          # the kernel takes <= 8; more run
                                       # the sweep loop
@@ -70,6 +70,11 @@ class PisoConfig:
                                       # back to p_prev) before the
                                       # momentum predictor; an all-zero
                                       # p_prev passes; 0 disables
+    shard_mesh: object = None         # parallel.mesh.Mesh (hashable): the
+                                      # momentum kernel then runs per block
+                                      # of the mesh on halo-extended blocks
+                                      # (ops.sharded; set by parallel.mesh.
+                                      # make_sharded_piso_step)
 
 
 def courant_number(case: Case, flow: Flow) -> torch.Tensor:
@@ -197,7 +202,8 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
                            dt_prev=flow.dt)
     u, v = jacobi_momentum(coef, case, u, v, -gpx * volc, -gpy * volc,
                            sweeps=cfg.momentum_sweeps,
-                           smoother=cfg.momentum_smoother)
+                           smoother=cfg.momentum_smoother,
+                           mesh=cfg.shard_mesh)
 
     # --- PISO corrector loop (pEqn, nCorrectors times) ---
     for i_corr in range(cfg.n_correctors):

@@ -3,7 +3,7 @@ every level of the multigrid hierarchy of a grid: by default the main
 path's 512 x 2048 and the Schaefer-Turek path's 256 x 1375 (D/delta 62.5).
 
     python -m tpufoam_torch.tools.kernel_bounds [--ny NY --nx NX]
-        [--fleet 4]
+        [--fleet 4] [--mesh 2x2]
 
 Each (ny, nx) operand is read once and each output written once, at the
 H100 SXM's published 3.35 TB/s; the operations (counted per cell and
@@ -15,8 +15,13 @@ that is not the coarsest (the coarsest level takes plain sweeps); the
 matvec and the single sweep at every level (the coarsest level's plain
 sweeps are matvecs); the momentum kernel runs at the finest level only,
 and its batched launch over a fleet of `--fleet` cases (piso.batched)
-moves that many planes in one launch. Prints one JSON line, keyed by
-grid. Runs anywhere; it measures nothing.
+moves that many planes in one launch. The sharded kernels (ops.sharded)
+over a `--mesh DYxDX` mesh (default 2x2) have the single kernel's bound,
+and beside it the bound of their haloed blocks, each (ny/dy + 2h) x
+(nx/dx + 2h) along the split axes with the kernel's halo h (8 in
+float32, 16 in bfloat16), read with their operations on every haloed
+cell and written cropped: the extra cost of this design. Prints one
+JSON line, keyed by grid. Runs anywhere; it measures nothing.
 """
 
 from __future__ import annotations
@@ -73,7 +78,37 @@ def bound(name: str, shape, dtype: str, planes: int = 1) -> dict:
             "bound_by": "bytes" if t_mem >= t_ops else "operations"}
 
 
-def bounds(ny: int, nx: int, fleet: int = 4) -> dict:
+def sharded_bound(name: str, shape, mesh_shape, dtype: str,
+                  sweeps: int | None = None) -> dict:
+    """The least time of one sharded call of `name` ("momentum_multisweep"
+    or "jacobi_multisweep") on a (dy, dx) mesh at global `shape`, at
+    `sweeps` (the kernel's path sweeps if None). `bound_us` is the
+    function's: the global operands read once, the outputs written once,
+    the operations on every cell, as the single kernel's bound.
+    `haloed_bound_us` is this design's: every haloed block's operands read
+    and its operations done on every haloed cell."""
+    n_in, n_out, per_sweep, once, path = KERNELS[name]
+    sweeps = path[dtype] if sweeps is None else sweeps
+    (ny, nx), (dy, dx) = shape, mesh_shape
+    h = 16 if dtype == "bf16" else 8
+    nyh = ny // dy + (2 * h if dy > 1 else 0)
+    nxh = nx // dx + (2 * h if dx > 1 else 0)
+
+    def least(cells_in: int) -> tuple[int, float, str]:
+        n_bytes = (n_in * cells_in + n_out * ny * nx) * SIZES[dtype]
+        n_ops = (per_sweep * sweeps + once) * cells_in
+        t_mem, t_ops = n_bytes / MEM_RATE, n_ops / F32_RATE
+        return (n_bytes, max(t_mem, t_ops) * 1e6,
+                "bytes" if t_mem >= t_ops else "operations")
+
+    n_bytes, t, by = least(ny * nx)
+    h_bytes, h_t, _ = least(dy * dx * nyh * nxh)
+    return {"shape": list(shape), "mesh": [dy, dx], "block": [nyh, nxh],
+            "sweeps": sweeps, "bytes": n_bytes, "bound_us": t,
+            "bound_by": by, "haloed_bytes": h_bytes, "haloed_bound_us": h_t}
+
+
+def bounds(ny: int, nx: int, fleet: int = 4, mesh=(2, 2)) -> dict:
     shapes = level_shapes(ny, nx)
     out = {}
     for name, spec in KERNELS.items():
@@ -82,7 +117,13 @@ def bounds(ny: int, nx: int, fleet: int = 4) -> dict:
         out[name] = {dt: [bound(name, s, dt) for s in on] for dt in spec[4]}
     return {"levels": [list(s) for s in shapes], "kernels": out,
             "fleet": {"cases": fleet, "momentum_multisweep": bound(
-                "momentum_multisweep", (ny, nx), "f32", planes=fleet)}}
+                "momentum_multisweep", (ny, nx), "f32", planes=fleet)},
+            "sharded": {
+                "momentum_multisweep": sharded_bound(
+                    "momentum_multisweep", (ny, nx), mesh, "f32"),
+                "jacobi_multisweep": {dt: sharded_bound(
+                    "jacobi_multisweep", (ny, nx), mesh, dt)
+                    for dt in ("f32", "bf16")}}}
 
 
 def main() -> None:
@@ -90,11 +131,14 @@ def main() -> None:
     ap.add_argument("--ny", type=int)
     ap.add_argument("--nx", type=int)
     ap.add_argument("--fleet", type=int, default=4)
+    ap.add_argument("--mesh", default="2x2", help="DYxDX of the sharded "
+                    "kernels' mesh")
     args = ap.parse_args()
     if (args.ny is None) != (args.nx is None):
         ap.error("give both --ny and --nx, or neither")
+    mesh = tuple(int(k) for k in args.mesh.split("x"))
     grids = ((args.ny, args.nx),) if args.ny else GRIDS
-    print(json.dumps({f"{ny}x{nx}": bounds(ny, nx, args.fleet)
+    print(json.dumps({f"{ny}x{nx}": bounds(ny, nx, args.fleet, mesh)
                       for ny, nx in grids}))
 
 
