@@ -8,7 +8,8 @@ Phases, each printing one JSON line with its elapsed seconds:
   build   compile every CUDA source (one nvcc call each, all at once) and
           print ptxas' registers, shared memory and spills
   kernel  the momentum kernel against its plain version at the main
-          path's shape, on random structured operands; its time
+          path's shape, on random structured operands; its time, and its
+          device time at 1, 2, 4 and 8 sweeps
   case    the 512 x 2048 cylinder channel and the sm_ref512 surrogate
   kernel-real  the momentum kernel on the operands of the case's first step
   kernel-pressure  each pressure-stencil kernel (jacobi_multisweep,
@@ -24,9 +25,16 @@ Phases, each printing one JSON line with its elapsed seconds:
           every level of both multigrid hierarchies (512 x 2048 .. 8 x 32
           and 256 x 1375 .. 8 x 43, each on its case's first-corrector
           operator) and on random operands of odd shapes, in float32 and
-          bfloat16, one case and a (4, ny, nx) stack: bit for bit; its
-          time at both finest levels, beside the library's sparse
-          product (CSR) of the same operator in float32
+          bfloat16, one case and a (4, ny, nx) stack, and from operands
+          one element off 16 bytes (the cell variant): bit for bit;
+          its time at both finest levels, beside the library's sparse
+          product (CSR) of the same operator (in bfloat16 too, or the
+          reason there is none), and its device time and bound at every
+          level of the main path's hierarchy (and without the flush, as
+          the path finds a level just written); after the step phase, a
+          second line joins those with the launches per step of each
+          level on the main path, by variant (the finest level vector,
+          the coarser ones cell)
   kernel-sweep  the jacobi_sweep kernel (one sweep a launch) against its
           plain version and against the jacobi_multisweep kernel, iters 1,
           2 and 8, float32 and bfloat16, at the same levels: bit for bit;
@@ -340,6 +348,8 @@ def main() -> int:
     def reset_counts(predictor=None):
         for fn in counters.values():
             fn.launches = 0
+        st.stencil_matvec.by_shape.clear()
+        st.jacobi_sweep.by_shape.clear()
         mg.v_cycle.cycles = 0
         fvm.jacobi_momentum.sweep_loops = 0
         if predictor is not None:
@@ -390,9 +400,17 @@ def main() -> int:
     n_cells = NY * NX
     bound_ms, bound_by = bound((9 + 2) * n_cells * 4,
                                SWEEPS * 2 * 9 * n_cells)
+    # device time against the sweeps: the bytes are the same at every
+    # count, so the slope is what a sweep costs
+    by_sweeps = {}
+    for k in (1, 2, 4, 8):
+        ms_k = time_ms(lambda: momentum_multisweep(*ops_rand, sweeps=k), 100,
+                       torch, flush)[0]
+        by_sweeps[k] = dict(ms=ms_k, bound_ms=bound(
+            (9 + 2) * n_cells * 4, k * 2 * 9 * n_cells)[0])
     say("kernel", max_abs_err=err_rand, rel_err=rel_rand, **t_rand,
         bound_ms=bound_ms, bound_by=bound_by,
-        share_of_bound=bound_ms / t_rand["ms"])
+        share_of_bound=bound_ms / t_rand["ms"], by_sweeps=by_sweeps)
 
     # ---- the main path's case and surrogate -----------------------------
     delta = 2.0 / NY
@@ -605,6 +623,17 @@ def main() -> int:
         return err
 
     # ---- B.2: stencil_matvec against its plain version, bit for bit -------
+    def offset_by_one(t):
+        """A contiguous copy of t (or of each field of a PressureCoeffs)
+        that starts one element into a fresh buffer."""
+        if isinstance(t, PressureCoeffs):
+            return PressureCoeffs(*(offset_by_one(getattr(t, f.name))
+                                    for f in dataclasses.fields(t)))
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out_ = buf[1:].view(t.shape)
+        out_.copy_(t)
+        return out_
+
     matvec = {"max_abs_err": 0.0, "checked": 0}
     for prec, dt in dtypes.items():
         for grid_name, lv in all_levels.items():
@@ -629,6 +658,22 @@ def main() -> int:
                 f"stencil_matvec {prec} random {shape}", (got,),
                 (st.stencil_matvec_plain(c_, x_),)))
             matvec["checked"] += 1
+        # the finest level from operands one element off 16 bytes: the
+        # cell variant takes them
+        c_, x_, _, _ = level_operands(*fine[0], dt)
+        c_off, x_off = offset_by_one(c_), offset_by_one(x_)
+        key = ("cell", prec, tuple(x_.shape))
+        n_cell = st.stencil_matvec.by_shape[key]
+        got = st.stencil_matvec(c_off, x_off)
+        torch.cuda.synchronize()
+        check(st.stencil_matvec.by_shape[key] == n_cell + 1,
+              "stencil_matvec: an operand off 16 bytes took the vector "
+              "variant")
+        matvec["max_abs_err"] = max(matvec["max_abs_err"], exact(
+            f"stencil_matvec {prec} offset operands", (got,),
+            (st.stencil_matvec_plain(c_, x_),)))
+        matvec["checked"] += 1
+
     def csr_operator(coef_):
         """A as a (ny nx)^2 CSR matrix: the library's sparse product is
         the yardstick of the matvec (it rounds in its own order)."""
@@ -655,13 +700,18 @@ def main() -> int:
             t_m = timings(lambda: st.stencil_matvec(c_, x_),
                           lambda: st.stencil_matvec_plain(c_, x_), 200, 50,
                           torch, flush)
-            lib = {}
-            if prec == "f32":
+            try:
                 a_csr, x_col = csr_operator(c_), x_.reshape(-1, 1)
                 y_lib = (a_csr @ x_col).reshape(x_.shape)
+            except RuntimeError as exc:    # no such product in this dtype
+                lib = dict(library_ms=None, library_error=str(exc)[:200])
+            else:
+                # in float32 it must compute the same function; in
+                # bfloat16 it rounds once where the matvec rounds after
+                # every operation, so its distance is only recorded
                 lib_rel = compare((y_lib,),
                                   (st.stencil_matvec_plain(c_, x_),))[1]
-                check(lib_rel <= KERNEL_REL_TOL,
+                check(prec != "f32" or lib_rel <= KERNEL_REL_TOL,
                       f"sparse product vs matvec: rel err {lib_rel:.3e}")
                 lib = dict(library_ms=time_ms(lambda: a_csr @ x_col, 200,
                                               torch, flush)[0],
@@ -669,8 +719,33 @@ def main() -> int:
             matvec_times[f"{grid_name} {prec}"] = dict(
                 **t_m, **lib, bound_ms=b_ms, bound_by=b_by,
                 share_of_bound=b_ms / t_m["ms"])
+    # the rate this timing allows: one copy that reads and writes as many
+    # bytes as the f32 matvec at 512 x 2048 moves (the flush leaves the L2
+    # full of dirty lines, whose write-back the copy pays too)
+    src = torch.empty(7 * n_cells // 2, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), 100, torch, flush)[0]
+    del src, dst
+    # device time and bound at every level of the main path's hierarchy
+    matvec_levels = {}
+    for prec, dt in dtypes.items():
+        size = torch.tensor([], dtype=dt).element_size()
+        for coef_l, b_l in all_levels["512x2048"]:
+            c_, x_, _, _ = level_operands(coef_l, b_l, dt)
+            ms_l = time_ms(lambda: st.stencil_matvec(c_, x_), 100, torch,
+                           flush)[0]
+            # on the path a level's operands were just written: warm in L2
+            warm_l = time_ms(lambda: st.stencil_matvec(c_, x_), 100, torch,
+                             lambda: None)[0]
+            b_ms = bound(7 * x_.numel() * size, 9 * x_.numel())[0]
+            matvec_levels[prec, tuple(b_l.shape)] = dict(
+                ms=ms_l, warm_ms=warm_l, bound_ms=b_ms,
+                share_of_bound=b_ms / ms_l)
     say("kernel-matvec", checked=matvec["checked"],
-        max_abs_err=matvec["max_abs_err"], times=matvec_times)
+        max_abs_err=matvec["max_abs_err"], times=matvec_times,
+        copy_7x512x2048_f32_ms=copy_ms,
+        main_path_levels=[{"dtype": p_, "shape": list(sh_), **v_}
+                          for (p_, sh_), v_ in matvec_levels.items()])
 
     # ---- B.6: jacobi_sweep against its plain version and the multisweep ---
     sweep_err = 0.0
@@ -854,7 +929,33 @@ def main() -> int:
 
     flow, stats = drive("step", flow0, N_STEPS, backend, predictor,
                         warm=N_WARM)
+    by_level = dict(st.stencil_matvec.by_shape)
     say("step", **stats)
+    # the main path's matvecs by level: each at a level of the 512 x 2048
+    # hierarchy, in the variant its aligned operands take (vector at the
+    # finest level, cell below)
+    check(all((p_, sh_) in matvec_levels
+              and v_ == st.pass_geometry(sh_, dtypes[p_]).variant
+              for v_, p_, sh_ in by_level)
+          and sum(by_level.values())
+          == stats["kernel_launches"]["stencil_matvec"],
+          f"step: stencil_matvec launches by variant and level {by_level}")
+    path_levels = []
+    for (_v, p_, sh_), n_ in sorted(by_level.items(),
+                                   key=lambda kv: (kv[0][1], -kv[0][2][0])):
+        lv = matvec_levels[p_, sh_]
+        path_levels.append({"dtype": p_, "shape": list(sh_), "variant": _v,
+                            "launches_per_step": n_ / N_STEPS, **lv,
+                            "ms_per_step": n_ / N_STEPS * lv["ms"],
+                            "warm_ms_per_step": n_ / N_STEPS * lv["warm_ms"],
+                            "bound_ms_per_step":
+                                n_ / N_STEPS * lv["bound_ms"]})
+    say("kernel-matvec", part="main path", steps=N_STEPS,
+        launches_per_step=sum(by_level.values()) / N_STEPS,
+        levels=path_levels,
+        ms_per_step=sum(r["ms_per_step"] for r in path_levels),
+        warm_ms_per_step=sum(r["warm_ms_per_step"] for r in path_levels),
+        bound_ms_per_step=sum(r["bound_ms_per_step"] for r in path_levels))
     launches = stats["kernel_launches"]["momentum_multisweep"]
     step_launches = stats["kernel_launches"]
     check(stats["kernel_launches"]["jacobi_multisweep"]

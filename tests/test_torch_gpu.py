@@ -524,3 +524,117 @@ def test_sharded_kernels_across_two_cards(cuda):
                                            torch.device("cuda:0"))
         got = tsh.jacobi_multisweep_sharded(mesh, coef, x, b, 2)
         assert torch.equal(got, ts.jacobi_multisweep(coef, x, b, 2))
+
+
+# ---- the redesigned kernels: variants, offsets, stacks, the 2 x 2 mesh ----
+
+
+def _offset_view(t, offset):
+    """A contiguous copy of t whose data starts `offset` elements into a
+    fresh buffer: 16-byte aligned only when offset * itemsize is."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(512, 2048), (256, 1375), (4, 272, 1040),
+                                   (3, 8, 43), (2, 16, 64), (1024, 1024)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_stencil_matvec_variants_and_offsets(cuda, shape, dtype):
+    """Large planes of a width that is a whole number of 16-byte runs
+    take the vector variant from aligned operands; odd widths, small
+    planes and operands one element off 16 bytes take the cell variant.
+    Both equal the plain version bit for bit, and each launch is counted
+    under its variant."""
+    coef, x, _ = _edge_operands(shape[-2:], dtype, sum(shape), cuda)
+    if len(shape) == 3:
+        coef, x, _ = _planes(coef, x, x, shape[0])
+    key = tuple(shape[-2:])
+    prec = "f32" if dtype == torch.float32 else "bf16"
+    ref = ts.stencil_matvec_plain(coef, x)
+    for offset in (0, 1):
+        c = PressureCoeffs(*(_offset_view(t, offset) for t in (
+            coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.c_out, coef.diag)))
+        xx = _offset_view(x, offset)
+        variant = ts.pass_geometry(shape, dtype, aligned=offset == 0).variant
+        if offset:
+            assert variant == "cell"
+        before = ts.stencil_matvec.by_shape[variant, prec, key]
+        got = ts.stencil_matvec(c, xx)
+        torch.cuda.synchronize()
+        assert ts.stencil_matvec.by_shape[variant, prec, key] == before + 1
+        assert torch.equal(got, ref), (offset, variant)
+
+
+def test_main_path_levels_take_their_variant(cuda):
+    """Each level of the 512 x 2048 hierarchy in both dtypes: the finest
+    in the vector variant, the coarser ones in the cell variant; bit for
+    bit against the plain version."""
+    for dtype, prec in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        ny, nx = 512, 2048
+        while min(ny, nx) >= 8:
+            coef, x, _ = _edge_operands((ny, nx), dtype, ny, cuda)
+            variant = "vector" if ny == 512 else "cell"
+            before = ts.stencil_matvec.by_shape[variant, prec, (ny, nx)]
+            got = ts.stencil_matvec(coef, x)
+            assert ts.stencil_matvec.by_shape[variant, prec, (ny, nx)] \
+                == before + 1
+            assert torch.equal(got, ts.stencil_matvec_plain(coef, x))
+            ny, nx = ny // 2, nx // 2
+
+
+def test_jacobi_sweep_vector_variant(cuda):
+    """jacobi_sweep shares the single-pass kernels: on a large aligned
+    plane it takes the vector variant, bit for bit against the plain
+    sweeps and the multisweep kernel, in both dtypes."""
+    for dtype, prec in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        coef, x, b = _edge_operands((512, 2048), dtype, 17, cuda)
+        before = ts.jacobi_sweep.by_shape["vector", prec, (512, 2048)]
+        got = ts.jacobi_sweep(coef, x, b, 2)
+        assert ts.jacobi_sweep.by_shape["vector", prec, (512, 2048)] \
+            == before + 2
+        for ref in (ts.jacobi_sweep_plain(coef, x, b, 2),
+                    ts.jacobi_multisweep(coef, x, b, 2)):
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 70), (2, 272, 1040), (1, 41, 1375)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("sweeps", [1, 2, 4, 8])
+def test_momentum_kernel_stacks_offsets_and_sweeps(cuda, shape, sweeps):
+    """The register-tiled momentum kernel on stacks of odd planes, from
+    operands one element off 16 bytes too: within the tolerance of the
+    plain version, and the stack equal to one launch per plane bit for
+    bit."""
+    per_case = [_operands(*shape[1:], seed=11 + k, device=cuda)
+                for k in range(shape[0])]
+    ops = [_offset_view(torch.stack(t), 1) for t in zip(*per_case)]
+    got = tmom.momentum_multisweep(*ops, sweeps=sweeps)
+    torch.cuda.synchronize()
+    ref = tmom.momentum_multisweep_plain(*ops, sweeps=sweeps)
+    for g, r in zip(got, ref):
+        err = float((g - r).abs().max())
+        assert err <= KERNEL_RTOL * float(r.abs().max()), err
+    for k in range(shape[0]):
+        single = tmom.momentum_multisweep(*per_case[k], sweeps=sweeps)
+        for g, r in zip(got, single):
+            assert torch.equal(g[k], r), k
+
+
+def test_sharded_momentum_on_2x2_matches_plain(cuda):
+    """The sharded launch on the 2 x 2 mesh of one card: within the
+    tolerance of its sharded plain version, and of the global plain."""
+    from tpufoam_torch.ops import sharded as tsh
+
+    mesh = _card_mesh((2, 2), [cuda] * 4)
+    ops = _operands(512, 2048, seed=21, device=cuda)
+    got = tsh.momentum_multisweep_sharded(mesh, *ops, sweeps=8)
+    for ref in (tsh.momentum_multisweep_sharded_plain(mesh, *ops, sweeps=8),
+                tmom.momentum_multisweep_plain(*ops, sweeps=8)):
+        for g, r in zip(got, ref):
+            err = float((g - r).abs().max())
+            assert err <= KERNEL_RTOL * float(r.abs().max()), err

@@ -171,20 +171,31 @@ def test_zero_padded_edges_and_solid_cells():
     torch.testing.assert_close(u[0, 0], ref)
 
 
-def _tiled_schedule(ops, sweeps, tile=32, halo=8):
-    """The CUDA kernel's schedule in numpy: each tile x tile block loads
-    u, v over the tile plus `halo` cells per side (zeros beyond the
-    domain), sweeps with the region's outer ring frozen and the
-    coefficients read at each cell, and keeps only the tile."""
+def _tiled_schedule(ops, sweeps, tile=tmom.TILE, halo=tmom.MAX_SWEEPS):
+    """The CUDA kernel's schedule in numpy: each block of tile = (rows,
+    columns) outputs loads u, v and the coefficients over the tile plus
+    `halo` cells per side (zeros beyond the domain), freezes the region's
+    outer ring and the cells beyond the domain once, sweeps, and keeps
+    only the tile. Operands (ny, nx) or (B, ny, nx): each plane alone, as
+    the batched launch's blockIdx.z."""
+    if np.asarray(ops[0]).ndim == 3:
+        per_plane = [_tiled_schedule([np.asarray(a)[k] for a in ops],
+                                     sweeps, tile, halo)
+                     for k in range(np.asarray(ops[0]).shape[0])]
+        return [np.stack([p[f] for p in per_plane]) for f in range(2)]
+    ty, tx = (tile, tile) if np.isscalar(tile) else tile
     a_e, a_w, a_n, a_s, api, bu, bv, u0, v0 = (np.asarray(a) for a in ops)
     ny, nx = u0.shape
     outs = [np.zeros_like(u0), np.zeros_like(v0)]
-    for y0 in range(0, ny, tile):
-        for x0 in range(0, nx, tile):
-            gy = np.arange(y0 - halo, y0 + tile + halo)
-            gx = np.arange(x0 - halo, x0 + tile + halo)
+    for y0 in range(0, ny, ty):
+        for x0 in range(0, nx, tx):
+            gy = np.arange(y0 - halo, y0 + ty + halo)
+            gx = np.arange(x0 - halo, x0 + tx + halo)
             inside = ((gy[:, None] >= 0) & (gy[:, None] < ny)
                       & (gx[None, :] >= 0) & (gx[None, :] < nx))
+            live = inside.copy()
+            live[[0, -1], :] = False
+            live[:, [0, -1]] = False
             cy, cx = np.clip(gy, 0, ny - 1), np.clip(gx, 0, nx - 1)
 
             def region(a):
@@ -195,28 +206,77 @@ def _tiled_schedule(ops, sweeps, tile=32, halo=8):
             for k, (b, x0_) in enumerate(((bu, u0), (bv, v0))):
                 b, x = region(b), region(x0_)
                 for _ in range(sweeps):
-                    y = x.copy()
-                    y[1:-1, 1:-1] = (ae * np.roll(x, -1, 1)
-                                     + aw * np.roll(x, 1, 1)
-                                     + an * np.roll(x, -1, 0)
-                                     + as_ * np.roll(x, 1, 0)
-                                     + b)[1:-1, 1:-1] * ai[1:-1, 1:-1]
-                    x = np.where(inside, y, 0.0).astype(np.float32)
-                core = x[halo:halo + tile, halo:halo + tile]
-                h, w = min(tile, ny - y0), min(tile, nx - x0)
+                    y = (ae * np.roll(x, -1, 1) + aw * np.roll(x, 1, 1)
+                         + an * np.roll(x, -1, 0) + as_ * np.roll(x, 1, 0)
+                         + b) * ai
+                    x = np.where(live, y, x).astype(np.float32)
+                core = x[halo:halo + ty, halo:halo + tx]
+                h, w = min(ty, ny - y0), min(tx, nx - x0)
                 outs[k][y0:y0 + h, x0:x0 + w] = core[:h, :w]
     return outs
 
 
 @pytest.mark.parametrize("sweeps", [1, 8])
 def test_tiled_halo_schedule_is_exact(operands, sweeps):
-    """The kernel's design (32 x 32 tiles, 8-cell halo, frozen outer ring,
+    """The kernel's design (32 x 48 tiles, 8-cell halo, frozen outer ring,
     bounds-checked loads) reproduces the plain sweeps for sweeps <= 8 on a
     grid that the tiles do not divide: the trapezoid argument and the
     zero-padded edges, checked where the kernel itself cannot run."""
     *_, ops = operands
     ops = [np.asarray(a)[:70, :100] for a in ops]
     got = _tiled_schedule(ops, sweeps)
+    ref = tmom.momentum_multisweep_plain(*(T(a) for a in ops), sweeps=sweeps)
+    _close([T(g) for g in got], ref)
+
+
+def _haloed_blocks(ops, mesh=(2, 2), halo=tmom.MAX_SWEEPS):
+    """The (dy*dx, nyl + 2 halo, nxl + 2 halo) stack of haloed blocks
+    that ops/sharded.py builds from global (ny, nx) operands, zeros
+    beyond the domain, and the crop back to the global field."""
+    dy, dx = mesh
+    ny, nx = np.asarray(ops[0]).shape
+    nyl, nxl = ny // dy, nx // dx
+
+    def blocks(a):
+        p = np.pad(np.asarray(a), halo)
+        return np.stack([p[i * nyl:(i + 1) * nyl + 2 * halo,
+                           j * nxl:(j + 1) * nxl + 2 * halo]
+                         for i in range(dy) for j in range(dx)])
+
+    def crop(stack):
+        out = np.zeros((ny, nx), np.float32)
+        for i in range(dy):
+            for j in range(dx):
+                out[i * nyl:(i + 1) * nyl, j * nxl:(j + 1) * nxl] = \
+                    stack[i * dx + j, halo:halo + nyl, halo:halo + nxl]
+        return out
+
+    return [blocks(a) for a in ops], crop
+
+
+@pytest.mark.parametrize("sweeps", [1, 8])
+@pytest.mark.parametrize("layout", ["odd-grid", "stack", "haloed-blocks"])
+@pytest.mark.parametrize("tile", [(32, 32), tmom.TILE],
+                         ids=["tile32x32", "tile32x48"])
+def test_tiled_schedule_geometries(operands, tile, layout, sweeps):
+    """The old (32 x 32) and the new (32 x 48) tiling, with the 8-cell
+    halo, on a grid neither tiling divides, on a (3, ny, nx) stack (one
+    launch over the planes) and on the 2 x 2 mesh's haloed blocks of
+    ops/sharded.py (zero halo beyond the domain, cropped back): each
+    reproduces the plain sweeps."""
+    *_, ops = operands
+    ops = [np.asarray(a) for a in ops]
+    if layout == "odd-grid":
+        ops = [a[3:60, 5:110] for a in ops]
+        got = _tiled_schedule(ops, sweeps, tile)
+    elif layout == "stack":
+        ops = [np.stack([a[:40, :72], a[20:60, 100:172],
+                         a[24:64, 184:256]]) for a in ops]
+        got = _tiled_schedule(ops, sweeps, tile)
+    else:
+        ops = [a[:40, :96] for a in ops]
+        blocks, crop = _haloed_blocks(ops)
+        got = [crop(g) for g in _tiled_schedule(blocks, sweeps, tile)]
     ref = tmom.momentum_multisweep_plain(*(T(a) for a in ops), sweeps=sweeps)
     _close([T(g) for g in got], ref)
 
@@ -233,7 +293,7 @@ def test_tiled_schedule_needs_sweeps_within_the_halo(halo, sweeps, exact):
     rest = [rng.standard_normal((40, 50)).astype(np.float32)
             for _ in range(4)]
     ops = [*a, api, *rest]
-    got = _tiled_schedule(ops, sweeps, tile=16, halo=halo)
+    got = _tiled_schedule(ops, sweeps, tile=(16, 16), halo=halo)
     ref = tmom.momentum_multisweep_plain(*(T(x) for x in ops), sweeps=sweeps)
     err = max(float(np.abs(g - r.numpy()).max()) for g, r in zip(got, ref))
     scale = max(float(r.abs().max()) for r in ref)

@@ -18,6 +18,13 @@
    padding argument the kernels rest on. Two mutations show the emulation
    can fail: a halo one short, and diag read as 0 beyond the domain.
 3. The wrappers' checks and the fit gate.
+5. The single-pass kernels' launch geometry (`pass_geometry`): every
+   cell of every plane written exactly once, at the paths' widths, and a
+   CPU emulation of the strip schedule of csrc/pressure_stencil.cu
+   (`stencil_run_kernel`, `stencil_cell_kernel`: x rows kept per thread,
+   E/W from the thread's own cells, its neighbouring lanes and, at a
+   segment's ends, one scalar read) in both variants, equal to
+   `stencil_matvec_plain` bit for bit.
 4. The single-pass kernels' plain versions: `stencil_matvec_plain`
    against JAX's `stencil_matvec_pallas` in interpret mode and against
    its `pressure_matvec`, on odd shapes whose out-of-domain conductances
@@ -432,3 +439,185 @@ def test_single_pass_wrappers_check_like_the_kernels(problem):
     meta = PressureCoeffs(*(getattr(coef, f).to("meta") for f in FIELDS))
     with pytest.raises(ValueError, match="no stencil_matvec kernel"):
         ts.stencil_matvec(meta, x.to("meta"))
+
+
+# ---- the single-pass kernels' launch geometry and strip schedule ---------
+
+GEOMETRY_WIDTHS = (43, 688, 1040, 1375, 2048)
+
+
+def _thread_cells(geom, ny, nx):
+    """(plane, y, x) index arrays of every cell each thread of `geom`
+    writes, in the kernels' mapping (csrc/pressure_stencil.cu: thread
+    (bx, by) of block (gx, gy) owns cells x0 = (gx*bx_dim + bx) * cells
+    ... + cells - 1 of rows y0 = (gy*by_dim + by) * rows ... + rows - 1),
+    cells beyond the plane dropped."""
+    (bx, by), (gx, gy, planes) = geom.block, geom.grid
+    xs = (np.arange(gx * bx)[:, None] * geom.cells
+          + np.arange(geom.cells)[None]).ravel()
+    ys = (np.arange(gy * by)[:, None] * geom.rows
+          + np.arange(geom.rows)[None]).ravel()
+    p, y, x = np.meshgrid(np.arange(planes), ys, xs, indexing="ij")
+    keep = (y < ny) & (x < nx)
+    return p[keep], y[keep], x[keep]
+
+
+@pytest.mark.parametrize("planes", [1, 4])
+@pytest.mark.parametrize("nx", GEOMETRY_WIDTHS)
+def test_pass_geometry_writes_every_cell_once(nx, planes):
+    """The kernels' thread-to-cell mapping over the grid of
+    `pass_geometry`: every cell of every plane exactly once, in both
+    dtypes, both variants, at heights from one row to the main path's
+    512."""
+    for ny in (1, 8, 37, 272, 512):
+        shape = (planes, ny, nx) if planes > 1 else (ny, nx)
+        for dt in (torch.float32, torch.bfloat16):
+            for aligned in (True, False):
+                g = ts.pass_geometry(shape, dt, aligned)
+                bx, by = g.block
+                assert bx * by % 32 == 0 and bx * by <= 256
+                assert g.grid[2] == planes
+                run = 16 // torch.tensor([], dtype=dt).element_size()
+                assert g.vector == (aligned and nx % run == 0
+                                    and ny * nx >= ts._VECTOR_MIN_CELLS)
+                if g.vector:
+                    assert g.cells == run and g.seg == min(bx, 32)
+                else:
+                    assert (g.cells, g.rows, g.seg, g.block) \
+                        == (1, 1, 1, (32, 8))
+                p, y, x = _thread_cells(g, ny, nx)
+                hits = np.bincount((p * ny + y) * nx + x,
+                                   minlength=planes * ny * nx)
+                assert (hits == 1).all(), (shape, dt, aligned, g)
+
+
+def test_pass_geometry_of_the_main_path():
+    """The finest level of the hybrid main path (512 x 2048) takes the
+    vector variant in both dtypes, and its coarser levels the cell
+    variant; so do odd widths and operands off 16 bytes."""
+    for dt in (torch.float32, torch.bfloat16):
+        assert ts.pass_geometry((512, 2048), dt).vector
+        assert ts.pass_geometry((4, 512, 2048), dt).vector
+        assert not ts.pass_geometry((256, 1024), dt).vector
+        assert not ts.pass_geometry((512, 2048), dt, aligned=False).vector
+        assert not ts.pass_geometry((1024, 1375), dt).vector
+
+
+def emulate_pass(coef, x, geom, edge_rule=True):
+    """What the single-pass kernels compute for stencil_matvec, thread by
+    thread, in PyTorch with the plain version's operations: each thread's
+    run of `geom.cells` consecutive cells, x of rows y-1, y, y+1 over the
+    run, E/W from the run itself, from the neighbouring lanes of its
+    segment (the shuffles) and, at the segment's ends, one scalar read of
+    the row; zeros beyond the plane. The cell variant (one cell, segments
+    of one lane) reads all four neighbours.
+    `edge_rule=False` lets a segment's last lane take what its shuffle
+    returns there (its own first cell) instead of reading the cell after
+    the segment (a mutation: the emulation must then fail)."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        coef = PressureCoeffs(*(t[None] for t in (
+            coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.c_out, coef.diag)))
+        x = x[None]
+    planes, ny, nx = x.shape
+    (bx, by), (gx, gy, _) = geom.block, geom.grid
+    v, seg = geom.cells, geom.seg
+    runs = np.arange(gx * bx)
+    lane = runs % seg
+    col = runs[:, None] * v + np.arange(v)[None]             # (runs, v)
+    width = int(col.max()) + 2
+    rows_total = gy * by * geom.rows
+
+    def padded(f):
+        """f on rows -1 .. rows_total and columns 0 .. width - 1, zero
+        beyond the plane (row r + 1 of the result is row r)."""
+        return F.pad(f, (0, width - nx, 1, rows_total + 1 - ny))
+
+    xp = padded(x)
+
+    def runs_of(fp, row_shift=0):
+        """(planes, rows_total, runs, v): each run's cells."""
+        rows = fp[:, 1 + row_shift:1 + row_shift + rows_total]
+        return rows[:, :, torch.as_tensor(col)]
+
+    xc, xn, xs = runs_of(xp), runs_of(xp, 1), runs_of(xp, -1)
+    rows_x = xp[:, 1:1 + rows_total]
+    zero = torch.zeros((), dtype=x.dtype)
+    east = torch.as_tensor(runs * v + v)
+    west = torch.as_tensor(runs * v - 1)
+    east = torch.where(east < nx, rows_x[:, :, east.clamp(max=width - 1)],
+                       zero)
+    west = torch.where(west >= 0, rows_x[:, :, west.clamp(min=0)], zero)
+    last = torch.as_tensor(lane == seg - 1)[None, None]
+    first = torch.as_tensor(lane == 0)[None, None]
+    nxt = torch.as_tensor(np.minimum(runs + 1, runs[-1]))
+    prv = torch.as_tensor(np.maximum(runs - 1, 0))
+    xe, xw = torch.empty_like(xc), torch.empty_like(xc)
+    for k in range(v):
+        xe[..., k] = xc[..., k + 1] if k + 1 < v else torch.where(
+            last, east if edge_rule else xc[..., 0], xc[:, :, nxt, 0])
+        xw[..., k] = xc[..., k - 1] if k > 0 else torch.where(
+            first, west, xc[:, :, prv, v - 1])
+    c = [runs_of(padded(t)) for t in (coef.c_e, coef.c_w, coef.c_n,
+                                      coef.c_s, coef.diag)]
+    ax = (c[4] * xc - c[0] * xe - c[1] * xw - c[2] * xn - c[3] * xs)
+    out = torch.zeros(planes, rows_total, width, dtype=x.dtype)
+    out[:, :, torch.as_tensor(col)] = ax
+    out = out[:, :ny, :nx]
+    return out[0] if squeeze else out
+
+
+EMULATED_SHAPES = [(8, 43), (16, 86), (37, 70), (1, 70), (70, 1),
+                   (9, 1375), (3, 24, 40), (12, 688), (2, 9, 2048)]
+
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", EMULATED_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_strip_run_schedule_equals_plain_exactly(shape, prec):
+    """Both variants of the single-pass schedule equal
+    `stencil_matvec_plain` bit for bit: the variant `pass_geometry` picks
+    (the cell variant at these sizes), and the vector variant (16-byte
+    runs) on every width that is a whole number of runs, with strips of 1
+    to 4 rows."""
+    tdt = DTYPES[prec][0]
+    probs = [_odd_operands(*shape[-2:], seed=k) for k in range(
+        shape[0] if len(shape) == 3 else 1)]
+    tcoef, tv = _torch_ops(_stack_ops(probs) if len(shape) == 3
+                           else probs[0], tdt)
+    ref = ts.stencil_matvec_plain(tcoef, tv["x"])
+    geom = ts.pass_geometry(tuple(tv["x"].shape), tdt)
+    assert torch.equal(emulate_pass(tcoef, tv["x"], geom), ref), geom
+    run = 16 // torch.tensor([], dtype=tdt).element_size()
+    ny, nx = shape[-2:]
+    if nx % run == 0:
+        for rows, bx in ((1, 4), (2, 32), (4, 128)):
+            bx = min(bx, max(4, 1 << (-(-nx // run) - 1).bit_length()))
+            strips = -(-ny // rows)
+            vec = ts.PassGeometry(
+                vector=True, cells=run, rows=rows, seg=min(bx, 32),
+                block=(bx, max(1, 32 // bx)),
+                grid=(-(-(nx // run) // bx),
+                      -(-strips // max(1, 32 // bx)), len(probs)))
+            assert torch.equal(emulate_pass(tcoef, tv["x"], vec), ref), vec
+
+
+def test_strip_run_emulation_has_teeth():
+    """A segment's last lane must read the cell after the segment: taking
+    what its shuffle returns there (its own first cell) breaks the east
+    neighbours, in both variants; strips of 2 and 16 rows equal the plain
+    version (the rotation of x rows)."""
+    probs = _odd_operands(40, 256, seed=5)
+    tcoef, tv = _torch_ops(probs, torch.float32)
+    ref = ts.stencil_matvec_plain(tcoef, tv["x"])
+    cell = ts.pass_geometry((40, 256), torch.float32)
+    assert not cell.vector
+    vec = ts.PassGeometry(vector=True, cells=4, rows=2, seg=32,
+                          block=(32, 8), grid=(2, 3, 1))
+    for geom in (cell, vec):
+        assert torch.equal(emulate_pass(tcoef, tv["x"], geom), ref)
+        assert not torch.equal(emulate_pass(tcoef, tv["x"], geom,
+                                            edge_rule=False), ref)
+    tall = ts.PassGeometry(vector=True, cells=4, rows=16, seg=16,
+                           block=(16, 2), grid=(4, 2, 1))
+    assert torch.equal(emulate_pass(tcoef, tv["x"], tall), ref)

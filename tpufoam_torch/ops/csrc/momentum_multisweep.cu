@@ -25,32 +25,77 @@
 // per lockstep (4 x 512 x 2048: 184.5 MB, 55.1 us at the same published
 // 3.35 TB/s of the H100 SXM at its 700 W limit).
 //
-// Design (simple and exact; speed is later work). Each block owns a
-// TILE_Y x TILE_X tile of outputs and loads u and v over the tile plus a
-// halo of HALO cells on all four sides into shared memory, where they
-// ping-pong between two buffers. The coefficients are read from global
-// memory (they stay in L1/L2 across the sweeps). The loaded region's outer
-// ring is never updated: after sweep k a cell is exact if it lies at least
-// k cells inside the ring (the trapezoid argument), so the tile, HALO
-// cells inside it, is exact for sweeps <= HALO. Cells outside the domain
-// load as 0 and are never updated, which is the zero-padded neighbour of
-// the plain version; the kernel never reads out of range.
+// Design. What held the first port of this kernel back (32 x 32 tiles in
+// 48 x 48 regions, u and v in shared memory, the coefficients read from
+// global memory at every cell of every sweep): the seven coefficient
+// fields were re-read on each of the 8 sweeps, about 0.5 GB per call
+// through L2 against 46 MB of compulsory traffic, and its time grew by
+// 10-11 us a sweep from a ~27 us floor (tools/kernel_times.py on the
+// H100). This kernel reads every operand once per call (36.9 us at 8
+// sweeps, 25.8 us at 1, on the same tool and card):
+//
+// - Each block owns a TILE_Y x TILE_X = 32 x 48 tile of outputs inside a
+//   REG_Y x REG_X = 48 x 64 region (HALO = 8 cells per side: 2.0x the
+//   tile's cells, against 2.25x for 32 x 32 tiles). Its 8 warps stand on
+//   top of each other: warp w owns region rows 6w .. 6w+5, and lane l the
+//   two adjacent columns 2l and 2l+1. So a thread owns 12 cells for the
+//   whole call, and holds their seven coefficients, u and v in registers
+//   (9 x 12 = 108 values; __launch_bounds__(256, 2) keeps it at 128
+//   registers, two blocks resident per SM). The loads are coalesced
+//   across the warp's lanes, one pass over each field.
+// - A sweep moves only u and v between threads. E/W: a thread's two
+//   columns are each other's neighbours; the right column's east is the
+//   next lane's left column and the left column's west the previous
+//   lane's right column (__shfl_*_sync). N/S: within a warp's six rows
+//   from the thread's own registers; across a warp boundary each warp
+//   publishes its lowest and highest rows in shared memory (two buffers
+//   in turn, so one __syncthreads a sweep suffices).
+// - Whether a cell is frozen (the region's outer ring, or beyond the
+//   domain, loaded as 0) is decided once, before the sweeps, into a mask;
+//   a sweep only computes and selects. No division, no index arithmetic
+//   per cell in the sweep loop.
+//
+// Exactness: the ring is never updated, so after sweep k a cell is exact
+// if it lies at least k cells inside it (the trapezoid argument) and the
+// tile, HALO cells inside, is exact for sweeps <= HALO. A cell beyond the
+// domain loads as 0 and stays 0, the zero-padded neighbour of the plain
+// version; the kernel never reads out of range. Each cell's update is one
+// fixed expression,
+//     u' = ((((a_e E) + a_w W) + a_n N) + a_s S + b_u) * ap_inv
+// with the three inner sums contracted into fmaf (fmaf(a_w, W, a_e E),
+// ...), the add of b_u and the multiply by ap_inv rounded alone; so the
+// batched launch equals B single launches, and the sharded launch the
+// single one, bit for bit. It differs from the plain version (which
+// rounds every product) by a few float32 roundings per sweep.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int HALO = 8;
-constexpr int TILE_X = 32;
-constexpr int TILE_Y = 32;
-constexpr int REG_X = TILE_X + 2 * HALO;
-constexpr int REG_Y = TILE_Y + 2 * HALO;
-constexpr int REG = REG_X * REG_Y;
-constexpr int THREADS = 256;
-constexpr size_t SMEM_BYTES = 4 * REG * sizeof(float);
-static_assert(SMEM_BYTES <= 48 * 1024, "above 48 KB needs an opt-in");
+constexpr int COLS = 2;                    // adjacent columns per thread
+constexpr int REG_X = 32 * COLS;           // 64
+constexpr int TILE_X = REG_X - 2 * HALO;   // 48
+constexpr int ROWS = 6;                    // rows per thread (and warp)
+constexpr int WARPS = 8;                   // warps of a block, stacked
+constexpr int THREADS = 32 * WARPS;
+constexpr int REG_Y = ROWS * WARPS;        // 48
+constexpr int TILE_Y = REG_Y - 2 * HALO;   // 32
+static_assert(ROWS * COLS <= 32, "the frozen mask is one 32-bit word");
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
-__global__ void __launch_bounds__(THREADS)
+// one Jacobi update of a cell from its four neighbours
+__device__ __forceinline__ float update(float ae, float aw, float an,
+                                        float as, float bb, float api,
+                                        float e, float w, float n, float s) {
+  float t = __fmul_rn(ae, e);
+  t = __fmaf_rn(aw, w, t);
+  t = __fmaf_rn(an, n, t);
+  t = __fmaf_rn(as, s, t);
+  return __fmul_rn(__fadd_rn(t, bb), api);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 momentum_multisweep_kernel(const float* __restrict__ a_e,
                            const float* __restrict__ a_w,
                            const float* __restrict__ a_n,
@@ -63,70 +108,113 @@ momentum_multisweep_kernel(const float* __restrict__ a_e,
                            float* __restrict__ u_out,
                            float* __restrict__ v_out,
                            int ny, int nx, int sweeps) {
-  extern __shared__ float smem[];
+  // [buffer][u or v][warp][its lowest or highest row][column][lane]
+  __shared__ float edge[2][2][WARPS][2][COLS][32];
   // this block's case: offset every plane to it
   const long plane = (long)blockIdx.z * ny * nx;
-  a_e += plane; a_w += plane; a_n += plane; a_s += plane;
-  ap_inv += plane; b_u += plane; b_v += plane; u0 += plane; v0 += plane;
-  u_out += plane; v_out += plane;
-  float* u_src = smem;
-  float* u_dst = smem + REG;
-  float* v_src = smem + 2 * REG;
-  float* v_dst = smem + 3 * REG;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = warp * ROWS;              // region row of the first row
+  const int c0 = lane * COLS;              // region column of the first
+  const int gy0 = blockIdx.y * TILE_Y - HALO + r0;
+  const int gx0 = blockIdx.x * TILE_X - HALO + c0;
 
-  const int gy0 = blockIdx.y * TILE_Y - HALO;
-  const int gx0 = blockIdx.x * TILE_X - HALO;
-
-  // load the haloed region into both buffers (the frozen ring and the
-  // out-of-domain cells then hold their value in either buffer)
-  for (int idx = threadIdx.x; idx < REG; idx += THREADS) {
-    const int gy = gy0 + idx / REG_X;
-    const int gx = gx0 + idx % REG_X;
-    float u = 0.f, v = 0.f;
-    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
-      const long g = (long)gy * nx + gx;
-      u = u0[g];
-      v = v0[g];
+  float ae[ROWS][COLS], aw[ROWS][COLS], an[ROWS][COLS], as[ROWS][COLS];
+  float api[ROWS][COLS], bu[ROWS][COLS], bv[ROWS][COLS];
+  float u[ROWS][COLS], v[ROWS][COLS];
+  unsigned live = 0;                       // bit i*COLS+j: updated
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int gy = gy0 + i, gx = gx0 + j;
+      const bool inside = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
+      const bool ring = r0 + i == 0 || r0 + i == REG_Y - 1 || c0 + j == 0
+                        || c0 + j == REG_X - 1;
+      ae[i][j] = aw[i][j] = an[i][j] = as[i][j] = 0.f;
+      api[i][j] = bu[i][j] = bv[i][j] = u[i][j] = v[i][j] = 0.f;
+      if (inside) {
+        const long g = plane + (long)gy * nx + gx;
+        ae[i][j] = __ldg(a_e + g);
+        aw[i][j] = __ldg(a_w + g);
+        an[i][j] = __ldg(a_n + g);
+        as[i][j] = __ldg(a_s + g);
+        api[i][j] = __ldg(ap_inv + g);
+        bu[i][j] = __ldg(b_u + g);
+        bv[i][j] = __ldg(b_v + g);
+        u[i][j] = __ldg(u0 + g);
+        v[i][j] = __ldg(v0 + g);
+        if (!ring) live |= 1u << (i * COLS + j);
+      }
     }
-    u_src[idx] = u;
-    u_dst[idx] = u;
-    v_src[idx] = v;
-    v_dst[idx] = v;
   }
-  __syncthreads();
+  // the neighbouring warps' rows: below this warp's first row, above its
+  // last (the ring rows 0 and REG_Y - 1 never read theirs)
+  const int below = warp > 0 ? warp - 1 : 0;
+  const int above = warp < WARPS - 1 ? warp + 1 : WARPS - 1;
 
   for (int s = 0; s < sweeps; ++s) {
-    for (int idx = threadIdx.x; idx < REG; idx += THREADS) {
-      const int r = idx / REG_X;
-      const int c = idx % REG_X;
-      const int gy = gy0 + r;
-      const int gx = gx0 + c;
-      if (r == 0 || r == REG_Y - 1 || c == 0 || c == REG_X - 1) continue;
-      if (gy < 0 || gy >= ny || gx < 0 || gx >= nx) continue;
-      const long g = (long)gy * nx + gx;
-      const float ae = a_e[g], aw = a_w[g], an = a_n[g], as = a_s[g];
-      const float api = ap_inv[g];
-      u_dst[idx] = (ae * u_src[idx + 1] + aw * u_src[idx - 1]
-                    + an * u_src[idx + REG_X] + as * u_src[idx - REG_X]
-                    + b_u[g]) * api;
-      v_dst[idx] = (ae * v_src[idx + 1] + aw * v_src[idx - 1]
-                    + an * v_src[idx + REG_X] + as * v_src[idx - REG_X]
-                    + b_v[g]) * api;
+    float (*ex)[WARPS][2][COLS][32] = edge[s & 1];
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      ex[0][warp][0][j][lane] = u[0][j];
+      ex[0][warp][1][j][lane] = u[ROWS - 1][j];
+      ex[1][warp][0][j][lane] = v[0][j];
+      ex[1][warp][1][j][lane] = v[ROWS - 1][j];
     }
     __syncthreads();
-    float* t = u_src; u_src = u_dst; u_dst = t;
-    t = v_src; v_src = v_dst; v_dst = t;
+    float su[COLS], sv[COLS];              // the old row below
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      su[j] = ex[0][below][1][j][lane];
+      sv[j] = ex[1][below][1][j][lane];
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const float ue = __shfl_down_sync(FULL_MASK, u[i][0], 1);
+      const float uw = __shfl_up_sync(FULL_MASK, u[i][COLS - 1], 1);
+      const float ve = __shfl_down_sync(FULL_MASK, v[i][0], 1);
+      const float vw = __shfl_up_sync(FULL_MASK, v[i][COLS - 1], 1);
+      float nu[COLS], nv[COLS];
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        const float e_u = j + 1 < COLS ? u[i][j + 1] : ue;
+        const float w_u = j > 0 ? u[i][j - 1] : uw;
+        const float e_v = j + 1 < COLS ? v[i][j + 1] : ve;
+        const float w_v = j > 0 ? v[i][j - 1] : vw;
+        const float n_u = i + 1 < ROWS ? u[i + 1][j]
+                                       : ex[0][above][0][j][lane];
+        const float n_v = i + 1 < ROWS ? v[i + 1][j]
+                                       : ex[1][above][0][j][lane];
+        nu[j] = update(ae[i][j], aw[i][j], an[i][j], as[i][j], bu[i][j],
+                       api[i][j], e_u, w_u, n_u, su[j]);
+        nv[j] = update(ae[i][j], aw[i][j], an[i][j], as[i][j], bv[i][j],
+                       api[i][j], e_v, w_v, n_v, sv[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        su[j] = u[i][j];
+        sv[j] = v[i][j];
+        if (live >> (i * COLS + j) & 1u) {
+          u[i][j] = nu[j];
+          v[i][j] = nv[j];
+        }
+      }
+    }
   }
 
-  for (int idx = threadIdx.x; idx < TILE_X * TILE_Y; idx += THREADS) {
-    const int r = HALO + idx / TILE_X;
-    const int c = HALO + idx % TILE_X;
-    const int gy = gy0 + r;
-    const int gx = gx0 + c;
-    if (gy < ny && gx < nx) {
-      const long g = (long)gy * nx + gx;
-      u_out[g] = u_src[r * REG_X + c];
-      v_out[g] = v_src[r * REG_X + c];
+  // the tile: region rows and columns HALO .. HALO + TILE - 1
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int gy = gy0 + i, gx = gx0 + j;
+      if (r0 + i >= HALO && r0 + i < HALO + TILE_Y && c0 + j >= HALO
+          && c0 + j < HALO + TILE_X && gy < ny && gx < nx) {
+        const long g = plane + (long)gy * nx + gx;
+        u_out[g] = u[i][j];
+        v_out[g] = v[i][j];
+      }
     }
   }
 }
@@ -141,15 +229,14 @@ extern "C" int momentum_multisweep_f32(
     const float* u0, const float* v0, float* u_out, float* v_out,
     int planes, int ny, int nx, int sweeps, void* stream) {
   if (planes <= 0 || planes > 65535 || ny <= 0 || nx <= 0 || sweeps < 0
-      || sweeps > HALO) {
+      || sweeps > HALO || (ny + TILE_Y - 1) / TILE_Y > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((nx + TILE_X - 1) / TILE_X, (ny + TILE_Y - 1) / TILE_Y,
                   planes);
-  momentum_multisweep_kernel<<<grid, THREADS, SMEM_BYTES,
-                               (cudaStream_t)stream>>>(
-      a_e, a_w, a_n, a_s, ap_inv, b_u, b_v, u0, v0, u_out, v_out,
-      ny, nx, sweeps);
+  momentum_multisweep_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      a_e, a_w, a_n, a_s, ap_inv, b_u, b_v, u0, v0, u_out, v_out, ny, nx,
+      sweeps);
   return (int)cudaGetLastError();
 }
 

@@ -21,6 +21,10 @@ from ..fv.operators import nb_e, nb_n, nb_s, nb_w
 from . import build
 
 MAX_SWEEPS = 8    # the kernel's halo: exact for sweeps <= halo
+# the kernel's tiling (csrc/momentum_multisweep.cu): each block sweeps a
+# region of TILE plus MAX_SWEEPS cells on every side and writes the TILE
+# (rows, columns) of outputs
+TILE = (32, 48)
 _NAME = "momentum_multisweep"
 
 

@@ -16,7 +16,9 @@ csrc/pressure_stencil.cu:
   corr_smooth        x + corr, then `iters` sweeps     (V-cycle up leg)
 
 The two single-pass kernels take (ny, nx) operands or a fleet's
-(B, ny, nx); the multisweep kernels take (ny, nx).
+(B, ny, nx), in the launch geometry of `pass_geometry` (a strip of rows
+per thread, and a 16-byte run of cells on large aligned planes, one cell
+elsewhere); the multisweep kernels take (ny, nx).
 
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU
 tensors it runs the `*_plain` version beside it. The plain versions repeat
@@ -30,7 +32,9 @@ on CUDA they refuse operands that require a gradient.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
 
 import torch
 
@@ -57,10 +61,75 @@ def _max_iters(dtype, kernel: str) -> int:
     return _halo_for(dtype) - (kernel == "smooth_residual")
 
 
-# the kernels that take one pass per launch (one cell per thread, 8 rows
-# per block) and a leading case axis
+# the kernels that take one pass per launch and a leading case axis
 _PASS_KERNELS = ("matvec", "jacobi_sweep")
-_PASS_ROWS = 8
+_PASS_THREADS = 256          # the most threads of a block
+_PASS_MAX_ROWS = 16          # the most rows of a thread's strip
+# vector variant: threads to have in flight, 256 per SM of the H100's 132
+_PASS_TARGET_THREADS = 132 * 256
+# planes of fewer cells take the cell variant even when aligned: there a
+# launch costs about its floor, and the one-cell thread finishes first
+_VECTOR_MIN_CELLS = 1 << 19
+_CELL_BLOCK = (32, 8)        # the cell variant's block (one cell a thread)
+
+
+@dataclasses.dataclass(frozen=True)
+class PassGeometry:
+    """The launch of a single-pass kernel (stencil_matvec, jacobi_sweep)
+    over (planes, ny, nx) operands. `vector`: a thread owns a run of
+    `cells` consecutive cells of a row (16 bytes), moved as one vector per
+    field, down a strip of `rows` rows (csrc/pressure_stencil.cu
+    `stencil_run_kernel`), and `seg` lanes of a warp share a row and pass
+    neighbours by shuffles; else one cell a thread (`stencil_cell_kernel`:
+    cells, rows and seg 1, each thread reads its own neighbours). `block`
+    is (threads along a row, rows of threads), `grid` (blocks along x,
+    blocks along y, planes)."""
+    vector: bool
+    cells: int
+    rows: int
+    seg: int
+    block: tuple
+    grid: tuple
+
+    @property
+    def variant(self) -> str:
+        return "vector" if self.vector else "cell"
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def pass_geometry(shape, dtype, aligned: bool = True) -> PassGeometry:
+    """The launch geometry of the single-pass kernels for operands of
+    `shape` ((ny, nx) or (B, ny, nx)) and `dtype`. `aligned`: every
+    operand's base address is a multiple of 16 bytes. The vector variant
+    needs that, rows of a whole number of 16-byte runs and a plane of at
+    least `_VECTOR_MIN_CELLS`; the cell variant takes anything. Vector
+    variant: threads along a row 128, 64 or 32, whichever leaves the
+    fewest idle (one segment for a row of fewer than 32 runs), and the
+    most rows per thread (up to 16, powers of two) that still puts
+    `_PASS_TARGET_THREADS` threads on the card."""
+    *lead, ny, nx = shape
+    planes = lead[0] if lead else 1
+    run = 16 // torch.tensor([], dtype=dtype).element_size()
+    if not (aligned and nx % run == 0 and ny * nx >= _VECTOR_MIN_CELLS):
+        bx, by = _CELL_BLOCK
+        return PassGeometry(vector=False, cells=1, rows=1, seg=1,
+                            block=_CELL_BLOCK,
+                            grid=(-(-nx // bx), -(-ny // by), planes))
+    runs = nx // run
+    bx = _pow2_at_least(runs) if runs < 32 else min(
+        (128, 64, 32), key=lambda b: (-(-runs // b) * b, -b))
+    gx = -(-runs // bx)
+    rows = _PASS_MAX_ROWS
+    while rows > 1 and gx * bx * planes * -(-ny // rows) \
+            < _PASS_TARGET_THREADS:
+        rows //= 2
+    strips = -(-ny // rows)
+    by = max(32 // bx, min(_PASS_THREADS // bx, _pow2_at_least(strips)))
+    return PassGeometry(vector=True, cells=run, rows=rows, seg=min(bx, 32),
+                        block=(bx, by), grid=(gx, -(-strips // by), planes))
 
 
 def kernel_available_for(shape, dtype=torch.float32,
@@ -80,7 +149,9 @@ def kernel_available_for(shape, dtype=torch.float32,
     if len(shape) not in rank or min(shape) < 1 or dtype not in _DTYPES:
         return False
     if kernel in _PASS_KERNELS:
-        return -(-shape[-2] // _PASS_ROWS) <= _MAX_GRID_Y \
+        # both variants: the operands' alignment picks one at launch
+        return all(pass_geometry(shape, dtype, aligned).grid[1]
+                   <= _MAX_GRID_Y for aligned in (True, False)) \
             and (len(shape) == 2 or shape[0] <= _MAX_GRID_Y)
     min_tile = REGION - 2 * (_halo_for(dtype) + 1)
     return -(-shape[0] // min_tile) <= _MAX_GRID_Y
@@ -193,20 +264,32 @@ def _launch(name, entry, coef, fields, outs, iters, omega):
 
 
 def _launch_pass(name, entry, coef, fields, out, omega=None):
-    """One launch of a single-pass kernel over every plane of `out`."""
+    """One launch of a single-pass kernel over every plane of `out`, in
+    the geometry of `pass_geometry`; returns that geometry."""
     x = fields[0]
-    scalars = (ctypes.c_int,) * 3 + ((ctypes.c_float,) if omega is not None
-                                     else ())
+    scalars = (ctypes.c_int,) * 10 + ((ctypes.c_float,) if omega is not None
+                                      else ())
     lib, fn = _fn(f"{entry}_{_DTYPES[x.dtype]}", len(fields) + 6, scalars)
     *lead, ny, nx = x.shape
-    ptrs = [t.data_ptr() for t in (*fields, coef.c_e, coef.c_w, coef.c_n,
-                                   coef.c_s, coef.diag, out)]
-    args = (lead[0] if lead else 1, ny, nx) \
+    ops = (*fields, coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.diag, out)
+    ptrs = [t.data_ptr() for t in ops]
+    geom = pass_geometry(x.shape, x.dtype,
+                         aligned=all(p % 16 == 0 for p in ptrs))
+    args = (geom.grid[2], ny, nx, int(geom.vector), geom.cells, geom.rows,
+            *geom.block, *geom.grid[:2]) \
         + ((_omega(omega, x.dtype),) if omega is not None else ())
     with torch.cuda.device(x.device):   # launch on the operands' card
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*ptrs, *args, stream)
     _raise_on(lib, name, err)
+    return geom
+
+
+def _count_pass(fn, geom, x):
+    """One launch of a single-pass kernel: its count, and its count by
+    variant, dtype and plane shape."""
+    fn.launches += 1
+    fn.by_shape[geom.variant, _DTYPES[x.dtype], tuple(x.shape[-2:])] += 1
 
 
 def _raise_on(lib, name, err):
@@ -222,8 +305,8 @@ def stencil_matvec(coef, x):
     if _check("stencil_matvec", coef, (x,), 0, "matvec"):
         return stencil_matvec_plain(coef, x)
     out = torch.empty_like(x)
-    _launch_pass("stencil_matvec", "stencil_matvec", coef, (x,), out)
-    stencil_matvec.launches += 1
+    geom = _launch_pass("stencil_matvec", "stencil_matvec", coef, (x,), out)
+    _count_pass(stencil_matvec, geom, x)
     return out
 
 
@@ -238,9 +321,9 @@ def jacobi_sweep(coef, x, b, iters: int = 2, omega: float = 0.8):
         return jacobi_sweep_plain(coef, x, b, iters, omega)
     bufs = [torch.empty_like(x) for _ in range(min(iters, 2))]
     for k in range(iters):
-        _launch_pass("jacobi_sweep", "jacobi_sweep", coef, (x, b),
-                     bufs[k % 2], omega)
-        jacobi_sweep.launches += 1
+        geom = _launch_pass("jacobi_sweep", "jacobi_sweep", coef, (x, b),
+                            bufs[k % 2], omega)
+        _count_pass(jacobi_sweep, geom, x)
         x = bufs[k % 2]
     return x
 
@@ -289,6 +372,9 @@ def corr_smooth(coef, x, corr, b, iters: int = 2, omega: float = 0.8):
 
 stencil_matvec.launches = 0
 jacobi_sweep.launches = 0
+# launches by (variant, dtype, (ny, nx)): "vector" or "cell"
+stencil_matvec.by_shape = collections.Counter()
+jacobi_sweep.by_shape = collections.Counter()
 jacobi_multisweep.launches = 0
 smooth_residual.launches = 0
 corr_smooth.launches = 0
