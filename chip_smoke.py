@@ -14,10 +14,19 @@ Phases, each printing one JSON line with its elapsed seconds:
   kernel-real  the momentum kernel on the operands of the case's first step
   kernel-pressure  each pressure-stencil kernel (jacobi_multisweep,
           smooth_residual, corr_smooth) in float32 and bfloat16 against its
-          plain version at the six kernel levels of the multigrid
-          hierarchy, on the case's first-corrector operator, and on random
-          operands at 512 x 2048 with the most sweeps it takes; its time at
-          the finest level
+          plain version, bit for bit, at the six kernel levels of the
+          multigrid hierarchy, on the case's first-corrector operator
+          (the path's sweeps; jacobi_multisweep and corr_smooth also 1, 2
+          and the halo), and on random operands at 512 x 2048 with the
+          most sweeps it takes, each launch counted under the variant
+          ops.stencil.multisweep_geometry names; its time at the finest
+          level; and at each level, in the path's dtype and sweeps, the
+          variant jacobi_multisweep and corr_smooth take and its device
+          time beside the region kernel's (the first port's, forced).
+          After case-st, a second part holds both at every level of both
+          hierarchies, iters 1, 2 and the halo, on the level's operator,
+          on random operands and from operands one element off 16 bytes,
+          bit for bit
   case-st  the Schaefer-Turek 2D-2 case of artifacts/validation/
           st_2d2_hybrid_d62_auto.json (256 x 1375) and the sm_st128
           surrogate; its SDF on the card against the CPU's (bit for bit)
@@ -57,9 +66,12 @@ Phases, each printing one JSON line with its elapsed seconds:
   parity-sharded  one sharded step against one piso_step from the same
           state, with the plain and with the kernel pressure smoother
           (which the sharded step passes through): bit for bit
-  step-fused  the same path with MGBackend(smoother="kernel-fused")
+  step-fused  the same path with MGBackend(smoother="kernel-fused"); its
+          launches per step of smooth_residual and corr_smooth by variant
+          and level
   step-mgcg   the pure solver, MGCGBackend(rtol=1e-6, maxiter=60,
-          smoother="kernel"), from the impulsive start
+          smoother="kernel"), from the impulsive start; its launches per
+          step of jacobi_multisweep by variant and level
   parity  one step with the plain momentum smoother against one with the
           kernel, from the same state
   parity-pressure  one step with each kernel smoother against one with
@@ -102,7 +114,9 @@ the line before the last is the card's name and power limit and the last
 line is the result object.
 """
 
+import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -163,11 +177,6 @@ SHARD_MESHES = ((2, 2), (4, 1), (1, 4), (4, 2))
 MEM_RATE = 3.35e12            # H100 SXM HBM3, bytes/s (published peak)
 F32_RATE = 67e12              # H100 SXM f32 outside the tensor cores
 KERNEL_REL_TOL = 1e-5
-# Pressure-stencil kernels against their plain versions, max |err| /
-# max |plain|. Both round at the same places (csrc/pressure_stencil.cu),
-# so they should agree bit for bit; the bounds allow a few float32
-# roundings, and one bf16 ulp (2^-8) of the largest value.
-STENCIL_TOL = {"f32": 1e-5, "bf16": 2.0 ** -8}
 # Step parity, max |kernel - plain| / max |plain| per field. The two steps
 # differ only in the momentum smoother, whose outputs agree to ~1e-7
 # relative. The pressure equation's right-hand side is a divergence, a
@@ -348,8 +357,9 @@ def main() -> int:
     def reset_counts(predictor=None):
         for fn in counters.values():
             fn.launches = 0
-        st.stencil_matvec.by_shape.clear()
-        st.jacobi_sweep.by_shape.clear()
+        for fn in (st.stencil_matvec, st.jacobi_sweep, st.jacobi_multisweep,
+                   st.smooth_residual, st.corr_smooth):
+            fn.by_shape.clear()
         mg.v_cycle.cycles = 0
         fvm.jacobi_momentum.sweep_loops = 0
         if predictor is not None:
@@ -357,6 +367,27 @@ def main() -> int:
 
     def counts():
         return {name: fn.launches for name, fn in counters.items()}
+
+    def path_variants(fn, name, label):
+        """Each launch of the kernel on the path just driven took the
+        variant `multisweep_geometry` names for its level, dtype and the
+        path's sweeps."""
+        for (v_, p_, sh_), n_ in fn.by_shape.items():
+            want = st.multisweep_geometry(sh_, dtypes[p_],
+                                          PATH_SWEEPS[name][p_],
+                                          kernel=name).variant
+            check(v_ == want, f"{label}: {n_} launches of {name} at "
+                  f"{sh_} {p_} in the {v_} kernel, not the {want}")
+
+    def launches_by_level(names, steps):
+        """Launches per step of each multisweep kernel by variant, dtype
+        and level, from the counts of the steps just driven."""
+        return {name: [{"variant": v_, "dtype": p_, "shape": list(sh_),
+                        "launches_per_step": n_ / steps}
+                       for (v_, p_, sh_), n_ in sorted(
+                           getattr(st, name).by_shape.items(),
+                           key=lambda kv: (kv[0][1], -kv[0][2][0]))]
+                for name in names}
 
     # ---- build ----------------------------------------------------------
     t = time.time()
@@ -500,32 +531,71 @@ def main() -> int:
                 field(-1, 1).to(dt), field(-1, 1).to(dt),
                 field(-0.1, 0.1).to(dt))
 
+    def variant(name, shape, dt, iters, aligned=True):
+        """The kernel a launch takes: jacobi_multisweep and corr_smooth in
+        the geometry of multisweep_geometry (the run kernel on aligned
+        planes of whole 16-byte runs, one sweep of jacobi_multisweep a
+        single pass), smooth_residual the region kernel."""
+        if name == "smooth_residual":
+            return "region"
+        return st.multisweep_geometry(tuple(shape), dt, iters, aligned,
+                                      kernel=name).variant
+
     def held(name, prec, ops, iters, where):
-        """The kernel against its plain version; (max abs err, rel err)."""
+        """The kernel against its plain version, bit for bit, and its
+        launch counted under the variant the geometry names; max abs err
+        (0)."""
+        shape = tuple(ops[1].shape)
+        key = (variant(name, shape, dtypes[prec], iters), prec, shape)
+        n0 = getattr(st, name).by_shape[key]
         got = stencil_call(name, *ops, iters)
         torch.cuda.synchronize()
-        err, rel = compare(got, stencil_call(name, *ops, iters, True))
-        check(rel <= STENCIL_TOL[prec],
-              f"{name} {prec} {where}, iters {iters}: rel err {rel:.3e}")
-        return err, rel
+        check(getattr(st, name).by_shape[key] == n0 + 1,
+              f"{name} {prec} {where}, iters {iters}: not one launch of "
+              f"the {key[0]} kernel")
+        return exact(f"{name} {prec} {where}, iters {iters}", got,
+                     stencil_call(name, *ops, iters, True))
+
+    def exact(label, got, ref):
+        err = compare(got, ref)[0]
+        check(err == 0.0, f"{label}: max |diff| {err:.3e}, not 0")
+        return err
+
+    @contextlib.contextmanager
+    def region_kernel():
+        """jacobi_multisweep and corr_smooth forced onto the region
+        kernel (the first port's) by the geometry's size threshold."""
+        threshold = st._REGION_BELOW_CELLS
+        st._REGION_BELOW_CELLS = 1 << 62
+        try:
+            yield
+        finally:
+            st._REGION_BELOW_CELLS = threshold
 
     stencil_rows = {}
     for name, (n_in, n_out, ops_sweep, ops_once, _) in STENCIL.items():
         row = {"max_abs_err": 0.0}
         for prec, dt in dtypes.items():
             iters = PATH_SWEEPS[name][prec]
+            top = st._halo_for(dt) - (name == "smooth_residual")
+            # the path's sweeps, and for the run kernel's two 1, 2 and
+            # the halo
+            checked = sorted({iters} if name == "smooth_residual"
+                             else {iters, 1, 2, top})
             per_level = []
             for coef_l, b_l in fine:
                 ops = level_operands(coef_l, b_l, dt)
-                err, rel = held(name, prec, ops, iters,
-                                f"level {tuple(b_l.shape)}")
-                per_level.append({"shape": list(b_l.shape),
-                                  "max_abs_err": err, "rel_err": rel})
+                err = max(held(name, prec, ops, k,
+                               f"level {tuple(b_l.shape)}")
+                          for k in checked)
                 row["max_abs_err"] = max(row["max_abs_err"], err)
+                per_level.append({"shape": list(b_l.shape),
+                                  "variant": variant(name, b_l.shape, dt,
+                                                     iters),
+                                  "iters_checked": checked,
+                                  "max_abs_err": err})
             # random operands at the finest shape, the most sweeps taken
-            top = st._halo_for(dt) - (name == "smooth_residual")
-            err_r, rel_r = held(name, prec, random_operands(dt), top,
-                                "random")
+            err_r = held(name, prec, random_operands(dt), top, "random")
             row["max_abs_err"] = max(row["max_abs_err"], err_r)
             # time at the finest level, with this dtype's sweeps
             ops = level_operands(*fine[0], dt)
@@ -536,14 +606,37 @@ def main() -> int:
             b_ms, b_by = bound((n_in + n_out) * n_cells * size,
                                (ops_sweep * iters + ops_once) * n_cells)
             say("kernel-pressure", kernel=name, dtype=prec, iters=iters,
-                levels=per_level, random={"iters": top, "max_abs_err": err_r,
-                                          "rel_err": rel_r},
+                levels=per_level, random={"iters": top, "max_abs_err": err_r},
                 **t_k, bound_ms=b_ms, bound_by=b_by,
                 share_of_bound=b_ms / t_k["ms"])
             if prec == PATH_DTYPE[name]:
                 row.update(ms=t_k["ms"], plain_ms=t_k["plain_ms"],
                            bound_ms=b_ms, bound_by=b_by)
         stencil_rows[name] = row
+    # each level of the path's dtype and sweeps: the variant the geometry
+    # picks and its device time, beside the region kernel's (the first port's)
+    for name in ("jacobi_multisweep", "corr_smooth"):
+        n_in, n_out, ops_sweep, ops_once, _ = STENCIL[name]
+        prec = PATH_DTYPE[name]
+        dt, iters = dtypes[prec], PATH_SWEEPS[name][prec]
+        size = torch.tensor([], dtype=dt).element_size()
+        rows_ = []
+        for coef_l, b_l in fine:
+            ops = level_operands(coef_l, b_l, dt)
+            cells = b_l.numel()
+            ms_l = time_ms(lambda: stencil_call(name, *ops, iters), 100,
+                           torch, flush)[0]
+            with region_kernel():
+                region_ms = time_ms(lambda: stencil_call(name, *ops, iters),
+                                    100, torch, flush)[0]
+            b_ms = bound((n_in + n_out) * cells * size,
+                         (ops_sweep * iters + ops_once) * cells)[0]
+            rows_.append({"shape": list(b_l.shape),
+                          "variant": variant(name, b_l.shape, dt, iters),
+                          "ms": ms_l, "region_ms": region_ms,
+                          "bound_ms": b_ms, "share_of_bound": b_ms / ms_l})
+        say("kernel-pressure", part="levels", kernel=name, dtype=prec,
+            iters=iters, levels=rows_)
 
     # ---- the Schaefer-Turek case and its first pressure system -----------
     t = time.time()
@@ -616,11 +709,6 @@ def main() -> int:
         diag = c[0] + c[1] + c[2] + c[3] + field(0.1, 1.0, shape)
         return (cast(PressureCoeffs(*c, torch.zeros_like(diag), diag), dt),
                 field(-1, 1, shape).to(dt), field(-1, 1, shape).to(dt))
-
-    def exact(label, got, ref):
-        err = compare(got, ref)[0]
-        check(err == 0.0, f"{label}: max |diff| {err:.3e}, not 0")
-        return err
 
     # ---- B.2: stencil_matvec against its plain version, bit for bit -------
     def offset_by_one(t):
@@ -781,16 +869,61 @@ def main() -> int:
     say("kernel-sweep", checked=sweep_checked, iters=list(SWEEP_ITERS),
         max_abs_err=sweep_err, times_per_sweep=sweep_times)
 
+    # ---- jacobi_multisweep and corr_smooth at every level of both
+    # hierarchies, iters 1, 2 and the halo, on the level's operator, on
+    # random operands of its shape, and on the operator one element off 16
+    # bytes (the region kernel; the cell kernel for one sweep of
+    # jacobi_multisweep): bit for bit, each launch in its variant
+    multi = {"checked": 0, "max_abs_err": 0.0,
+             "variants": collections.Counter()}
+    for prec, dt in dtypes.items():
+        for grid_name, lv in all_levels.items():
+            for coef_l, b_l in lv:
+                shape = tuple(b_l.shape)
+                real = level_operands(coef_l, b_l, dt)
+                c_, x_, b_ = random_edge_operands(shape, dt)
+                rand = (c_, x_, b_, (0.1 * torch.roll(x_, 1, 1)).to(dt))
+                off = tuple(offset_by_one(t) for t in real)
+                for name in ("jacobi_multisweep", "corr_smooth"):
+                    for k in (1, 2, st._halo_for(dt)):
+                        for label, ops in (("level", real),
+                                           ("random", rand)):
+                            multi["max_abs_err"] = max(
+                                multi["max_abs_err"],
+                                held(name, prec, ops, k,
+                                     f"{label} {shape}"))
+                            multi["variants"][
+                                variant(name, shape, dt, k)] += 1
+                        v_off = variant(name, shape, dt, k, aligned=False)
+                        check(v_off in ("region", "cell"),
+                              f"{name} {prec} {shape}: operands off 16 "
+                              f"bytes would take the {v_off} kernel")
+                        key = (v_off, prec, shape)
+                        n0 = getattr(st, name).by_shape[key]
+                        got = stencil_call(name, *off, k)
+                        torch.cuda.synchronize()
+                        check(getattr(st, name).by_shape[key] == n0 + 1,
+                              f"{name} {prec} {shape}: operands off 16 "
+                              f"bytes did not take the {v_off} kernel")
+                        exact(f"{name} {prec} {shape} iters {k} off 16 "
+                              "bytes", got,
+                              stencil_call(name, *real, k, True))
+                        multi["variants"][v_off] += 1
+                        multi["checked"] += 3
+    say("kernel-pressure", part="hierarchies",
+        grids=list(all_levels), **multi)
+
     # ---- B.7: the sharded kernels on meshes of the one card --------------
     def card_mesh(shape):
         return device_mesh(shape[0] * shape[1], shape=shape,
                            devices=[dev] * (shape[0] * shape[1]))
 
-    def own_share(times, kernel, n):
-        """The kernel's own device ms, the rest (the split, exchange,
+    def own_share(times, kernels, n):
+        """The kernels' own device ms, the rest (the split, exchange,
         stack and crop) and the launches, per call of a cold profile."""
-        own = sum(t for k, (t, _) in times.items() if kernel in k)
-        check(own > 0, f"no device time of {kernel} in the profile")
+        own = sum(t for k, (t, _) in times.items()
+                  if any(name in k for name in kernels))
+        check(own > 0, f"no device time of {kernels} in the profile")
         total = sum(t for t, _ in times.values())
         return dict(kernel_ms=own / 1e3 / n,
                     assembly_ms=(total - own) / 1e3 / n,
@@ -865,9 +998,12 @@ def main() -> int:
     b_jsh = sharded_bound("jacobi_multisweep", (NY, NX), SHARD_MESHES[0],
                           "f32", sweeps=1)
     split_msh = own_share(cold_kernels(msh_call, 50, torch, flush),
-                          "momentum_multisweep_kernel", 50)
+                          ("momentum_multisweep_kernel",), 50)
+    # one sweep a block: the single-pass kernels (multisweep_geometry)
     split_jsh = own_share(cold_kernels(jsh_call, 50, torch, flush),
-                          "pressure_stencil_kernel", 50)
+                          ("stencil_run_kernel", "stencil_cell_kernel",
+                           "multisweep_run_kernel",
+                           "pressure_stencil_kernel"), 50)
     say("kernel-sharded", meshes=[list(m) for m in SHARD_MESHES],
         momentum={**msh, **t_msh, **split_msh,
                   "bound_ms": b_msh["bound_us"] / 1e3,
@@ -1022,13 +1158,15 @@ def main() -> int:
     fused_be = MGBackend(cycles=2, precision="bf16", smoother="kernel-fused")
     flow_f, stats = drive("step-fused", flow0, N_STEPS, fused_be, predictor,
                           warm=N_WARM)
-    say("step-fused", **stats)
+    say("step-fused", **stats, by_level=launches_by_level(
+        ("smooth_residual", "corr_smooth"), N_STEPS))
     k = stats["kernel_launches"]
     legs = KERNEL_LEVELS * stats["v_cycles"]
     check(stats["v_cycles"] > 0 and k["smooth_residual"] == legs
           and k["corr_smooth"] == legs and k["jacobi_multisweep"] == 0,
           f"step-fused: launches {k} for {stats['v_cycles']} V-cycles")
     fused_launches = k
+    path_variants(st.corr_smooth, "corr_smooth", "step-fused")
 
     # ---- path 2: MGCG with the multisweep kernel in f32 ------------------
     mgcg_be = MGCGBackend(rtol=1e-6, maxiter=60, smoother="kernel")
@@ -1041,13 +1179,15 @@ def main() -> int:
         return p_
 
     _, stats = drive("step-mgcg", flow0, N_MGCG, mgcg_counted, None)
-    say("step-mgcg", cg_iters_per_solve=cg_iters, **stats)
+    say("step-mgcg", cg_iters_per_solve=cg_iters, **stats,
+        by_level=launches_by_level(("jacobi_multisweep",), N_MGCG))
     k = stats["kernel_launches"]
     check(stats["v_cycles"] > 0
           and k["jacobi_multisweep"] == 2 * KERNEL_LEVELS * stats["v_cycles"]
           and k["smooth_residual"] + k["corr_smooth"] == 0,
           f"step-mgcg: launches {k} for {stats['v_cycles']} V-cycles")
     mgcg_launches = k
+    path_variants(st.jacobi_multisweep, "jacobi_multisweep", "step-mgcg")
 
     # ---- one step, plain momentum smoother vs kernel, same state ---------
     # with the path's bf16 multigrid, and with f32 multigrid, which keeps

@@ -488,7 +488,7 @@ def test_sharded_momentum_equals_the_single_kernel(cuda, shape, mesh_shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2), (4, 1), (1, 4)])
 def test_sharded_jacobi_equals_the_single_kernel(cuda, mesh_shape, dtype):
     from tpufoam_torch.ops import sharded as tsh
 
@@ -638,3 +638,60 @@ def test_sharded_momentum_on_2x2_matches_plain(cuda):
         for g, r in zip(got, ref):
             err = float((g - r).abs().max())
             assert err <= KERNEL_RTOL * float(r.abs().max()), err
+
+
+# ---- the multisweep run kernel: jacobi_multisweep and corr_smooth ---------
+
+
+def _levels(ny, nx, min_size=8):
+    """The shapes of `solvers.multigrid.build_hierarchy`."""
+    shapes = [(ny, nx)]
+    while min(shapes[-1]) >= 2 * min_size:
+        y, x = shapes[-1]
+        shapes.append(((y + 1) // 2, (x + 1) // 2))
+    return shapes
+
+
+HIERARCHY_LEVELS = _levels(512, 2048) + _levels(256, 1375)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["jacobi_multisweep", "corr_smooth"])
+def test_multisweep_kernels_bit_for_bit_at_every_level(cuda, kernel, dtype):
+    """Every level of the 512 x 2048 and 256 x 1375 hierarchies, iters 1,
+    2 and the halo, from aligned operands and from operands one element
+    off 16 bytes: each launch takes the variant `multisweep_geometry`
+    names (off 16 bytes the region kernel, or the cell kernel for one
+    sweep of jacobi_multisweep), is counted under it, and equals the
+    plain version bit for bit."""
+    prec = "f32" if dtype == torch.float32 else "bf16"
+    counter = getattr(ts, kernel)
+    for shape in HIERARCHY_LEVELS:
+        coef, x, b, corr = _pressure_operands(*shape, dtype, sum(shape), cuda)
+        for offset in (0, 1):
+            c = PressureCoeffs(*(_offset_view(t, offset) for t in (
+                coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.c_out,
+                coef.diag)))
+            xx, bb, cc = (_offset_view(t, offset) for t in (x, b, corr))
+            for iters in (1, 2, ts._halo_for(dtype)):
+                variant = ts.multisweep_geometry(
+                    shape, dtype, iters, aligned=offset == 0,
+                    kernel=kernel).variant
+                assert variant in ("region", "cell") or not offset
+                before = counter.by_shape[variant, prec, shape]
+                (got,), (ref,) = _stencil_pair(kernel, c, xx, bb, cc, iters)
+                torch.cuda.synchronize()
+                assert counter.by_shape[variant, prec, shape] == before + 1
+                assert torch.equal(got, ref), (shape, offset, iters, variant)
+
+
+def test_jacobi_multisweep_one_sweep_equals_jacobi_sweep(cuda):
+    """One sweep of the multisweep kernel and of the single-pass kernel
+    compute the same arithmetic: bit for bit at every level of both
+    hierarchies, in both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in HIERARCHY_LEVELS:
+            coef, x, b = _edge_operands(shape, dtype, sum(shape) + 2, cuda)
+            assert torch.equal(ts.jacobi_multisweep(coef, x, b, 1),
+                               ts.jacobi_sweep(coef, x, b, 1)), shape

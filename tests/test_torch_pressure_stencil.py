@@ -33,6 +33,16 @@
    `jacobi_sweep_pallas` in interpret mode. The tolerances of 1. apply;
    the port's `pressure_matvec` is `stencil_matvec` and equals the plain
    version exactly on the CPU.
+6. The multisweep run kernel of jacobi_multisweep and corr_smooth
+   (`multisweep_run_kernel`): a CPU emulation of its schedule (regions of
+   `_RUN_ROWS` rows a warp and 32 runs, halo iters rows and whole runs >=
+   iters columns, the neighbours its threads read, the frozen ring and
+   cells beyond the domain) equal to the plain versions bit for bit, in
+   both dtypes, on the channel operators and on edge shapes; a mutation
+   (an x halo one cell short) that it catches; and `multisweep_geometry`
+   writing every cell once and sending unaligned rows and odd widths to
+   the region kernel, one sweep of jacobi_multisweep to one pass of the
+   single-pass kernels.
 """
 
 import jax.numpy as jnp
@@ -621,3 +631,193 @@ def test_strip_run_emulation_has_teeth():
     tall = ts.PassGeometry(vector=True, cells=4, rows=16, seg=16,
                            block=(16, 2), grid=(4, 2, 1))
     assert torch.equal(emulate_pass(tcoef, tv["x"], tall), ref)
+
+
+# ---- the multisweep run kernel: jacobi_multisweep, corr_smooth -------------
+
+
+def emulate_run(kernel, coef, x, b, corr=None, iters=2, omega=0.8,
+                geom=None, hx=None):
+    """What csrc/pressure_stencil.cu's `multisweep_run_kernel` computes,
+    block by block, in PyTorch with the plain version's operations: each
+    block's region of `warps * _RUN_ROWS` rows and `_RUN_LANES` runs,
+    operands beyond the domain 0; every cell but the region's outer ring
+    and the cells beyond the domain swept `iters` times, with the
+    neighbours the kernel's threads see (E/W: the run and the neighbouring
+    lanes, the last lane's shuffle returning its own first cell and the
+    first lane's its own last; N/S: the thread's rows and the neighbouring
+    warps' edge rows, the outermost warps reading their own); the tile
+    written. `hx` overrides the x halo (a mutation: one cell short must
+    fail)."""
+    ny, nx = x.shape
+    g = geom or ts._run_geometry((ny, nx), x.dtype, iters)
+    run, rows = g.cells, ts._RUN_ROWS
+    hy, hx = g.halo[0], g.halo[1] if hx is None else hx
+    height, width = g.warps * rows, ts._RUN_LANES * run
+    ty, tx = height - 2 * hy, width - 2 * hx
+    by, bx = -(-ny // ty), -(-nx // tx)
+    om = ts._omega(omega, x.dtype)
+    x0 = x + corr if kernel == "corr_smooth" else x
+    pad = (hx, bx * tx + width - nx, hy, by * ty + height - ny)
+    fields = [F.pad(f, pad) for f in (x0, b, coef.c_e, coef.c_w, coef.c_n,
+                                      coef.c_s, coef.diag)]
+    inside = F.pad(torch.ones(ny, nx, dtype=torch.bool), pad)
+    ring = torch.zeros(height, width, dtype=torch.bool)
+    ring[[0, -1]] = True
+    ring[:, [0, -1]] = True
+    top = (g.warps - 1) * rows
+    x_out = torch.empty_like(x)
+    for i in range(by):
+        for j in range(bx):
+            win = (slice(i * ty, i * ty + height),
+                   slice(j * tx, j * tx + width))
+            xr, bb, ce, cw, cn, cs, d = (f[win].clone() for f in fields)
+            live = inside[win] & ~ring
+            for _ in range(iters):
+                xe = torch.cat([xr[:, 1:], xr[:, width - run:][:, :1]], 1)
+                xw = torch.cat([xr[:, run - 1:run], xr[:, :-1]], 1)
+                xn = torch.cat([xr[1:], xr[top:top + 1]], 0)
+                xs = torch.cat([xr[rows - 1:rows], xr[:-1]], 0)
+                ax = d * xr - ce * xe - cw * xw - cn * xn - cs * xs
+                xr = torch.where(live, xr + om * (bb - ax) / d, xr)
+            y0, x0_ = i * ty, j * tx
+            h, w = min(ty, ny - y0), min(tx, nx - x0_)
+            x_out[y0:y0 + h, x0_:x0_ + w] = xr[hy:hy + h, hx:hx + w]
+    return x_out
+
+
+RUN_KERNELS = ("jacobi_multisweep", "corr_smooth")
+
+
+def emulate_picked(kernel, coef, x, b, corr, iters):
+    """The schedule `multisweep_geometry` picks, emulated: the run kernel,
+    the region kernel, or for one sweep of jacobi_multisweep one pass of
+    the single-pass kernels (their A x, then the sweep's operations)."""
+    geom = ts.multisweep_geometry(tuple(x.shape), x.dtype, iters,
+                                  kernel=kernel)
+    if geom.variant == "run":
+        return emulate_run(kernel, coef, x, b, corr, iters, geom=geom)
+    if geom.variant == "region":
+        return emulate(kernel, coef, x, b, corr, iters)[0]
+    assert kernel == "jacobi_multisweep" and iters == 1
+    om = ts._omega(0.8, x.dtype)
+    return x + om * (b - emulate_pass(coef, x, geom)) / coef.diag
+
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", RUN_KERNELS)
+def test_run_schedule_equals_plain_exactly(problem, kernel, prec):
+    """The run kernel's schedule on the channel operators, iters 1, 2 and
+    the halo; and the schedule `multisweep_geometry` picks for them (the
+    50 x 130 plane's width is no whole number of 16-byte runs in either
+    dtype: the region kernel, or one pass of the cell kernel)."""
+    tdt = DTYPES[prec][0]
+    coef, v = _torch_ops(problem, tdt)
+    for iters in (1, 2, _max_iters(kernel, prec)):
+        ref = _plain(kernel, coef, v["x"], v["b"], v["corr"], iters)[0]
+        got = emulate_run(kernel, coef, v["x"], v["b"], v["corr"], iters)
+        assert torch.equal(got, ref), (kernel, prec, iters)
+        picked = emulate_picked(kernel, coef, v["x"], v["b"], v["corr"],
+                                iters)
+        assert torch.equal(picked, ref), (kernel, prec, iters)
+
+
+@pytest.mark.parametrize("shape", ["one-run", "one-row", "ragged"])
+@pytest.mark.parametrize("kernel", RUN_KERNELS)
+def test_run_schedule_on_edge_shapes(shape, kernel):
+    """A plane one run wide, one row high, and one whose width and height
+    are not a whole number of tiles (two blocks along x, the last partly
+    beyond the domain), in both dtypes, iters 1, 2 and the halo."""
+    for prec in ("f32", "bf16"):
+        tdt = DTYPES[prec][0]
+        run = 16 // torch.tensor([], dtype=tdt).element_size()
+        ny, nx = {"one-run": (37, run), "one-row": (1, 70 * run // 2),
+                  "ragged": (53, 34 * run)}[shape]
+        coef, x, b, corr = _random_operands(ny, nx, tdt, seed=ny + nx)
+        for iters in (1, 2, _max_iters(kernel, prec)):
+            got = emulate_run(kernel, coef, x, b, corr, iters)
+            ref = _plain(kernel, coef, x, b, corr, iters)[0]
+            assert torch.equal(got, ref), (prec, (ny, nx), iters)
+
+
+def test_run_schedule_with_a_short_x_halo_fails():
+    """An x halo one cell short (iters - 1, iters a whole number of runs):
+    the second block's tile then starts iters - 1 cells inside its frozen
+    ring column. With x = 0 and b = 0 but for b = 1 on that column, the
+    plain version carries the column's update iters - 1 cells east, into
+    the tile, while the short-haloed block sees only zeros; with the right
+    halo the emulation equals the plain version. Both dtypes, iters from
+    one to all of the halo's runs."""
+    for tdt, iters in ((torch.float32, 4), (torch.float32, 8),
+                       (torch.bfloat16, 8), (torch.bfloat16, 16)):
+        coef, _, _, _ = _random_operands(40, 512, tdt, seed=iters)
+        geom = ts._run_geometry((40, 512), tdt, iters)
+        column = geom.region[1] - 2 * (iters - 1) - (iters - 1)
+        x = torch.zeros(40, 512, dtype=tdt)
+        b = torch.zeros_like(x)
+        b[:, column] = 1.0
+        ref = _plain("jacobi_multisweep", coef, x, b, None, iters)[0]
+        assert torch.equal(emulate_run("jacobi_multisweep", coef, x, b,
+                                       iters=iters), ref)
+        short = emulate_run("jacobi_multisweep", coef, x, b, iters=iters,
+                            hx=iters - 1)
+        assert not torch.equal(short, ref), (tdt, iters)
+
+
+def _run_hits(geom, ny, nx):
+    """How often the run kernel's threads store each cell: thread (warp w,
+    lane l) of block (bx, by) stores its row i (region row r = w*rows+i)
+    and run (region column c = l*cells) where hy <= r < height - hy and
+    hx <= c < width - hx, inside the plane
+    (csrc/pressure_stencil.cu `multisweep_run_kernel`)."""
+    (hy, hx), (ty, tx), (gx, gy) = geom.halo, geom.tile, geom.grid
+    height, width = geom.region
+    r = np.arange(geom.warps * ts._RUN_ROWS)
+    c = np.arange(ts._RUN_LANES)[:, None] * geom.cells \
+        + np.arange(geom.cells)[None]
+    r = r[(r >= hy) & (r < height - hy)]
+    c = c[(c[:, 0] >= hx) & (c[:, 0] < width - hx)].ravel()
+    ys = (np.arange(gy)[:, None] * ty - hy + r[None]).ravel()
+    xs = (np.arange(gx)[:, None] * tx - hx + c[None]).ravel()
+    y, x = np.meshgrid(ys, xs, indexing="ij")
+    keep = (y >= 0) & (y < ny) & (x >= 0) & (x < nx)
+    return np.bincount((y[keep] * nx + x[keep]).ravel(), minlength=ny * nx)
+
+
+@pytest.mark.parametrize("kernel", RUN_KERNELS)
+@pytest.mark.parametrize("nx", [8, 43, 64, 688, 1040, 1375, 2048])
+def test_multisweep_geometry_writes_every_cell_once(nx, kernel):
+    """Every cell exactly once, in every variant and both dtypes, for
+    every iters the wrappers accept, at heights from one row to 512;
+    widths that are not a whole number of 16-byte runs, and operands off
+    16 bytes, take the region kernel; one sweep of jacobi_multisweep one
+    pass of the single-pass kernels (`pass_geometry`'s launch)."""
+    for ny in (1, 37, 272, 512):
+        for dt in (torch.float32, torch.bfloat16):
+            run = 16 // torch.tensor([], dtype=dt).element_size()
+            for iters in range(ts._halo_for(dt) + 1):
+                for aligned in (True, False):
+                    g = ts.multisweep_geometry((ny, nx), dt, iters, aligned,
+                                               kernel=kernel)
+                    if kernel == "jacobi_multisweep" and iters == 1:
+                        assert g == ts.pass_geometry((ny, nx), dt, aligned)
+                        p, y, x = _thread_cells(g, ny, nx)
+                        hits = np.bincount(y * nx + x, minlength=ny * nx)
+                        assert (hits == 1).all()
+                        continue
+                    if not aligned or nx % run:
+                        assert g.variant == "region"
+                    if g.variant == "region":
+                        t = ts.REGION - 2 * iters
+                        assert (g.tile, g.halo) == ((t, t), (iters, iters))
+                        ys = np.arange(g.grid[1] * t)
+                        xs = np.arange(g.grid[0] * t)
+                        assert ys[-1] >= ny - 1 and ys[-1] - t < ny - 1
+                        assert xs[-1] >= nx - 1 and xs[-1] - t < nx - 1
+                        continue
+                    assert g.cells == run and g.halo[0] == iters
+                    assert g.halo[1] % run == 0 \
+                        and iters <= g.halo[1] < iters + run
+                    assert g.warps * 32 <= 512 and min(g.tile) > 0
+                    hits = _run_hits(g, ny, nx)
+                    assert (hits == 1).all(), (ny, nx, dt, iters, g)

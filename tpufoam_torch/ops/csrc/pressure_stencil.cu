@@ -12,6 +12,12 @@
 //   corr_smooth        x + corr, then iters <= halo sweeps -> x
 //     replaces `corr_smooth_pallas` (l.722, body l.672)
 // with halo = 8 for float32 and 16 for bfloat16, the TPU kernels' limits.
+// jacobi_multisweep and corr_smooth launch the run kernel
+// (multisweep_run_kernel, below the single-pass kernels: every operand
+// read once, 16 bytes at a time, and kept in registers for the sweeps) on
+// aligned planes whose width is a whole number of 16-byte runs, and the
+// region kernel (pressure_stencil_kernel) elsewhere; smooth_residual takes
+// the region kernel.
 // Two single-pass functions on (ny, nx) fields or on B planes stacked as
 // (B, ny, nx) (blockIdx.z is the plane), each in two variants (the vector
 // and the cell kernel, below the multisweep kernels):
@@ -38,7 +44,7 @@
 // registers: 13.9 and 8.8 us (a copy of the same bytes takes 12.0 us
 // under that flush, whose dirty lines every timed kernel writes back).
 //
-// Design of the multisweep kernels (simple and exact). A block owns a square
+// Design of the region kernel (simple and exact). A block owns a square
 // region of REGION x REGION cells: an output tile of (REGION - 2h)^2 cells
 // and a halo of h cells on each side, with h = iters (smooth_residual:
 // iters + 1, its residual reads one more ring), chosen at launch so that
@@ -55,7 +61,9 @@
 // Rounding. Every operation rounds to the operand type in the order the
 // plain PyTorch version (and the TPU kernel) computes it: products and
 // sums with __fmul_rn/__fsub_rn/__fadd_rn (never contracted into FMAs),
-// the division with __fdiv_rn, and for bfloat16 a round to bfloat16 after
+// the division with __fdiv_rn (div_rn in the single-pass kernels and the
+// float32 run kernel: the same quotient), and for bfloat16 a round to
+// bfloat16 after
 // each of them; omega arrives rounded to the operand type. So the kernel
 // and the plain version compute the same values.
 
@@ -334,6 +342,19 @@ __device__ __forceinline__ Pack load_run(const T* run, bool in) {
   return p;
 }
 
+// t / d rounded to nearest, as __fdiv_rn. __fdiv_rn sends a zero dividend
+// down its slow path, and a warp waits for its slowest lane: on a real
+// operator the solid cells (b = x = 0) give t = 0 on every sweep. For a
+// nonzero d that is not NaN, 0 / d is a zero of sign(t) XOR sign(d), so
+// that sign is all that is computed there.
+__device__ __forceinline__ float div_rn(float t, float d) {
+  const bool zero = t == 0.f && fabsf(d) > 0.f;
+  const float q = __fdiv_rn(zero ? 1.f : t, d);
+  return zero ? __int_as_float((__float_as_int(t) ^ __float_as_int(d))
+                               & 0x80000000)
+              : q;
+}
+
 // A x at a cell, or one damped-Jacobi sweep there, from its operands.
 template <typename T, bool SWEEP>
 __device__ __forceinline__ float pass_cell(const Coef& c, float xc, float xe,
@@ -344,7 +365,7 @@ __device__ __forceinline__ float pass_cell(const Coef& c, float xc, float xe,
   if (!SWEEP) return ax;
   float t = N::rnd(__fsub_rn(c.b, ax));
   t = N::rnd(__fmul_rn(omega, t));
-  t = N::rnd(__fdiv_rn(t, c.d));
+  t = N::rnd(div_rn(t, c.d));
   return __fadd_rn(xc, t);
 }
 
@@ -498,6 +519,330 @@ int launch_pass(const T* x, const T* b, const T* ce, const T* cw,
   return (int)cudaGetLastError();
 }
 
+// ---- the multisweep run kernel: jacobi_multisweep and corr_smooth -------
+//
+// What held the region kernel (pressure_stencil_kernel, above) back on the
+// H100: its threads walk 16 cells one at a time, each with six scalar
+// loads of b and the coefficients (half a line a warp in bfloat16), and
+// they read those operands again on every sweep through L1/L2; little is
+// in flight per thread. tools/kernel_times.py: 26.4 us for one float32
+// sweep at 512 x 2048 against 16.1 us for the single-pass vector kernel,
+// which does the same work, and 5-10 us a sweep at every level, the
+// coarsest (16 x 64, one block) too: 9.8 us a launch there, where the
+// single-pass kernel takes 1.7.
+//
+// This kernel reads every operand once a call, 16 bytes at a time, and
+// keeps it in registers for all the sweeps:
+// - A block of `warps` warps (blockDim.x = 32 warps) owns a region of
+//   MS_ROWS * warps rows and 32 runs of RUN cells (16 bytes: 4 float32 or
+//   8 bfloat16 cells, packed two to a word and widened where used). Warp w
+//   owns region rows MS_ROWS w .. MS_ROWS w + MS_ROWS - 1, lane l the run
+//   at region column RUN l. A thread loads x (x + corr, rounded to the
+//   operand type), b, c_e, c_w, c_n, c_s and diag of its MS_ROWS runs as
+//   one uint4 each, all issued before it computes.
+// - E/W neighbours come from the run and from the neighbouring lanes
+//   (__shfl_*_sync); N/S from the thread's own rows and, at the ends of
+//   its strip, from the neighbouring warps' edge rows, published in shared
+//   memory (two buffers in turn: one __syncthreads a sweep).
+// - Halo: `iters` rows in y and hx cells in x, the smallest whole number
+//   of runs >= iters, so that a run lies wholly inside or beyond the tile
+//   and the domain (nx a multiple of RUN). The region's outer ring (row 0,
+//   the last row, the first lane's first cell, the last lane's last cell)
+//   is never updated, nor is any cell beyond the domain (loaded as 0, so
+//   it reads as the plain version's zero neighbour; no read leaves the
+//   array, nothing wraps east-west). After sweep k a cell is exact if it
+//   lies at least k cells inside the ring (the trapezoid argument), so the
+//   tile, `iters` rows and hx >= iters columns inside, is exact. Which
+//   cells are updated is decided once, into a mask.
+// - The arithmetic (Sweep<T>::word) is pass_cell's in float32 and its
+//   bfloat16 pair form, in the plain version's order and roundings, so
+//   one sweep equals jacobi_sweep bit for bit. A word is swept when it
+//   holds an updated cell, and a mask keeps its frozen cells. (Sweeping
+//   every word, the cells beyond the domain divide 0 by 0, which takes
+//   __fdiv_rn's slow path for the whole warp: that doubled the time a
+//   sweep on the coarse levels.)
+// Registers: 7 operands x MS_ROWS runs of 4 words = 84 words a thread;
+// __launch_bounds__ caps it at 128 registers (16 warps, one block an SM;
+// 8 warps, two): 117-128, no spills (the float32 emulation of each
+// bfloat16 rounding spilled 232 bytes at 128). The launch geometry (warps,
+// halo, tile, grid) is computed in Python (ops/stencil.py
+// `multisweep_geometry`) and checked here; unaligned rows and widths that
+// are not a whole number of runs take the region kernel, and one sweep
+// of jacobi_multisweep the single-pass kernels (faster at every level).
+
+constexpr int MS_ROWS = 3;          // rows of a thread
+constexpr int MS_MAX_WARPS = 16;    // warps of a block, stacked in y
+
+// One damped-Jacobi sweep of the cells of a 32-bit word of a run (one
+// float32 cell, or two bfloat16 cells), from the word's operands and
+// neighbours, in the plain version's order and roundings; and `mask`,
+// all ones over the word's cells whose bit in `live` is set.
+template <typename T> struct Sweep;
+
+template <> struct Sweep<float> {
+  static __device__ __forceinline__ unsigned omega(float om) {
+    return __float_as_uint(om);
+  }
+  static __device__ __forceinline__ unsigned add(unsigned a, unsigned b) {
+    return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
+  }
+  static __device__ __forceinline__ unsigned word(
+      unsigned ce, unsigned cw, unsigned cn, unsigned cs, unsigned d,
+      unsigned b, unsigned x, unsigned xe, unsigned xw, unsigned xn,
+      unsigned xs, unsigned om) {
+    const Coef c{__uint_as_float(ce), __uint_as_float(cw), __uint_as_float(cn),
+                 __uint_as_float(cs), __uint_as_float(d), __uint_as_float(b)};
+    return __float_as_uint(pass_cell<float, true>(
+        c, __uint_as_float(x), __uint_as_float(xe), __uint_as_float(xw),
+        __uint_as_float(xn), __uint_as_float(xs), __uint_as_float(om)));
+  }
+  static __device__ __forceinline__ unsigned mask(unsigned live, int bit) {
+    return live >> bit & 1u ? 0xffffffffu : 0u;
+  }
+};
+
+// bfloat16 pairs: each product, difference and sum is one fma.rn.bf16x2
+// with an exact third operand (a*b + -0, b*-1 + a, a*1 + b), the exact
+// result rounded once to bfloat16. That equals the plain version's
+// float32 operation rounded to bfloat16: float32 holds a product of two
+// bfloat16 values exactly, and rounding a sum to float32 first is
+// innocuous (24 bits >= 2*8 + 2). The division has no bfloat16 form: in
+// float32, __fdiv_rn, rounded to bfloat16, as pass_cell does. Two cells
+// an instruction, no widening, and a third of the instructions the
+// float32 emulation of each rounding takes. (div_rn's guard against a
+// zero dividend, on both halves, spilled 76-132 bytes at the 128-register
+// cap and timed no faster on random operands: here a solid cell's zero
+// dividend still takes __fdiv_rn's slow path.)
+template <> struct Sweep<__nv_bfloat16> {
+  static __device__ __forceinline__ unsigned fma2(unsigned a, unsigned b,
+                                                  unsigned c) {
+    unsigned d;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    return d;
+  }
+  static __device__ __forceinline__ unsigned mul(unsigned a, unsigned b) {
+    return fma2(a, b, 0x80008000u);            // + (-0, -0)
+  }
+  static __device__ __forceinline__ unsigned sub(unsigned a, unsigned b) {
+    return fma2(b, 0xbf80bf80u, a);            // b * (-1, -1) + a
+  }
+  static __device__ __forceinline__ unsigned add(unsigned a, unsigned b) {
+    return fma2(a, 0x3f803f80u, b);            // a * (1, 1) + b
+  }
+  static __device__ __forceinline__ unsigned omega(float om) {
+    const unsigned h = __bfloat16_as_ushort(__float2bfloat16_rn(om));
+    return h | h << 16;
+  }
+  static __device__ __forceinline__ unsigned word(
+      unsigned ce, unsigned cw, unsigned cn, unsigned cs, unsigned d,
+      unsigned b, unsigned x, unsigned xe, unsigned xw, unsigned xn,
+      unsigned xs, unsigned om) {
+    unsigned ax = mul(d, x);
+    ax = sub(ax, mul(ce, xe));
+    ax = sub(ax, mul(cw, xw));
+    ax = sub(ax, mul(cn, xn));
+    ax = sub(ax, mul(cs, xs));
+    const unsigned t = mul(om, sub(b, ax));
+    const float lo = __fdiv_rn(__uint_as_float(t << 16),
+                               __uint_as_float(d << 16));
+    const float hi = __fdiv_rn(__uint_as_float(t & 0xffff0000u),
+                               __uint_as_float(d & 0xffff0000u));
+    const unsigned q = __bfloat16_as_ushort(__float2bfloat16_rn(lo))
+                       | (unsigned)__bfloat16_as_ushort(
+                             __float2bfloat16_rn(hi)) << 16;
+    return add(x, q);
+  }
+  static __device__ __forceinline__ unsigned mask(unsigned live, int bit) {
+    return (live >> bit & 1u ? 0xffffu : 0u)
+           | (live >> (bit + 1) & 1u ? 0xffff0000u : 0u);
+  }
+};
+
+template <typename T, bool CORR>
+__global__ void __launch_bounds__(32 * MS_MAX_WARPS, 1)
+multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
+                      const T* __restrict__ b, const T* __restrict__ ce,
+                      const T* __restrict__ cw, const T* __restrict__ cn,
+                      const T* __restrict__ cs, const T* __restrict__ dg,
+                      T* __restrict__ out, int ny, int nx, int iters, int hx,
+                      int tile_y, int tile_x, float omega) {
+  using C = Cell<T>;
+  using S = Sweep<T>;
+  constexpr int RUN = C::kRun;
+  static_assert(MS_ROWS * RUN <= 32, "the update mask is one 32-bit word");
+  // [buffer][warp][its first or last row][lane]
+  __shared__ uint4 edge[2][MS_MAX_WARPS][2][32];
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int height = warps * MS_ROWS;
+  const int r0 = warp * MS_ROWS;              // region row of the first row
+  const int gy0 = blockIdx.y * tile_y - iters + r0;
+  const int gx = blockIdx.x * tile_x - hx + lane * RUN;
+  const bool col_in = gx >= 0 && gx < nx;     // the whole run, or none
+
+  Pack xr[MS_ROWS], kb[MS_ROWS], ke[MS_ROWS], kw[MS_ROWS], kn[MS_ROWS],
+      ks[MS_ROWS], kd[MS_ROWS];
+  unsigned live = 0;                          // bit i*RUN+k: updated
+#pragma unroll
+  for (int i = 0; i < MS_ROWS; ++i) {
+    const int gy = gy0 + i;
+    const bool in = col_in && gy >= 0 && gy < ny;
+    const long g = (long)gy * nx + gx;
+    xr[i] = load_run<T>(x0 + g, in);
+    kb[i] = load_run<T>(b + g, in);
+    ke[i] = load_run<T>(ce + g, in);
+    kw[i] = load_run<T>(cw + g, in);
+    kn[i] = load_run<T>(cn + g, in);
+    ks[i] = load_run<T>(cs + g, in);
+    kd[i] = load_run<T>(dg + g, in);
+    if (CORR) {
+      const Pack c = load_run<T>(corr + g, in);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xr[i].w[j] = S::add(xr[i].w[j], c.w[j]);
+    }
+    const bool ring_row = r0 + i == 0 || r0 + i == height - 1;
+    if (in && !ring_row) {
+#pragma unroll
+      for (int k = 0; k < RUN; ++k) {
+        if (!(lane == 0 && k == 0) && !(lane == 31 && k == RUN - 1)) {
+          live |= 1u << (i * RUN + k);
+        }
+      }
+    }
+  }
+  // the neighbouring warps' edge rows: below this warp's first row, above
+  // its last (the ring rows never read theirs)
+  const int below = warp > 0 ? warp - 1 : 0;
+  const int above = warp < warps - 1 ? warp + 1 : warps - 1;
+  const unsigned om = S::omega(omega);
+
+  for (int s = 0; s < iters; ++s) {
+    uint4 (*ex)[2][32] = edge[s & 1];
+    ex[warp][0][lane] = make_uint4(xr[0].w[0], xr[0].w[1], xr[0].w[2],
+                                   xr[0].w[3]);
+    ex[warp][1][lane] = make_uint4(xr[MS_ROWS - 1].w[0],
+                                   xr[MS_ROWS - 1].w[1],
+                                   xr[MS_ROWS - 1].w[2],
+                                   xr[MS_ROWS - 1].w[3]);
+    __syncthreads();
+    const uint4 q = ex[below][1][lane];
+    Pack south{{q.x, q.y, q.z, q.w}};          // the old row below
+#pragma unroll
+    for (int i = 0; i < MS_ROWS; ++i) {
+      Pack north;
+      if (i + 1 < MS_ROWS) {
+        north = xr[i + 1];
+      } else {
+        const uint4 a = ex[above][0][lane];
+        north = Pack{{a.x, a.y, a.z, a.w}};
+      }
+      // E/W neighbours as runs: within the run, then the next lane's
+      // first cell after it and the previous lane's last before it (the
+      // first and last lanes' outer cells are the ring: never updated)
+      const unsigned e0 = __shfl_down_sync(FULL_MASK, xr[i].w[0], 1);
+      const unsigned w3 = __shfl_up_sync(FULL_MASK, xr[i].w[3], 1);
+      Pack xe, xw;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        xe.w[j] = C::next(xr[i], j);
+        xw.w[j] = C::prev(xr[i], j);
+      }
+      xe.w[3] = C::tail(xr[i].w[3], e0);
+      xw.w[0] = C::head(w3, xr[i].w[0]);
+      // the words that hold an updated cell are swept, the frozen cells
+      // kept by the mask; the words beyond the domain are not (there
+      // 0 / 0 would take __fdiv_rn's slow path, in the whole warp)
+      Pack o;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned m = S::mask(live, i * RUN + j * (RUN / 4));
+        o.w[j] = xr[i].w[j];
+        if (m) {
+          const unsigned v = S::word(ke[i].w[j], kw[i].w[j], kn[i].w[j],
+                                     ks[i].w[j], kd[i].w[j], kb[i].w[j],
+                                     xr[i].w[j], xe.w[j], xw.w[j],
+                                     north.w[j], south.w[j], om);
+          o.w[j] = (v & m) | (o.w[j] & ~m);
+        }
+      }
+      south = xr[i];
+      xr[i] = o;
+    }
+  }
+
+  // the tile: region rows iters .. height - iters - 1, runs hx/RUN ..
+  // 32 - hx/RUN - 1
+  if (lane * RUN < hx || lane * RUN >= 32 * RUN - hx || !col_in) return;
+#pragma unroll
+  for (int i = 0; i < MS_ROWS; ++i) {
+    const int gy = gy0 + i;
+    if (r0 + i >= iters && r0 + i < height - iters && gy >= 0 && gy < ny) {
+      *reinterpret_cast<uint4*>(out + (long)gy * nx + gx) =
+          make_uint4(xr[i].w[0], xr[i].w[1], xr[i].w[2], xr[i].w[3]);
+    }
+  }
+}
+
+// The geometry of ops/stencil.py `multisweep_geometry`, checked: the
+// region kernel's square regions (run 0: tile = REGION - 2 iters, block
+// THREADS), or the run kernel's (run 1: whole warps, hx a whole number of
+// runs >= iters, tiles of the region less the halos); a grid that covers
+// the plane exactly once, and 16-byte aligned operands for the run kernel.
+struct MultisweepGeometry {
+  int run, warps, hx, tile_y, tile_x, gx, gy;
+};
+
+template <typename T>
+bool multisweep_ok(const MultisweepGeometry& g, int ny, int nx, int iters,
+                   const void* const* ptrs, int n_ptrs) {
+  constexpr int RUN = Cell<T>::kRun;
+  if (ny <= 0 || nx <= 0 || iters < 0 || iters > Num<T>::kHalo
+      || g.tile_y <= 0 || g.tile_x <= 0
+      || g.gy != (ny + g.tile_y - 1) / g.tile_y
+      || g.gx != (nx + g.tile_x - 1) / g.tile_x || g.gy > MAX_GRID_Y) {
+    return false;
+  }
+  if (!g.run) {
+    return g.warps == THREADS / 32 && g.hx == iters
+           && g.tile_y == REGION - 2 * iters && g.tile_x == g.tile_y;
+  }
+  if (g.warps <= 0 || g.warps > MS_MAX_WARPS || nx % RUN != 0
+      || g.hx % RUN != 0 || g.hx < iters || g.tile_x != 32 * RUN - 2 * g.hx
+      || g.tile_y != g.warps * MS_ROWS - 2 * iters) {
+    return false;
+  }
+  for (int i = 0; i < n_ptrs; ++i) {
+    if (reinterpret_cast<unsigned long>(ptrs[i]) % 16 != 0) return false;
+  }
+  return true;
+}
+
+template <typename T, bool CORR>
+int launch_multisweep(const T* x0, const T* corr, const T* b, const T* ce,
+                      const T* cw, const T* cn, const T* cs, const T* dg,
+                      T* x_out, int ny, int nx, int iters,
+                      MultisweepGeometry g, float omega, void* stream) {
+  const void* ptrs[] = {x0, CORR ? (const void*)corr : (const void*)x0, b,
+                        ce, cw, cn, cs, dg, x_out};
+  if (!multisweep_ok<T>(g, ny, nx, iters, ptrs, 9)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(g.gx, g.gy);
+  if (!g.run) {
+    constexpr int MODE = CORR ? kCorrSmooth : kMultisweep;
+    pressure_stencil_kernel<T, MODE><<<grid, THREADS, 0,
+                                       (cudaStream_t)stream>>>(
+        x0, corr, b, ce, cw, cn, cs, dg, x_out, nullptr, ny, nx, iters,
+        iters, omega);
+  } else {
+    multisweep_run_kernel<T, CORR><<<grid, 32 * g.warps, 0,
+                                     (cudaStream_t)stream>>>(
+        x0, corr, b, ce, cw, cn, cs, dg, x_out, ny, nx, iters, g.hx,
+        g.tile_y, g.tile_x, omega);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
@@ -505,9 +850,11 @@ int launch_pass(const T* x, const T* b, const T* ce, const T* cw,
   extern "C" int jacobi_multisweep_##SUFFIX(                                 \
       const T* x, const T* b, const T* ce, const T* cw, const T* cn,         \
       const T* cs, const T* dg, T* x_out, int ny, int nx, int iters,         \
+      int run, int warps, int hx, int tile_y, int tile_x, int gx, int gy,    \
       float omega, void* stream) {                                           \
-    return launch<T, kMultisweep>(x, nullptr, b, ce, cw, cn, cs, dg, x_out,  \
-                                  nullptr, ny, nx, iters, omega, stream);    \
+    return launch_multisweep<T, false>(                                      \
+        x, nullptr, b, ce, cw, cn, cs, dg, x_out, ny, nx, iters,             \
+        {run, warps, hx, tile_y, tile_x, gx, gy}, omega, stream);            \
   }                                                                          \
   extern "C" int smooth_residual_##SUFFIX(                                   \
       const T* x, const T* b, const T* ce, const T* cw, const T* cn,         \
@@ -520,9 +867,11 @@ int launch_pass(const T* x, const T* b, const T* ce, const T* cw,
   extern "C" int corr_smooth_##SUFFIX(                                       \
       const T* x, const T* corr, const T* b, const T* ce, const T* cw,       \
       const T* cn, const T* cs, const T* dg, T* x_out, int ny, int nx,       \
-      int iters, float omega, void* stream) {                                \
-    return launch<T, kCorrSmooth>(x, corr, b, ce, cw, cn, cs, dg, x_out,     \
-                                  nullptr, ny, nx, iters, omega, stream);    \
+      int iters, int run, int warps, int hx, int tile_y, int tile_x, int gx, \
+      int gy, float omega, void* stream) {                                   \
+    return launch_multisweep<T, true>(                                       \
+        x, corr, b, ce, cw, cn, cs, dg, x_out, ny, nx, iters,                \
+        {run, warps, hx, tile_y, tile_x, gx, gy}, omega, stream);            \
   }                                                                          \
   extern "C" int stencil_matvec_##SUFFIX(                                    \
       const T* x, const T* ce, const T* cw, const T* cn, const T* cs,        \

@@ -226,8 +226,9 @@ def _jacobi(mesh, coef, x, b, iters, omega, plain):
             res = jacobi_multisweep_plain(cf, *fields, iters, omega)
         else:
             res = torch.empty_like(blk[0])
-            _st._launch("jacobi_multisweep_sharded", "jacobi_multisweep",
-                        cf, fields, (res,), iters, omega)
+            _st._launch_multisweep("jacobi_multisweep_sharded",
+                                   "jacobi_multisweep", cf, fields, res,
+                                   iters, omega)
             jacobi_multisweep_sharded.launches += 1
         out[i * nyl:(i + 1) * nyl, j * nxl:(j + 1) * nxl].copy_(
             res[hy:hy + nyl, hx:hx + nxl])

@@ -18,7 +18,13 @@ csrc/pressure_stencil.cu:
 The two single-pass kernels take (ny, nx) operands or a fleet's
 (B, ny, nx), in the launch geometry of `pass_geometry` (a strip of rows
 per thread, and a 16-byte run of cells on large aligned planes, one cell
-elsewhere); the multisweep kernels take (ny, nx).
+elsewhere); the multisweep kernels take (ny, nx). jacobi_multisweep and
+corr_smooth launch in the geometry of `multisweep_geometry` (the run
+kernel: 16-byte runs over a few rows a thread, every operand read once
+and kept in registers for all the sweeps, on aligned planes whose width is
+a whole number of runs; the region kernel elsewhere; one sweep of
+jacobi_multisweep is one pass of jacobi_sweep's kernels); smooth_residual
+always takes the region kernel.
 
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU
 tensors it runs the `*_plain` version beside it. The plain versions repeat
@@ -54,7 +60,7 @@ def _halo_for(dtype) -> int:
     the iterations the kernels accept: iters <= halo for jacobi_multisweep
     and corr_smooth, iters <= halo - 1 for smooth_residual (its residual
     needs one more ring)."""
-    return 16 if torch.tensor([], dtype=dtype).element_size() == 2 else 8
+    return 16 if dtype.itemsize == 2 else 8
 
 
 def _max_iters(dtype, kernel: str) -> int:
@@ -112,7 +118,7 @@ def pass_geometry(shape, dtype, aligned: bool = True) -> PassGeometry:
     `_PASS_TARGET_THREADS` threads on the card."""
     *lead, ny, nx = shape
     planes = lead[0] if lead else 1
-    run = 16 // torch.tensor([], dtype=dtype).element_size()
+    run = 16 // dtype.itemsize
     if not (aligned and nx % run == 0 and ny * nx >= _VECTOR_MIN_CELLS):
         bx, by = _CELL_BLOCK
         return PassGeometry(vector=False, cells=1, rows=1, seg=1,
@@ -130,6 +136,96 @@ def pass_geometry(shape, dtype, aligned: bool = True) -> PassGeometry:
     by = max(32 // bx, min(_PASS_THREADS // bx, _pow2_at_least(strips)))
     return PassGeometry(vector=True, cells=run, rows=rows, seg=min(bx, 32),
                         block=(bx, by), grid=(gx, -(-strips // by), planes))
+
+
+# the multisweep run kernel (csrc/pressure_stencil.cu
+# `multisweep_run_kernel`): rows of a thread, lanes of a warp along a row
+_RUN_ROWS = 3
+_RUN_LANES = 32
+# planes of fewer cells take the region kernel whatever their alignment
+# (0: none; tools/kernel_times.py and chip_smoke.py set it unbounded to
+# time the region kernel on the same operands)
+_REGION_BELOW_CELLS = 0
+_REGION_THREADS = 256      # the region kernel's block
+
+
+def _run_warps(iters: int) -> int:
+    """Warps of a run-kernel block (stacked in y): 8 (24 rows) up to 3
+    sweeps, so that the tile keeps at least 3/4 of the region's rows, and
+    16 (48 rows, one block an SM) for the deeper halos. At 2 sweeps, 4
+    and 8 warps timed alike and 16 up to 1.3 us slower a launch at
+    256 x 1024 (tools/kernel_times.py --variants on the H100)."""
+    return 8 if iters <= 3 else 16
+
+
+@dataclasses.dataclass(frozen=True)
+class MultisweepGeometry:
+    """The launch of jacobi_multisweep or corr_smooth over (ny, nx)
+    operands. `run`: a thread owns a run of `cells` consecutive cells (16
+    bytes) on `_RUN_ROWS` rows, a block `warps` warps stacked in y and
+    `_RUN_LANES` runs along x (csrc/pressure_stencil.cu
+    `multisweep_run_kernel`); `region`: the region kernel
+    (`pressure_stencil_kernel`, square regions of `REGION` cells, one cell
+    a thread at a time, `cells` 1). `halo` is (rows, columns) on each side
+    of the output `tile` (rows, columns); `grid` (blocks along x, blocks
+    along y)."""
+    variant: str
+    cells: int
+    warps: int
+    halo: tuple
+    tile: tuple
+    grid: tuple
+
+    @property
+    def region(self) -> tuple:
+        return (self.tile[0] + 2 * self.halo[0],
+                self.tile[1] + 2 * self.halo[1])
+
+
+def _run_geometry(shape, dtype, iters: int) -> MultisweepGeometry:
+    """The run kernel's geometry: a halo of `iters` rows and of the
+    smallest whole number of runs >= iters columns."""
+    ny, nx = shape
+    run = 16 // dtype.itemsize
+    warps = _run_warps(iters)
+    hx = -(-iters // run) * run
+    tile = (warps * _RUN_ROWS - 2 * iters, _RUN_LANES * run - 2 * hx)
+    return MultisweepGeometry("run", run, warps, (iters, hx), tile,
+                              (-(-nx // tile[1]), -(-ny // tile[0])))
+
+
+def _region_geometry(shape, iters: int) -> MultisweepGeometry:
+    ny, nx = shape
+    t = REGION - 2 * iters
+    return MultisweepGeometry("region", 1, _REGION_THREADS // 32,
+                              (iters, iters), (t, t),
+                              (-(-nx // t), -(-ny // t)))
+
+
+def multisweep_geometry(shape, dtype, iters: int, aligned: bool = True,
+                        kernel: str = "jacobi_multisweep"):
+    """The launch geometry of `kernel` ("jacobi_multisweep" or
+    "corr_smooth") for (ny, nx) operands of `dtype` and `iters` sweeps.
+    `aligned`: every operand's base address is a multiple of 16 bytes.
+    - One sweep of jacobi_multisweep is one pass of the single-pass
+      kernels (jacobi_sweep's, bit for bit the same arithmetic): the
+      `PassGeometry` of `pass_geometry`, vector or cell variant. It
+      measured faster than the run kernel at every float32 level of the
+      512 x 2048 hierarchy (tools/kernel_times.py on the H100: 16.1
+      against 17.6 us at 512 x 2048, 1.7 against 3.0 us at 16 x 64).
+    - Otherwise the run kernel on aligned rows of whole 16-byte runs;
+    - the region kernel on the rest (odd widths such as the
+      Schaefer-Turek levels, offset views) and on planes of fewer than
+      `_REGION_BELOW_CELLS` cells."""
+    ny, nx = shape
+    if ny * nx < _REGION_BELOW_CELLS:
+        return _region_geometry(shape, iters)
+    if kernel == "jacobi_multisweep" and iters == 1:
+        return pass_geometry(shape, dtype, aligned)
+    run = 16 // dtype.itemsize
+    if aligned and nx % run == 0:
+        return _run_geometry(shape, dtype, iters)
+    return _region_geometry(shape, iters)
 
 
 def kernel_available_for(shape, dtype=torch.float32,
@@ -153,8 +249,18 @@ def kernel_available_for(shape, dtype=torch.float32,
         return all(pass_geometry(shape, dtype, aligned).grid[1]
                    <= _MAX_GRID_Y for aligned in (True, False)) \
             and (len(shape) == 2 or shape[0] <= _MAX_GRID_Y)
-    min_tile = REGION - 2 * (_halo_for(dtype) + 1)
-    return -(-shape[0] // min_tile) <= _MAX_GRID_Y
+    halo = _halo_for(dtype)
+    if kernel == "smooth_residual":
+        return -(-shape[0] // (REGION - 2 * halo)) <= _MAX_GRID_Y
+    # the run kernel's and the region kernel's shortest tiles (the most
+    # sweeps), and one pass, whose grid has at most a block row per row
+    # of cells: the operands' alignment and iters pick one
+    tile = min(_run_warps(halo) * _RUN_ROWS, REGION) - 2 * halo
+    if -(-shape[0] // tile) > _MAX_GRID_Y:
+        return False
+    return shape[0] <= _MAX_GRID_Y or all(
+        pass_geometry(shape, dtype, aligned).grid[1] <= _MAX_GRID_Y
+        for aligned in (True, False))
 
 
 # ---- plain versions ----------------------------------------------------
@@ -263,9 +369,34 @@ def _launch(name, entry, coef, fields, outs, iters, omega):
     _raise_on(lib, name, err)
 
 
-def _launch_pass(name, entry, coef, fields, out, omega=None):
+def _launch_multisweep(name, entry, coef, fields, out, iters, omega):
+    """One launch of jacobi_multisweep or corr_smooth (`entry`) in the
+    geometry of `multisweep_geometry`; returns that geometry."""
+    x = fields[0]
+    ny, nx = x.shape
+    ptrs = [t.data_ptr() for t in (*fields, coef.c_e, coef.c_w, coef.c_n,
+                                   coef.c_s, coef.diag, out)]
+    geom = multisweep_geometry((ny, nx), x.dtype, iters,
+                               aligned=all(p % 16 == 0 for p in ptrs),
+                               kernel=entry)
+    if isinstance(geom, PassGeometry):    # one sweep: a single pass
+        return _launch_pass(name, "jacobi_sweep", coef, fields, out, omega,
+                            geom)
+    lib, fn = _fn(f"{entry}_{_DTYPES[x.dtype]}", len(fields) + 6,
+                  (ctypes.c_int,) * 10 + (ctypes.c_float,))
+    args = (ny, nx, iters, int(geom.variant == "run"), geom.warps,
+            geom.halo[1], *geom.tile, *geom.grid, _omega(omega, x.dtype))
+    with torch.cuda.device(x.device):   # launch on the operands' card
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*ptrs, *args, stream)
+    _raise_on(lib, name, err)
+    return geom
+
+
+def _launch_pass(name, entry, coef, fields, out, omega=None, geom=None):
     """One launch of a single-pass kernel over every plane of `out`, in
-    the geometry of `pass_geometry`; returns that geometry."""
+    the geometry of `pass_geometry` (or `geom`, computed for these
+    operands); returns that geometry."""
     x = fields[0]
     scalars = (ctypes.c_int,) * 10 + ((ctypes.c_float,) if omega is not None
                                       else ())
@@ -273,8 +404,9 @@ def _launch_pass(name, entry, coef, fields, out, omega=None):
     *lead, ny, nx = x.shape
     ops = (*fields, coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.diag, out)
     ptrs = [t.data_ptr() for t in ops]
-    geom = pass_geometry(x.shape, x.dtype,
-                         aligned=all(p % 16 == 0 for p in ptrs))
+    if geom is None:
+        geom = pass_geometry(x.shape, x.dtype,
+                             aligned=all(p % 16 == 0 for p in ptrs))
     args = (geom.grid[2], ny, nx, int(geom.vector), geom.cells, geom.rows,
             *geom.block, *geom.grid[:2]) \
         + ((_omega(omega, x.dtype),) if omega is not None else ())
@@ -285,11 +417,11 @@ def _launch_pass(name, entry, coef, fields, out, omega=None):
     return geom
 
 
-def _count_pass(fn, geom, x):
-    """One launch of a single-pass kernel: its count, and its count by
-    variant, dtype and plane shape."""
+def _count(fn, variant, x):
+    """One launch of a kernel: its count, and its count by variant, dtype
+    and plane shape."""
     fn.launches += 1
-    fn.by_shape[geom.variant, _DTYPES[x.dtype], tuple(x.shape[-2:])] += 1
+    fn.by_shape[variant, _DTYPES[x.dtype], tuple(x.shape[-2:])] += 1
 
 
 def _raise_on(lib, name, err):
@@ -306,7 +438,7 @@ def stencil_matvec(coef, x):
         return stencil_matvec_plain(coef, x)
     out = torch.empty_like(x)
     geom = _launch_pass("stencil_matvec", "stencil_matvec", coef, (x,), out)
-    _count_pass(stencil_matvec, geom, x)
+    _count(stencil_matvec, geom.variant, x)
     return out
 
 
@@ -323,22 +455,23 @@ def jacobi_sweep(coef, x, b, iters: int = 2, omega: float = 0.8):
     for k in range(iters):
         geom = _launch_pass("jacobi_sweep", "jacobi_sweep", coef, (x, b),
                             bufs[k % 2], omega)
-        _count_pass(jacobi_sweep, geom, x)
+        _count(jacobi_sweep, geom.variant, x)
         x = bufs[k % 2]
     return x
 
 
 def jacobi_multisweep(coef, x, b, iters: int = 2, omega: float = 0.8):
     """`iters` <= halo damped-Jacobi sweeps in one launch of
-    csrc/pressure_stencil.cu (replaces the TPU kernel
-    `jacobi_multisweep_pallas`, tpufoam/ops/stencil.py:520). On CPU
-    tensors: `jacobi_multisweep_plain`."""
+    csrc/pressure_stencil.cu, in the geometry of `multisweep_geometry`
+    (replaces the TPU kernel `jacobi_multisweep_pallas`,
+    tpufoam/ops/stencil.py:520). On CPU tensors:
+    `jacobi_multisweep_plain`."""
     if _check("jacobi_multisweep", coef, (x, b), iters, "jacobi"):
         return jacobi_multisweep_plain(coef, x, b, iters, omega)
     out = torch.empty_like(x)
-    _launch("jacobi_multisweep", "jacobi_multisweep", coef, (x, b), (out,),
-            iters, omega)
-    jacobi_multisweep.launches += 1
+    geom = _launch_multisweep("jacobi_multisweep", "jacobi_multisweep", coef,
+                              (x, b), out, iters, omega)
+    _count(jacobi_multisweep, geom.variant, x)
     return out
 
 
@@ -353,28 +486,29 @@ def smooth_residual(coef, x, b, iters: int = 2, omega: float = 0.8):
     r_out = torch.empty_like(x)
     _launch("smooth_residual", "smooth_residual", coef, (x, b),
             (x_out, r_out), iters, omega)
-    smooth_residual.launches += 1
+    _count(smooth_residual, "region", x)
     return x_out, r_out
 
 
 def corr_smooth(coef, x, corr, b, iters: int = 2, omega: float = 0.8):
     """The V-cycle up leg, x + corr then `iters` <= halo sweeps, in one
-    launch. Replaces the TPU kernel `corr_smooth_pallas`,
-    tpufoam/ops/stencil.py:722. On CPU tensors: `corr_smooth_plain`."""
+    launch in the geometry of `multisweep_geometry`. Replaces the TPU
+    kernel `corr_smooth_pallas`, tpufoam/ops/stencil.py:722. On CPU
+    tensors: `corr_smooth_plain`."""
     if _check("corr_smooth", coef, (x, corr, b), iters, "corr_smooth"):
         return corr_smooth_plain(coef, x, corr, b, iters, omega)
     out = torch.empty_like(x)
-    _launch("corr_smooth", "corr_smooth", coef, (x, corr, b), (out,), iters,
-            omega)
-    corr_smooth.launches += 1
+    geom = _launch_multisweep("corr_smooth", "corr_smooth", coef,
+                              (x, corr, b), out, iters, omega)
+    _count(corr_smooth, geom.variant, x)
     return out
 
 
-stencil_matvec.launches = 0
-jacobi_sweep.launches = 0
-# launches by (variant, dtype, (ny, nx)): "vector" or "cell"
-stencil_matvec.by_shape = collections.Counter()
-jacobi_sweep.by_shape = collections.Counter()
-jacobi_multisweep.launches = 0
-smooth_residual.launches = 0
-corr_smooth.launches = 0
+# launches, and launches by (variant, dtype, (ny, nx)): "vector" or "cell"
+# for the single-pass kernels (and one sweep of jacobi_multisweep), "run"
+# or "region" for the multisweep kernels
+for _fn_ in (stencil_matvec, jacobi_sweep, jacobi_multisweep,
+             smooth_residual, corr_smooth):
+    _fn_.launches = 0
+    _fn_.by_shape = collections.Counter()
+del _fn_

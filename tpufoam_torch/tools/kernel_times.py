@@ -1,9 +1,10 @@
-"""Device times of the two kernels of the hybrid main path on one CUDA
-card, with the L2 cache flushed before each call: the momentum multisweep
-and stencil_matvec.
+"""Device times of the hand-written kernels on one CUDA card, with the L2
+cache flushed before each call: the momentum multisweep, stencil_matvec
+and the three multisweep pressure kernels.
 
     python tpufoam_torch/tools/kernel_times.py [--root DIR] [--reps N]
         [--flush dirty|clean|none] [--variants]
+        [--only momentum,matvec,multisweep]
 
 `--root` imports `tpufoam_torch` from another checkout (default: the one
 this file lies in), so that two trees can be timed in turns in one call on
@@ -16,10 +17,28 @@ flush's kernel, a bitwise-not, left out):
             blocks
   matvec    stencil_matvec at every level of the 512 x 2048 and 256 x 1375
             multigrid hierarchies, float32 and bfloat16, beside each
-            level's bound (six operands read, one written, at 3.35 TB/s)
+            level's bound (six operands read, one written, at 3.35 TB/s),
+            on random operands with a solid disc (the cylinder's cells:
+            no conductance, diag 1, zero x and b), as the multisweep
+            kernels below
+  multisweep  jacobi_multisweep, smooth_residual and corr_smooth at every
+            kernel level of the 512 x 2048 hierarchy (512 x 2048 .. 16 x
+            64), float32 and bfloat16, at the paths' sweeps (float32 1 for
+            jacobi_multisweep, 2 elsewhere), 2, 4 and the halo, each beside
+            its bound (seven operands read, corr_smooth eight, one written,
+            smooth_residual two) and the launch's variant; and jacobi_sweep
+            with one sweep, the single-pass kernel that computes
+            jacobi_multisweep(iters=1)
 `--variants` times stencil_matvec again with the vector and with the cell
 variant wherever each can run (`ops.stencil._VECTOR_MIN_CELLS` 0 and
 unbounded): the measurement that sets that threshold.
+With `multisweep`, `--variants` also times jacobi_multisweep and
+corr_smooth at every level with the region kernel forced
+(`ops.stencil._REGION_BELOW_CELLS` unbounded) beside the variant
+`multisweep_geometry` picks, at the paths' sweeps and 2, and the run
+kernel at 512 x 2048 and 256 x 1024 with blocks of 4, 8 and 16 warps
+(`ops.stencil._run_warps`): the measurements that set the geometry.
+`--only` times the named sections alone (default: all three).
 Prints ptxas' registers, shared memory and spills of the build, the card's
 name and power limit, and one JSON line. Fails without a CUDA device.
 """
@@ -67,6 +86,103 @@ def device_ms(torch, fn, flush, n=100, skip="bitwise_not"):
     return us / 1e3 / n
 
 
+# the multisweep kernels: (fields read, fields written, operations per
+# cell and sweep, operations per cell once), and the sweeps of each
+# dtype on its path (MGCG's float32 V(1,1) for jacobi_multisweep, the
+# hybrid's bf16 V(2,2) for the fused legs)
+MULTISWEEP = {"jacobi_multisweep": (7, 1, 13, 0),
+              "smooth_residual": (7, 2, 13, 10),
+              "corr_smooth": (8, 1, 13, 1)}
+PATH_SWEEPS = {"jacobi_multisweep": {"f32": 1, "bf16": 2},
+               "smooth_residual": {"f32": 2, "bf16": 2},
+               "corr_smooth": {"f32": 2, "bf16": 2}}
+F32_RATE = 67e12       # H100 SXM float32 outside the tensor cores, op/s
+KERNEL_LEVELS = 6      # 512 x 2048 .. 16 x 64; the coarsest is plain
+
+
+def variant(st, name, shape, dt, iters):
+    """The variant a multisweep launch takes: `multisweep_geometry`'s for
+    jacobi_multisweep and corr_smooth where the tree has it, else the
+    region kernel."""
+    geometry = getattr(st, "multisweep_geometry", None)
+    if geometry is None or name == "smooth_residual":
+        return "region"
+    return geometry(shape, dt, iters, kernel=name).variant
+
+
+def multisweep_levels(torch, st, operands, least):
+    """{"<kernel> <dtype>": [{shape, iters, variant, ms, bound_ms}, ...]}
+    at every kernel level of the 512 x 2048 hierarchy, and jacobi_sweep's
+    one sweep beside jacobi_multisweep's."""
+    times = {}
+    for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        halo = st._halo_for(dt)
+        rows = {name: [] for name in (*MULTISWEEP, "jacobi_sweep")}
+        for shape in level_shapes(*GRIDS[0])[:KERNEL_LEVELS]:
+            coef, x, b, corr = operands(shape, dt)
+            cells, size = x.numel(), x.element_size()
+            calls = {
+                "jacobi_multisweep": lambda k: st.jacobi_multisweep(
+                    coef, x, b, k),
+                "smooth_residual": lambda k: st.smooth_residual(
+                    coef, x, b, k),
+                "corr_smooth": lambda k: st.corr_smooth(coef, x, corr, b,
+                                                         k)}
+            for name, (n_in, n_out, per_sweep, once) in MULTISWEEP.items():
+                top = halo - (name == "smooth_residual")
+                for k in sorted({PATH_SWEEPS[name][prec], 2, 4, top}):
+                    bound_ms = max((n_in + n_out) * cells * size / MEM_RATE,
+                                   (per_sweep * k + once) * cells / F32_RATE
+                                   ) * 1e3
+                    rows[name].append({
+                        "shape": list(shape), "iters": k,
+                        "variant": variant(st, name, shape, dt, k),
+                        "ms": least(lambda: calls[name](k)),
+                        "bound_ms": bound_ms})
+            rows["jacobi_sweep"].append({
+                "shape": list(shape), "iters": 1,
+                "ms": least(lambda: st.jacobi_sweep(coef, x, b, 1)),
+                "bound_ms": 8 * cells * size / MEM_RATE * 1e3})
+        for name, r in rows.items():
+            times[f"{name} {prec}"] = r
+    return times
+
+
+def multisweep_variants(torch, st, operands, least):
+    """jacobi_multisweep and corr_smooth with each variant forced at every
+    kernel level, and the run kernel's block height at the two finest."""
+    threshold, warps_of = st._REGION_BELOW_CELLS, st._run_warps
+    times = {}
+    try:
+        for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            for shape in level_shapes(*GRIDS[0])[:KERNEL_LEVELS]:
+                coef, x, b, corr = operands(shape, dt)
+                calls = {
+                    "jacobi_multisweep": lambda k: st.jacobi_multisweep(
+                        coef, x, b, k),
+                    "corr_smooth": lambda k: st.corr_smooth(coef, x, corr,
+                                                             b, k)}
+                for name, call in calls.items():
+                    for k in sorted({PATH_SWEEPS[name][prec], 2}):
+                        picked = variant(st, name, shape, dt, k)
+                        row = {"shape": list(shape), "iters": k,
+                               "variant": picked,
+                               "ms": least(lambda: call(k))}
+                        st._REGION_BELOW_CELLS = 1 << 62
+                        row["region_ms"] = least(lambda: call(k))
+                        st._REGION_BELOW_CELLS = threshold
+                        if picked == "run" and shape[0] >= 256:
+                            for w in (4, 8, 16):
+                                st._run_warps = lambda iters, w=w: w
+                                row[f"run {w} warps"] = least(
+                                    lambda: call(k))
+                            st._run_warps = warps_of
+                        times.setdefault(f"{name} {prec}", []).append(row)
+    finally:
+        st._REGION_BELOW_CELLS, st._run_warps = threshold, warps_of
+    return times
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
@@ -81,7 +197,10 @@ def main() -> None:
     ap.add_argument("--variants", action="store_true",
                     help="also time the matvec with each variant forced "
                     "wherever it can run")
+    ap.add_argument("--only", default="momentum,matvec,multisweep",
+                    help="comma-separated sections to time")
     args = ap.parse_args()
+    sections = set(args.only.split(","))
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -125,8 +244,7 @@ def main() -> None:
         return min(device_ms(torch, fn, flush, skip=skip)
                    for _ in range(args.reps))
 
-    out = {"root": root, "card": card, "flush": args.flush, "ptxas": ptxas,
-           "momentum": {}, "matvec": {}}
+    out = {"root": root, "card": card, "flush": args.flush, "ptxas": ptxas}
     # a yardstick of the rate this protocol allows: one copy that reads
     # and writes as many bytes as the f32 matvec at 512 x 2048 moves
     src = torch.empty(7 * 512 * 2048 // 2, device=dev)
@@ -135,17 +253,37 @@ def main() -> None:
     out["copy"] = {"bytes": 2 * src.numel() * 4, "ms": copy_ms,
                    "bytes_per_s": 2 * src.numel() * 4 / copy_ms * 1e3}
     del src, dst
-    ops = momentum_ops((512, 2048))
-    for sweeps in (1, 2, 4, 8):
-        out["momentum"][f"sweeps {sweeps}"] = least(
-            lambda: mom.momentum_multisweep(*ops, sweeps=sweeps))
-    fleet = momentum_ops((4, 512, 2048))
-    out["momentum"]["batched 4x512x2048"] = least(
-        lambda: mom.momentum_multisweep(*fleet, sweeps=8))
-    blocks = momentum_ops((4, 272, 1040))
-    out["momentum"]["sharded 2x2 per-card 4x272x1040"] = least(
-        lambda: mom.momentum_multisweep(*blocks, sweeps=8))
-    del ops, fleet, blocks
+    if "momentum" in sections:
+        out["momentum"] = {}
+        ops = momentum_ops((512, 2048))
+        for sweeps in (1, 2, 4, 8):
+            out["momentum"][f"sweeps {sweeps}"] = least(
+                lambda: mom.momentum_multisweep(*ops, sweeps=sweeps))
+        fleet = momentum_ops((4, 512, 2048))
+        out["momentum"]["batched 4x512x2048"] = least(
+            lambda: mom.momentum_multisweep(*fleet, sweeps=8))
+        blocks = momentum_ops((4, 272, 1040))
+        out["momentum"]["sharded 2x2 per-card 4x272x1040"] = least(
+            lambda: mom.momentum_multisweep(*blocks, sweeps=8))
+        del ops, fleet, blocks
+
+    def pressure_operands(shape, dt):
+        """Conductances in [0, 1), diag above their sum, x, b and a
+        correction, in `dt`; and a solid disc, as the channel's cylinder
+        (a quarter of the height across, a quarter of the length in): no
+        conductance, diag 1, x = b = correction = 0 there, so that the
+        sweeps divide zeros by diag in those cells, as on the path."""
+        ny, nx = shape
+        y = torch.arange(ny, device=dev)[:, None] - ny / 2
+        x = torch.arange(nx, device=dev)[None] - nx / 4
+        fluid = (y * y + x * x >= (ny / 8) ** 2).float()
+        c = [field(0, 1, shape) * fluid for _ in range(4)]
+        diag = (c[0] + c[1] + c[2] + c[3] + field(0.1, 1, shape)) * fluid \
+            + (1 - fluid)
+        coef = PressureCoeffs(*(t.to(dt) for t in c),
+                              torch.zeros_like(diag, dtype=dt), diag.to(dt))
+        return (coef, *((field(lo, -lo, shape) * fluid).to(dt)
+                        for lo in (-1, -1, -0.1)))
 
     def matvec_levels():
         times = {}
@@ -154,12 +292,7 @@ def main() -> None:
                              ("bf16", torch.bfloat16)):
                 rows = []
                 for shape in level_shapes(ny, nx):
-                    c = [field(0, 1, shape) for _ in range(4)]
-                    diag = c[0] + c[1] + c[2] + c[3] + field(0.1, 1, shape)
-                    coef = PressureCoeffs(*(t.to(dt) for t in c),
-                                          torch.zeros_like(diag, dtype=dt),
-                                          diag.to(dt))
-                    x = field(-1, 1, shape).to(dt)
+                    coef, x, _, _ = pressure_operands(shape, dt)
                     size = x.element_size()
                     rows.append({
                         "shape": list(shape),
@@ -168,8 +301,15 @@ def main() -> None:
                 times[f"{ny}x{nx} {prec}"] = rows
         return times
 
-    out["matvec"] = matvec_levels()
-    if args.variants:
+    if "matvec" in sections:
+        out["matvec"] = matvec_levels()
+    if "multisweep" in sections:
+        out["multisweep"] = multisweep_levels(torch, st, pressure_operands,
+                                              least)
+    if args.variants and "multisweep" in sections:
+        out["multisweep variants"] = multisweep_variants(
+            torch, st, pressure_operands, least)
+    if args.variants and "matvec" in sections:
         threshold = st._VECTOR_MIN_CELLS
         for name, cells in (("vector", 0), ("cell", 1 << 62)):
             st._VECTOR_MIN_CELLS = cells
