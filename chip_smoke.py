@@ -16,17 +16,17 @@ Phases, each printing one JSON line with its elapsed seconds:
           smooth_residual, corr_smooth) in float32 and bfloat16 against its
           plain version, bit for bit, at the six kernel levels of the
           multigrid hierarchy, on the case's first-corrector operator
-          (the path's sweeps; jacobi_multisweep and corr_smooth also 1, 2
-          and the halo), and on random operands at 512 x 2048 with the
-          most sweeps it takes, each launch counted under the variant
-          ops.stencil.multisweep_geometry names; its time at the finest
-          level; and at each level, in the path's dtype and sweeps, the
-          variant jacobi_multisweep and corr_smooth take and its device
-          time beside the region kernel's (the first port's, forced).
-          After case-st, a second part holds both at every level of both
-          hierarchies, iters 1, 2 and the halo, on the level's operator,
-          on random operands and from operands one element off 16 bytes,
-          bit for bit
+          (the path's sweeps, 1, 2 and the most it takes), and on random
+          operands at 512 x 2048 with the most sweeps it takes, each
+          launch counted under the variant ops.stencil.multisweep_geometry
+          names; its time at the finest level; and at each level, in the
+          path's dtype and sweeps, the variant each takes and its device
+          time beside the region kernel's (the first port's, forced, and
+          held to the plain version too). After case-st, a second part
+          holds all three at every level of both hierarchies, iters 1, 2
+          and the most each takes, on the level's operator, on random
+          operands, on random operands with a solid disc and from operands
+          one element off 16 bytes, bit for bit
   case-st  the Schaefer-Turek 2D-2 case of artifacts/validation/
           st_2d2_hybrid_d62_auto.json (256 x 1375) and the sm_st128
           surrogate; its SDF on the card against the CPU's (bit for bit)
@@ -68,7 +68,8 @@ Phases, each printing one JSON line with its elapsed seconds:
           (which the sharded step passes through): bit for bit
   step-fused  the same path with MGBackend(smoother="kernel-fused"); its
           launches per step of smooth_residual and corr_smooth by variant
-          and level
+          and level, each level once a V-cycle in the variant the geometry
+          names
   step-mgcg   the pure solver, MGCGBackend(rtol=1e-6, maxiter=60,
           smoother="kernel"), from the impulsive start; its launches per
           step of jacobi_multisweep by variant and level
@@ -532,12 +533,10 @@ def main() -> int:
                 field(-0.1, 0.1).to(dt))
 
     def variant(name, shape, dt, iters, aligned=True):
-        """The kernel a launch takes: jacobi_multisweep and corr_smooth in
-        the geometry of multisweep_geometry (the run kernel on aligned
-        planes of whole 16-byte runs, one sweep of jacobi_multisweep a
-        single pass), smooth_residual the region kernel."""
-        if name == "smooth_residual":
-            return "region"
+        """The kernel a launch takes, in the geometry of
+        multisweep_geometry: the run kernel on aligned planes of whole
+        16-byte runs (one sweep of jacobi_multisweep a single pass), the
+        region kernel elsewhere."""
         return st.multisweep_geometry(tuple(shape), dt, iters, aligned,
                                       kernel=name).variant
 
@@ -563,8 +562,8 @@ def main() -> int:
 
     @contextlib.contextmanager
     def region_kernel():
-        """jacobi_multisweep and corr_smooth forced onto the region
-        kernel (the first port's) by the geometry's size threshold."""
+        """The three multisweep kernels forced onto the region kernel
+        (the first port's) by the geometry's size threshold."""
         threshold = st._REGION_BELOW_CELLS
         st._REGION_BELOW_CELLS = 1 << 62
         try:
@@ -577,11 +576,9 @@ def main() -> int:
         row = {"max_abs_err": 0.0}
         for prec, dt in dtypes.items():
             iters = PATH_SWEEPS[name][prec]
-            top = st._halo_for(dt) - (name == "smooth_residual")
-            # the path's sweeps, and for the run kernel's two 1, 2 and
-            # the halo
-            checked = sorted({iters} if name == "smooth_residual"
-                             else {iters, 1, 2, top})
+            top = st._max_iters(dt, name)
+            # the path's sweeps, 1, 2 and the most the kernel takes
+            checked = sorted({iters, 1, 2, top})
             per_level = []
             for coef_l, b_l in fine:
                 ops = level_operands(coef_l, b_l, dt)
@@ -614,8 +611,9 @@ def main() -> int:
                            bound_ms=b_ms, bound_by=b_by)
         stencil_rows[name] = row
     # each level of the path's dtype and sweeps: the variant the geometry
-    # picks and its device time, beside the region kernel's (the first port's)
-    for name in ("jacobi_multisweep", "corr_smooth"):
+    # picks and its device time, beside the region kernel's (the first
+    # port's), which is held to the plain version too
+    for name in STENCIL:
         n_in, n_out, ops_sweep, ops_once, _ = STENCIL[name]
         prec = PATH_DTYPE[name]
         dt, iters = dtypes[prec], PATH_SWEEPS[name][prec]
@@ -629,11 +627,21 @@ def main() -> int:
             with region_kernel():
                 region_ms = time_ms(lambda: stencil_call(name, *ops, iters),
                                     100, torch, flush)[0]
+                n_region = getattr(st, name).by_shape[
+                    "region", prec, tuple(b_l.shape)]
+                region_err = exact(
+                    f"{name} {prec} {tuple(b_l.shape)} region kernel",
+                    stencil_call(name, *ops, iters),
+                    stencil_call(name, *ops, iters, True))
+                check(getattr(st, name).by_shape[
+                    "region", prec, tuple(b_l.shape)] == n_region + 1,
+                      f"{name}: the forced region kernel did not launch")
             b_ms = bound((n_in + n_out) * cells * size,
                          (ops_sweep * iters + ops_once) * cells)[0]
             rows_.append({"shape": list(b_l.shape),
                           "variant": variant(name, b_l.shape, dt, iters),
                           "ms": ms_l, "region_ms": region_ms,
+                          "region_max_abs_err": region_err,
                           "bound_ms": b_ms, "share_of_bound": b_ms / ms_l})
         say("kernel-pressure", part="levels", kernel=name, dtype=prec,
             iters=iters, levels=rows_)
@@ -869,11 +877,25 @@ def main() -> int:
     say("kernel-sweep", checked=sweep_checked, iters=list(SWEEP_ITERS),
         max_abs_err=sweep_err, times_per_sweep=sweep_times)
 
-    # ---- jacobi_multisweep and corr_smooth at every level of both
-    # hierarchies, iters 1, 2 and the halo, on the level's operator, on
-    # random operands of its shape, and on the operator one element off 16
-    # bytes (the region kernel; the cell kernel for one sweep of
+    # ---- the three multisweep kernels at every level of both
+    # hierarchies, iters 1, 2 and the most each takes, on the level's
+    # operator, on random operands of its shape (and with a solid disc:
+    # zero dividends on every sweep), and on the operator one element off
+    # 16 bytes (the region kernel; the cell kernel for one sweep of
     # jacobi_multisweep): bit for bit, each launch in its variant
+    def disc_operands(shape, dt):
+        """random_edge_operands with a solid disc, as the cylinder (a
+        quarter of the height across, a quarter of the length in): no
+        conductance, diag 1, x = b = correction = 0 there."""
+        c_, x_, b_ = random_edge_operands(shape, torch.float32)
+        yy = torch.arange(shape[0], device=dev)[:, None] - shape[0] / 2
+        xx = torch.arange(shape[1], device=dev)[None] - shape[1] / 4
+        fl = (yy * yy + xx * xx >= (shape[0] / 8) ** 2).float()
+        c_ = PressureCoeffs(c_.c_e * fl, c_.c_w * fl, c_.c_n * fl,
+                            c_.c_s * fl, c_.c_out, c_.diag * fl + (1 - fl))
+        return (cast(c_, dt), (x_ * fl).to(dt), (b_ * fl).to(dt),
+                (0.1 * torch.roll(x_, 1, 1) * fl).to(dt))
+
     multi = {"checked": 0, "max_abs_err": 0.0,
              "variants": collections.Counter()}
     for prec, dt in dtypes.items():
@@ -883,11 +905,13 @@ def main() -> int:
                 real = level_operands(coef_l, b_l, dt)
                 c_, x_, b_ = random_edge_operands(shape, dt)
                 rand = (c_, x_, b_, (0.1 * torch.roll(x_, 1, 1)).to(dt))
+                disc = disc_operands(shape, dt)
                 off = tuple(offset_by_one(t) for t in real)
-                for name in ("jacobi_multisweep", "corr_smooth"):
-                    for k in (1, 2, st._halo_for(dt)):
+                for name in STENCIL:
+                    for k in (1, 2, st._max_iters(dt, name)):
                         for label, ops in (("level", real),
-                                           ("random", rand)):
+                                           ("random", rand),
+                                           ("disc", disc)):
                             multi["max_abs_err"] = max(
                                 multi["max_abs_err"],
                                 held(name, prec, ops, k,
@@ -909,7 +933,7 @@ def main() -> int:
                               "bytes", got,
                               stencil_call(name, *real, k, True))
                         multi["variants"][v_off] += 1
-                        multi["checked"] += 3
+                        multi["checked"] += 4
     say("kernel-pressure", part="hierarchies",
         grids=list(all_levels), **multi)
 
@@ -1166,7 +1190,18 @@ def main() -> int:
           and k["corr_smooth"] == legs and k["jacobi_multisweep"] == 0,
           f"step-fused: launches {k} for {stats['v_cycles']} V-cycles")
     fused_launches = k
-    path_variants(st.corr_smooth, "corr_smooth", "step-fused")
+    # each kernel level once a V-cycle in each leg, in the variant the
+    # geometry names for it (the run kernel at every level)
+    fine_shapes = {tuple(b_l.shape) for _, b_l in fine}
+    for name in ("smooth_residual", "corr_smooth"):
+        path_variants(getattr(st, name), name, "step-fused")
+        per_level = collections.Counter()
+        for (_v, p_, sh_), n_ in getattr(st, name).by_shape.items():
+            per_level[p_, sh_] += n_
+        check(set(per_level) == {("bf16", sh_) for sh_ in fine_shapes}
+              and set(per_level.values()) == {stats["v_cycles"]},
+              f"step-fused: {name} launches by level {dict(per_level)} "
+              f"for {stats['v_cycles']} V-cycles")
 
     # ---- path 2: MGCG with the multisweep kernel in f32 ------------------
     mgcg_be = MGCGBackend(rtol=1e-6, maxiter=60, smoother="kernel")

@@ -657,16 +657,20 @@ HIERARCHY_LEVELS = _levels(512, 2048) + _levels(256, 1375)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("kernel", ["jacobi_multisweep", "corr_smooth"])
+@pytest.mark.parametrize("kernel", ["jacobi_multisweep", "corr_smooth",
+                                    "smooth_residual"])
 def test_multisweep_kernels_bit_for_bit_at_every_level(cuda, kernel, dtype):
     """Every level of the 512 x 2048 and 256 x 1375 hierarchies, iters 1,
-    2 and the halo, from aligned operands and from operands one element
-    off 16 bytes: each launch takes the variant `multisweep_geometry`
-    names (off 16 bytes the region kernel, or the cell kernel for one
-    sweep of jacobi_multisweep), is counted under it, and equals the
-    plain version bit for bit."""
+    2 and the most the kernel takes, from aligned operands and from
+    operands one element off 16 bytes: each launch takes the variant
+    `multisweep_geometry` names (the run kernel on the aligned levels of
+    whole 16-byte runs; odd widths and operands off 16 bytes the region
+    kernel, or the cell kernel for one sweep of jacobi_multisweep), is
+    counted under it, and equals the plain version bit for bit (x, and r
+    for smooth_residual)."""
     prec = "f32" if dtype == torch.float32 else "bf16"
     counter = getattr(ts, kernel)
+    top = ts._max_iters(dtype, kernel)
     for shape in HIERARCHY_LEVELS:
         coef, x, b, corr = _pressure_operands(*shape, dtype, sum(shape), cuda)
         for offset in (0, 1):
@@ -674,16 +678,80 @@ def test_multisweep_kernels_bit_for_bit_at_every_level(cuda, kernel, dtype):
                 coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.c_out,
                 coef.diag)))
             xx, bb, cc = (_offset_view(t, offset) for t in (x, b, corr))
-            for iters in (1, 2, ts._halo_for(dtype)):
+            for iters in (1, 2, top):
                 variant = ts.multisweep_geometry(
                     shape, dtype, iters, aligned=offset == 0,
                     kernel=kernel).variant
                 assert variant in ("region", "cell") or not offset
+                if not offset and shape[1] % (16 // dtype.itemsize) == 0 \
+                        and (kernel, iters) != ("jacobi_multisweep", 1):
+                    assert variant == "run", (shape, iters)
                 before = counter.by_shape[variant, prec, shape]
-                (got,), (ref,) = _stencil_pair(kernel, c, xx, bb, cc, iters)
+                got, ref = _stencil_pair(kernel, c, xx, bb, cc, iters)
                 torch.cuda.synchronize()
                 assert counter.by_shape[variant, prec, shape] == before + 1
-                assert torch.equal(got, ref), (shape, offset, iters, variant)
+                assert len(got) == len(ref)
+                for g, r in zip(got, ref):
+                    assert torch.equal(g, r), (shape, offset, iters, variant)
+
+
+def _disc_operands(shape, dtype, seed, device):
+    """_pressure_operands with a solid disc, as the channel's cylinder (a
+    quarter of the height across, a quarter of the length in): no
+    conductance, diag 1, x = b = correction = 0 there, so the sweeps
+    divide zeros by diag."""
+    coef, x, b, corr = _pressure_operands(*shape, torch.float32, seed,
+                                          device)
+    ny, nx = shape
+    yy = torch.arange(ny, device=device)[:, None] - ny / 2
+    xx = torch.arange(nx, device=device)[None] - nx / 4
+    fluid = (yy * yy + xx * xx >= (ny / 8) ** 2).float()
+    c = [t * fluid for t in (coef.c_e, coef.c_w, coef.c_n, coef.c_s)]
+    diag = coef.diag * fluid + (1 - fluid)
+    return (PressureCoeffs(*(t.to(dtype) for t in c),
+                           torch.zeros_like(diag, dtype=dtype),
+                           diag.to(dtype)),
+            *((t * fluid).to(dtype) for t in (x, b, corr)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_multisweep_kernels_with_a_solid_disc(cuda, dtype):
+    """The three multisweep kernels on random operands with a solid disc
+    (zero dividends in the disc on every sweep, which div_rn answers
+    without dividing) at every kernel level of the 512 x 2048 hierarchy,
+    iters 1, 2 and the most each takes: in the launch the geometry picks,
+    in the run kernel forced to three rows a thread and to one (where the
+    halo leaves a 16-row block a tile), and in the region kernel forced;
+    each bit for bit against the plain versions."""
+    prec = "f32" if dtype == torch.float32 else "bf16"
+    forced = {"picked": {}, "three rows": {"_ONE_ROW_MAX_HALO": -1},
+              "one row": {"_ONE_ROW_MAX_HALO": 7, "_ONE_ROW_BELOW_CELLS": 0},
+              "region": {"_REGION_BELOW_CELLS": 1 << 62}}
+    for shape in _levels(512, 2048)[:6]:
+        ops = _disc_operands(shape, dtype, sum(shape) + 7, cuda)
+        for kernel in ("jacobi_multisweep", "smooth_residual",
+                       "corr_smooth"):
+            counter = getattr(ts, kernel)
+            for iters in (1, 2, ts._max_iters(dtype, kernel)):
+                for label, attrs in forced.items():
+                    saved = {k: getattr(ts, k) for k in attrs}
+                    try:
+                        for k, v in attrs.items():
+                            setattr(ts, k, v)
+                        geom = ts.multisweep_geometry(shape, dtype, iters,
+                                                      kernel=kernel)
+                        before = counter.by_shape[geom.variant, prec, shape]
+                        got, ref = _stencil_pair(kernel, *ops, iters)
+                        torch.cuda.synchronize()
+                    finally:
+                        for k, v in saved.items():
+                            setattr(ts, k, v)
+                    assert counter.by_shape[geom.variant, prec, shape] \
+                        == before + 1
+                    for g, r in zip(got, ref):
+                        assert torch.equal(g, r), (kernel, shape, iters,
+                                                   label, geom)
 
 
 def test_jacobi_multisweep_one_sweep_equals_jacobi_sweep(cuda):

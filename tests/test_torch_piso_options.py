@@ -237,10 +237,22 @@ def test_t_stop_lands_exactly(cases):
 
 
 def test_run_piso_chunked_equals_eager_and_jax(cases):
+    """run_piso_chunked takes JAX's `chunk` (default 4) and runs the same
+    eager steps as run_piso_eager: bit for bit for chunks of 1, 2, 4 and
+    7 over 5 steps; and the same call as JAX's (chunk=2) agrees with it at
+    STEP_TOL."""
     jc, tc = cases
-    assert teng.run_piso_chunked is teng.run_piso_eager
-    chunked = teng.run_piso_chunked(tc, tcase.initial_flow(tc, DT0), 5,
-                                    cfg=TORCH_BASE, backend=TMG(cycles=2))
+    f0 = tcase.initial_flow(tc, DT0)
+    eager = teng.run_piso_eager(tc, f0, 5, cfg=TORCH_BASE,
+                                backend=TMG(cycles=2))
+    for chunk in (1, 2, 4, 7):
+        got = teng.run_piso_chunked(tc, f0, 5, cfg=TORCH_BASE,
+                                    backend=TMG(cycles=2), chunk=chunk)
+        for f in FIELDS + ("t", "dt"):
+            assert torch.equal(getattr(got, f), getattr(eager, f)), \
+                (chunk, f)
+    chunked = teng.run_piso_chunked(tc, f0, 5, cfg=TORCH_BASE,
+                                    backend=TMG(cycles=2), chunk=2)
     ref = jeng.run_piso_chunked(jc, jcase.initial_flow(jc, DT0), 5,
                                 cfg=JAX_BASE, backend=JMG(cycles=2), chunk=2)
     for f in FIELDS:

@@ -33,16 +33,19 @@
    `jacobi_sweep_pallas` in interpret mode. The tolerances of 1. apply;
    the port's `pressure_matvec` is `stencil_matvec` and equals the plain
    version exactly on the CPU.
-6. The multisweep run kernel of jacobi_multisweep and corr_smooth
-   (`multisweep_run_kernel`): a CPU emulation of its schedule (regions of
-   `_RUN_ROWS` rows a warp and 32 runs, halo iters rows and whole runs >=
-   iters columns, the neighbours its threads read, the frozen ring and
-   cells beyond the domain) equal to the plain versions bit for bit, in
-   both dtypes, on the channel operators and on edge shapes; a mutation
-   (an x halo one cell short) that it catches; and `multisweep_geometry`
-   writing every cell once and sending unaligned rows and odd widths to
-   the region kernel, one sweep of jacobi_multisweep to one pass of the
-   single-pass kernels.
+6. The multisweep run kernel of all three (`multisweep_run_kernel`): a
+   CPU emulation of its schedule (regions of three rows or one a warp and
+   32 runs, halo iters rows (smooth_residual: iters + 1) and whole runs >=
+   that many columns, the neighbours its threads read, the frozen ring and
+   cells beyond the domain, and smooth_residual's residual pass) equal to
+   the plain versions bit for bit, both outputs, in both dtypes, on the
+   channel operators, on edge shapes and in the schedule the geometry
+   picks; mutations that it catches (an x halo one cell short; for
+   smooth_residual the sweeps' halo, iters, in rows or in columns); and
+   `multisweep_geometry` writing every cell once, in both outputs, and
+   sending unaligned rows and odd widths to the region kernel, one sweep
+   of jacobi_multisweep to one pass of the single-pass kernels, with the
+   fit gate taking exactly the planes whose every launch fits the grid.
 """
 
 import jax.numpy as jnp
@@ -633,26 +636,29 @@ def test_strip_run_emulation_has_teeth():
     assert torch.equal(emulate_pass(tcoef, tv["x"], tall), ref)
 
 
-# ---- the multisweep run kernel: jacobi_multisweep, corr_smooth -------------
+# ---- the multisweep run kernel: all three multisweep kernels ----------------
 
 
 def emulate_run(kernel, coef, x, b, corr=None, iters=2, omega=0.8,
-                geom=None, hx=None):
+                geom=None, hx=None, hy=None):
     """What csrc/pressure_stencil.cu's `multisweep_run_kernel` computes,
     block by block, in PyTorch with the plain version's operations: each
-    block's region of `warps * _RUN_ROWS` rows and `_RUN_LANES` runs,
-    operands beyond the domain 0; every cell but the region's outer ring
-    and the cells beyond the domain swept `iters` times, with the
-    neighbours the kernel's threads see (E/W: the run and the neighbouring
-    lanes, the last lane's shuffle returning its own first cell and the
-    first lane's its own last; N/S: the thread's rows and the neighbouring
-    warps' edge rows, the outermost warps reading their own); the tile
-    written. `hx` overrides the x halo (a mutation: one cell short must
-    fail)."""
+    block's region of `warps * rows` rows and `_RUN_LANES` runs, operands
+    beyond the domain 0; every cell but the region's outer ring and the
+    cells beyond the domain swept `iters` times, with the neighbours the
+    kernel's threads see (E/W: the run and the neighbouring lanes, the
+    last lane's shuffle returning its own first cell and the first lane's
+    its own last; N/S: the thread's rows and the neighbouring warps' edge
+    rows, the outermost warps reading their own); for smooth_residual,
+    b - A x of the final x with the same neighbours; the tile written (x,
+    and r for smooth_residual). `hx` and `hy` override the halo
+    (mutations: one short must fail). Returns a tuple, as `_plain`."""
     ny, nx = x.shape
-    g = geom or ts._run_geometry((ny, nx), x.dtype, iters)
-    run, rows = g.cells, ts._RUN_ROWS
-    hy, hx = g.halo[0], g.halo[1] if hx is None else hx
+    g = geom or ts._run_geometry((ny, nx), x.dtype,
+                                 iters + (kernel == "smooth_residual"))
+    run, rows = g.cells, g.rows
+    hy = g.halo[0] if hy is None else hy
+    hx = g.halo[1] if hx is None else hx
     height, width = g.warps * rows, ts._RUN_LANES * run
     ty, tx = height - 2 * hy, width - 2 * hx
     by, bx = -(-ny // ty), -(-nx // tx)
@@ -666,27 +672,33 @@ def emulate_run(kernel, coef, x, b, corr=None, iters=2, omega=0.8,
     ring[[0, -1]] = True
     ring[:, [0, -1]] = True
     top = (g.warps - 1) * rows
-    x_out = torch.empty_like(x)
+    outs = [torch.empty_like(x)
+            for _ in range(1 + (kernel == "smooth_residual"))]
     for i in range(by):
         for j in range(bx):
             win = (slice(i * ty, i * ty + height),
                    slice(j * tx, j * tx + width))
             xr, bb, ce, cw, cn, cs, d = (f[win].clone() for f in fields)
             live = inside[win] & ~ring
-            for _ in range(iters):
+
+            def a_of(xr):
                 xe = torch.cat([xr[:, 1:], xr[:, width - run:][:, :1]], 1)
                 xw = torch.cat([xr[:, run - 1:run], xr[:, :-1]], 1)
                 xn = torch.cat([xr[1:], xr[top:top + 1]], 0)
                 xs = torch.cat([xr[rows - 1:rows], xr[:-1]], 0)
-                ax = d * xr - ce * xe - cw * xw - cn * xn - cs * xs
-                xr = torch.where(live, xr + om * (bb - ax) / d, xr)
+                return d * xr - ce * xe - cw * xw - cn * xn - cs * xs
+
+            for _ in range(iters):
+                xr = torch.where(live, xr + om * (bb - a_of(xr)) / d, xr)
+            region = [xr] if len(outs) == 1 else [xr, bb - a_of(xr)]
             y0, x0_ = i * ty, j * tx
             h, w = min(ty, ny - y0), min(tx, nx - x0_)
-            x_out[y0:y0 + h, x0_:x0_ + w] = xr[hy:hy + h, hx:hx + w]
-    return x_out
+            for out, f in zip(outs, region):
+                out[y0:y0 + h, x0_:x0_ + w] = f[hy:hy + h, hx:hx + w]
+    return tuple(outs)
 
 
-RUN_KERNELS = ("jacobi_multisweep", "corr_smooth")
+RUN_KERNELS = KERNELS
 
 
 def emulate_picked(kernel, coef, x, b, corr, iters):
@@ -698,10 +710,10 @@ def emulate_picked(kernel, coef, x, b, corr, iters):
     if geom.variant == "run":
         return emulate_run(kernel, coef, x, b, corr, iters, geom=geom)
     if geom.variant == "region":
-        return emulate(kernel, coef, x, b, corr, iters)[0]
+        return emulate(kernel, coef, x, b, corr, iters)
     assert kernel == "jacobi_multisweep" and iters == 1
     om = ts._omega(0.8, x.dtype)
-    return x + om * (b - emulate_pass(coef, x, geom)) / coef.diag
+    return (x + om * (b - emulate_pass(coef, x, geom)) / coef.diag,)
 
 
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
@@ -714,12 +726,14 @@ def test_run_schedule_equals_plain_exactly(problem, kernel, prec):
     tdt = DTYPES[prec][0]
     coef, v = _torch_ops(problem, tdt)
     for iters in (1, 2, _max_iters(kernel, prec)):
-        ref = _plain(kernel, coef, v["x"], v["b"], v["corr"], iters)[0]
+        ref = _plain(kernel, coef, v["x"], v["b"], v["corr"], iters)
         got = emulate_run(kernel, coef, v["x"], v["b"], v["corr"], iters)
-        assert torch.equal(got, ref), (kernel, prec, iters)
         picked = emulate_picked(kernel, coef, v["x"], v["b"], v["corr"],
                                 iters)
-        assert torch.equal(picked, ref), (kernel, prec, iters)
+        assert len(got) == len(picked) == len(ref)
+        for g, p, r in zip(got, picked, ref):
+            assert torch.equal(g, r), (kernel, prec, iters)
+            assert torch.equal(p, r), (kernel, prec, iters)
 
 
 @pytest.mark.parametrize("shape", ["one-run", "one-row", "ragged"])
@@ -727,7 +741,9 @@ def test_run_schedule_equals_plain_exactly(problem, kernel, prec):
 def test_run_schedule_on_edge_shapes(shape, kernel):
     """A plane one run wide, one row high, and one whose width and height
     are not a whole number of tiles (two blocks along x, the last partly
-    beyond the domain), in both dtypes, iters 1, 2 and the halo."""
+    beyond the domain), in both dtypes, iters 1, 2 and the most the kernel
+    takes, in blocks of three rows a thread and, where the halo leaves a
+    16-row block a tile, of one."""
     for prec in ("f32", "bf16"):
         tdt = DTYPES[prec][0]
         run = 16 // torch.tensor([], dtype=tdt).element_size()
@@ -735,9 +751,15 @@ def test_run_schedule_on_edge_shapes(shape, kernel):
                   "ragged": (53, 34 * run)}[shape]
         coef, x, b, corr = _random_operands(ny, nx, tdt, seed=ny + nx)
         for iters in (1, 2, _max_iters(kernel, prec)):
-            got = emulate_run(kernel, coef, x, b, corr, iters)
-            ref = _plain(kernel, coef, x, b, corr, iters)[0]
-            assert torch.equal(got, ref), (prec, (ny, nx), iters)
+            ref = _plain(kernel, coef, x, b, corr, iters)
+            halo = iters + (kernel == "smooth_residual")
+            for rows in (3, 1) if 2 * halo < 16 else (3,):
+                geom = ts._run_geometry((ny, nx), tdt, halo, rows)
+                got = emulate_run(kernel, coef, x, b, corr, iters,
+                                  geom=geom)
+                assert len(got) == len(ref)
+                for g, r in zip(got, ref):
+                    assert torch.equal(g, r), (prec, (ny, nx), iters, rows)
 
 
 def test_run_schedule_with_a_short_x_halo_fails():
@@ -758,10 +780,47 @@ def test_run_schedule_with_a_short_x_halo_fails():
         b[:, column] = 1.0
         ref = _plain("jacobi_multisweep", coef, x, b, None, iters)[0]
         assert torch.equal(emulate_run("jacobi_multisweep", coef, x, b,
-                                       iters=iters), ref)
+                                       iters=iters)[0], ref)
         short = emulate_run("jacobi_multisweep", coef, x, b, iters=iters,
-                            hx=iters - 1)
+                            hx=iters - 1)[0]
         assert not torch.equal(short, ref), (tdt, iters)
+
+
+@pytest.mark.parametrize("axis", ["rows", "columns"])
+def test_residual_schedule_with_the_sweeps_halo_fails(axis):
+    """smooth_residual's halo is iters + 1 rows and whole runs >= iters +
+    1 columns: its residual reads one ring beyond the cells the sweeps
+    leave exact. With the sweeps' halo instead (iters rows, or whole runs
+    >= iters columns, iters a whole number of runs), the second block's
+    tile starts iters cells inside its frozen ring row (column). With x =
+    0 and b = 0 but for b = 1 on that ring, the plain version carries the
+    ring's update iters - 1 cells in, next to the tile, so r is nonzero on
+    the tile's first row (column), where the short-haloed block sees only
+    zeros; x is 0 there in both. With the right halo the emulation equals
+    the plain version. Both dtypes, iters of one and two runs."""
+    for tdt, iters in ((torch.float32, 4), (torch.float32, 8),
+                       (torch.bfloat16, 8), (torch.bfloat16, 15)):
+        if axis == "columns" and iters == 15:
+            continue                  # no whole number of runs
+        halo = iters + 1
+        coef, _, _, _ = _random_operands(53, 640, tdt, seed=iters)
+        geom = ts._run_geometry((53, 640), tdt, halo)
+        height, width = geom.region
+        x = torch.zeros(53, 640, dtype=tdt)
+        b = torch.zeros_like(x)
+        if axis == "rows":
+            b[height - 3 * iters] = 1.0
+            short = dict(hy=iters)
+        else:
+            b[:, width - 3 * iters] = 1.0
+            short = dict(hx=iters)
+        ref = _plain("smooth_residual", coef, x, b, None, iters)
+        got = emulate_run("smooth_residual", coef, x, b, iters=iters)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        got = emulate_run("smooth_residual", coef, x, b, iters=iters,
+                          **short)
+        assert torch.equal(got[0], ref[0]), (tdt, iters)
+        assert not torch.equal(got[1], ref[1]), (tdt, iters)
 
 
 def _run_hits(geom, ny, nx):
@@ -787,15 +846,18 @@ def _run_hits(geom, ny, nx):
 @pytest.mark.parametrize("kernel", RUN_KERNELS)
 @pytest.mark.parametrize("nx", [8, 43, 64, 688, 1040, 1375, 2048])
 def test_multisweep_geometry_writes_every_cell_once(nx, kernel):
-    """Every cell exactly once, in every variant and both dtypes, for
-    every iters the wrappers accept, at heights from one row to 512;
-    widths that are not a whole number of 16-byte runs, and operands off
-    16 bytes, take the region kernel; one sweep of jacobi_multisweep one
-    pass of the single-pass kernels (`pass_geometry`'s launch)."""
+    """Every cell exactly once (smooth_residual: x and r), in every
+    variant and both dtypes, for every iters the wrappers accept, at
+    heights from one row to 512; widths that are not a whole number of
+    16-byte runs, and operands off 16 bytes, take the region kernel; one
+    sweep of jacobi_multisweep one pass of the single-pass kernels
+    (`pass_geometry`'s launch). The halo is iters, and iters + 1 for
+    smooth_residual."""
     for ny in (1, 37, 272, 512):
         for dt in (torch.float32, torch.bfloat16):
             run = 16 // torch.tensor([], dtype=dt).element_size()
-            for iters in range(ts._halo_for(dt) + 1):
+            for iters in range(ts._max_iters(dt, kernel) + 1):
+                halo = iters + (kernel == "smooth_residual")
                 for aligned in (True, False):
                     g = ts.multisweep_geometry((ny, nx), dt, iters, aligned,
                                                kernel=kernel)
@@ -808,16 +870,47 @@ def test_multisweep_geometry_writes_every_cell_once(nx, kernel):
                     if not aligned or nx % run:
                         assert g.variant == "region"
                     if g.variant == "region":
-                        t = ts.REGION - 2 * iters
-                        assert (g.tile, g.halo) == ((t, t), (iters, iters))
+                        t = ts.REGION - 2 * halo
+                        assert (g.tile, g.halo) == ((t, t), (halo, halo))
                         ys = np.arange(g.grid[1] * t)
                         xs = np.arange(g.grid[0] * t)
                         assert ys[-1] >= ny - 1 and ys[-1] - t < ny - 1
                         assert xs[-1] >= nx - 1 and xs[-1] - t < nx - 1
                         continue
-                    assert g.cells == run and g.halo[0] == iters
+                    assert g.cells == run and g.halo[0] == halo
                     assert g.halo[1] % run == 0 \
-                        and iters <= g.halo[1] < iters + run
+                        and halo <= g.halo[1] < halo + run
                     assert g.warps * 32 <= 512 and min(g.tile) > 0
                     hits = _run_hits(g, ny, nx)
                     assert (hits == 1).all(), (ny, nx, dt, iters, g)
+
+
+def _launchable(shape, dt, kernel):
+    """Whether every launch the wrapper of `kernel` can make on `shape`
+    (each iters it accepts, from aligned or unaligned operands) has a grid
+    within CUDA's limit on blocks in y."""
+    return all(
+        ts.multisweep_geometry(shape, dt, iters, aligned,
+                               kernel=kernel).grid[1] <= ts._MAX_GRID_Y
+        for iters in range(ts._max_iters(dt, kernel) + 1)
+        for aligned in (True, False))
+
+
+@pytest.mark.parametrize("kernel", RUN_KERNELS)
+def test_fit_gate_agrees_with_the_geometry(kernel):
+    """`kernel_available_for` takes a plane exactly when every geometry
+    the wrapper can launch on it fits CUDA's grid: at the heights where
+    some tile's grid reaches the limit, from both sides, for widths of
+    whole runs and odd ones."""
+    gate = "jacobi" if kernel == "jacobi_multisweep" else kernel
+    for dt in (torch.float32, torch.bfloat16):
+        tiles = {g.tile[0] for iters in range(ts._max_iters(dt, kernel) + 1)
+                 for aligned in (True, False)
+                 for g in [ts.multisweep_geometry((64, 64), dt, iters,
+                                                  aligned, kernel=kernel)]
+                 if isinstance(g, ts.MultisweepGeometry)}
+        for nx in (16, 43):
+            for t in sorted(tiles):
+                for ny in (t * ts._MAX_GRID_Y, t * ts._MAX_GRID_Y + 1):
+                    assert ts.kernel_available_for((ny, nx), dt, gate) \
+                        == _launchable((ny, nx), dt, kernel), (dt, nx, ny)

@@ -12,12 +12,14 @@
 //   corr_smooth        x + corr, then iters <= halo sweeps -> x
 //     replaces `corr_smooth_pallas` (l.722, body l.672)
 // with halo = 8 for float32 and 16 for bfloat16, the TPU kernels' limits.
-// jacobi_multisweep and corr_smooth launch the run kernel
-// (multisweep_run_kernel, below the single-pass kernels: every operand
-// read once, 16 bytes at a time, and kept in registers for the sweeps) on
-// aligned planes whose width is a whole number of 16-byte runs, and the
-// region kernel (pressure_stencil_kernel) elsewhere; smooth_residual takes
-// the region kernel.
+// All three launch the run kernel (multisweep_run_kernel, below the
+// single-pass kernels: every operand read once, 16 bytes at a time, and
+// kept on chip for the sweeps; smooth_residual's residual in one more pass
+// over a halo one ring deeper; in bfloat16 too the division skips
+// __fdiv_rn's slow path on a zero dividend) on aligned planes whose width
+// is a whole number of 16-byte runs, and the region kernel
+// (pressure_stencil_kernel) elsewhere; one sweep of jacobi_multisweep is
+// one pass of the single-pass kernels.
 // Two single-pass functions on (ny, nx) fields or on B planes stacked as
 // (B, ny, nx) (blockIdx.z is the plane), each in two variants (the vector
 // and the cell kernel, below the multisweep kernels):
@@ -44,13 +46,15 @@
 // registers: 13.9 and 8.8 us (a copy of the same bytes takes 12.0 us
 // under that flush, whose dirty lines every timed kernel writes back).
 //
-// Design of the region kernel (simple and exact). A block owns a square
-// region of REGION x REGION cells: an output tile of (REGION - 2h)^2 cells
-// and a halo of h cells on each side, with h = iters (smooth_residual:
-// iters + 1, its residual reads one more ring), chosen at launch so that
-// the redundant halo work stays small on the paths' 1-2 sweeps. x lives in
-// shared memory as float (two buffers, ping-pong); the coefficients and b
-// are read from global memory, where they stay in L1/L2 across the sweeps.
+// Design of the region kernel (simple and exact; it takes the odd widths,
+// such as the Schaefer-Turek levels, and operands off 16 bytes). A block
+// owns a square region of REGION x REGION cells: an output tile of
+// (REGION - 2h)^2 cells and a halo of h cells on each side, with h = iters
+// (smooth_residual: iters + 1, its residual reads one more ring), chosen
+// at launch so that the redundant halo work stays small on the paths' 1-2
+// sweeps. x lives in shared memory as float (two buffers, ping-pong); the
+// coefficients and b are read from global memory, where they stay in
+// L1/L2 across the sweeps.
 // Cells beyond the domain load x = b = c_* = 0 and diag = 1 (the TPU
 // kernels' padding: diag divides), so they stay exactly 0 under every
 // sweep; the kernel never reads out of range and never wraps east-west.
@@ -61,9 +65,8 @@
 // Rounding. Every operation rounds to the operand type in the order the
 // plain PyTorch version (and the TPU kernel) computes it: products and
 // sums with __fmul_rn/__fsub_rn/__fadd_rn (never contracted into FMAs),
-// the division with __fdiv_rn (div_rn in the single-pass kernels and the
-// float32 run kernel: the same quotient), and for bfloat16 a round to
-// bfloat16 after
+// the division with __fdiv_rn (div_rn in the single-pass and run
+// kernels: the same quotient), and for bfloat16 a round to bfloat16 after
 // each of them; omega arrives rounded to the operand type. So the kernel
 // and the plain version compute the same values.
 
@@ -209,25 +212,6 @@ pressure_stencil_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
       N::store(r_out, g, __fsub_rn(k.b, ax));
     }
   }
-}
-
-template <typename T, int MODE>
-int launch(const T* x0, const T* corr, const T* b, const T* ce, const T* cw,
-           const T* cn, const T* cs, const T* dg, T* x_out, T* r_out,
-           int ny, int nx, int iters, float omega, void* stream) {
-  const int max_iters = Num<T>::kHalo - (MODE == kSmoothResidual ? 1 : 0);
-  if (ny <= 0 || nx <= 0 || iters < 0 || iters > max_iters) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int halo = MODE == kSmoothResidual ? iters + 1 : iters;
-  const int tile = REGION - 2 * halo;
-  const dim3 grid((nx + tile - 1) / tile, (ny + tile - 1) / tile);
-  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidValue;
-  pressure_stencil_kernel<T, MODE><<<grid, THREADS, 0,
-                                     (cudaStream_t)stream>>>(
-      x0, corr, b, ce, cw, cn, cs, dg, x_out, r_out, ny, nx, iters, halo,
-      omega);
-  return (int)cudaGetLastError();
 }
 
 // ---- the single-pass kernels: stencil_matvec and jacobi_sweep ----------
@@ -519,7 +503,7 @@ int launch_pass(const T* x, const T* b, const T* ce, const T* cw,
   return (int)cudaGetLastError();
 }
 
-// ---- the multisweep run kernel: jacobi_multisweep and corr_smooth -------
+// ---- the multisweep run kernel: all three multisweep functions ----------
 //
 // What held the region kernel (pressure_stencil_kernel, above) back on the
 // H100: its threads walk 16 cells one at a time, each with six scalar
@@ -532,51 +516,69 @@ int launch_pass(const T* x, const T* b, const T* ce, const T* cw,
 // single-pass kernel takes 1.7.
 //
 // This kernel reads every operand once a call, 16 bytes at a time, and
-// keeps it in registers for all the sweeps:
+// keeps it on chip for all the sweeps:
 // - A block of `warps` warps (blockDim.x = 32 warps) owns a region of
-//   MS_ROWS * warps rows and 32 runs of RUN cells (16 bytes: 4 float32 or
-//   8 bfloat16 cells, packed two to a word and widened where used). Warp w
-//   owns region rows MS_ROWS w .. MS_ROWS w + MS_ROWS - 1, lane l the run
-//   at region column RUN l. A thread loads x (x + corr, rounded to the
-//   operand type), b, c_e, c_w, c_n, c_s and diag of its MS_ROWS runs as
-//   one uint4 each, all issued before it computes.
+//   ROWS * warps rows (ROWS = 3, or 1 on the shallow halos: a third of
+//   the dependent arithmetic a thread, which the coarse levels' launches,
+//   chains of latencies, repaid with 0.7-2.4 us at 2 sweeps) and 32 runs
+//   of RUN cells (16 bytes: 4 float32 or 8 bfloat16 cells, packed two to
+//   a word and widened where used). Warp w owns region rows ROWS w ..
+//   ROWS w + ROWS - 1, lane l the run at region column RUN l. A thread
+//   loads x (x + corr, rounded to the operand type), b, c_e, c_w, c_n,
+//   c_s and diag of its ROWS runs as one uint4 each, all issued before it
+//   computes. x and the four conductances stay in registers; b and diag
+//   go to shared memory, one uint4 per thread and row, which the thread
+//   alone reads back (conflict-free: a warp's 32 uint4 are contiguous).
 // - E/W neighbours come from the run and from the neighbouring lanes
 //   (__shfl_*_sync); N/S from the thread's own rows and, at the ends of
 //   its strip, from the neighbouring warps' edge rows, published in shared
 //   memory (two buffers in turn: one __syncthreads a sweep).
-// - Halo: `iters` rows in y and hx cells in x, the smallest whole number
-//   of runs >= iters, so that a run lies wholly inside or beyond the tile
-//   and the domain (nx a multiple of RUN). The region's outer ring (row 0,
-//   the last row, the first lane's first cell, the last lane's last cell)
-//   is never updated, nor is any cell beyond the domain (loaded as 0, so
-//   it reads as the plain version's zero neighbour; no read leaves the
-//   array, nothing wraps east-west). After sweep k a cell is exact if it
-//   lies at least k cells inside the ring (the trapezoid argument), so the
-//   tile, `iters` rows and hx >= iters columns inside, is exact. Which
+// - Halo: hy rows in y and hx cells in x, the smallest whole number of
+//   runs >= hy, so that a run lies wholly inside or beyond the tile and
+//   the domain (nx a multiple of RUN); hy = iters, and iters + 1 for
+//   smooth_residual, whose residual reads one more ring. The region's
+//   outer ring (row 0, the last row, the first lane's first cell, the last
+//   lane's last cell) is never updated, nor is any cell beyond the domain
+//   (loaded as 0, so it reads as the plain version's zero neighbour; no
+//   read leaves the array, nothing wraps east-west). After sweep k a cell
+//   is exact if it lies at least k cells inside the ring (the trapezoid
+//   argument), so after `iters` sweeps the cells hy - 1 >= iters inside
+//   are, and the residual one ring further in (the tile) is too. Which
 //   cells are updated is decided once, into a mask.
-// - The arithmetic (Sweep<T>::word) is pass_cell's in float32 and its
-//   bfloat16 pair form, in the plain version's order and roundings, so
-//   one sweep equals jacobi_sweep bit for bit. A word is swept when it
-//   holds an updated cell, and a mask keeps its frozen cells. (Sweeping
-//   every word, the cells beyond the domain divide 0 by 0, which takes
-//   __fdiv_rn's slow path for the whole warp: that doubled the time a
-//   sweep on the coarse levels.)
-// Registers: 7 operands x MS_ROWS runs of 4 words = 84 words a thread;
-// __launch_bounds__ caps it at 128 registers (16 warps, one block an SM;
-// 8 warps, two): 117-128, no spills (the float32 emulation of each
-// bfloat16 rounding spilled 232 bytes at 128). The launch geometry (warps,
-// halo, tile, grid) is computed in Python (ops/stencil.py
+// - smooth_residual: after the last sweep the edge rows are published
+//   once more, every thread passes one more barrier, and the residual
+//   r = b - A x of the final x is computed at every word and stored with
+//   x at the tile's, row by row (r never holds a register block of its
+//   own).
+// - The arithmetic (Sweep<T>::word, ::residual) is pass_cell's in float32
+//   and its bfloat16 pair form, in the plain version's order and
+//   roundings, so one sweep equals jacobi_sweep bit for bit. A word is
+//   swept when it holds an updated cell, and a mask keeps its frozen
+//   cells. (Sweeping every word, the cells beyond the domain divide 0 by
+//   0, which takes __fdiv_rn's slow path for the whole warp: that doubled
+//   the time a sweep on the coarse levels.) Both dtypes divide with
+//   div_rn, whose zero-dividend guard keeps the solid cells (b = x = 0 on
+//   the cylinder's operators) off that slow path too.
+// Registers: x and four conductances x ROWS runs of 4 words = 60 words a
+// thread at ROWS = 3; __launch_bounds__ caps it at 128 registers (16
+// warps, one block an SM; 8 warps, two): 106-126, and 59-64 at ROWS = 1,
+// no spills. Shared memory: the edge rows (2 KB a warp) and b and diag
+// (ROWS * 1 KB a warp): 40 KB at 8 warps, 80 KB at 16 (48 KB at ROWS =
+// 1), dynamic (above 48 KB after cudaFuncSetAttribute). Keeping b
+// and diag in registers too (84 words) left no room for div_rn's guard in
+// bfloat16: it spilled 76-132 bytes at the cap. The launch geometry
+// (rows, warps, halo, tile, grid) is computed in Python (ops/stencil.py
 // `multisweep_geometry`) and checked here; unaligned rows and widths that
 // are not a whole number of runs take the region kernel, and one sweep
 // of jacobi_multisweep the single-pass kernels (faster at every level).
 
-constexpr int MS_ROWS = 3;          // rows of a thread
 constexpr int MS_MAX_WARPS = 16;    // warps of a block, stacked in y
 
 // One damped-Jacobi sweep of the cells of a 32-bit word of a run (one
 // float32 cell, or two bfloat16 cells), from the word's operands and
-// neighbours, in the plain version's order and roundings; and `mask`,
-// all ones over the word's cells whose bit in `live` is set.
+// neighbours, in the plain version's order and roundings; the residual
+// b - A x there; and `mask`, all ones over the word's cells whose bit in
+// `live` is set.
 template <typename T> struct Sweep;
 
 template <> struct Sweep<float> {
@@ -586,15 +588,29 @@ template <> struct Sweep<float> {
   static __device__ __forceinline__ unsigned add(unsigned a, unsigned b) {
     return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
   }
+  static __device__ __forceinline__ Coef coef(unsigned ce, unsigned cw,
+                                              unsigned cn, unsigned cs,
+                                              unsigned d, unsigned b) {
+    return Coef{__uint_as_float(ce), __uint_as_float(cw), __uint_as_float(cn),
+                __uint_as_float(cs), __uint_as_float(d), __uint_as_float(b)};
+  }
   static __device__ __forceinline__ unsigned word(
       unsigned ce, unsigned cw, unsigned cn, unsigned cs, unsigned d,
       unsigned b, unsigned x, unsigned xe, unsigned xw, unsigned xn,
       unsigned xs, unsigned om) {
-    const Coef c{__uint_as_float(ce), __uint_as_float(cw), __uint_as_float(cn),
-                 __uint_as_float(cs), __uint_as_float(d), __uint_as_float(b)};
     return __float_as_uint(pass_cell<float, true>(
-        c, __uint_as_float(x), __uint_as_float(xe), __uint_as_float(xw),
-        __uint_as_float(xn), __uint_as_float(xs), __uint_as_float(om)));
+        coef(ce, cw, cn, cs, d, b), __uint_as_float(x), __uint_as_float(xe),
+        __uint_as_float(xw), __uint_as_float(xn), __uint_as_float(xs),
+        __uint_as_float(om)));
+  }
+  static __device__ __forceinline__ unsigned residual(
+      unsigned ce, unsigned cw, unsigned cn, unsigned cs, unsigned d,
+      unsigned b, unsigned x, unsigned xe, unsigned xw, unsigned xn,
+      unsigned xs) {
+    const float ax = apply_a<float>(
+        coef(ce, cw, cn, cs, d, b), __uint_as_float(x), __uint_as_float(xe),
+        __uint_as_float(xw), __uint_as_float(xn), __uint_as_float(xs));
+    return __float_as_uint(__fsub_rn(__uint_as_float(b), ax));
   }
   static __device__ __forceinline__ unsigned mask(unsigned live, int bit) {
     return live >> bit & 1u ? 0xffffffffu : 0u;
@@ -607,12 +623,10 @@ template <> struct Sweep<float> {
 // float32 operation rounded to bfloat16: float32 holds a product of two
 // bfloat16 values exactly, and rounding a sum to float32 first is
 // innocuous (24 bits >= 2*8 + 2). The division has no bfloat16 form: in
-// float32, __fdiv_rn, rounded to bfloat16, as pass_cell does. Two cells
-// an instruction, no widening, and a third of the instructions the
-// float32 emulation of each rounding takes. (div_rn's guard against a
-// zero dividend, on both halves, spilled 76-132 bytes at the 128-register
-// cap and timed no faster on random operands: here a solid cell's zero
-// dividend still takes __fdiv_rn's slow path.)
+// float32, div_rn (__fdiv_rn's quotient, a zero dividend's signed zero
+// without its slow path) on each half, rounded to bfloat16, as pass_cell
+// does. Two cells an instruction, no widening, and a third of the
+// instructions the float32 emulation of each rounding takes.
 template <> struct Sweep<__nv_bfloat16> {
   static __device__ __forceinline__ unsigned fma2(unsigned a, unsigned b,
                                                   unsigned c) {
@@ -633,24 +647,36 @@ template <> struct Sweep<__nv_bfloat16> {
     const unsigned h = __bfloat16_as_ushort(__float2bfloat16_rn(om));
     return h | h << 16;
   }
+  // A x: ((((diag*x - ce*xe) - cw*xw) - cn*xn) - cs*xs), as apply_a
+  static __device__ __forceinline__ unsigned ax(
+      unsigned ce, unsigned cw, unsigned cn, unsigned cs, unsigned d,
+      unsigned x, unsigned xe, unsigned xw, unsigned xn, unsigned xs) {
+    unsigned a = mul(d, x);
+    a = sub(a, mul(ce, xe));
+    a = sub(a, mul(cw, xw));
+    a = sub(a, mul(cn, xn));
+    return sub(a, mul(cs, xs));
+  }
   static __device__ __forceinline__ unsigned word(
       unsigned ce, unsigned cw, unsigned cn, unsigned cs, unsigned d,
       unsigned b, unsigned x, unsigned xe, unsigned xw, unsigned xn,
       unsigned xs, unsigned om) {
-    unsigned ax = mul(d, x);
-    ax = sub(ax, mul(ce, xe));
-    ax = sub(ax, mul(cw, xw));
-    ax = sub(ax, mul(cn, xn));
-    ax = sub(ax, mul(cs, xs));
-    const unsigned t = mul(om, sub(b, ax));
-    const float lo = __fdiv_rn(__uint_as_float(t << 16),
-                               __uint_as_float(d << 16));
-    const float hi = __fdiv_rn(__uint_as_float(t & 0xffff0000u),
-                               __uint_as_float(d & 0xffff0000u));
+    const unsigned t = mul(om, sub(b, ax(ce, cw, cn, cs, d, x, xe, xw, xn,
+                                         xs)));
+    const float lo = div_rn(__uint_as_float(t << 16),
+                            __uint_as_float(d << 16));
+    const float hi = div_rn(__uint_as_float(t & 0xffff0000u),
+                            __uint_as_float(d & 0xffff0000u));
     const unsigned q = __bfloat16_as_ushort(__float2bfloat16_rn(lo))
                        | (unsigned)__bfloat16_as_ushort(
                              __float2bfloat16_rn(hi)) << 16;
     return add(x, q);
+  }
+  static __device__ __forceinline__ unsigned residual(
+      unsigned ce, unsigned cw, unsigned cn, unsigned cs, unsigned d,
+      unsigned b, unsigned x, unsigned xe, unsigned xw, unsigned xn,
+      unsigned xs) {
+    return sub(b, ax(ce, cw, cn, cs, d, x, xe, xw, xn, xs));
   }
   static __device__ __forceinline__ unsigned mask(unsigned live, int bit) {
     return (live >> bit & 1u ? 0xffffu : 0u)
@@ -658,48 +684,74 @@ template <> struct Sweep<__nv_bfloat16> {
   }
 };
 
-template <typename T, bool CORR>
+__device__ __forceinline__ uint4 as_uint4(const Pack& p) {
+  return make_uint4(p.w[0], p.w[1], p.w[2], p.w[3]);
+}
+
+__device__ __forceinline__ Pack as_pack(const uint4& q) {
+  return Pack{{q.x, q.y, q.z, q.w}};
+}
+
+// Dynamic shared memory of a block of `warps` warps: the edge rows
+// ([buffer][warp][first or last row][lane]), then b and diag
+// ([row][thread] each).
+template <int ROWS>
+constexpr size_t run_smem_bytes(int warps) {
+  return (size_t)warps * 32 * (4 + 2 * ROWS) * sizeof(uint4);
+}
+
+template <typename T, int MODE, int ROWS>
 __global__ void __launch_bounds__(32 * MS_MAX_WARPS, 1)
 multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
                       const T* __restrict__ b, const T* __restrict__ ce,
                       const T* __restrict__ cw, const T* __restrict__ cn,
                       const T* __restrict__ cs, const T* __restrict__ dg,
-                      T* __restrict__ out, int ny, int nx, int iters, int hx,
-                      int tile_y, int tile_x, float omega) {
+                      T* __restrict__ out, T* __restrict__ r_out, int ny,
+                      int nx, int iters, int hx, int tile_y, int tile_x,
+                      float omega) {
   using C = Cell<T>;
   using S = Sweep<T>;
   constexpr int RUN = C::kRun;
-  static_assert(MS_ROWS * RUN <= 32, "the update mask is one 32-bit word");
-  // [buffer][warp][its first or last row][lane]
-  __shared__ uint4 edge[2][MS_MAX_WARPS][2][32];
-  const int warps = blockDim.x >> 5;
+  constexpr bool RESIDUAL = MODE == kSmoothResidual;
+  static_assert(ROWS * RUN <= 32, "the update mask is one 32-bit word");
+  extern __shared__ uint4 smem[];
+  const int threads = blockDim.x;
+  const int warps = threads >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int height = warps * MS_ROWS;
-  const int r0 = warp * MS_ROWS;              // region row of the first row
-  const int gy0 = blockIdx.y * tile_y - iters + r0;
+  uint4* const sb = smem + 4 * threads;         // after the edge rows
+  uint4* const sd = sb + ROWS * threads;
+  const int hy = iters + RESIDUAL;
+  const int height = warps * ROWS;
+  const int r0 = warp * ROWS;                   // region row of the first row
+  const int gy0 = blockIdx.y * tile_y - hy + r0;
   const int gx = blockIdx.x * tile_x - hx + lane * RUN;
-  const bool col_in = gx >= 0 && gx < nx;     // the whole run, or none
+  const bool col_in = gx >= 0 && gx < nx;       // the whole run, or none
+  // the tile: region rows hy .. height - hy - 1, runs hx/RUN ..
+  // 32 - hx/RUN - 1, inside the domain
+  const bool col_out = col_in && lane * RUN >= hx
+                       && lane * RUN < 32 * RUN - hx;
 
-  Pack xr[MS_ROWS], kb[MS_ROWS], ke[MS_ROWS], kw[MS_ROWS], kn[MS_ROWS],
-      ks[MS_ROWS], kd[MS_ROWS];
-  unsigned live = 0;                          // bit i*RUN+k: updated
+  Pack xr[ROWS], ke[ROWS], kw[ROWS], kn[ROWS], ks[ROWS];
+  unsigned live = 0;                            // bit i*RUN+k: updated
 #pragma unroll
-  for (int i = 0; i < MS_ROWS; ++i) {
+  for (int i = 0; i < ROWS; ++i) {
     const int gy = gy0 + i;
     const bool in = col_in && gy >= 0 && gy < ny;
     const long g = (long)gy * nx + gx;
     xr[i] = load_run<T>(x0 + g, in);
-    kb[i] = load_run<T>(b + g, in);
+    const Pack kb = load_run<T>(b + g, in);
     ke[i] = load_run<T>(ce + g, in);
     kw[i] = load_run<T>(cw + g, in);
     kn[i] = load_run<T>(cn + g, in);
     ks[i] = load_run<T>(cs + g, in);
-    kd[i] = load_run<T>(dg + g, in);
-    if (CORR) {
+    const Pack kd = load_run<T>(dg + g, in);
+    if (MODE == kCorrSmooth) {
       const Pack c = load_run<T>(corr + g, in);
 #pragma unroll
       for (int j = 0; j < 4; ++j) xr[i].w[j] = S::add(xr[i].w[j], c.w[j]);
     }
+    sb[i * threads + threadIdx.x] = as_uint4(kb);
+    sd[i * threads + threadIdx.x] = as_uint4(kd);
     const bool ring_row = r0 + i == 0 || r0 + i == height - 1;
     if (in && !ring_row) {
 #pragma unroll
@@ -716,26 +768,18 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
   const int above = warp < warps - 1 ? warp + 1 : warps - 1;
   const unsigned om = S::omega(omega);
 
-  for (int s = 0; s < iters; ++s) {
-    uint4 (*ex)[2][32] = edge[s & 1];
-    ex[warp][0][lane] = make_uint4(xr[0].w[0], xr[0].w[1], xr[0].w[2],
-                                   xr[0].w[3]);
-    ex[warp][1][lane] = make_uint4(xr[MS_ROWS - 1].w[0],
-                                   xr[MS_ROWS - 1].w[1],
-                                   xr[MS_ROWS - 1].w[2],
-                                   xr[MS_ROWS - 1].w[3]);
+  // `iters` sweeps, and for smooth_residual one pass more: the residual
+  for (int s = 0; s < iters + RESIDUAL; ++s) {
+    const bool res = RESIDUAL && s == iters;
+    uint4* const ex = smem + (s & 1) * 2 * threads;   // [warp][row][lane]
+    ex[(warp * 2) * 32 + lane] = as_uint4(xr[0]);
+    ex[(warp * 2 + 1) * 32 + lane] = as_uint4(xr[ROWS - 1]);
     __syncthreads();
-    const uint4 q = ex[below][1][lane];
-    Pack south{{q.x, q.y, q.z, q.w}};          // the old row below
+    Pack south = as_pack(ex[(below * 2 + 1) * 32 + lane]);  // old row below
 #pragma unroll
-    for (int i = 0; i < MS_ROWS; ++i) {
-      Pack north;
-      if (i + 1 < MS_ROWS) {
-        north = xr[i + 1];
-      } else {
-        const uint4 a = ex[above][0][lane];
-        north = Pack{{a.x, a.y, a.z, a.w}};
-      }
+    for (int i = 0; i < ROWS; ++i) {
+      const Pack north = i + 1 < ROWS ? xr[i + 1]
+                                      : as_pack(ex[(above * 2) * 32 + lane]);
       // E/W neighbours as runs: within the run, then the next lane's
       // first cell after it and the previous lane's last before it (the
       // first and last lanes' outer cells are the ring: never updated)
@@ -749,6 +793,27 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
       }
       xe.w[3] = C::tail(xr[i].w[3], e0);
       xw.w[0] = C::head(w3, xr[i].w[0]);
+      const Pack kb = as_pack(sb[i * threads + threadIdx.x]);
+      const Pack kd = as_pack(sd[i * threads + threadIdx.x]);
+      if (res) {
+        // every word (no division), stored at the tile's with x
+        Pack r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          r.w[j] = S::residual(ke[i].w[j], kw[i].w[j], kn[i].w[j],
+                               ks[i].w[j], kd.w[j], kb.w[j], xr[i].w[j],
+                               xe.w[j], xw.w[j], north.w[j], south.w[j]);
+        }
+        const int gy = gy0 + i;
+        if (col_out && r0 + i >= hy && r0 + i < height - hy && gy >= 0
+            && gy < ny) {
+          const long g = (long)gy * nx + gx;
+          *reinterpret_cast<uint4*>(out + g) = as_uint4(xr[i]);
+          *reinterpret_cast<uint4*>(r_out + g) = as_uint4(r);
+        }
+        south = xr[i];
+        continue;
+      }
       // the words that hold an updated cell are swept, the frozen cells
       // kept by the mask; the words beyond the domain are not (there
       // 0 / 0 would take __fdiv_rn's slow path, in the whole warp)
@@ -759,7 +824,7 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
         o.w[j] = xr[i].w[j];
         if (m) {
           const unsigned v = S::word(ke[i].w[j], kw[i].w[j], kn[i].w[j],
-                                     ks[i].w[j], kd[i].w[j], kb[i].w[j],
+                                     ks[i].w[j], kd.w[j], kb.w[j],
                                      xr[i].w[j], xe.w[j], xw.w[j],
                                      north.w[j], south.w[j], om);
           o.w[j] = (v & m) | (o.w[j] & ~m);
@@ -769,46 +834,46 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
       xr[i] = o;
     }
   }
-
-  // the tile: region rows iters .. height - iters - 1, runs hx/RUN ..
-  // 32 - hx/RUN - 1
-  if (lane * RUN < hx || lane * RUN >= 32 * RUN - hx || !col_in) return;
+  if (RESIDUAL) return;                          // x is stored with r
 #pragma unroll
-  for (int i = 0; i < MS_ROWS; ++i) {
+  for (int i = 0; i < ROWS; ++i) {
     const int gy = gy0 + i;
-    if (r0 + i >= iters && r0 + i < height - iters && gy >= 0 && gy < ny) {
-      *reinterpret_cast<uint4*>(out + (long)gy * nx + gx) =
-          make_uint4(xr[i].w[0], xr[i].w[1], xr[i].w[2], xr[i].w[3]);
+    if (col_out && r0 + i >= hy && r0 + i < height - hy && gy >= 0
+        && gy < ny) {
+      *reinterpret_cast<uint4*>(out + (long)gy * nx + gx) = as_uint4(xr[i]);
     }
   }
 }
 
 // The geometry of ops/stencil.py `multisweep_geometry`, checked: the
-// region kernel's square regions (run 0: tile = REGION - 2 iters, block
-// THREADS), or the run kernel's (run 1: whole warps, hx a whole number of
-// runs >= iters, tiles of the region less the halos); a grid that covers
-// the plane exactly once, and 16-byte aligned operands for the run kernel.
+// region kernel's square regions (run 0: tile = REGION - 2 hy, block
+// THREADS), or the run kernel's (run 1: ROWS rows a thread, whole warps,
+// hx a whole number of runs >= hy, tiles of the region less the halos); a
+// grid that covers the plane exactly once, and 16-byte aligned operands
+// for the run kernel. hy = iters, and iters + 1 for smooth_residual.
 struct MultisweepGeometry {
-  int run, warps, hx, tile_y, tile_x, gx, gy;
+  int run, rows, warps, hx, tile_y, tile_x, gx, gy;
 };
 
-template <typename T>
+template <typename T, int MODE>
 bool multisweep_ok(const MultisweepGeometry& g, int ny, int nx, int iters,
                    const void* const* ptrs, int n_ptrs) {
   constexpr int RUN = Cell<T>::kRun;
-  if (ny <= 0 || nx <= 0 || iters < 0 || iters > Num<T>::kHalo
+  const int hy = iters + (MODE == kSmoothResidual);
+  if (ny <= 0 || nx <= 0 || iters < 0 || hy > Num<T>::kHalo
       || g.tile_y <= 0 || g.tile_x <= 0
       || g.gy != (ny + g.tile_y - 1) / g.tile_y
       || g.gx != (nx + g.tile_x - 1) / g.tile_x || g.gy > MAX_GRID_Y) {
     return false;
   }
   if (!g.run) {
-    return g.warps == THREADS / 32 && g.hx == iters
-           && g.tile_y == REGION - 2 * iters && g.tile_x == g.tile_y;
+    return g.rows == 1 && g.warps == THREADS / 32 && g.hx == hy
+           && g.tile_y == REGION - 2 * hy && g.tile_x == g.tile_y;
   }
-  if (g.warps <= 0 || g.warps > MS_MAX_WARPS || nx % RUN != 0
-      || g.hx % RUN != 0 || g.hx < iters || g.tile_x != 32 * RUN - 2 * g.hx
-      || g.tile_y != g.warps * MS_ROWS - 2 * iters) {
+  if ((g.rows != 1 && g.rows != 3) || g.warps <= 0
+      || g.warps > MS_MAX_WARPS || nx % RUN != 0 || g.hx % RUN != 0
+      || g.hx < hy || g.tile_x != 32 * RUN - 2 * g.hx
+      || g.tile_y != g.warps * g.rows - 2 * hy) {
     return false;
   }
   for (int i = 0; i < n_ptrs; ++i) {
@@ -817,30 +882,50 @@ bool multisweep_ok(const MultisweepGeometry& g, int ny, int nx, int iters,
   return true;
 }
 
-template <typename T, bool CORR>
+template <typename T, int MODE, int ROWS>
+cudaError_t launch_run(const T* x0, const T* corr, const T* b, const T* ce,
+                       const T* cw, const T* cn, const T* cs, const T* dg,
+                       T* x_out, T* r_out, int ny, int nx, int iters,
+                       const MultisweepGeometry& g, float omega,
+                       cudaStream_t stream) {
+  const auto kernel = multisweep_run_kernel<T, MODE, ROWS>;
+  const size_t smem = run_smem_bytes<ROWS>(g.warps);
+  if (smem > 48 * 1024) {     // the default cap of dynamic shared memory
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(g.gx, g.gy), 32 * g.warps, smem, stream>>>(
+      x0, corr, b, ce, cw, cn, cs, dg, x_out, r_out, ny, nx, iters, g.hx,
+      g.tile_y, g.tile_x, omega);
+  return cudaGetLastError();
+}
+
+template <typename T, int MODE>
 int launch_multisweep(const T* x0, const T* corr, const T* b, const T* ce,
                       const T* cw, const T* cn, const T* cs, const T* dg,
-                      T* x_out, int ny, int nx, int iters,
+                      T* x_out, T* r_out, int ny, int nx, int iters,
                       MultisweepGeometry g, float omega, void* stream) {
-  const void* ptrs[] = {x0, CORR ? (const void*)corr : (const void*)x0, b,
-                        ce, cw, cn, cs, dg, x_out};
-  if (!multisweep_ok<T>(g, ny, nx, iters, ptrs, 9)) {
+  const void* ptrs[] = {x0, b, ce, cw, cn, cs, dg, x_out,
+                        MODE == kCorrSmooth ? (const void*)corr
+                                            : (const void*)x0,
+                        MODE == kSmoothResidual ? (const void*)r_out
+                                                : (const void*)x0};
+  if (!multisweep_ok<T, MODE>(g, ny, nx, iters, ptrs, 10)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid(g.gx, g.gy);
+  const cudaStream_t s = (cudaStream_t)stream;
   if (!g.run) {
-    constexpr int MODE = CORR ? kCorrSmooth : kMultisweep;
-    pressure_stencil_kernel<T, MODE><<<grid, THREADS, 0,
-                                       (cudaStream_t)stream>>>(
-        x0, corr, b, ce, cw, cn, cs, dg, x_out, nullptr, ny, nx, iters,
-        iters, omega);
-  } else {
-    multisweep_run_kernel<T, CORR><<<grid, 32 * g.warps, 0,
-                                     (cudaStream_t)stream>>>(
-        x0, corr, b, ce, cw, cn, cs, dg, x_out, ny, nx, iters, g.hx,
-        g.tile_y, g.tile_x, omega);
+    pressure_stencil_kernel<T, MODE><<<dim3(g.gx, g.gy), THREADS, 0, s>>>(
+        x0, corr, b, ce, cw, cn, cs, dg, x_out, r_out, ny, nx, iters, g.hx,
+        omega);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return (int)(g.rows == 1
+      ? launch_run<T, MODE, 1>(x0, corr, b, ce, cw, cn, cs, dg, x_out, r_out,
+                               ny, nx, iters, g, omega, s)
+      : launch_run<T, MODE, 3>(x0, corr, b, ce, cw, cn, cs, dg, x_out, r_out,
+                               ny, nx, iters, g, omega, s));
 }
 
 }  // namespace
@@ -850,28 +935,29 @@ int launch_multisweep(const T* x0, const T* corr, const T* b, const T* ce,
   extern "C" int jacobi_multisweep_##SUFFIX(                                 \
       const T* x, const T* b, const T* ce, const T* cw, const T* cn,         \
       const T* cs, const T* dg, T* x_out, int ny, int nx, int iters,         \
-      int run, int warps, int hx, int tile_y, int tile_x, int gx, int gy,    \
-      float omega, void* stream) {                                           \
-    return launch_multisweep<T, false>(                                      \
-        x, nullptr, b, ce, cw, cn, cs, dg, x_out, ny, nx, iters,             \
-        {run, warps, hx, tile_y, tile_x, gx, gy}, omega, stream);            \
+      int run, int rows, int warps, int hx, int tile_y, int tile_x, int gx,  \
+      int gy, float omega, void* stream) {                                   \
+    return launch_multisweep<T, kMultisweep>(                                \
+        x, nullptr, b, ce, cw, cn, cs, dg, x_out, nullptr, ny, nx, iters,    \
+        {run, rows, warps, hx, tile_y, tile_x, gx, gy}, omega, stream);      \
   }                                                                          \
   extern "C" int smooth_residual_##SUFFIX(                                   \
       const T* x, const T* b, const T* ce, const T* cw, const T* cn,         \
       const T* cs, const T* dg, T* x_out, T* r_out, int ny, int nx,          \
-      int iters, float omega, void* stream) {                                \
-    return launch<T, kSmoothResidual>(x, nullptr, b, ce, cw, cn, cs, dg,     \
-                                      x_out, r_out, ny, nx, iters, omega,    \
-                                      stream);                               \
+      int iters, int run, int rows, int warps, int hx, int tile_y,           \
+      int tile_x, int gx, int gy, float omega, void* stream) {               \
+    return launch_multisweep<T, kSmoothResidual>(                            \
+        x, nullptr, b, ce, cw, cn, cs, dg, x_out, r_out, ny, nx, iters,      \
+        {run, rows, warps, hx, tile_y, tile_x, gx, gy}, omega, stream);      \
   }                                                                          \
   extern "C" int corr_smooth_##SUFFIX(                                       \
       const T* x, const T* corr, const T* b, const T* ce, const T* cw,       \
       const T* cn, const T* cs, const T* dg, T* x_out, int ny, int nx,       \
-      int iters, int run, int warps, int hx, int tile_y, int tile_x, int gx, \
-      int gy, float omega, void* stream) {                                   \
-    return launch_multisweep<T, true>(                                       \
-        x, corr, b, ce, cw, cn, cs, dg, x_out, ny, nx, iters,                \
-        {run, warps, hx, tile_y, tile_x, gx, gy}, omega, stream);            \
+      int iters, int run, int rows, int warps, int hx, int tile_y,           \
+      int tile_x, int gx, int gy, float omega, void* stream) {               \
+    return launch_multisweep<T, kCorrSmooth>(                                \
+        x, corr, b, ce, cw, cn, cs, dg, x_out, nullptr, ny, nx, iters,       \
+        {run, rows, warps, hx, tile_y, tile_x, gx, gy}, omega, stream);      \
   }                                                                          \
   extern "C" int stencil_matvec_##SUFFIX(                                    \
       const T* x, const T* ce, const T* cw, const T* cn, const T* cs,        \

@@ -227,7 +227,7 @@ def _jacobi(mesh, coef, x, b, iters, omega, plain):
         else:
             res = torch.empty_like(blk[0])
             _st._launch_multisweep("jacobi_multisweep_sharded",
-                                   "jacobi_multisweep", cf, fields, res,
+                                   "jacobi_multisweep", cf, fields, (res,),
                                    iters, omega)
             jacobi_multisweep_sharded.launches += 1
         out[i * nyl:(i + 1) * nyl, j * nxl:(j + 1) * nxl].copy_(

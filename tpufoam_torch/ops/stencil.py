@@ -18,13 +18,14 @@ csrc/pressure_stencil.cu:
 The two single-pass kernels take (ny, nx) operands or a fleet's
 (B, ny, nx), in the launch geometry of `pass_geometry` (a strip of rows
 per thread, and a 16-byte run of cells on large aligned planes, one cell
-elsewhere); the multisweep kernels take (ny, nx). jacobi_multisweep and
-corr_smooth launch in the geometry of `multisweep_geometry` (the run
-kernel: 16-byte runs over a few rows a thread, every operand read once
-and kept in registers for all the sweeps, on aligned planes whose width is
-a whole number of runs; the region kernel elsewhere; one sweep of
-jacobi_multisweep is one pass of jacobi_sweep's kernels); smooth_residual
-always takes the region kernel.
+elsewhere); the multisweep kernels take (ny, nx) and launch in the
+geometry of `multisweep_geometry`: the run kernel (16-byte runs over a few
+rows a thread, every operand read once and kept on chip for all the
+sweeps, smooth_residual's residual in one more pass over a halo one ring
+deeper; in bfloat16 too the division skips a zero dividend's slow path)
+on aligned planes whose width is a whole number of runs, the region
+kernel elsewhere, and for one sweep of jacobi_multisweep one pass of
+jacobi_sweep's kernels.
 
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU
 tensors it runs the `*_plain` version beside it. The plain versions repeat
@@ -146,31 +147,56 @@ _RUN_LANES = 32
 # (0: none; tools/kernel_times.py and chip_smoke.py set it unbounded to
 # time the region kernel on the same operands)
 _REGION_BELOW_CELLS = 0
+# the run kernel takes one row a thread for halos up to
+# `_ONE_ROW_MAX_HALO` on planes of fewer than `_ONE_ROW_BELOW_CELLS`
+# cells, and up to one less on larger planes (tools/kernel_times.py sets
+# them to time either block shape everywhere)
+_ONE_ROW_MAX_HALO = 3
+_ONE_ROW_BELOW_CELLS = 1 << 20
 _REGION_THREADS = 256      # the region kernel's block
 
 
-def _run_warps(iters: int) -> int:
-    """Warps of a run-kernel block (stacked in y): 8 (24 rows) up to 3
-    sweeps, so that the tile keeps at least 3/4 of the region's rows, and
-    16 (48 rows, one block an SM) for the deeper halos. At 2 sweeps, 4
-    and 8 warps timed alike and 16 up to 1.3 us slower a launch at
-    256 x 1024 (tools/kernel_times.py --variants on the H100)."""
-    return 8 if iters <= 3 else 16
+def _run_rows(shape, halo: int) -> int:
+    """Rows a thread of the run kernel: one, in blocks of 16 warps (16
+    rows), up to a halo of 2, and of 3 on planes of fewer than 2^20 cells;
+    else three. One row gives a thread a third of the dependent arithmetic
+    a sweep, so the small planes, where a launch is a chain of latencies,
+    ran 0.7-2.4 us faster at 2 sweeps; at 512 x 2048 it also won by 1.3-
+    3.1 us up to a halo of 2, and at 3 lost 0.1-0.2 us in bfloat16
+    (smooth_residual on the fused path; it won 1.0-1.3 in float32), where
+    a 16-row block keeps 10 rows of tile against 18 of 24
+    (tools/kernel_times.py --variants on the H100)."""
+    big = shape[0] * shape[1] >= _ONE_ROW_BELOW_CELLS
+    return 1 if halo <= _ONE_ROW_MAX_HALO - big else _RUN_ROWS
+
+
+def _run_warps(halo: int, rows: int = _RUN_ROWS) -> int:
+    """Warps of a run-kernel block (stacked in y) for a halo of `halo`
+    rows and `rows` rows a thread. Three rows: 8 (24 rows) up to a halo
+    of 3, so that the tile keeps at least 3/4 of the region's rows, and
+    16 (48 rows, one block an SM) for the deeper halos; at 2 sweeps, 4 and
+    8 warps timed alike and 16 up to 1.3 us slower a launch at 256 x 1024.
+    One row: 16 (32 lost 0.3-3.4 us at every level but one, a tie).
+    tools/kernel_times.py --variants on the H100."""
+    if rows == 1:
+        return 16
+    return 8 if halo <= 3 else 16
 
 
 @dataclasses.dataclass(frozen=True)
 class MultisweepGeometry:
-    """The launch of jacobi_multisweep or corr_smooth over (ny, nx)
-    operands. `run`: a thread owns a run of `cells` consecutive cells (16
-    bytes) on `_RUN_ROWS` rows, a block `warps` warps stacked in y and
-    `_RUN_LANES` runs along x (csrc/pressure_stencil.cu
-    `multisweep_run_kernel`); `region`: the region kernel
-    (`pressure_stencil_kernel`, square regions of `REGION` cells, one cell
-    a thread at a time, `cells` 1). `halo` is (rows, columns) on each side
-    of the output `tile` (rows, columns); `grid` (blocks along x, blocks
-    along y)."""
+    """The launch of a multisweep kernel (jacobi_multisweep of two or more
+    sweeps, smooth_residual, corr_smooth) over (ny, nx) operands. `run`:
+    a thread owns a run of `cells` consecutive cells (16 bytes) on `rows`
+    rows, a block `warps` warps stacked in y and `_RUN_LANES` runs along x
+    (csrc/pressure_stencil.cu `multisweep_run_kernel`); `region`: the
+    region kernel (`pressure_stencil_kernel`, square regions of `REGION`
+    cells, one cell a thread at a time, `cells` and `rows` 1). `halo` is
+    (rows, columns) on each side of the output `tile` (rows, columns);
+    `grid` (blocks along x, blocks along y)."""
     variant: str
     cells: int
+    rows: int
     warps: int
     halo: tuple
     tile: tuple
@@ -182,50 +208,55 @@ class MultisweepGeometry:
                 self.tile[1] + 2 * self.halo[1])
 
 
-def _run_geometry(shape, dtype, iters: int) -> MultisweepGeometry:
-    """The run kernel's geometry: a halo of `iters` rows and of the
-    smallest whole number of runs >= iters columns."""
+def _run_geometry(shape, dtype, halo: int,
+                  rows: int = _RUN_ROWS) -> MultisweepGeometry:
+    """The run kernel's geometry: a halo of `halo` rows and of the
+    smallest whole number of runs >= halo columns; `rows` rows a thread,
+    in blocks of `_run_warps(halo, rows)` warps."""
     ny, nx = shape
     run = 16 // dtype.itemsize
-    warps = _run_warps(iters)
-    hx = -(-iters // run) * run
-    tile = (warps * _RUN_ROWS - 2 * iters, _RUN_LANES * run - 2 * hx)
-    return MultisweepGeometry("run", run, warps, (iters, hx), tile,
+    warps = _run_warps(halo, rows)
+    hx = -(-halo // run) * run
+    tile = (warps * rows - 2 * halo, _RUN_LANES * run - 2 * hx)
+    return MultisweepGeometry("run", run, rows, warps, (halo, hx), tile,
                               (-(-nx // tile[1]), -(-ny // tile[0])))
 
 
-def _region_geometry(shape, iters: int) -> MultisweepGeometry:
+def _region_geometry(shape, halo: int) -> MultisweepGeometry:
     ny, nx = shape
-    t = REGION - 2 * iters
-    return MultisweepGeometry("region", 1, _REGION_THREADS // 32,
-                              (iters, iters), (t, t),
+    t = REGION - 2 * halo
+    return MultisweepGeometry("region", 1, 1, _REGION_THREADS // 32,
+                              (halo, halo), (t, t),
                               (-(-nx // t), -(-ny // t)))
 
 
 def multisweep_geometry(shape, dtype, iters: int, aligned: bool = True,
                         kernel: str = "jacobi_multisweep"):
-    """The launch geometry of `kernel` ("jacobi_multisweep" or
-    "corr_smooth") for (ny, nx) operands of `dtype` and `iters` sweeps.
-    `aligned`: every operand's base address is a multiple of 16 bytes.
+    """The launch geometry of `kernel` ("jacobi_multisweep",
+    "smooth_residual" or "corr_smooth") for (ny, nx) operands of `dtype`
+    and `iters` sweeps. `aligned`: every operand's base address is a
+    multiple of 16 bytes. The halo is `iters` rows, and `iters` + 1 for
+    smooth_residual (its residual reads one more ring).
     - One sweep of jacobi_multisweep is one pass of the single-pass
       kernels (jacobi_sweep's, bit for bit the same arithmetic): the
       `PassGeometry` of `pass_geometry`, vector or cell variant. It
       measured faster than the run kernel at every float32 level of the
       512 x 2048 hierarchy (tools/kernel_times.py on the H100: 16.1
       against 17.6 us at 512 x 2048, 1.7 against 3.0 us at 16 x 64).
-    - Otherwise the run kernel on aligned rows of whole 16-byte runs;
+    - Otherwise the run kernel on aligned rows of whole 16-byte runs, one
+      or three rows a thread (`_run_rows`);
     - the region kernel on the rest (odd widths such as the
       Schaefer-Turek levels, offset views) and on planes of fewer than
       `_REGION_BELOW_CELLS` cells."""
     ny, nx = shape
+    halo = iters + (kernel == "smooth_residual")
     if ny * nx < _REGION_BELOW_CELLS:
-        return _region_geometry(shape, iters)
+        return _region_geometry(shape, halo)
     if kernel == "jacobi_multisweep" and iters == 1:
         return pass_geometry(shape, dtype, aligned)
-    run = 16 // dtype.itemsize
-    if aligned and nx % run == 0:
-        return _run_geometry(shape, dtype, iters)
-    return _region_geometry(shape, iters)
+    if aligned and nx % (16 // dtype.itemsize) == 0:
+        return _run_geometry(shape, dtype, halo, _run_rows(shape, halo))
+    return _region_geometry(shape, halo)
 
 
 def kernel_available_for(shape, dtype=torch.float32,
@@ -249,18 +280,16 @@ def kernel_available_for(shape, dtype=torch.float32,
         return all(pass_geometry(shape, dtype, aligned).grid[1]
                    <= _MAX_GRID_Y for aligned in (True, False)) \
             and (len(shape) == 2 or shape[0] <= _MAX_GRID_Y)
-    halo = _halo_for(dtype)
-    if kernel == "smooth_residual":
-        return -(-shape[0] // (REGION - 2 * halo)) <= _MAX_GRID_Y
-    # the run kernel's and the region kernel's shortest tiles (the most
-    # sweeps), and one pass, whose grid has at most a block row per row
-    # of cells: the operands' alignment and iters pick one
-    tile = min(_run_warps(halo) * _RUN_ROWS, REGION) - 2 * halo
-    if -(-shape[0] // tile) > _MAX_GRID_Y:
-        return False
-    return shape[0] <= _MAX_GRID_Y or all(
-        pass_geometry(shape, dtype, aligned).grid[1] <= _MAX_GRID_Y
-        for aligned in (True, False))
+    # every tile has a row at least, and one pass of jacobi_multisweep a
+    # block row per row of cells at most; taller planes: every geometry
+    # the wrapper can launch (each iters, either alignment) must fit
+    if shape[0] <= _MAX_GRID_Y:
+        return True
+    name = "jacobi_multisweep" if kernel == "jacobi" else kernel
+    return all(multisweep_geometry(shape, dtype, iters, aligned,
+                                   kernel=name).grid[1] <= _MAX_GRID_Y
+               for iters in range(_max_iters(dtype, name) + 1)
+               for aligned in (True, False))
 
 
 # ---- plain versions ----------------------------------------------------
@@ -356,36 +385,25 @@ def _check(name, coef, fields, iters, kernel):
     return False
 
 
-def _launch(name, entry, coef, fields, outs, iters, omega):
+def _launch_multisweep(name, entry, coef, fields, outs, iters, omega):
+    """One launch of the multisweep kernel `entry` in the geometry of
+    `multisweep_geometry`, into `outs` (x, and r for smooth_residual);
+    returns that geometry."""
     x = fields[0]
-    lib, fn = _fn(f"{entry}_{_DTYPES[x.dtype]}", len(fields) + 5 + len(outs),
-                  (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float))
     ny, nx = x.shape
     ptrs = [t.data_ptr() for t in (*fields, coef.c_e, coef.c_w, coef.c_n,
                                    coef.c_s, coef.diag, *outs)]
-    with torch.cuda.device(x.device):   # launch on the operands' card
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*ptrs, ny, nx, iters, _omega(omega, x.dtype), stream)
-    _raise_on(lib, name, err)
-
-
-def _launch_multisweep(name, entry, coef, fields, out, iters, omega):
-    """One launch of jacobi_multisweep or corr_smooth (`entry`) in the
-    geometry of `multisweep_geometry`; returns that geometry."""
-    x = fields[0]
-    ny, nx = x.shape
-    ptrs = [t.data_ptr() for t in (*fields, coef.c_e, coef.c_w, coef.c_n,
-                                   coef.c_s, coef.diag, out)]
     geom = multisweep_geometry((ny, nx), x.dtype, iters,
                                aligned=all(p % 16 == 0 for p in ptrs),
                                kernel=entry)
     if isinstance(geom, PassGeometry):    # one sweep: a single pass
-        return _launch_pass(name, "jacobi_sweep", coef, fields, out, omega,
-                            geom)
-    lib, fn = _fn(f"{entry}_{_DTYPES[x.dtype]}", len(fields) + 6,
-                  (ctypes.c_int,) * 10 + (ctypes.c_float,))
-    args = (ny, nx, iters, int(geom.variant == "run"), geom.warps,
-            geom.halo[1], *geom.tile, *geom.grid, _omega(omega, x.dtype))
+        return _launch_pass(name, "jacobi_sweep", coef, fields, outs[0],
+                            omega, geom)
+    lib, fn = _fn(f"{entry}_{_DTYPES[x.dtype]}", len(ptrs),
+                  (ctypes.c_int,) * 11 + (ctypes.c_float,))
+    args = (ny, nx, iters, int(geom.variant == "run"), geom.rows,
+            geom.warps, geom.halo[1], *geom.tile, *geom.grid,
+            _omega(omega, x.dtype))
     with torch.cuda.device(x.device):   # launch on the operands' card
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*ptrs, *args, stream)
@@ -470,24 +488,23 @@ def jacobi_multisweep(coef, x, b, iters: int = 2, omega: float = 0.8):
         return jacobi_multisweep_plain(coef, x, b, iters, omega)
     out = torch.empty_like(x)
     geom = _launch_multisweep("jacobi_multisweep", "jacobi_multisweep", coef,
-                              (x, b), out, iters, omega)
+                              (x, b), (out,), iters, omega)
     _count(jacobi_multisweep, geom.variant, x)
     return out
 
 
 def smooth_residual(coef, x, b, iters: int = 2, omega: float = 0.8):
     """The V-cycle down leg, `iters` <= halo - 1 sweeps then the residual,
-    in one launch; returns (x, r). Replaces the TPU kernel
-    `smooth_residual_pallas`, tpufoam/ops/stencil.py:629. On CPU tensors:
-    `smooth_residual_plain`."""
+    in one launch in the geometry of `multisweep_geometry`; returns (x, r).
+    Replaces the TPU kernel `smooth_residual_pallas`,
+    tpufoam/ops/stencil.py:629. On CPU tensors: `smooth_residual_plain`."""
     if _check("smooth_residual", coef, (x, b), iters, "smooth_residual"):
         return smooth_residual_plain(coef, x, b, iters, omega)
-    x_out = torch.empty_like(x)
-    r_out = torch.empty_like(x)
-    _launch("smooth_residual", "smooth_residual", coef, (x, b),
-            (x_out, r_out), iters, omega)
-    _count(smooth_residual, "region", x)
-    return x_out, r_out
+    outs = (torch.empty_like(x), torch.empty_like(x))
+    geom = _launch_multisweep("smooth_residual", "smooth_residual", coef,
+                              (x, b), outs, iters, omega)
+    _count(smooth_residual, geom.variant, x)
+    return outs
 
 
 def corr_smooth(coef, x, corr, b, iters: int = 2, omega: float = 0.8):
@@ -499,14 +516,14 @@ def corr_smooth(coef, x, corr, b, iters: int = 2, omega: float = 0.8):
         return corr_smooth_plain(coef, x, corr, b, iters, omega)
     out = torch.empty_like(x)
     geom = _launch_multisweep("corr_smooth", "corr_smooth", coef,
-                              (x, corr, b), out, iters, omega)
+                              (x, corr, b), (out,), iters, omega)
     _count(corr_smooth, geom.variant, x)
     return out
 
 
 # launches, and launches by (variant, dtype, (ny, nx)): "vector" or "cell"
 # for the single-pass kernels (and one sweep of jacobi_multisweep), "run"
-# or "region" for the multisweep kernels
+# or "region" for the multisweep kernels (all three)
 for _fn_ in (stencil_matvec, jacobi_sweep, jacobi_multisweep,
              smooth_residual, corr_smooth):
     _fn_.launches = 0

@@ -258,6 +258,20 @@ def _warn_stiff_max_dt(case: Case, cfg: PisoConfig, limit: float = 4.0):
             stacklevel=3)
 
 
+def _rollout(case: Case, flow: Flow, chunks, cfg: PisoConfig, backend,
+             sm_predict) -> Flow:
+    """Eager PISO steps in `chunks` (step counts), the predictor bound
+    once."""
+    if sm_predict is not None:
+        sm_predict = _bind_sm(sm_predict, case)
+    with torch.no_grad():
+        for steps in chunks:
+            for _ in range(steps):
+                flow = piso_step(case, flow, cfg=cfg, backend=backend,
+                                 sm_predict=sm_predict)
+    return flow
+
+
 def run_piso_eager(case: Case, flow: Flow, n_steps: int,
                    cfg: PisoConfig = PisoConfig(), backend=CGBackend(),
                    sm_predict=None) -> Flow:
@@ -265,15 +279,21 @@ def run_piso_eager(case: Case, flow: Flow, n_steps: int,
     if n_steps <= 0:
         return flow
     _warn_stiff_max_dt(case, cfg)
-    if sm_predict is not None:
-        sm_predict = _bind_sm(sm_predict, case)
-    with torch.no_grad():
-        for _ in range(n_steps):
-            flow = piso_step(case, flow, cfg=cfg, backend=backend,
-                             sm_predict=sm_predict)
-    return flow
+    return _rollout(case, flow, (n_steps,), cfg, backend, sm_predict)
 
 
-# The JAX package's rollout in `chunk`-step jitted programs. PyTorch has
-# no such programs and runs every step eagerly: the same steps.
-run_piso_chunked = run_piso_eager
+def run_piso_chunked(case: Case, flow: Flow, n_steps: int,
+                     cfg: PisoConfig = PisoConfig(), backend=CGBackend(),
+                     sm_predict=None, chunk: int = 4) -> Flow:
+    """The JAX package's rollout in chunks of k = max(1, min(chunk,
+    n_steps)) steps, the remainder after them. JAX jits each chunk into
+    one program; PyTorch has no such programs and runs every step
+    eagerly, so `chunk` changes no result: this equals run_piso_eager bit
+    for bit."""
+    if n_steps <= 0:
+        return flow
+    _warn_stiff_max_dt(case, cfg)
+    k = max(1, min(chunk, n_steps))
+    n_chunks, rem = divmod(n_steps, k)
+    return _rollout(case, flow, (k,) * n_chunks + (rem,), cfg, backend,
+                    sm_predict)

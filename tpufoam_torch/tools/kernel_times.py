@@ -32,12 +32,15 @@ flush's kernel, a bitwise-not, left out):
 `--variants` times stencil_matvec again with the vector and with the cell
 variant wherever each can run (`ops.stencil._VECTOR_MIN_CELLS` 0 and
 unbounded): the measurement that sets that threshold.
-With `multisweep`, `--variants` also times jacobi_multisweep and
-corr_smooth at every level with the region kernel forced
-(`ops.stencil._REGION_BELOW_CELLS` unbounded) beside the variant
-`multisweep_geometry` picks, at the paths' sweeps and 2, and the run
-kernel at 512 x 2048 and 256 x 1024 with blocks of 4, 8 and 16 warps
-(`ops.stencil._run_warps`): the measurements that set the geometry.
+With `multisweep`, `--variants` also times the three multisweep kernels
+at every level with the region kernel forced
+(`ops.stencil._REGION_BELOW_CELLS` unbounded) beside the launch
+`multisweep_geometry` picks, at the paths' sweeps and 2, and where the
+run kernel takes a level, its blocks of three rows a thread and 4, 8 or
+16 warps, and of one row and 16 warps (`ops.stencil._run_rows`,
+`_run_warps`): the measurements that set the geometry.
+Each launch's variant is the one the tree's wrapper counted
+(`by_shape`).
 `--only` times the named sections alone (default: all three).
 Prints ptxas' registers, shared memory and spills of the build, the card's
 name and power limit, and one JSON line. Fails without a CUDA device.
@@ -46,6 +49,7 @@ name and power limit, and one JSON line. Fails without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -100,14 +104,14 @@ F32_RATE = 67e12       # H100 SXM float32 outside the tensor cores, op/s
 KERNEL_LEVELS = 6      # 512 x 2048 .. 16 x 64; the coarsest is plain
 
 
-def variant(st, name, shape, dt, iters):
-    """The variant a multisweep launch takes: `multisweep_geometry`'s for
-    jacobi_multisweep and corr_smooth where the tree has it, else the
-    region kernel."""
-    geometry = getattr(st, "multisweep_geometry", None)
-    if geometry is None or name == "smooth_residual":
-        return "region"
-    return geometry(shape, dt, iters, kernel=name).variant
+def variant(fn, call):
+    """The variant of one launch as the tree's own wrapper counted it:
+    the key of `fn.by_shape` that `call` grows (each tree names the
+    kernels it has)."""
+    before = collections.Counter(fn.by_shape)
+    call()
+    (key,) = (fn.by_shape - before).keys()
+    return key[0]
 
 
 def multisweep_levels(torch, st, operands, least):
@@ -136,7 +140,8 @@ def multisweep_levels(torch, st, operands, least):
                                    ) * 1e3
                     rows[name].append({
                         "shape": list(shape), "iters": k,
-                        "variant": variant(st, name, shape, dt, k),
+                        "variant": variant(getattr(st, name),
+                                           lambda: calls[name](k)),
                         "ms": least(lambda: calls[name](k)),
                         "bound_ms": bound_ms})
             rows["jacobi_sweep"].append({
@@ -149,9 +154,15 @@ def multisweep_levels(torch, st, operands, least):
 
 
 def multisweep_variants(torch, st, operands, least):
-    """jacobi_multisweep and corr_smooth with each variant forced at every
-    kernel level, and the run kernel's block height at the two finest."""
-    threshold, warps_of = st._REGION_BELOW_CELLS, st._run_warps
+    """The three multisweep kernels at every kernel level, at the paths'
+    sweeps and 2: the launch the tree picks, the region kernel forced,
+    and where the run kernel takes the level, its blocks of three rows a
+    thread and 4, 8 or 16 warps, and where the tree has them, of one row
+    and 16 warps."""
+    saved = {k: getattr(st, k) for k in (
+        "_REGION_BELOW_CELLS", "_run_warps", "_ONE_ROW_MAX_HALO")
+        if hasattr(st, k)}
+    rows_of = "_ONE_ROW_MAX_HALO" in saved
     times = {}
     try:
         for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -160,26 +171,39 @@ def multisweep_variants(torch, st, operands, least):
                 calls = {
                     "jacobi_multisweep": lambda k: st.jacobi_multisweep(
                         coef, x, b, k),
+                    "smooth_residual": lambda k: st.smooth_residual(
+                        coef, x, b, k),
                     "corr_smooth": lambda k: st.corr_smooth(coef, x, corr,
                                                              b, k)}
                 for name, call in calls.items():
                     for k in sorted({PATH_SWEEPS[name][prec], 2}):
-                        picked = variant(st, name, shape, dt, k)
+                        picked = variant(getattr(st, name),
+                                         lambda: call(k))
                         row = {"shape": list(shape), "iters": k,
                                "variant": picked,
                                "ms": least(lambda: call(k))}
                         st._REGION_BELOW_CELLS = 1 << 62
                         row["region_ms"] = least(lambda: call(k))
-                        st._REGION_BELOW_CELLS = threshold
-                        if picked == "run" and shape[0] >= 256:
-                            for w in (4, 8, 16):
-                                st._run_warps = lambda iters, w=w: w
-                                row[f"run {w} warps"] = least(
-                                    lambda: call(k))
-                            st._run_warps = warps_of
+                        st._REGION_BELOW_CELLS = saved["_REGION_BELOW_CELLS"]
+                        halo = k + (name == "smooth_residual")
+                        blocks = [(3, w) for w in (4, 8, 16)]
+                        if rows_of:
+                            blocks.append((1, 16))
+                        for rows, w in blocks if picked == "run" else ():
+                            if w * rows <= 2 * halo:
+                                continue          # no tile
+                            st._run_warps = lambda h, r=3, w=w: w
+                            if rows_of:      # one row everywhere, or none
+                                st._ONE_ROW_MAX_HALO = 99 if rows == 1 \
+                                    else -1
+                            row[f"run {rows} rows {w} warps"] = least(
+                                lambda: call(k))
+                            for key, v in saved.items():
+                                setattr(st, key, v)
                         times.setdefault(f"{name} {prec}", []).append(row)
     finally:
-        st._REGION_BELOW_CELLS, st._run_warps = threshold, warps_of
+        for k, v in saved.items():
+            setattr(st, k, v)
     return times
 
 
