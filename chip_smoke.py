@@ -49,15 +49,24 @@ Phases, each printing one JSON line with its elapsed seconds:
           2 and 8, float32 and bfloat16, at the same levels: bit for bit;
           its time per sweep
   kernel-sharded  the sharded kernels (ops.sharded) on meshes 2x2, 4x1,
-          1x4 and 4x2 of the one card at 512 x 2048: the momentum kernel
-          per block on the random and first-step operands, the
-          jacobi_multisweep kernel per block in float32 and bfloat16,
-          iters 1, 2 and the halo, on the finest level's operator and on
-          random operands; each bit for bit against the single-device
-          kernel, and against its sharded plain version (the momentum
-          kernel within its rel tolerance: it contracts multiply-adds);
-          their times on the 2x2 mesh, the kernels' own device time and
-          the launches of a call
+          1x4 and 4x2 of the one card at 512 x 2048, each call one window
+          launch (all the card's blocks, halos read in place, interiors
+          written into the global output), counted by route: the
+          momentum kernel on the random and first-step operands, the
+          jacobi_multisweep kernel in float32 and bfloat16, iters 1, 2
+          and the halo, on the finest level's operator, on random
+          operands and on random operands with a solid disc of zero diag
+          (which the sharded functions fill with 1); each bit for bit
+          against the single-device kernel (not on the disc: the single
+          kernel divides 0 by 0 there) and against its sharded plain
+          version (the momentum kernel within its rel tolerance: it
+          contracts multiply-adds); the window form's cell variant at
+          128 x 512 and the exchange route (blocks of 1030 columns, one
+          launch a block) on the 2x2 mesh, held the same way; the window
+          instantiations' ptxas registers and spills (0 required); their
+          times on the 2x2 mesh (momentum, 8 sweeps; jacobi f32 1 sweep,
+          bf16 2 sweeps and the halo), the kernels' own device time, the
+          rest (assembly) and the launches of a call
   step    the hybrid PISO main path (run_piso_eager, MG bf16 backend with
           the plain smoother, sm_ref512 warm start) for a few steps
   step-sharded  the same path through parallel.mesh.make_sharded_piso_step
@@ -121,6 +130,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -358,6 +368,9 @@ def main() -> int:
     def reset_counts(predictor=None):
         for fn in counters.values():
             fn.launches = 0
+        for fn in (sh.momentum_multisweep_sharded,
+                   sh.jacobi_multisweep_sharded):
+            fn.by_route.clear()
         for fn in (st.stencil_matvec, st.jacobi_sweep, st.jacobi_multisweep,
                    st.smooth_residual, st.corr_smooth):
             fn.by_shape.clear()
@@ -401,6 +414,29 @@ def main() -> int:
                       if "registers" in ln or "smem" in ln
                       or "spill" in ln or "Compiling entry" in ln]
                for name, log in logs.items()})
+    # the window launches' instantiations (their last template argument
+    # WINDOW = true): registers and spills, one entry each, named by the
+    # kernel and its mangled template arguments
+    window_ptxas = []
+    for log in logs.values():
+        entry = None
+        for ln in log.splitlines():
+            if "Compiling entry" in ln:
+                name = ln.split("'")[1]
+                entry = None
+                if "Lb1EEEv" in name:
+                    # <length><name>_kernel, then I<arguments>EEEv
+                    m = re.search(r"\d\d([a-z_]+_kernel)(I.*?EEE)v", name)
+                    entry = "".join(m.groups())
+            elif entry and "spill" in ln:
+                window_ptxas.append({"entry": entry, "spills": ln.strip()})
+            elif entry and "registers" in ln:
+                window_ptxas[-1]["registers"] = int(
+                    ln.split("Used ")[1].split()[0])
+    # (nothing is printed for a library that was up to date)
+    check(not all(logs.values()) or len(window_ptxas) == 9 and all(
+        w["spills"].startswith("0 bytes stack frame, 0 bytes spill stores")
+        for w in window_ptxas), f"window instantiations: {window_ptxas}")
 
     # ---- momentum kernel vs plain, random structured operands ------------
     rng = np.random.default_rng(0)
@@ -943,8 +979,9 @@ def main() -> int:
                            devices=[dev] * (shape[0] * shape[1]))
 
     def own_share(times, kernels, n):
-        """The kernels' own device ms, the rest (the split, exchange,
-        stack and crop) and the launches, per call of a cold profile."""
+        """The kernels' own device ms, the rest (on the exchange route the
+        split, exchange, stack and crop; none on the window route) and the
+        launches, per call of a cold profile."""
         own = sum(t for k, (t, _) in times.items()
                   if any(name in k for name in kernels))
         check(own > 0, f"no device time of {kernels} in the profile")
@@ -953,8 +990,33 @@ def main() -> int:
                     assembly_ms=(total - own) / 1e3 / n,
                     launches_per_call=sum(c for _, c in times.values()) / n)
 
+    def zero_diag_disc(shape, dt):
+        """disc_operands with the disc's diag 0 (no conductance, x = b =
+        0 there): the cells whose diag the sharded wrappers fill with 1
+        (the single kernel would divide 0 by 0 there)."""
+        c_, x_, b_, _ = disc_operands(shape, dt)
+        yy = torch.arange(shape[0], device=dev)[:, None] - shape[0] / 2
+        xx = torch.arange(shape[1], device=dev)[None] - shape[1] / 4
+        solid = yy * yy + xx * xx < (shape[0] / 8) ** 2
+        return (PressureCoeffs(c_.c_e, c_.c_w, c_.c_n, c_.c_s, c_.c_out,
+                               c_.diag.masked_fill(solid, 0)), x_, b_, None)
+
+    def routed(fn, call, launches, route, where):
+        """call(), checking that it made `launches` launches of `fn`'s
+        kernel, all by `route`."""
+        n0, r0 = fn.launches, fn.by_route[route]
+        got = call()
+        torch.cuda.synchronize()
+        check(fn.launches == n0 + launches
+              and fn.by_route[route] == r0 + launches,
+              f"{where}: {fn.launches - n0} launches, "
+              f"{fn.by_route[route] - r0} by the {route} route, not "
+              f"{launches}")
+        return got
+
     jac_ops = {prec: (("level 512x2048", level_operands(*fine[0], dt)),
-                      ("random", random_operands(dt)))
+                      ("random", random_operands(dt)),
+                      ("zero-diag disc", zero_diag_disc((NY, NX), dt)))
                for prec, dt in dtypes.items()}
     msh = {"max_abs_err": 0.0, "max_rel_err": 0.0, "checked": 0}
     jsh = {"max_abs_err": 0.0, "checked": 0}
@@ -962,11 +1024,9 @@ def main() -> int:
         mesh = card_mesh(shape)
         for label, ops in (("random", ops_rand), ("first step", ops_real)):
             where = f"momentum_multisweep_sharded {shape} {label}"
-            n0 = sh.momentum_multisweep_sharded.launches
-            got = sh.momentum_multisweep_sharded(mesh, *ops, sweeps=SWEEPS)
-            torch.cuda.synchronize()
-            check(sh.momentum_multisweep_sharded.launches == n0 + 1,
-                  f"{where}: not one launch for the card")
+            got = routed(sh.momentum_multisweep_sharded,
+                         lambda: sh.momentum_multisweep_sharded(
+                             mesh, *ops, sweeps=SWEEPS), 1, "window", where)
             exact(where + " vs the single kernel", got,
                   momentum_multisweep(*ops, sweeps=SWEEPS))
             plain = sh.momentum_multisweep_sharded_plain(mesh, *ops,
@@ -981,64 +1041,105 @@ def main() -> int:
             msh["checked"] += 1
         for prec, dt in dtypes.items():
             for label, (c_, x_, b_, _) in jac_ops[prec]:
+                # the disc's zero diag: the single kernel divides 0 by 0
+                # there, the sharded functions fill it (both routes)
+                single = label != "zero-diag disc"
                 for iters in (1, 2, st._halo_for(dt)):
                     where = (f"jacobi_multisweep_sharded {shape} {prec} "
                              f"{label} iters {iters}")
-                    n0 = sh.jacobi_multisweep_sharded.launches
-                    got = sh.jacobi_multisweep_sharded(mesh, c_, x_, b_,
-                                                       iters)
-                    torch.cuda.synchronize()
-                    check(sh.jacobi_multisweep_sharded.launches
-                          == n0 + mesh.size,
-                          f"{where}: not one launch per block")
-                    exact(where + " vs the single kernel", (got,),
-                          (st.jacobi_multisweep(c_, x_, b_, iters),))
+                    got = routed(sh.jacobi_multisweep_sharded,
+                                 lambda: sh.jacobi_multisweep_sharded(
+                                     mesh, c_, x_, b_, iters), 1, "window",
+                                 where)
+                    if single:
+                        exact(where + " vs the single kernel", (got,),
+                              (st.jacobi_multisweep(c_, x_, b_, iters),))
                     plain = sh.jacobi_multisweep_sharded_plain(
                         mesh, c_, x_, b_, iters)
+                    check(bool(torch.isfinite(plain).all()),
+                          f"{where}: plain not finite")
                     jsh["max_abs_err"] = max(jsh["max_abs_err"], exact(
                         where + " vs plain", (got,), (plain,)))
-                    exact(where + ": plain vs the global plain", (plain,),
-                          (st.jacobi_multisweep_plain(c_, x_, b_, iters),))
+                    if single:
+                        exact(where + ": plain vs the global plain",
+                              (plain,), (st.jacobi_multisweep_plain(
+                                  c_, x_, b_, iters),))
+                    jsh["checked"] += 1
+    # the window form's cell variant (one sweep, fewer than 2^19 cells in
+    # all) and the exchange route (blocks of 1030 columns: no whole number
+    # of 16-byte runs), on the 2 x 2 mesh
+    mesh22 = card_mesh(SHARD_MESHES[0])
+    for prec, dt in dtypes.items():
+        for shape, route, per_call in (((128, 512), "window", 1),
+                                       ((NY, 2060), "exchange", 4)):
+            c_, x_, b_, _ = zero_diag_disc(shape, dt)
+            c_r, x_r, b_r = random_edge_operands(shape, dt)
+            for iters in ((1,) if route == "window"
+                          else (1, 2, st._halo_for(dt))):
+                check(set(sh.sharded_routes(
+                    mesh22, shape, dt, "jacobi", iters).values())
+                    == {route}, f"{shape} {prec}: not the {route} route")
+                where = (f"jacobi_multisweep_sharded {shape} {prec} "
+                         f"iters {iters} ({route})")
+                for ops_, single in (((c_, x_, b_), False),
+                                     ((c_r, x_r, b_r), True)):
+                    got = routed(sh.jacobi_multisweep_sharded,
+                                 lambda: sh.jacobi_multisweep_sharded(
+                                     mesh22, *ops_, iters), per_call, route,
+                                 where)
+                    if single:
+                        exact(where + " vs the single kernel", (got,),
+                              (st.jacobi_multisweep(*ops_, iters),))
+                    exact(where + " vs plain", (got,),
+                          (sh.jacobi_multisweep_sharded_plain(
+                              mesh22, *ops_, iters),))
                     jsh["checked"] += 1
     # times on the 2 x 2 mesh: the momentum kernel on the first step's
-    # operands, the pressure kernel in float32 with one sweep (MGCG's
-    # V(1,1)), each beside its single-device kernel's row
-    mesh22 = card_mesh(SHARD_MESHES[0])
-    c_, x_, b_, _ = jac_ops["f32"][0][1]
+    # operands; the pressure multisweep in float32 with one sweep (MGCG's
+    # V(1,1)), and in bfloat16 at 2 sweeps and at the halo; each with the
+    # kernels' own device time, the rest (allocation, and on the exchange
+    # route the assembly) and the launches of a call
+    kernel_names = ("momentum_multisweep_kernel", "stencil_run_kernel",
+                    "stencil_cell_kernel", "multisweep_run_kernel",
+                    "pressure_stencil_kernel")
 
     def msh_call():
         return sh.momentum_multisweep_sharded(mesh22, *ops_real,
                                               sweeps=SWEEPS)
 
-    def jsh_call():
-        return sh.jacobi_multisweep_sharded(mesh22, c_, x_, b_, 1)
-
     t_msh = timings(msh_call, lambda: sh.momentum_multisweep_sharded_plain(
         mesh22, *ops_real, sweeps=SWEEPS), 200, 20, torch, flush)
-    t_jsh = timings(jsh_call, lambda: sh.jacobi_multisweep_sharded_plain(
-        mesh22, c_, x_, b_, 1), 200, 20, torch, flush)
+    split_msh = own_share(cold_kernels(msh_call, 50, torch, flush),
+                          kernel_names, 50)
     b_msh = sharded_bound("momentum_multisweep", (NY, NX),
                           SHARD_MESHES[0], "f32")
-    b_jsh = sharded_bound("jacobi_multisweep", (NY, NX), SHARD_MESHES[0],
-                          "f32", sweeps=1)
-    split_msh = own_share(cold_kernels(msh_call, 50, torch, flush),
-                          ("momentum_multisweep_kernel",), 50)
-    # one sweep a block: the single-pass kernels (multisweep_geometry)
-    split_jsh = own_share(cold_kernels(jsh_call, 50, torch, flush),
-                          ("stencil_run_kernel", "stencil_cell_kernel",
-                           "multisweep_run_kernel",
-                           "pressure_stencil_kernel"), 50)
+    jsh_times = {}
+    for prec, iters in (("f32", 1), ("bf16", 2),
+                        ("bf16", st._halo_for(torch.bfloat16))):
+        c_, x_, b_, _ = jac_ops[prec][0][1]
+
+        def jsh_call():
+            return sh.jacobi_multisweep_sharded(mesh22, c_, x_, b_, iters)
+
+        t_j = timings(jsh_call, lambda: sh.jacobi_multisweep_sharded_plain(
+            mesh22, c_, x_, b_, iters), 200, 20, torch, flush)
+        b_j = sharded_bound("jacobi_multisweep", (NY, NX), SHARD_MESHES[0],
+                            prec, sweeps=iters)
+        jsh_times[f"{prec} iters {iters}"] = dict(
+            **t_j, **own_share(cold_kernels(jsh_call, 50, torch, flush),
+                               kernel_names, 50),
+            bound_ms=b_j["bound_us"] / 1e3, bound_by=b_j["bound_by"],
+            share_of_bound=b_j["bound_us"] / 1e3 / t_j["ms"])
+    t_jsh = jsh_times["f32 iters 1"]
     say("kernel-sharded", meshes=[list(m) for m in SHARD_MESHES],
+        by_route={"momentum": dict(sh.momentum_multisweep_sharded.by_route),
+                  "jacobi": dict(sh.jacobi_multisweep_sharded.by_route)},
+        ptxas_window=window_ptxas,
         momentum={**msh, **t_msh, **split_msh,
                   "bound_ms": b_msh["bound_us"] / 1e3,
-                  "bound_by": b_msh["bound_by"], "block": b_msh["block"],
-                  "haloed_bound_ms": b_msh["haloed_bound_us"] / 1e3,
+                  "bound_by": b_msh["bound_by"],
                   "share_of_bound": b_msh["bound_us"] / 1e3 / t_msh["ms"]},
-        jacobi={**jsh, **t_jsh, **split_jsh, "dtype": "f32", "iters": 1,
-                "bound_ms": b_jsh["bound_us"] / 1e3,
-                "bound_by": b_jsh["bound_by"], "block": b_jsh["block"],
-                "haloed_bound_ms": b_jsh["haloed_bound_us"] / 1e3,
-                "share_of_bound": b_jsh["bound_us"] / 1e3 / t_jsh["ms"]})
+        jacobi={**jsh, "times": jsh_times})
 
     # ---- the main path ---------------------------------------------------
     def drive(label, flow, n, be, sm, warm=0, run=None,
@@ -1144,6 +1245,9 @@ def main() -> int:
     check(k["momentum_multisweep"] == 0,
           f"step-sharded: {k['momentum_multisweep']} single-device "
           "momentum launches")
+    sharded_routes = dict(sh.momentum_multisweep_sharded.by_route)
+    check(sharded_routes == {"window": N_STEPS},
+          f"step-sharded: momentum launches by route {sharded_routes}")
     sharded_step_launches = k
 
     # ---- one sharded step against one piso_step, same state -------------
@@ -1759,7 +1863,9 @@ def main() -> int:
         "plain_ms": t_msh["plain_ms"],
         "bound_ms": b_msh["bound_us"] / 1e3,
         "bound_by": b_msh["bound_by"],
-        "haloed_bound_ms": b_msh["haloed_bound_us"] / 1e3,
+        "call_ms": t_msh["call_ms"],
+        "assembly_ms": split_msh["assembly_ms"],
+        "launches_per_call": split_msh["launches_per_call"],
         "library_ms": None,
     })
     kernels.append({
@@ -1771,9 +1877,11 @@ def main() -> int:
         "max_abs_err": jsh["max_abs_err"],
         "ms": t_jsh["ms"],
         "plain_ms": t_jsh["plain_ms"],
-        "bound_ms": b_jsh["bound_us"] / 1e3,
-        "bound_by": b_jsh["bound_by"],
-        "haloed_bound_ms": b_jsh["haloed_bound_us"] / 1e3,
+        "bound_ms": t_jsh["bound_ms"],
+        "bound_by": t_jsh["bound_by"],
+        "call_ms": t_jsh["call_ms"],
+        "assembly_ms": t_jsh["assembly_ms"],
+        "launches_per_call": t_jsh["launches_per_call"],
         "library_ms": None,
     })
     say("done", total_s=round(time.time() - T0, 3))

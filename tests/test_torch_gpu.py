@@ -470,17 +470,19 @@ def _card_mesh(shape, devices):
 @pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2), (1, 4)])
 @pytest.mark.parametrize("shape", [(512, 2048), (64, 96)])
 def test_sharded_momentum_equals_the_single_kernel(cuda, shape, mesh_shape):
-    """Four or eight blocks of one card in one launch, against one launch
-    over the whole grid: bit for bit (each kept cell runs the same
+    """Four or eight blocks of one card in one window launch, against one
+    launch over the whole grid: bit for bit (each kept cell runs the same
     arithmetic on the same values)."""
     from tpufoam_torch.ops import sharded as tsh
 
     mesh = _card_mesh(mesh_shape, [cuda] * (mesh_shape[0] * mesh_shape[1]))
     ops = _operands(*shape, seed=3, device=cuda)
     before = tsh.momentum_multisweep_sharded.launches
+    window = tsh.momentum_multisweep_sharded.by_route["window"]
     got = tsh.momentum_multisweep_sharded(mesh, *ops, sweeps=8)
     torch.cuda.synchronize()
     assert tsh.momentum_multisweep_sharded.launches == before + 1
+    assert tsh.momentum_multisweep_sharded.by_route["window"] == window + 1
     ref = tmom.momentum_multisweep(*ops, sweeps=8)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
@@ -490,33 +492,103 @@ def test_sharded_momentum_equals_the_single_kernel(cuda, shape, mesh_shape):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2), (4, 1), (1, 4)])
 def test_sharded_jacobi_equals_the_single_kernel(cuda, mesh_shape, dtype):
+    """All the blocks of one card in one window launch (one sweep: the
+    single-pass kernels; more: the run kernel), against the single kernel
+    over the whole grid and the sharded plain version: bit for bit."""
     from tpufoam_torch.ops import sharded as tsh
 
     mesh = _card_mesh(mesh_shape, [cuda] * (mesh_shape[0] * mesh_shape[1]))
     coef, x, b, _ = _pressure_operands(512, 2048, dtype, 5, cuda)
     for iters in (1, 2, ts._halo_for(dtype)):
         before = tsh.jacobi_multisweep_sharded.launches
+        window = tsh.jacobi_multisweep_sharded.by_route["window"]
         got = tsh.jacobi_multisweep_sharded(mesh, coef, x, b, iters)
         torch.cuda.synchronize()
-        assert tsh.jacobi_multisweep_sharded.launches == before + mesh.size
+        assert tsh.jacobi_multisweep_sharded.launches == before + 1
+        assert tsh.jacobi_multisweep_sharded.by_route["window"] == window + 1
         assert torch.equal(got, ts.jacobi_multisweep(coef, x, b, iters))
+        assert torch.equal(got, tsh.jacobi_multisweep_sharded_plain(
+            mesh, coef, x, b, iters))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sharded_jacobi_exchange_route_on_odd_widths(cuda, dtype):
+    """Blocks of 1030 columns (no whole number of 16-byte runs in either
+    dtype) take the exchange route: one launch of the jacobi_multisweep
+    kernel per haloed block, bit for bit against the single kernel and
+    the sharded plain version."""
+    from tpufoam_torch.ops import sharded as tsh
+
+    mesh = _card_mesh((2, 2), [cuda] * 4)
+    coef, x, b, _ = _pressure_operands(512, 2060, dtype, 6, cuda)
+    for iters in (1, 2, ts._halo_for(dtype)):
+        assert set(tsh.sharded_routes(mesh, (512, 2060), dtype, "jacobi",
+                                      iters).values()) == {"exchange"}
+        before = tsh.jacobi_multisweep_sharded.launches
+        exchange = tsh.jacobi_multisweep_sharded.by_route["exchange"]
+        got = tsh.jacobi_multisweep_sharded(mesh, coef, x, b, iters)
+        torch.cuda.synchronize()
+        assert tsh.jacobi_multisweep_sharded.launches == before + 4
+        assert tsh.jacobi_multisweep_sharded.by_route["exchange"] \
+            == exchange + 4
+        assert torch.equal(got, ts.jacobi_multisweep(coef, x, b, iters))
+        assert torch.equal(got, tsh.jacobi_multisweep_sharded_plain(
+            mesh, coef, x, b, iters))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2), (1, 4)])
+def test_sharded_jacobi_window_fills_zero_diag(cuda, mesh_shape, dtype):
+    """Solid cells with no conductance, a zero diag, x = b = 0 (a disc):
+    the window launch fills the diag's zeros with 1 as it loads, as the
+    sharded plain version fills the haloed diag; bit for bit at iters 1,
+    2 and the halo, at 512 x 2048 and at 128 x 512 (the cell variant)."""
+    from tpufoam_torch.ops import sharded as tsh
+
+    mesh = _card_mesh(mesh_shape, [cuda] * (mesh_shape[0] * mesh_shape[1]))
+    for shape in ((512, 2048), (128, 512)):
+        coef, x, b, _ = _disc_operands(shape, dtype, 8, cuda)
+        yy = torch.arange(shape[0], device=cuda)[:, None] - shape[0] / 2
+        xx = torch.arange(shape[1], device=cuda)[None] - shape[1] / 4
+        solid = yy * yy + xx * xx < (shape[0] / 8) ** 2
+        coef = PressureCoeffs(coef.c_e, coef.c_w, coef.c_n, coef.c_s,
+                              coef.c_out, coef.diag.masked_fill(solid, 0))
+        for iters in (1, 2, ts._halo_for(dtype)):
+            before = tsh.jacobi_multisweep_sharded.launches
+            got = tsh.jacobi_multisweep_sharded(mesh, coef, x, b, iters)
+            torch.cuda.synchronize()
+            assert tsh.jacobi_multisweep_sharded.launches == before + 1
+            ref = tsh.jacobi_multisweep_sharded_plain(mesh, coef, x, b,
+                                                      iters)
+            assert bool(torch.isfinite(ref).all())
+            assert torch.equal(got, ref), (shape, iters)
 
 
 def test_sharded_kernels_across_two_cards(cuda):
-    """A (1, 2) mesh over cuda:0 and cuda:1: each launcher runs on its
-    operands' card, the halos cross by peer copies, and the result equals
-    the single kernel on cuda:0 bit for bit."""
+    """A (1, 2) mesh over cuda:0 and cuda:1, operands on cuda:0: block
+    (0, 0) takes the window route on cuda:0, block (0, 1) the exchange
+    route on cuda:1 (its halo crosses by a peer copy); each launcher runs
+    on its operands' card, and the result equals the single kernel on
+    cuda:0 bit for bit."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     from tpufoam_torch.ops import sharded as tsh
 
     mesh = _card_mesh((1, 2), ["cuda:0", "cuda:1"])
     ops = _operands(256, 1024, seed=9, device=torch.device("cuda:0"))
+    assert tsh.sharded_routes(mesh, (256, 1024)) == {
+        torch.device("cuda:0"): "window", torch.device("cuda:1"): "exchange"}
     before = tsh.momentum_multisweep_sharded.launches
+    routes = dict(tsh.momentum_multisweep_sharded.by_route)
     got = tsh.momentum_multisweep_sharded(mesh, *ops, sweeps=8)
     torch.cuda.synchronize(0)
     torch.cuda.synchronize(1)
     assert tsh.momentum_multisweep_sharded.launches == before + 2
+    for route in ("window", "exchange"):
+        assert tsh.momentum_multisweep_sharded.by_route[route] \
+            == routes.get(route, 0) + 1
     for g, r in zip(got, tmom.momentum_multisweep(*ops, sweeps=8)):
         assert torch.equal(g, r)
     for dtype in (torch.float32, torch.bfloat16):

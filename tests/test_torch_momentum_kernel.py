@@ -171,48 +171,92 @@ def test_zero_padded_edges_and_solid_cells():
     torch.testing.assert_close(u[0, 0], ref)
 
 
+def _sweep_tile(ops, y0, x0, tile, halo, sweeps, bounds=None):
+    """One kernel block of the CUDA kernel's schedule in numpy: the tile
+    at (y0, x0) of tile = (rows, columns) outputs loads u, v and the
+    coefficients over the tile plus `halo` cells per side, zeros outside
+    `bounds` = (y_lo, y_hi, x_lo, x_hi) (the domain if None; a block's
+    haloed window in the window launch), freezes the region's outer ring
+    and the cells loaded as zero once, sweeps, and returns the tile's
+    (u, v)."""
+    ty, tx = tile
+    a_e, a_w, a_n, a_s, api, bu, bv, u0, v0 = ops
+    ny, nx = u0.shape
+    y_lo, y_hi, x_lo, x_hi = bounds or (0, ny, 0, nx)
+    gy = np.arange(y0 - halo, y0 + ty + halo)
+    gx = np.arange(x0 - halo, x0 + tx + halo)
+    inside = ((gy[:, None] >= y_lo) & (gy[:, None] < y_hi)
+              & (gx[None, :] >= x_lo) & (gx[None, :] < x_hi))
+    live = inside.copy()
+    live[[0, -1], :] = False
+    live[:, [0, -1]] = False
+    cy, cx = np.clip(gy, 0, ny - 1), np.clip(gx, 0, nx - 1)
+
+    def region(a):
+        return np.where(inside, a[cy][:, cx], 0.0).astype(np.float32)
+
+    ae, aw, an, as_, ai = (region(a) for a in (a_e, a_w, a_n, a_s, api))
+    tiles = []
+    for b, x0_ in ((bu, u0), (bv, v0)):
+        b, x = region(b), region(x0_)
+        for _ in range(sweeps):
+            y = (ae * np.roll(x, -1, 1) + aw * np.roll(x, 1, 1)
+                 + an * np.roll(x, -1, 0) + as_ * np.roll(x, 1, 0)
+                 + b) * ai
+            x = np.where(live, y, x).astype(np.float32)
+        tiles.append(x[halo:halo + ty, halo:halo + tx])
+    return tiles
+
+
 def _tiled_schedule(ops, sweeps, tile=tmom.TILE, halo=tmom.MAX_SWEEPS):
-    """The CUDA kernel's schedule in numpy: each block of tile = (rows,
-    columns) outputs loads u, v and the coefficients over the tile plus
-    `halo` cells per side (zeros beyond the domain), freezes the region's
-    outer ring and the cells beyond the domain once, sweeps, and keeps
-    only the tile. Operands (ny, nx) or (B, ny, nx): each plane alone, as
-    the batched launch's blockIdx.z."""
+    """The CUDA kernel's schedule in numpy (`_sweep_tile` for each tile
+    of the plane), keeping only each tile's cells inside the domain.
+    Operands (ny, nx) or (B, ny, nx): each plane alone, as the batched
+    launch's blockIdx.z."""
     if np.asarray(ops[0]).ndim == 3:
         per_plane = [_tiled_schedule([np.asarray(a)[k] for a in ops],
                                      sweeps, tile, halo)
                      for k in range(np.asarray(ops[0]).shape[0])]
         return [np.stack([p[f] for p in per_plane]) for f in range(2)]
     ty, tx = (tile, tile) if np.isscalar(tile) else tile
-    a_e, a_w, a_n, a_s, api, bu, bv, u0, v0 = (np.asarray(a) for a in ops)
-    ny, nx = u0.shape
-    outs = [np.zeros_like(u0), np.zeros_like(v0)]
+    ops = [np.asarray(a) for a in ops]
+    ny, nx = ops[7].shape
+    outs = [np.zeros_like(ops[7]), np.zeros_like(ops[8])]
     for y0 in range(0, ny, ty):
         for x0 in range(0, nx, tx):
-            gy = np.arange(y0 - halo, y0 + ty + halo)
-            gx = np.arange(x0 - halo, x0 + tx + halo)
-            inside = ((gy[:, None] >= 0) & (gy[:, None] < ny)
-                      & (gx[None, :] >= 0) & (gx[None, :] < nx))
-            live = inside.copy()
-            live[[0, -1], :] = False
-            live[:, [0, -1]] = False
-            cy, cx = np.clip(gy, 0, ny - 1), np.clip(gx, 0, nx - 1)
+            h, w = min(ty, ny - y0), min(tx, nx - x0)
+            for out, core in zip(outs, _sweep_tile(ops, y0, x0, (ty, tx),
+                                                   halo, sweeps)):
+                out[y0:y0 + h, x0:x0 + w] = core[:h, :w]
+    return outs
 
-            def region(a):
-                return np.where(inside, a[cy][:, cx], 0.0).astype(np.float32)
 
-            ae, aw, an, as_, ai = (region(a) for a in (a_e, a_w, a_n, a_s,
-                                                        api))
-            for k, (b, x0_) in enumerate(((bu, u0), (bv, v0))):
-                b, x = region(b), region(x0_)
-                for _ in range(sweeps):
-                    y = (ae * np.roll(x, -1, 1) + aw * np.roll(x, 1, 1)
-                         + an * np.roll(x, -1, 0) + as_ * np.roll(x, 1, 0)
-                         + b) * ai
-                    x = np.where(live, y, x).astype(np.float32)
-                core = x[halo:halo + ty, halo:halo + tx]
-                h, w = min(ty, ny - y0), min(tx, nx - x0)
-                outs[k][y0:y0 + h, x0:x0 + w] = core[:h, :w]
+def _window_schedule(ops, sweeps, mesh, tile=tmom.TILE,
+                     halo=tmom.MAX_SWEEPS, short=0):
+    """The kernel's window launch (ops/sharded.py on a card that holds
+    the global operands) in numpy: for each block of the (dy, dx) mesh,
+    tiles from the block's origin over its interior, each loading the
+    global operands with zeros outside the block's haloed window (`halo`
+    cells along a split axis, 0 along a whole one) or the domain, and
+    storing only its cells inside the block. `short` cuts the window that
+    many rows short along y (a mutation: at the full halo it must fail)."""
+    ty, tx = tile
+    ops = [np.asarray(a) for a in ops]
+    ny, nx = ops[7].shape
+    (dy, dx), (nyl, nxl) = mesh, (ny // mesh[0], nx // mesh[1])
+    hy, hx = (halo - short) * (dy > 1), halo * (dx > 1)
+    outs = [np.full_like(ops[7], np.nan), np.full_like(ops[8], np.nan)]
+    for i in range(dy):
+        for j in range(dx):
+            oy, ox = i * nyl, j * nxl
+            bounds = (max(oy - hy, 0), min(oy + nyl + hy, ny),
+                      max(ox - hx, 0), min(ox + nxl + hx, nx))
+            for y0 in range(oy, oy + nyl, ty):
+                for x0 in range(ox, ox + nxl, tx):
+                    h, w = min(ty, oy + nyl - y0), min(tx, ox + nxl - x0)
+                    for out, core in zip(outs, _sweep_tile(
+                            ops, y0, x0, (ty, tx), halo, sweeps, bounds)):
+                        out[y0:y0 + h, x0:x0 + w] = core[:h, :w]
     return outs
 
 
@@ -298,3 +342,57 @@ def test_tiled_schedule_needs_sweeps_within_the_halo(halo, sweeps, exact):
     err = max(float(np.abs(g - r.numpy()).max()) for g, r in zip(got, ref))
     scale = max(float(r.abs().max()) for r in ref)
     assert (err <= RTOL * scale) == exact, err / scale
+
+
+WINDOW_MESHES = [(2, 2), (4, 1), (1, 4), (4, 2)]
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 8])
+@pytest.mark.parametrize("mesh", WINDOW_MESHES,
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+def test_window_schedule_equals_the_sharded_plain_version(operands, mesh,
+                                                          sweeps):
+    """The window launch's schedule, bit for bit against
+    `momentum_multisweep_sharded_plain` (the plain sweeps on each block's
+    haloed window): on the 64 x 256 cylinder channel's operands (solid
+    cells; blocks of 128 and 64 columns, no whole number of 48-column
+    tiles, so tiles straddle the block edges and load across them) and
+    on random operands of 96 x 192 (blocks of 96 and 48 columns, whole
+    tiles), at 1, 2 and 8 sweeps (the halo)."""
+    from tpufoam_torch.ops import sharded as tsh
+    from tpufoam_torch.parallel.mesh import device_mesh
+
+    *_, chan = operands
+    rand = [a[0] for a in _batched_operands(1, 96, 192, seed=sweeps)]
+    cpu = device_mesh(mesh[0] * mesh[1], shape=mesh,
+                      devices=["cpu"] * (mesh[0] * mesh[1]))
+    for ops in ([np.asarray(a) for a in chan], rand):
+        got = _window_schedule(ops, sweeps, mesh)
+        ref = tsh.momentum_multisweep_sharded_plain(
+            cpu, *(T(a) for a in ops), sweeps=sweeps)
+        for g, r in zip(got, ref):
+            assert torch.equal(T(g), r), (mesh, sweeps, ops[0].shape)
+
+
+def test_window_schedule_one_row_short_fails():
+    """The check above has teeth: a window one row short along y at the
+    full halo (8 sweeps) leaves out the row 8 cells beyond the block,
+    which reaches the block's first row on the 8th sweep. Weakly dominant
+    operands (each hop passes ~1/4 of a neighbour's value) keep that
+    reach above float32's rounding; with the right window the schedule
+    equals the sharded plain version."""
+    from tpufoam_torch.ops import sharded as tsh
+    from tpufoam_torch.parallel.mesh import device_mesh
+
+    rng = np.random.default_rng(13)
+    a = [rng.uniform(0, 1, (64, 96)).astype(np.float32) for _ in range(4)]
+    api = (1.0 / (sum(a) + 0.1)).astype(np.float32)
+    rest = [rng.standard_normal((64, 96)).astype(np.float32)
+            for _ in range(4)]
+    ops = [*a, api, *rest]
+    cpu = device_mesh(4, shape=(2, 2), devices=["cpu"] * 4)
+    ref = tsh.momentum_multisweep_sharded_plain(cpu, *(T(x) for x in ops),
+                                                sweeps=8)
+    for short, exact in ((0, True), (1, False)):
+        got = _window_schedule(ops, 8, (2, 2), short=short)
+        assert all(torch.equal(T(g), r) for g, r in zip(got, ref)) == exact

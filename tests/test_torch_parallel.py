@@ -203,6 +203,83 @@ def test_sharded_jacobi_plain_equals_global_plain(shape, prec):
                 (fn.__name__, iters)
 
 
+# ---- the routes: window and exchange -----------------------------------------
+
+
+def test_routes_by_mesh_dtype_and_width(monkeypatch):
+    """The operands' card's blocks take the window route (up to
+    MAX_WINDOW_BLOCKS of them), every other card's the exchange route;
+    the pressure multisweep's window form also needs a block width of
+    whole 16-byte runs (4 float32, 8 bfloat16 cells), 16-byte aligned
+    operands and a plane the region kernel would not take."""
+    cpu = torch.device("cpu")
+    for shape in ((2, 2), (4, 1), (1, 4), (4, 2)):
+        mesh = cpu_mesh(shape)
+        for dt in (torch.float32, torch.bfloat16):
+            assert tsh.sharded_routes(mesh, (64, 256), dt) \
+                == {cpu: "window"}
+            for iters in (1, 2, 16 if dt == torch.bfloat16 else 8):
+                assert tsh.sharded_routes(mesh, (64, 256), dt, "jacobi",
+                                          iters) == {cpu: "window"}
+                assert tsh.sharded_routes(mesh, (64, 256), dt, "jacobi",
+                                          iters, aligned=False) \
+                    == {cpu: "exchange"}
+    m22 = cpu_mesh((2, 2))
+    # blocks of 34 columns: no whole number of runs in either dtype; of
+    # 36: whole float32 runs, no whole bfloat16 runs
+    for dt in (torch.float32, torch.bfloat16):
+        assert tsh.sharded_routes(m22, (64, 68), dt, "jacobi", 2) \
+            == {cpu: "exchange"}
+        assert tsh.sharded_routes(m22, (64, 68), dt) == {cpu: "window"}
+    assert tsh.sharded_routes(m22, (64, 72), torch.float32, "jacobi", 2) \
+        == {cpu: "window"}
+    assert tsh.sharded_routes(m22, (64, 72), torch.bfloat16, "jacobi", 2) \
+        == {cpu: "exchange"}
+    # blocks on another device than the operands', and more blocks than
+    # one window launch takes
+    two = tmesh.device_mesh(2, shape=(1, 2), devices=["cpu", "meta"])
+    for kernel in ("momentum", "jacobi"):
+        assert tsh.sharded_routes(two, (32, 64), kernel=kernel) == {
+            cpu: "window", torch.device("meta"): "exchange"}
+        assert tsh.sharded_routes(two, (32, 64), kernel=kernel,
+                                  operands_on="meta") == {
+            cpu: "exchange", torch.device("meta"): "window"}
+    big = cpu_mesh((8, 9))
+    assert tsh.sharded_routes(big, (128, 576)) == {cpu: "exchange"}
+    assert tsh.sharded_routes(cpu_mesh((8, 8)), (128, 512)) \
+        == {cpu: "window"}
+    # the region kernel forced: the pressure multisweep's exchange route
+    monkeypatch.setattr(tsh._st, "_REGION_BELOW_CELLS", 1 << 62)
+    assert tsh.sharded_routes(m22, (64, 256), torch.float32, "jacobi",
+                              1) == {cpu: "exchange"}
+    assert tsh.sharded_routes(m22, (64, 256)) == {cpu: "window"}
+    with pytest.raises(ValueError, match="unknown kernel"):
+        tsh.sharded_routes(m22, (64, 256), kernel="matvec")
+
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_exchange_route_equals_the_window_route(prec):
+    """On the CPU both routes run the plain version: 96 x 84 over 2 x 2
+    (blocks of 42 columns) takes the exchange route, the same operands
+    cut to 96 x 80 the window route; each equals the sharded plain
+    version and the global plain version bit for bit."""
+    dt = DTYPES[prec][0]
+    mesh = cpu_mesh((2, 2))
+    arrs = pressure_operands(96, 84, 17)
+    for nx, route in ((84, "exchange"), (80, "window")):
+        cut = [np.ascontiguousarray(a[:, :nx]) for a in arrs]
+        coef = torch_coeffs(cut, dt)
+        x, b = (torch.as_tensor(a).to(dt) for a in cut[5:])
+        for iters in (1, 2, 16 if prec == "bf16" else 8):
+            assert tsh.sharded_routes(mesh, (96, nx), dt, "jacobi",
+                                      iters) == {torch.device("cpu"): route}
+            got = tsh.jacobi_multisweep_sharded(mesh, coef, x, b, iters)
+            assert torch.equal(got, tsh.jacobi_multisweep_sharded_plain(
+                mesh, coef, x, b, iters))
+            assert torch.equal(got, jacobi_multisweep_plain(coef, x, b,
+                                                            iters))
+
+
 # ---- against the JAX package's sharded kernels ------------------------------
 
 

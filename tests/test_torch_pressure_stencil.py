@@ -914,3 +914,277 @@ def test_fit_gate_agrees_with_the_geometry(kernel):
                 for ny in (t * ts._MAX_GRID_Y, t * ts._MAX_GRID_Y + 1):
                     assert ts.kernel_available_for((ny, nx), dt, gate) \
                         == _launchable((ny, nx), dt, kernel), (dt, nx, ny)
+
+
+# ---- the window launch of the sharded multisweep ---------------------------
+
+
+def _window_bounds(shape, mesh, halo, short=0):
+    """[(oy, ox, (y_lo, y_hi, x_lo, x_hi))] for each block of the (dy, dx)
+    mesh, row-major: its origin, and its haloed window (`halo` along a
+    split axis, 0 along a whole one) clipped to the domain; `short` cuts
+    the window that many rows short along y (a mutation)."""
+    (ny, nx), (dy, dx) = shape, mesh
+    nyl, nxl = ny // dy, nx // dx
+    hy, hx = (halo - short) * (dy > 1), halo * (dx > 1)
+    return [(i * nyl, j * nxl, (max(i * nyl - hy, 0),
+                                min((i + 1) * nyl + hy, ny),
+                                max(j * nxl - hx, 0),
+                                min((j + 1) * nxl + hx, nx)))
+            for i in range(dy) for j in range(dx)]
+
+
+def _window_load(f, rows, cols, bounds):
+    """f at (rows, cols) (broadcast), 0 outside the window `bounds` (the
+    kernels' loads, read in place from the global operands)."""
+    y_lo, y_hi, x_lo, x_hi = bounds
+    ny, nx = f.shape
+    inside = (rows >= y_lo) & (rows < y_hi) & (cols >= x_lo) & (cols < x_hi)
+    return torch.where(inside, f[rows.clamp(0, ny - 1),
+                                 cols.clamp(0, nx - 1)],
+                       torch.zeros((), dtype=f.dtype))
+
+
+def _filled(coef, mesh):
+    """The diag every window load sees: its zeros made 1 when the mesh
+    splits an axis, as the sharded wrappers fill the haloed diag."""
+    if mesh == (1, 1):
+        return coef.diag
+    return coef.diag.masked_fill(coef.diag == 0, 1.0)
+
+
+def emulate_window_pass(coef, x, b, geom, mesh, omega=0.8, short=0):
+    """One sweep of the window launch in the single-pass kernels' schedule
+    (`stencil_run_kernel` / `stencil_cell_kernel` with WINDOW), in
+    PyTorch with the plain version's operations: for each block (a plane
+    of `geom`, counted from the block's origin), each thread's run of
+    `geom.cells` cells on each row of its strip; x of rows y-1, y, y+1
+    over the run, the neighbouring lanes' runs (beyond the block too),
+    and at a segment's ends one scalar read, all from the global x with
+    zeros outside the block's haloed window; the block's cells stored."""
+    ny, nx = x.shape
+    nyl, nxl = ny // mesh[0], nx // mesh[1]
+    (bx, by), (gx, gy, planes) = geom.block, geom.grid
+    assert planes == mesh[0] * mesh[1]
+    v, seg = geom.cells, geom.seg
+    runs = torch.arange(gx * bx)
+    last = (runs % seg == seg - 1)[None]
+    first = (runs % seg == 0)[None]
+    rows = torch.arange(gy * by * geom.rows)
+    om = ts._omega(omega, x.dtype)
+    diag = _filled(coef, mesh)
+    out = torch.full_like(x, float("nan"))
+    for oy, ox, bounds in _window_bounds((ny, nx), mesh,
+                                         ts._halo_for(x.dtype), short):
+        r = (oy + rows)[:, None, None]
+        c = (ox + runs[:, None] * v + torch.arange(v)[None])[None]
+        xc, xn, xs = (_window_load(x, r + k, c, bounds) for k in (0, 1, -1))
+        east = _window_load(x, r[..., 0], (ox + runs * v + v)[None], bounds)
+        west = _window_load(x, r[..., 0], (ox + runs * v - 1)[None], bounds)
+        nxt = xc[:, (runs + 1).clamp(max=len(runs) - 1), 0]
+        prv = xc[:, (runs - 1).clamp(min=0), v - 1]
+        xe = torch.cat([xc[..., 1:], torch.where(last, east, nxt)[..., None]],
+                       -1)
+        xw = torch.cat([torch.where(first, west, prv)[..., None],
+                        xc[..., :-1]], -1)
+        keep = (rows[:, None, None] < nyl) & (c - ox < nxl)
+        rr, cc = r.clamp(max=ny - 1), c.clamp(max=nx - 1)
+        ce, cw, cn, cs, d, bb = (f[rr, cc] for f in (
+            coef.c_e, coef.c_w, coef.c_n, coef.c_s, diag, b))
+        ax = d * xc - ce * xe - cw * xw - cn * xn - cs * xs
+        res = xc + om * (bb - ax) / d
+        out[r.expand_as(keep)[keep], c.expand_as(keep)[keep]] = res[keep]
+    return out
+
+
+def emulate_window_run(coef, x, b, iters, mesh, geom, omega=0.8, short=0):
+    """`iters` sweeps of the window launch in the run kernel's schedule
+    (`multisweep_run_kernel` with WINDOW), in PyTorch with the plain
+    version's operations: for each block, tiles of `geom` from the block's
+    origin over its interior, each region loaded from the global operands
+    with zeros outside the block's haloed window (and so frozen), the
+    neighbours the kernel's threads read (as `emulate_run`), the frozen
+    outer ring; each tile's cells inside the block stored."""
+    ny, nx = x.shape
+    nyl, nxl = ny // mesh[0], nx // mesh[1]
+    run, rows = geom.cells, geom.rows
+    hy, hx = geom.halo
+    height, width = geom.region
+    ty, tx = geom.tile
+    top = (geom.warps - 1) * rows
+    om = ts._omega(omega, x.dtype)
+    fields = (x, b, coef.c_e, coef.c_w, coef.c_n, coef.c_s,
+              _filled(coef, mesh))
+    ring = torch.zeros(height, width, dtype=torch.bool)
+    ring[[0, -1]] = True
+    ring[:, [0, -1]] = True
+    out = torch.full_like(x, float("nan"))
+    for oy, ox, bounds in _window_bounds((ny, nx), mesh,
+                                         ts._halo_for(x.dtype), short):
+        for y0 in range(oy, oy + nyl, ty):
+            for x0 in range(ox, ox + nxl, tx):
+                r = torch.arange(y0 - hy, y0 - hy + height)[:, None]
+                c = torch.arange(x0 - hx, x0 - hx + width)[None]
+                xr, bb, ce, cw, cn, cs, d = (_window_load(f, r, c, bounds)
+                                             for f in fields)
+                y_lo, y_hi, x_lo, x_hi = bounds
+                live = ((r >= y_lo) & (r < y_hi) & (c >= x_lo)
+                        & (c < x_hi)) & ~ring
+
+                def a_of(xr):
+                    xe = torch.cat([xr[:, 1:], xr[:, width - run:][:, :1]], 1)
+                    xw = torch.cat([xr[:, run - 1:run], xr[:, :-1]], 1)
+                    xn = torch.cat([xr[1:], xr[top:top + 1]], 0)
+                    xs = torch.cat([xr[rows - 1:rows], xr[:-1]], 0)
+                    return d * xr - ce * xe - cw * xw - cn * xn - cs * xs
+
+                for _ in range(iters):
+                    xr = torch.where(live, xr + om * (bb - a_of(xr)) / d, xr)
+                h, w = min(ty, oy + nyl - y0), min(tx, ox + nxl - x0)
+                out[y0:y0 + h, x0:x0 + w] = xr[hy:hy + h, hx:hx + w]
+    return out
+
+
+def emulate_window(coef, x, b, iters, mesh, geom=None, short=0):
+    """The window launch `ts.window_geometry` picks (or `geom`),
+    emulated."""
+    ny, nx = x.shape
+    blocks, shape = mesh[0] * mesh[1], (ny // mesh[0], nx // mesh[1])
+    geom = geom or ts.window_geometry(blocks, shape, x.dtype, iters)
+    if isinstance(geom, ts.PassGeometry):
+        assert iters == 1
+        return emulate_window_pass(coef, x, b, geom, mesh, short=short)
+    return emulate_window_run(coef, x, b, iters, mesh, geom, short=short)
+
+
+def _disc_operands(ny, nx, dtype, seed):
+    """`_random_operands` with the conductances out of the domain 0 and a
+    solid disc (a quarter of the height across, a quarter of the length
+    in) of no conductance, x = b = 0 and a zero diag: the cells whose
+    diag the sharded wrappers fill."""
+    coef, x, b, _ = _random_operands(ny, nx, torch.float32, seed)
+    yy = torch.arange(ny)[:, None] - ny / 2
+    xx = torch.arange(nx)[None] - nx / 4
+    fl = (yy * yy + xx * xx >= (ny / 8) ** 2).float()
+    c = [t * fl for t in (coef.c_e, coef.c_w, coef.c_n, coef.c_s)]
+    c[0][:, -1] = 0
+    c[1][:, 0] = 0
+    c[2][-1, :] = 0
+    c[3][0, :] = 0
+    return (PressureCoeffs(*(t.to(dtype) for t in c),
+                           torch.zeros(ny, nx, dtype=dtype),
+                           (coef.diag * fl).to(dtype)),
+            (x * fl).to(dtype), (b * fl).to(dtype))
+
+
+WINDOW_MESHES = [(2, 2), (4, 1), (1, 4), (4, 2)]
+
+
+def _cpu_mesh(shape):
+    from tpufoam_torch.parallel.mesh import device_mesh
+    return device_mesh(shape[0] * shape[1], shape=shape,
+                       devices=["cpu"] * (shape[0] * shape[1]))
+
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("mesh", WINDOW_MESHES,
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+def test_window_schedule_equals_the_sharded_plain_version(mesh, prec):
+    """The window launch's schedule, bit for bit against
+    `jacobi_multisweep_sharded_plain` (the plain sweeps on each block's
+    haloed window, its diag filled), at iters 1, 2 and the halo, in the
+    geometry `window_geometry` picks, and for one sweep in the vector
+    variant too: on the 64 x 256 channel operator (blocks of 128, 256 and
+    64 columns, no whole number of the run kernel's tiles) and on random
+    operands of 96 x 480 with a solid disc of zero diag (blocks of 240 and
+    120 columns: whole tiles at 2 sweeps in both dtypes)."""
+    from tpufoam_torch.ops import sharded as tsh
+
+    tdt = DTYPES[prec][0]
+    geom = jax_geom("cylinder", length=8.0, height=2.0, obstacle_size=0.5)
+    case = jax_build(geom, delta=2.0 / 64)
+    rng = np.random.default_rng(64)
+    rau = rng.uniform(0.5, 1.5, case.grid.shape).astype(np.float32) \
+        * np.asarray(case.fluid)
+    jc = jax_pressure_coeffs(case, jnp.asarray(rau))
+    chan = PressureCoeffs(*(torch.as_tensor(np.array(getattr(jc, f))).to(tdt)
+                            for f in FIELDS))
+    operands = [(chan, *(torch.as_tensor(rng.standard_normal(
+                     case.grid.shape).astype(np.float32)).to(tdt)
+                     for _ in range(2))),
+                _disc_operands(96, 480, tdt, seed=7)]
+    cpu = _cpu_mesh(mesh)
+    for coef, x, b in operands:
+        ny, nx = x.shape
+        blocks, shape = mesh[0] * mesh[1], (ny // mesh[0], nx // mesh[1])
+        for iters in (1, 2, ts._halo_for(tdt)):
+            ref = tsh.jacobi_multisweep_sharded_plain(cpu, coef, x, b, iters)
+            assert bool(torch.isfinite(ref).all())
+            assert torch.equal(emulate_window(coef, x, b, iters, mesh),
+                               ref), (shape, iters)
+            if iters == 1:
+                vec = ts.pass_geometry((blocks, *shape), tdt, cells=1 << 62)
+                assert vec.vector
+                assert torch.equal(emulate_window(coef, x, b, 1, mesh, vec),
+                                   ref), shape
+
+
+def test_window_schedule_one_row_short_fails():
+    """The check above has teeth: a window one row short along y at the
+    full halo leaves out the row `halo` cells beyond the block, which
+    reaches the block's first row on the last sweep. x = 0 but for 1 on
+    that row, b = 0, and a coupling of omega / 2 = 0.4 a hop along y
+    (c_n = c_s = 1, diag 2, no E/W conductance) keep that reach (0.4^16
+    in bfloat16) above zero: the short window leaves a 0 there. With the
+    right window the schedule equals the sharded plain version. Both
+    dtypes, the run kernel, on a 2 x 2 mesh."""
+    from tpufoam_torch.ops import sharded as tsh
+
+    ny, nx = 96, 256
+    for tdt in (torch.float32, torch.bfloat16):
+        halo = ts._halo_for(tdt)
+        one = torch.ones(ny, nx, dtype=tdt)
+        coef = PressureCoeffs(0 * one, 0 * one, one, one, 0 * one, 2 * one)
+        x = torch.zeros(ny, nx, dtype=tdt)
+        x[ny // 2 - halo] = 1.0
+        b = torch.zeros_like(x)
+        ref = tsh.jacobi_multisweep_sharded_plain(_cpu_mesh((2, 2)), coef,
+                                                  x, b, halo)
+        assert float(ref[ny // 2].abs().min()) > 0
+        assert torch.equal(emulate_window(coef, x, b, halo, (2, 2)), ref)
+        short = emulate_window(coef, x, b, halo, (2, 2), short=1)
+        assert not torch.equal(short, ref), tdt
+        assert float(short[ny // 2].abs().max()) == 0
+
+
+def test_window_geometry_sizes_the_launch_by_its_cells():
+    """One sweep: the single-pass kernels over (blocks, nyl, nxl), the
+    vector variant from 2^19 cells in all (the 2 x 2 mesh of 512 x 2048),
+    else the cell variant; two or more: the run kernel over one block,
+    its rows a thread by the launch's cells. None where the region
+    kernel would take the plane: widths that are no whole number of
+    16-byte runs, operands off 16 bytes, more than MAX_WINDOW_BLOCKS
+    blocks, or the region kernel forced."""
+    for dt in (torch.float32, torch.bfloat16):
+        g = ts.window_geometry(4, (256, 1024), dt, 1)
+        assert isinstance(g, ts.PassGeometry) and g.vector \
+            and g.grid[2] == 4
+        g = ts.window_geometry(4, (64, 256), dt, 1)
+        assert isinstance(g, ts.PassGeometry) and not g.vector
+        for iters in (2, ts._halo_for(dt)):
+            g = ts.window_geometry(4, (256, 1024), dt, iters)
+            whole = ts.multisweep_geometry((1024, 1024), dt, iters)
+            assert g == ts._run_geometry((256, 1024), dt, iters, whole.rows)
+            assert g.grid == (-(-1024 // g.tile[1]), -(-256 // g.tile[0]))
+        assert ts.window_geometry(4, (256, 1030), dt, 2) is None
+        assert ts.window_geometry(4, (256, 1024), dt, 2,
+                                  aligned=False) is None
+        assert ts.window_geometry(ts.MAX_WINDOW_BLOCKS + 1, (16, 64), dt,
+                                  2) is None
+    saved = ts._REGION_BELOW_CELLS
+    try:
+        ts._REGION_BELOW_CELLS = 1 << 62
+        assert ts.window_geometry(4, (256, 1024), torch.float32, 2) is None
+        assert ts.window_geometry(4, (256, 1024), torch.float32, 1) is None
+    finally:
+        ts._REGION_BELOW_CELLS = saved

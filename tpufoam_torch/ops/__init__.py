@@ -7,8 +7,10 @@
   stencil.smooth_residual       V-cycle down leg (sweeps + residual)
   stencil.corr_smooth           V-cycle up leg (correction + sweeps)
   sharded.momentum_multisweep_sharded, sharded.jacobi_multisweep_sharded
-                                the two multisweeps over a mesh of devices,
-                                per block on halo-extended blocks
+                                the two multisweeps over a mesh of devices:
+                                one window launch for the operands' card's
+                                blocks (halos read in place), per card or
+                                block on exchanged haloed blocks elsewhere
 """
 
 from .momentum import momentum_multisweep, momentum_multisweep_plain

@@ -67,8 +67,27 @@
 // batched launch equals B single launches, and the sharded launch the
 // single one, bit for bit. It differs from the plain version (which
 // rounds every product) by a few float32 roundings per sweep.
+//
+// The window launch replaces the sharded TPU kernel
+// (tpufoam/ops/stencil.py `momentum_multisweep_pallas_sharded`, which
+// runs this kernel per mesh block on halo-extended blocks built by
+// `_exchange_halos`). On a card that holds the global (ny, nx) fields,
+// one launch sweeps all of that card's blocks of the mesh: blockIdx.z is
+// a block, whose origin comes from the launch's Window. The tiles cover
+// only the block's (nyl, nxl) interior, and read the global operands in
+// place (row stride nx). A cell loads as 0 and stays frozen outside the
+// block's haloed window (the block extended by hy rows and hx columns,
+// 0 along an axis the mesh does not split) or outside the domain: that
+// is exactly the content of the haloed block the exchange would build,
+// so the window launch equals the kernel on the haloed blocks, cropped,
+// bit for bit. A tile stores only its cells inside the block, straight
+// into the global outputs: no stack, no exchange, no crop. A tile that
+// reaches past the block's edge (48 does not divide most block widths)
+// loads across into the neighbouring block, up to the window.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -83,6 +102,17 @@ constexpr int REG_Y = ROWS * WARPS;        // 48
 constexpr int TILE_Y = REG_Y - 2 * HALO;   // 32
 static_assert(ROWS * COLS <= 32, "the frozen mask is one 32-bit word");
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int MAX_WINDOW_BLOCKS = 64;     // blocks of one window launch
+
+// The blocks of a window launch: each (nyl, nxl), its origin (oy, ox) in
+// the global plane, its window hy rows and hx columns beyond it.
+struct Window {
+  int nyl, nxl, hy, hx;
+  int oy[MAX_WINDOW_BLOCKS], ox[MAX_WINDOW_BLOCKS];
+};
+// the launch over whole planes takes no window (and so keeps its
+// parameter block as it was)
+struct NoWindow {};
 
 // one Jacobi update of a cell from its four neighbours
 __device__ __forceinline__ float update(float ae, float aw, float an,
@@ -95,6 +125,9 @@ __device__ __forceinline__ float update(float ae, float aw, float an,
   return __fmul_rn(__fadd_rn(t, bb), api);
 }
 
+// WINDOW: blockIdx.z is a block of `win` (see the head of this file);
+// else it is a case of (planes, ny, nx) operands.
+template <bool WINDOW>
 __global__ void __launch_bounds__(THREADS, 2)
 momentum_multisweep_kernel(const float* __restrict__ a_e,
                            const float* __restrict__ a_w,
@@ -107,17 +140,37 @@ momentum_multisweep_kernel(const float* __restrict__ a_e,
                            const float* __restrict__ v0,
                            float* __restrict__ u_out,
                            float* __restrict__ v_out,
-                           int ny, int nx, int sweeps) {
+                           int ny, int nx, int sweeps,
+                           const std::conditional_t<WINDOW, Window, NoWindow>
+                               win) {
   // [buffer][u or v][warp][its lowest or highest row][column][lane]
   __shared__ float edge[2][2][WARPS][2][COLS][32];
-  // this block's case: offset every plane to it
-  const long plane = (long)blockIdx.z * ny * nx;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int r0 = warp * ROWS;              // region row of the first row
   const int c0 = lane * COLS;              // region column of the first
-  const int gy0 = blockIdx.y * TILE_Y - HALO + r0;
-  const int gx0 = blockIdx.x * TILE_X - HALO + c0;
+  // this block's case (an offset of every plane) or mesh block; the cells
+  // that load (else 0, frozen) and the cells that store
+  long plane = 0;
+  int ty0, tx0;                            // the tile's first cell
+  int y_lo = 0, y_hi = ny, x_lo = 0, x_hi = nx, y_end = ny, x_end = nx;
+  if constexpr (WINDOW) {
+    const int oy = win.oy[blockIdx.z], ox = win.ox[blockIdx.z];
+    ty0 = oy + blockIdx.y * TILE_Y;
+    tx0 = ox + blockIdx.x * TILE_X;
+    y_lo = max(oy - win.hy, 0);
+    y_hi = min(oy + win.nyl + win.hy, ny);
+    x_lo = max(ox - win.hx, 0);
+    x_hi = min(ox + win.nxl + win.hx, nx);
+    y_end = oy + win.nyl;
+    x_end = ox + win.nxl;
+  } else {
+    plane = (long)blockIdx.z * ny * nx;
+    ty0 = blockIdx.y * TILE_Y;
+    tx0 = blockIdx.x * TILE_X;
+  }
+  const int gy0 = ty0 - HALO + r0;
+  const int gx0 = tx0 - HALO + c0;
 
   float ae[ROWS][COLS], aw[ROWS][COLS], an[ROWS][COLS], as[ROWS][COLS];
   float api[ROWS][COLS], bu[ROWS][COLS], bv[ROWS][COLS];
@@ -128,7 +181,8 @@ momentum_multisweep_kernel(const float* __restrict__ a_e,
 #pragma unroll
     for (int j = 0; j < COLS; ++j) {
       const int gy = gy0 + i, gx = gx0 + j;
-      const bool inside = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
+      const bool inside = gy >= y_lo && gy < y_hi && gx >= x_lo
+                          && gx < x_hi;
       const bool ring = r0 + i == 0 || r0 + i == REG_Y - 1 || c0 + j == 0
                         || c0 + j == REG_X - 1;
       ae[i][j] = aw[i][j] = an[i][j] = as[i][j] = 0.f;
@@ -210,7 +264,7 @@ momentum_multisweep_kernel(const float* __restrict__ a_e,
     for (int j = 0; j < COLS; ++j) {
       const int gy = gy0 + i, gx = gx0 + j;
       if (r0 + i >= HALO && r0 + i < HALO + TILE_Y && c0 + j >= HALO
-          && c0 + j < HALO + TILE_X && gy < ny && gx < nx) {
+          && c0 + j < HALO + TILE_X && gy < y_end && gx < x_end) {
         const long g = plane + (long)gy * nx + gx;
         u_out[g] = u[i][j];
         v_out[g] = v[i][j];
@@ -234,9 +288,45 @@ extern "C" int momentum_multisweep_f32(
   }
   const dim3 grid((nx + TILE_X - 1) / TILE_X, (ny + TILE_Y - 1) / TILE_Y,
                   planes);
-  momentum_multisweep_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      a_e, a_w, a_n, a_s, ap_inv, b_u, b_v, u0, v0, u_out, v_out, ny, nx,
-      sweeps);
+  momentum_multisweep_kernel<false>
+      <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+          a_e, a_w, a_n, a_s, ap_inv, b_u, b_v, u0, v0, u_out, v_out, ny, nx,
+          sweeps, NoWindow{});
+  return (int)cudaGetLastError();
+}
+
+// The window launch over `count` blocks of (nyl, nxl) cells of the global
+// (ny, nx) operands, whose origins are the (row, column) pairs of the
+// host array `origins`, each block's window hy rows and hx columns beyond
+// it (0 along an axis the mesh does not split); writes each block's
+// interior of u_out and v_out. Returns cudaGetLastError() (0 on success).
+extern "C" int momentum_multisweep_window_f32(
+    const float* a_e, const float* a_w, const float* a_n, const float* a_s,
+    const float* ap_inv, const float* b_u, const float* b_v,
+    const float* u0, const float* v0, float* u_out, float* v_out, int ny,
+    int nx, int nyl, int nxl, int hy, int hx, int count,
+    const int* origins, int sweeps, void* stream) {
+  if (count <= 0 || count > MAX_WINDOW_BLOCKS || nyl <= 0 || nxl <= 0
+      || hy < 0 || hx < 0 || sweeps < 0 || sweeps > HALO
+      || (hy > 0 && sweeps > hy) || (hx > 0 && sweeps > hx)
+      || (nyl + TILE_Y - 1) / TILE_Y > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Window win{nyl, nxl, hy, hx, {}, {}};
+  for (int k = 0; k < count; ++k) {
+    win.oy[k] = origins[2 * k];
+    win.ox[k] = origins[2 * k + 1];
+    if (win.oy[k] < 0 || win.ox[k] < 0 || win.oy[k] + nyl > ny
+        || win.ox[k] + nxl > nx) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  const dim3 grid((nxl + TILE_X - 1) / TILE_X, (nyl + TILE_Y - 1) / TILE_Y,
+                  count);
+  momentum_multisweep_kernel<true>
+      <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+          a_e, a_w, a_n, a_s, ap_inv, b_u, b_v, u0, v0, u_out, v_out, ny, nx,
+          sweeps, win);
   return (int)cudaGetLastError();
 }
 

@@ -73,6 +73,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int REGION = 64;
@@ -113,6 +115,58 @@ template <> struct Num<__nv_bfloat16> {
 struct Coef {
   float ce, cw, cn, cs, d, b;
 };
+
+// The window launch of jacobi_multisweep (the sharded TPU kernel
+// `jacobi_multisweep_pallas_sharded`, l.886: the multisweep per mesh
+// block on halo-extended blocks). On a card that holds the global (ny,
+// nx) operands one launch sweeps all of that card's blocks of the mesh:
+// blockIdx.z is a block, at origin (oy[z], ox[z]) of (nyl, nxl) cells.
+// Its tiles cover only the block's interior and read the global operands
+// in place (row stride nx). A cell outside the block's haloed window (the
+// block extended by hy rows and hx columns, 0 along an axis the mesh does
+// not split) or outside the domain loads as 0 and is never updated: the
+// content of the haloed block the exchange route builds. The diag of
+// every loaded cell is filled as the sharded wrappers fill the haloed
+// diag when an axis is split (zero -> 1: the JAX wrapper's guard against
+// the halo's zero dividends). A tile stores only its cells inside the
+// block, straight into the global output. So the window launch equals
+// the kernel on the haloed blocks, cropped, bit for bit, with one launch
+// a card and nothing around it. Taken by one sweep (the single-pass
+// kernels' two variants) and by the run kernel; the region kernel's
+// planes (widths that are no whole number of runs, unaligned operands)
+// take the exchange route (ops/sharded.py).
+constexpr int MAX_WINDOW_BLOCKS = 64;
+
+struct Window {
+  int nyl, nxl, hy, hx;
+  int oy[MAX_WINDOW_BLOCKS], ox[MAX_WINDOW_BLOCKS];
+};
+// the kernels' launches over whole planes take no window (and so keep
+// their parameter block as it was)
+struct NoWindow {};
+template <bool WINDOW>
+using WindowOf = std::conditional_t<WINDOW, Window, NoWindow>;
+
+// The cells of one launch's block z: where they load (else 0, frozen),
+// where they store, whether diag is filled, and the block's origin.
+struct Bounds {
+  int oy, ox, y_lo, y_hi, x_lo, x_hi, y_end, x_end;
+  bool fill;
+};
+
+template <bool WINDOW>
+__device__ __forceinline__ Bounds bounds_of(const WindowOf<WINDOW>& win,
+                                            int z, int ny, int nx) {
+  if constexpr (WINDOW) {
+    const int oy = win.oy[z], ox = win.ox[z];
+    return Bounds{oy, ox, max(oy - win.hy, 0),
+                  min(oy + win.nyl + win.hy, ny), max(ox - win.hx, 0),
+                  min(ox + win.nxl + win.hx, nx), oy + win.nyl,
+                  ox + win.nxl, (win.hy | win.hx) != 0};
+  } else {
+    return Bounds{0, 0, 0, ny, 0, nx, ny, nx, false};
+  }
+}
 
 // the operands of one cell; beyond the domain 0, and diag 1
 template <typename T>
@@ -286,6 +340,10 @@ template <> struct Cell<float> {
                                                   unsigned first) {
     return prev_last;
   }
+  // a word with its zero cells (either sign) made 1
+  static __device__ __forceinline__ unsigned one_for_zero(unsigned w) {
+    return w << 1 ? w : 0x3f800000u;
+  }
 };
 
 template <> struct Cell<__nv_bfloat16> {
@@ -313,7 +371,22 @@ template <> struct Cell<__nv_bfloat16> {
                                                   unsigned first) {
     return __byte_perm(prev_last, first, 0x5432);
   }
+  static __device__ __forceinline__ unsigned one_for_zero(unsigned w) {
+    const unsigned lo = w & 0x7fffu ? w & 0xffffu : 0x3f80u;
+    const unsigned hi = w & 0x7fff0000u ? w & 0xffff0000u : 0x3f800000u;
+    return hi | lo;
+  }
 };
+
+// diag's run with its zero cells made 1 where `fill`
+template <typename T>
+__device__ __forceinline__ Pack filled(Pack p, bool fill) {
+  if (fill) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p.w[j] = Cell<T>::one_for_zero(p.w[j]);
+  }
+  return p;
+}
 
 // The 16-byte run at `run`, or 0 when it lies beyond the plane (!in).
 template <typename T>
@@ -353,41 +426,55 @@ __device__ __forceinline__ float pass_cell(const Coef& c, float xc, float xe,
   return __fadd_rn(xc, t);
 }
 
-// The vector variant: a run of RUN cells a thread.
-template <typename T, bool SWEEP>
+// The vector variant: a run of RUN cells a thread. WINDOW: blockIdx.z is
+// a block of `win`, and x0, y0 count from its origin; else a plane.
+template <typename T, bool SWEEP, bool WINDOW = false>
 __global__ void __launch_bounds__(PASS_THREADS, 3)
 stencil_run_kernel(const T* __restrict__ x, const T* __restrict__ b,
                    const T* __restrict__ ce, const T* __restrict__ cw,
                    const T* __restrict__ cn, const T* __restrict__ cs,
                    const T* __restrict__ dg, T* __restrict__ out, int ny,
-                   int nx, int rows, int seg, float omega) {
+                   int nx, int rows, int seg, float omega,
+                   const WindowOf<WINDOW> win) {
   using N = Num<T>;
   using C = Cell<T>;
   constexpr int RUN = C::kRun;
-  const long plane = (long)blockIdx.z * ny * nx;
+  const Bounds bd = bounds_of<WINDOW>(win, blockIdx.z, ny, nx);
+  const long plane = WINDOW ? 0 : (long)blockIdx.z * ny * nx;
   const int lane = threadIdx.x & (seg - 1);
   const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * RUN;
   const int y0 = (blockIdx.y * blockDim.y + threadIdx.y) * rows;
-  const bool col_in = x0 < nx;            // nx is a multiple of RUN
+  const int gx = bd.ox + x0;              // the run's first column
+  // the run loads (nx and the window's edges are whole runs) and stores
+  const bool col_in = WINDOW ? gx >= bd.x_lo && gx < bd.x_hi : x0 < nx;
+  const bool col_out = WINDOW ? gx < bd.x_end : col_in;
   const bool last = lane == seg - 1, first = lane == 0;
-  auto at = [&](const T* f, int y) { return f + plane + (long)y * nx + x0; };
+  auto at = [&](const T* f, int y) {
+    return f + plane + (long)(bd.oy + y) * nx + gx;
+  };
+  // x of row y loads: inside the plane, or the window
+  auto row_in = [&](int y) {
+    return WINDOW ? bd.oy + y >= bd.y_lo && bd.oy + y < bd.y_hi
+                  : y >= 0 && y < ny;
+  };
 
-  Pack xs = load_run<T>(at(x, y0 - 1), col_in && y0 >= 1 && y0 - 1 < ny);
-  Pack xc = load_run<T>(at(x, y0), col_in && y0 < ny);
+  Pack xs = load_run<T>(at(x, y0 - 1), col_in && row_in(y0 - 1));
+  Pack xc = load_run<T>(at(x, y0), col_in && row_in(y0));
   for (int r = 0; r < rows; ++r) {
     const int y = y0 + r;
-    const bool in = col_in && y < ny;
-    const Pack xn = load_run<T>(at(x, y + 1), col_in && y + 1 < ny);
+    const bool in = col_out && (WINDOW ? bd.oy + y < bd.y_end : y < ny);
+    const Pack xn = load_run<T>(at(x, y + 1), col_in && row_in(y + 1));
     const Pack k_ce = load_run<T>(at(ce, y), in);
     const Pack k_cw = load_run<T>(at(cw, y), in);
     const Pack k_cn = load_run<T>(at(cn, y), in);
     const Pack k_cs = load_run<T>(at(cs, y), in);
-    const Pack k_d = load_run<T>(at(dg, y), in);
+    const Pack k_d = filled<T>(load_run<T>(at(dg, y), in), WINDOW && bd.fill);
     const Pack k_b = SWEEP ? load_run<T>(at(b, y), in) : Pack{{0, 0, 0, 0}};
     const T* xrow = at(x, y);
-    const float edge_e = last && in && x0 + RUN < nx ? N::load(xrow, RUN)
+    const float edge_e = last && in && gx + RUN < bd.x_hi
+                         ? N::load(xrow, RUN) : 0.f;
+    const float edge_w = first && in && gx > bd.x_lo ? N::load(xrow, -1)
                                                      : 0.f;
-    const float edge_w = first && in && x0 > 0 ? N::load(xrow, -1) : 0.f;
 
     // E/W neighbours as runs: within the run, then the next lane's first
     // cell after it and the previous lane's last before it
@@ -413,7 +500,7 @@ stencil_run_kernel(const T* __restrict__ x, const T* __restrict__ b,
                                        C::get(xn, k), C::get(xs, k), omega));
     }
     if (in) {
-      *reinterpret_cast<uint4*>(out + plane + (long)y * nx + x0) =
+      *reinterpret_cast<uint4*>(out + plane + (long)(bd.oy + y) * nx + gx) =
           make_uint4(o.w[0], o.w[1], o.w[2], o.w[3]);
     }
     xs = xc;
@@ -426,14 +513,32 @@ stencil_run_kernel(const T* __restrict__ x, const T* __restrict__ b,
 constexpr int CELL_X = 32;   // a warp along x: coalesced rows
 constexpr int CELL_Y = 8;
 
-template <typename T, bool SWEEP>
+template <typename T, bool SWEEP, bool WINDOW = false>
 __global__ void __launch_bounds__(CELL_X * CELL_Y)
 stencil_cell_kernel(const T* __restrict__ x, const T* __restrict__ b,
                     const T* __restrict__ ce, const T* __restrict__ cw,
                     const T* __restrict__ cn, const T* __restrict__ cs,
                     const T* __restrict__ dg, T* __restrict__ out, int ny,
-                    int nx, float omega) {
+                    int nx, float omega, const WindowOf<WINDOW> win) {
   using N = Num<T>;
+  if constexpr (WINDOW) {
+    const Bounds bd = bounds_of<true>(win, blockIdx.z, ny, nx);
+    const int gx = bd.ox + blockIdx.x * CELL_X + threadIdx.x;
+    const int gy = bd.oy + blockIdx.y * CELL_Y + threadIdx.y;
+    if (gx >= bd.x_end || gy >= bd.y_end) return;
+    const long g = (long)gy * nx + gx;
+    const float xc = N::load(x, g);
+    const float xe = gx + 1 < bd.x_hi ? N::load(x, g + 1) : 0.f;
+    const float xw = gx > bd.x_lo ? N::load(x, g - 1) : 0.f;
+    const float xn = gy + 1 < bd.y_hi ? N::load(x, g + nx) : 0.f;
+    const float xs = gy > bd.y_lo ? N::load(x, g - nx) : 0.f;
+    const float d = N::load(dg, g);
+    const Coef k{N::load(ce, g), N::load(cw, g), N::load(cn, g),
+                 N::load(cs, g), bd.fill && d == 0.f ? 1.f : d,
+                 SWEEP ? N::load(b, g) : 0.f};
+    N::store(out, g, pass_cell<T, SWEEP>(k, xc, xe, xw, xn, xs, omega));
+    return;
+  }
   const int gx = blockIdx.x * CELL_X + threadIdx.x;
   const int gy = blockIdx.y * CELL_Y + threadIdx.y;
   if (gx >= nx || gy >= ny) return;
@@ -495,10 +600,68 @@ int launch_pass(const T* x, const T* b, const T* ce, const T* cw,
   const dim3 grid(g.gx, g.gy, planes), block(g.bx, g.by);
   if (g.vector) {
     stencil_run_kernel<T, SWEEP><<<grid, block, 0, (cudaStream_t)stream>>>(
-        x, b, ce, cw, cn, cs, dg, out, ny, nx, g.rows, seg, omega);
+        x, b, ce, cw, cn, cs, dg, out, ny, nx, g.rows, seg, omega,
+        NoWindow{});
   } else {
     stencil_cell_kernel<T, SWEEP><<<grid, block, 0, (cudaStream_t)stream>>>(
-        x, b, ce, cw, cn, cs, dg, out, ny, nx, omega);
+        x, b, ce, cw, cn, cs, dg, out, ny, nx, omega, NoWindow{});
+  }
+  return (int)cudaGetLastError();
+}
+
+// The window of `count` blocks of (nyl, nxl) cells of the global (ny, nx)
+// operands at the (row, column) pairs of the host array `origins`, each
+// reaching hy rows and hx columns beyond its block, checked: every block
+// inside the plane, `iters` sweeps within the halo of each split axis
+// (hy or hx 0: the axis is whole, and its window is the domain).
+bool window_ok(Window& w, int ny, int nx, int nyl, int nxl, int hy, int hx,
+               int count, const int* origins, int iters, int max_iters) {
+  if (count <= 0 || count > MAX_WINDOW_BLOCKS || nyl <= 0 || nxl <= 0
+      || hy < 0 || hx < 0 || iters < 0 || iters > max_iters
+      || (hy > 0 && iters > hy) || (hx > 0 && iters > hx)) {
+    return false;
+  }
+  w.nyl = nyl;
+  w.nxl = nxl;
+  w.hy = hy;
+  w.hx = hx;
+  for (int k = 0; k < count; ++k) {
+    w.oy[k] = origins[2 * k];
+    w.ox[k] = origins[2 * k + 1];
+    if (w.oy[k] < 0 || w.ox[k] < 0 || w.oy[k] + nyl > ny
+        || w.ox[k] + nxl > nx) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// One sweep of jacobi_multisweep over a window: a single-pass kernel's
+// geometry over (count, nyl, nxl) planes, each plane a block.
+template <typename T>
+int launch_pass_window(const T* x, const T* b, const T* ce, const T* cw,
+                       const T* cn, const T* cs, const T* dg, T* out, int ny,
+                       int nx, int nyl, int nxl, int hy, int hx, int count,
+                       const int* origins, PassGeometry g, float omega,
+                       void* stream) {
+  const void* ptrs[] = {x, b, ce, cw, cn, cs, dg, out};
+  Window win;
+  if (!window_ok(win, ny, nx, nyl, nxl, hy, hx, count, origins, 1,
+                 Num<T>::kHalo)
+      || !geometry_ok<T>(g, count, nyl, nxl, ptrs, 8)
+      || (g.vector && nx % Cell<T>::kRun != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int seg = g.bx < 32 ? g.bx : 32;
+  const dim3 grid(g.gx, g.gy, count), block(g.bx, g.by);
+  if (g.vector) {
+    stencil_run_kernel<T, true, true>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(
+            x, b, ce, cw, cn, cs, dg, out, ny, nx, g.rows, seg, omega, win);
+  } else {
+    stencil_cell_kernel<T, true, true>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(
+            x, b, ce, cw, cn, cs, dg, out, ny, nx, omega, win);
   }
   return (int)cudaGetLastError();
 }
@@ -700,7 +863,9 @@ constexpr size_t run_smem_bytes(int warps) {
   return (size_t)warps * 32 * (4 + 2 * ROWS) * sizeof(uint4);
 }
 
-template <typename T, int MODE, int ROWS>
+// WINDOW: blockIdx.z is a block of `win` (jacobi_multisweep only), and
+// the tiles count from its origin; else the grid covers the plane.
+template <typename T, int MODE, int ROWS, bool WINDOW = false>
 __global__ void __launch_bounds__(32 * MS_MAX_WARPS, 1)
 multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
                       const T* __restrict__ b, const T* __restrict__ ce,
@@ -708,7 +873,7 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
                       const T* __restrict__ cs, const T* __restrict__ dg,
                       T* __restrict__ out, T* __restrict__ r_out, int ny,
                       int nx, int iters, int hx, int tile_y, int tile_x,
-                      float omega) {
+                      float omega, const WindowOf<WINDOW> win) {
   using C = Cell<T>;
   using S = Sweep<T>;
   constexpr int RUN = C::kRun;
@@ -723,12 +888,14 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
   const int hy = iters + RESIDUAL;
   const int height = warps * ROWS;
   const int r0 = warp * ROWS;                   // region row of the first row
-  const int gy0 = blockIdx.y * tile_y - hy + r0;
-  const int gx = blockIdx.x * tile_x - hx + lane * RUN;
-  const bool col_in = gx >= 0 && gx < nx;       // the whole run, or none
+  const Bounds bd = bounds_of<WINDOW>(win, blockIdx.z, ny, nx);
+  const int gy0 = bd.oy + blockIdx.y * tile_y - hy + r0;
+  const int gx = bd.ox + blockIdx.x * tile_x - hx + lane * RUN;
+  // the whole run, or none (nx and a window's edges are whole runs)
+  const bool col_in = gx >= bd.x_lo && gx < bd.x_hi;
   // the tile: region rows hy .. height - hy - 1, runs hx/RUN ..
-  // 32 - hx/RUN - 1, inside the domain
-  const bool col_out = col_in && lane * RUN >= hx
+  // 32 - hx/RUN - 1, inside the domain (the block)
+  const bool col_out = col_in && gx < bd.x_end && lane * RUN >= hx
                        && lane * RUN < 32 * RUN - hx;
 
   Pack xr[ROWS], ke[ROWS], kw[ROWS], kn[ROWS], ks[ROWS];
@@ -736,7 +903,7 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int gy = gy0 + i;
-    const bool in = col_in && gy >= 0 && gy < ny;
+    const bool in = col_in && gy >= bd.y_lo && gy < bd.y_hi;
     const long g = (long)gy * nx + gx;
     xr[i] = load_run<T>(x0 + g, in);
     const Pack kb = load_run<T>(b + g, in);
@@ -744,7 +911,7 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
     kw[i] = load_run<T>(cw + g, in);
     kn[i] = load_run<T>(cn + g, in);
     ks[i] = load_run<T>(cs + g, in);
-    const Pack kd = load_run<T>(dg + g, in);
+    const Pack kd = filled<T>(load_run<T>(dg + g, in), WINDOW && bd.fill);
     if (MODE == kCorrSmooth) {
       const Pack c = load_run<T>(corr + g, in);
 #pragma unroll
@@ -806,7 +973,7 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
         }
         const int gy = gy0 + i;
         if (col_out && r0 + i >= hy && r0 + i < height - hy && gy >= 0
-            && gy < ny) {
+            && gy < bd.y_end) {
           const long g = (long)gy * nx + gx;
           *reinterpret_cast<uint4*>(out + g) = as_uint4(xr[i]);
           *reinterpret_cast<uint4*>(r_out + g) = as_uint4(r);
@@ -839,7 +1006,7 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
   for (int i = 0; i < ROWS; ++i) {
     const int gy = gy0 + i;
     if (col_out && r0 + i >= hy && r0 + i < height - hy && gy >= 0
-        && gy < ny) {
+        && gy < bd.y_end) {
       *reinterpret_cast<uint4*>(out + (long)gy * nx + gx) = as_uint4(xr[i]);
     }
   }
@@ -882,22 +1049,23 @@ bool multisweep_ok(const MultisweepGeometry& g, int ny, int nx, int iters,
   return true;
 }
 
-template <typename T, int MODE, int ROWS>
+template <typename T, int MODE, int ROWS, bool WINDOW = false>
 cudaError_t launch_run(const T* x0, const T* corr, const T* b, const T* ce,
                        const T* cw, const T* cn, const T* cs, const T* dg,
                        T* x_out, T* r_out, int ny, int nx, int iters,
                        const MultisweepGeometry& g, float omega,
-                       cudaStream_t stream) {
-  const auto kernel = multisweep_run_kernel<T, MODE, ROWS>;
+                       cudaStream_t stream,
+                       const WindowOf<WINDOW>& win = {}, int count = 1) {
+  const auto kernel = multisweep_run_kernel<T, MODE, ROWS, WINDOW>;
   const size_t smem = run_smem_bytes<ROWS>(g.warps);
   if (smem > 48 * 1024) {     // the default cap of dynamic shared memory
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(g.gx, g.gy), 32 * g.warps, smem, stream>>>(
+  kernel<<<dim3(g.gx, g.gy, count), 32 * g.warps, smem, stream>>>(
       x0, corr, b, ce, cw, cn, cs, dg, x_out, r_out, ny, nx, iters, g.hx,
-      g.tile_y, g.tile_x, omega);
+      g.tile_y, g.tile_x, omega, win);
   return cudaGetLastError();
 }
 
@@ -926,6 +1094,35 @@ int launch_multisweep(const T* x0, const T* corr, const T* b, const T* ce,
                                ny, nx, iters, g, omega, s)
       : launch_run<T, MODE, 3>(x0, corr, b, ce, cw, cn, cs, dg, x_out, r_out,
                                ny, nx, iters, g, omega, s));
+}
+
+// Two or more sweeps of jacobi_multisweep over a window: the run kernel's
+// geometry over one (nyl, nxl) block, `count` blocks along z (the region
+// kernel takes no window).
+template <typename T>
+int launch_multisweep_window(const T* x0, const T* b, const T* ce,
+                             const T* cw, const T* cn, const T* cs,
+                             const T* dg, T* x_out, int ny, int nx, int nyl,
+                             int nxl, int hy, int hx, int count,
+                             const int* origins, int iters,
+                             MultisweepGeometry g, float omega,
+                             void* stream) {
+  const void* ptrs[] = {x0, b, ce, cw, cn, cs, dg, x_out};
+  Window win;
+  if (!g.run || nx % Cell<T>::kRun != 0
+      || !window_ok(win, ny, nx, nyl, nxl, hy, hx, count, origins, iters,
+                    Num<T>::kHalo)
+      || !multisweep_ok<T, kMultisweep>(g, nyl, nxl, iters, ptrs, 8)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(g.rows == 1
+      ? launch_run<T, kMultisweep, 1, true>(
+            x0, nullptr, b, ce, cw, cn, cs, dg, x_out, nullptr, ny, nx, iters,
+            g, omega, s, win, count)
+      : launch_run<T, kMultisweep, 3, true>(
+            x0, nullptr, b, ce, cw, cn, cs, dg, x_out, nullptr, ny, nx, iters,
+            g, omega, s, win, count));
 }
 
 }  // namespace
@@ -976,6 +1173,27 @@ int launch_multisweep(const T* x0, const T* corr, const T* b, const T* ce,
     return launch_pass<T, true>(x, b, ce, cw, cn, cs, dg, out, planes, ny,   \
                                 nx, {vector, cells, rows, bx, by, gx, gy},   \
                                 omega, stream);                              \
+  }                                                                          \
+  extern "C" int jacobi_sweep_window_##SUFFIX(                               \
+      const T* x, const T* b, const T* ce, const T* cw, const T* cn,         \
+      const T* cs, const T* dg, T* out, int ny, int nx, int nyl, int nxl,    \
+      int hy, int hx, int count, const int* origins, int vector, int cells,  \
+      int rows, int bx, int by, int gx, int gy, float omega, void* stream) { \
+    return launch_pass_window<T>(x, b, ce, cw, cn, cs, dg, out, ny, nx, nyl, \
+                                 nxl, hy, hx, count, origins,                \
+                                 {vector, cells, rows, bx, by, gx, gy},      \
+                                 omega, stream);                             \
+  }                                                                          \
+  extern "C" int jacobi_multisweep_window_##SUFFIX(                          \
+      const T* x, const T* b, const T* ce, const T* cw, const T* cn,         \
+      const T* cs, const T* dg, T* x_out, int ny, int nx, int nyl, int nxl,  \
+      int hy, int hx, int count, const int* origins, int iters, int run,     \
+      int rows, int warps, int hxr, int tile_y, int tile_x, int gx, int gy,  \
+      float omega, void* stream) {                                           \
+    return launch_multisweep_window<T>(                                      \
+        x, b, ce, cw, cn, cs, dg, x_out, ny, nx, nyl, nxl, hy, hx, count,    \
+        origins, iters, {run, rows, warps, hxr, tile_y, tile_x, gx, gy},     \
+        omega, stream);                                                      \
   }
 
 PRESSURE_STENCIL_ENTRIES(f32, float)

@@ -42,12 +42,14 @@ def momentum_multisweep_plain(a_e, a_w, a_n, a_s, ap_inv, bu, bv, u0, v0,
     return u, v
 
 
-def _kernel():
+def _kernel(window: bool = False):
     lib = build.load(_NAME)
-    fn = lib.momentum_multisweep_f32
+    fn = lib.momentum_multisweep_window_f32 if window \
+        else lib.momentum_multisweep_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + (
+            [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int] if window
+            else [ctypes.c_int] * 4) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.momentum_multisweep_error_string.argtypes = [ctypes.c_int]
         lib.momentum_multisweep_error_string.restype = ctypes.c_char_p
@@ -72,11 +74,15 @@ def _check(ops, sweeps: int) -> bool:
     return False
 
 
-def _launch(ops, sweeps: int, out=None):
+def _launch(ops, sweeps: int, out=None, window=None):
     """One launch of the kernel over the (ny, nx) or (B, ny, nx) CUDA
     operands `ops` = (a_e, a_w, a_n, a_s, ap_inv, bu, bv, u0, v0), on the
     card that holds them, into `out` = (u, v) (new tensors if None);
-    returns (u, v). Counts nothing: the callers count their own
+    returns (u, v). `window` = (block, origins, halo): the window launch
+    over global (ny, nx) operands (ops/sharded.py), which sweeps the mesh
+    blocks of shape `block` = (nyl, nxl) at the (row, column) `origins`,
+    each reaching `halo` = (hy, hx) cells beyond it, and writes only
+    their interiors of `out`. Counts nothing: the callers count their own
     launches."""
     u0 = ops[7]
     for t in ops:
@@ -86,9 +92,18 @@ def _launch(ops, sweeps: int, out=None):
                 "momentum kernel takes contiguous float32 tensors on one "
                 f"device; got {t.dtype} {tuple(t.shape)} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
-    lib, fn = _kernel()
+    lib, fn = _kernel(window is not None)
     *lead, ny, nx = u0.shape
-    planes = lead[0] if lead else 1
+    if window is None:
+        shape = (lead[0] if lead else 1, ny, nx)
+    else:
+        block, origins, halo = window
+        if lead:
+            raise ValueError("the momentum kernel's window launch takes "
+                             "global (ny, nx) operands")
+        pairs = (ctypes.c_int * (2 * len(origins)))(*(c for o in origins
+                                                       for c in o))
+        shape = (ny, nx, *block, *halo, len(origins), pairs)
     u_out, v_out = out if out is not None else (torch.empty_like(u0),
                                                 torch.empty_like(u0))
     for t in (u_out, v_out):
@@ -99,7 +114,7 @@ def _launch(ops, sweeps: int, out=None):
     with torch.cuda.device(u0.device):
         stream = torch.cuda.current_stream(u0.device).cuda_stream
         err = fn(*(t.data_ptr() for t in ops), u_out.data_ptr(),
-                 v_out.data_ptr(), planes, ny, nx, sweeps, stream)
+                 v_out.data_ptr(), *shape, sweeps, stream)
     if err != 0:
         msg = lib.momentum_multisweep_error_string(err).decode()
         raise RuntimeError(f"momentum_multisweep launch failed: {msg}")

@@ -25,7 +25,9 @@ sweeps, smooth_residual's residual in one more pass over a halo one ring
 deeper; in bfloat16 too the division skips a zero dividend's slow path)
 on aligned planes whose width is a whole number of runs, the region
 kernel elsewhere, and for one sweep of jacobi_multisweep one pass of
-jacobi_sweep's kernels.
+jacobi_sweep's kernels. The sharded multisweep (ops/sharded.py) launches
+jacobi_multisweep's window form over a card's mesh blocks of global
+operands, in the geometry of `window_geometry`.
 
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU
 tensors it runs the `*_plain` version beside it. The plain versions repeat
@@ -107,12 +109,14 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def pass_geometry(shape, dtype, aligned: bool = True) -> PassGeometry:
+def pass_geometry(shape, dtype, aligned: bool = True,
+                  cells: int | None = None) -> PassGeometry:
     """The launch geometry of the single-pass kernels for operands of
     `shape` ((ny, nx) or (B, ny, nx)) and `dtype`. `aligned`: every
     operand's base address is a multiple of 16 bytes. The vector variant
-    needs that, rows of a whole number of 16-byte runs and a plane of at
-    least `_VECTOR_MIN_CELLS`; the cell variant takes anything. Vector
+    needs that, rows of a whole number of 16-byte runs and `cells` (a
+    plane's, by default) of at least `_VECTOR_MIN_CELLS`; the cell variant
+    takes anything. Vector
     variant: threads along a row 128, 64 or 32, whichever leaves the
     fewest idle (one segment for a row of fewer than 32 runs), and the
     most rows per thread (up to 16, powers of two) that still puts
@@ -120,7 +124,8 @@ def pass_geometry(shape, dtype, aligned: bool = True) -> PassGeometry:
     *lead, ny, nx = shape
     planes = lead[0] if lead else 1
     run = 16 // dtype.itemsize
-    if not (aligned and nx % run == 0 and ny * nx >= _VECTOR_MIN_CELLS):
+    cells = ny * nx if cells is None else cells
+    if not (aligned and nx % run == 0 and cells >= _VECTOR_MIN_CELLS):
         bx, by = _CELL_BLOCK
         return PassGeometry(vector=False, cells=1, rows=1, seg=1,
                             block=_CELL_BLOCK,
@@ -257,6 +262,41 @@ def multisweep_geometry(shape, dtype, iters: int, aligned: bool = True,
     if aligned and nx % (16 // dtype.itemsize) == 0:
         return _run_geometry(shape, dtype, halo, _run_rows(shape, halo))
     return _region_geometry(shape, halo)
+
+
+# the most blocks of one window launch (csrc/pressure_stencil.cu and
+# csrc/momentum_multisweep.cu `MAX_WINDOW_BLOCKS`)
+MAX_WINDOW_BLOCKS = 64
+
+
+def window_geometry(blocks: int, shape, dtype, iters: int,
+                    aligned: bool = True):
+    """The geometry of jacobi_multisweep's window launch (the sharded
+    multisweep, ops/sharded.py) over `blocks` mesh blocks of `shape`
+    (nyl, nxl) of one card, or None where the window form cannot take
+    them. The launch is sized by its cells, all the blocks', as one plane
+    of (blocks * nyl, nxl) would be by `multisweep_geometry`:
+    - one sweep: the single-pass kernels (`pass_geometry` over (blocks,
+      nyl, nxl), the vector variant from `_VECTOR_MIN_CELLS` cells in
+      all);
+    - two or more: the run kernel over one block (`_run_geometry`, its
+      rows a thread by `_run_rows` of the launch's cells), the blocks
+      along z.
+    None (the exchange route) where the region kernel would take that
+    plane (`_REGION_BELOW_CELLS`), where a block's width is no whole
+    number of 16-byte runs or an operand is off 16 bytes (a window's
+    origin must start a run), and beyond `MAX_WINDOW_BLOCKS` blocks."""
+    nyl, nxl = shape
+    if not (aligned and nxl % (16 // dtype.itemsize) == 0
+            and 0 < blocks <= MAX_WINDOW_BLOCKS):
+        return None
+    whole = multisweep_geometry((blocks * nyl, nxl), dtype, iters)
+    if isinstance(whole, PassGeometry):
+        return pass_geometry((blocks, nyl, nxl), dtype,
+                             cells=blocks * nyl * nxl)
+    if whole.variant != "run":
+        return None
+    return _run_geometry(shape, dtype, iters, whole.rows)
 
 
 def kernel_available_for(shape, dtype=torch.float32,
@@ -433,6 +473,38 @@ def _launch_pass(name, entry, coef, fields, out, omega=None, geom=None):
         err = fn(*ptrs, *args, stream)
     _raise_on(lib, name, err)
     return geom
+
+
+def _launch_window(coef, x, b, out, iters, omega, block, origins, halo,
+                  geom):
+    """One window launch of jacobi_multisweep in `geom` (`window_geometry`)
+    over the mesh blocks of shape `block` = (nyl, nxl) at the (row,
+    column) `origins` in the global (ny, nx) operands, each reaching
+    `halo` = (hy, hx) cells beyond it; writes those blocks' interiors of
+    `out`. The caller checks the operands and counts the launch."""
+    ny, nx = x.shape
+    ops = (x, b, coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.diag, out)
+    pairs = (ctypes.c_int * (2 * len(origins)))(*(c for o in origins
+                                                   for c in o))
+    window = (ny, nx, *block, *halo, len(origins), pairs)
+    dt = _DTYPES[x.dtype]
+    if isinstance(geom, PassGeometry):
+        lib, fn = _fn(f"jacobi_sweep_window_{dt}", len(ops),
+                      (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+                      + (ctypes.c_int,) * 7 + (ctypes.c_float,))
+        args = (int(geom.vector), geom.cells, geom.rows, *geom.block,
+                *geom.grid[:2])
+    else:
+        lib, fn = _fn(f"jacobi_multisweep_window_{dt}", len(ops),
+                      (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+                      + (ctypes.c_int,) * 9 + (ctypes.c_float,))
+        args = (iters, 1, geom.rows, geom.warps, geom.halo[1], *geom.tile,
+                *geom.grid)
+    with torch.cuda.device(x.device):   # launch on the operands' card
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in ops), *window, *args,
+                 _omega(omega, x.dtype), stream)
+    _raise_on(lib, "jacobi_multisweep_sharded", err)
 
 
 def _count(fn, variant, x):

@@ -20,7 +20,8 @@ over a `--mesh DYxDX` mesh (default 2x2) have the single kernel's bound,
 and beside it the bound of their haloed blocks, each (ny/dy + 2h) x
 (nx/dx + 2h) along the split axes with the kernel's halo h (8 in
 float32, 16 in bfloat16), read with their operations on every haloed
-cell and written cropped: the extra cost of this design. Prints one
+cell and written cropped: the extra cost of the exchange route (the
+window route reads the global operands in place). Prints one
 JSON line, keyed by grid. Runs anywhere; it measures nothing.
 """
 
@@ -85,8 +86,8 @@ def sharded_bound(name: str, shape, mesh_shape, dtype: str,
     `sweeps` (the kernel's path sweeps if None). `bound_us` is the
     function's: the global operands read once, the outputs written once,
     the operations on every cell, as the single kernel's bound.
-    `haloed_bound_us` is this design's: every haloed block's operands read
-    and its operations done on every haloed cell."""
+    `haloed_bound_us` is the exchange route's: every haloed block's
+    operands read and its operations done on every haloed cell."""
     n_in, n_out, per_sweep, once, path = KERNELS[name]
     sweeps = path[dtype] if sweeps is None else sweeps
     (ny, nx), (dy, dx) = shape, mesh_shape

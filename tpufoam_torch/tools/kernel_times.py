@@ -4,7 +4,7 @@ and the three multisweep pressure kernels.
 
     python tpufoam_torch/tools/kernel_times.py [--root DIR] [--reps N]
         [--flush dirty|clean|none] [--variants]
-        [--only momentum,matvec,multisweep]
+        [--only momentum,matvec,multisweep,sharded]
 
 `--root` imports `tpufoam_torch` from another checkout (default: the one
 this file lies in), so that two trees can be timed in turns in one call on
@@ -12,9 +12,7 @@ one card, each built from its own sources. Times, each the least over
 `--reps` rounds of the mean over 100 calls, from torch.profiler (the
 flush's kernel, a bitwise-not, left out):
   momentum  the kernel at sweeps 1, 2, 4 and 8 on (512, 2048) random
-            structured operands, its batched launch on (4, 512, 2048), and
-            the sharded step's per-card launch on four haloed 272 x 1040
-            blocks
+            structured operands, and its batched launch on (4, 512, 2048)
   matvec    stencil_matvec at every level of the 512 x 2048 and 256 x 1375
             multigrid hierarchies, float32 and bfloat16, beside each
             level's bound (six operands read, one written, at 3.35 TB/s),
@@ -29,6 +27,13 @@ flush's kernel, a bitwise-not, left out):
             smooth_residual two) and the launch's variant; and jacobi_sweep
             with one sweep, the single-pass kernel that computes
             jacobi_multisweep(iters=1)
+  sharded   the two sharded functions (ops.sharded), each whole call, on
+            a 2 x 2 mesh of the card at 512 x 2048:
+            momentum_multisweep_sharded at 8 sweeps (the sharded step's),
+            jacobi_multisweep_sharded in float32 at 1 sweep and in
+            bfloat16 at 2 and 16 (the halo), on the operands above; with
+            each call's device launches (kernels of any kind) from one
+            more profile
 `--variants` times stencil_matvec again with the vector and with the cell
 variant wherever each can run (`ops.stencil._VECTOR_MIN_CELLS` 0 and
 unbounded): the measurement that sets that threshold.
@@ -41,7 +46,7 @@ run kernel takes a level, its blocks of three rows a thread and 4, 8 or
 `_run_warps`): the measurements that set the geometry.
 Each launch's variant is the one the tree's wrapper counted
 (`by_shape`).
-`--only` times the named sections alone (default: all three).
+`--only` times the named sections alone (default: all four).
 Prints ptxas' registers, shared memory and spills of the build, the card's
 name and power limit, and one JSON line. Fails without a CUDA device.
 """
@@ -69,9 +74,10 @@ def level_shapes(ny, nx, min_size=8):
     return shapes
 
 
-def device_ms(torch, fn, flush, n=100, skip="bitwise_not"):
-    """Mean device ms per call of fn over n calls, each after `flush`;
-    kernels whose name holds `skip` (the flush's) are left out."""
+def device_profile(torch, fn, flush, n=100, skip="bitwise_not"):
+    """(mean device ms, device launches) per call of fn over n calls, each
+    after `flush`; kernels whose name holds `skip` (the flush's) are left
+    out."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -82,12 +88,18 @@ def device_ms(torch, fn, flush, n=100, skip="bitwise_not"):
             flush()
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and skip not in e.key)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and skip not in e.key]
+    us = sum(e.self_device_time_total for e in events)
     if us <= 0:
         raise SystemExit("kernel_times: torch.profiler saw no device time")
-    return us / 1e3 / n
+    return us / 1e3 / n, sum(e.count for e in events) / n
+
+
+def device_ms(torch, fn, flush, n=100, skip="bitwise_not"):
+    """Mean device ms per call of fn over n calls (`device_profile`)."""
+    return device_profile(torch, fn, flush, n, skip)[0]
 
 
 # the multisweep kernels: (fields read, fields written, operations per
@@ -221,7 +233,7 @@ def main() -> None:
     ap.add_argument("--variants", action="store_true",
                     help="also time the matvec with each variant forced "
                     "wherever it can run")
-    ap.add_argument("--only", default="momentum,matvec,multisweep",
+    ap.add_argument("--only", default="momentum,matvec,multisweep,sharded",
                     help="comma-separated sections to time")
     args = ap.parse_args()
     sections = set(args.only.split(","))
@@ -286,10 +298,7 @@ def main() -> None:
         fleet = momentum_ops((4, 512, 2048))
         out["momentum"]["batched 4x512x2048"] = least(
             lambda: mom.momentum_multisweep(*fleet, sweeps=8))
-        blocks = momentum_ops((4, 272, 1040))
-        out["momentum"]["sharded 2x2 per-card 4x272x1040"] = least(
-            lambda: mom.momentum_multisweep(*blocks, sweeps=8))
-        del ops, fleet, blocks
+        del ops, fleet
 
     def pressure_operands(shape, dt):
         """Conductances in [0, 1), diag above their sum, x, b and a
@@ -325,6 +334,26 @@ def main() -> None:
                 times[f"{ny}x{nx} {prec}"] = rows
         return times
 
+    if "sharded" in sections:
+        from tpufoam_torch.ops import sharded as sh
+        from tpufoam_torch.parallel.mesh import device_mesh
+
+        mesh = device_mesh(4, shape=(2, 2), devices=[dev] * 4)
+        ops = momentum_ops((512, 2048))
+        calls = {"momentum 8 sweeps": lambda: sh.momentum_multisweep_sharded(
+            mesh, *ops, sweeps=8)}
+        for prec, dt, iters in (("f32", torch.float32, 1),
+                                ("bf16", torch.bfloat16, 2),
+                                ("bf16", torch.bfloat16, 16)):
+            coef, x, b, _ = pressure_operands((512, 2048), dt)
+            calls[f"jacobi {prec} {iters} sweeps"] = (
+                lambda coef=coef, x=x, b=b, iters=iters:
+                sh.jacobi_multisweep_sharded(mesh, coef, x, b, iters))
+        out["sharded 2x2 512x2048"] = {
+            name: {"ms": least(call), "launches_per_call": device_profile(
+                torch, call, flush, n=10, skip=skip)[1]}
+            for name, call in calls.items()}
+        del ops, calls
     if "matvec" in sections:
         out["matvec"] = matvec_levels()
     if "multisweep" in sections:
