@@ -108,6 +108,34 @@ Phases, each printing one JSON line with its elapsed seconds:
           against step-fleet's lockstep
   step-fleet-mgcg  run_piso_batched with its default MGCGBackend(rtol=
           1e-5) on four 256 x 1024 cases: per-case CG iterations
+  case-graded  the graded 2D-1 case of artifacts/validation/
+          st_2d1_graded_h05.json (grading h_fine 0.0005, h_coarse 0.004,
+          ratio 1.12, band 0.07): 543 x 990, 537,570 cells, as the artifact
+          records; its SDF on the card against the CPU's (bit for bit)
+  kernel-graded  stencil_matvec and the three multisweep kernels in
+          float32 and bfloat16 at every level of the graded case's
+          multigrid hierarchy, on its first-corrector operator, iters 1,
+          2 and the most each takes: each launch counted under the
+          variant pass_geometry / multisweep_geometry names, bit for bit
+          against its plain version; their device time at the finest
+          level beside tools/kernel_bounds.py's bound
+  step-graded  the graded case with the artifact's settings (MGCG rtol
+          1e-6 with the kernel smoother, BDF2, maxCo 0.4, max_dt 5e-4, the
+          momentum kernel): 2 + 4 steps timed with CUDA events (drag and
+          lift after each), then 2 under torch.profiler (busy ms, idle
+          share); the pressure kernels' launches per step by variant and
+          level, on every level
+  step-options  the same for the three option runs at their published
+          widths: 2D-1 at delta 0.002133 with wall_link="tangential" and
+          with wall_order=2 (Euler), and 2D-2 at delta 0.0032 with BDF2 and
+          ddt_corr
+  step-alg1  the main hybrid path with sm_before_predictor=False
+          (Algorithm 1): one prediction a step, after the momentum
+          kernel's launch
+  parity-options  for each of the five new paths, one step with the plain
+          momentum and pressure smoothers against one with the kernels,
+          from the path's state, at the parity (hybrid) or
+          parity-pressure (MGCG) tolerances
 A kernel's time is its device time from torch.profiler with the L2
 cache flushed before each call (ms, plain_ms: the plain version's kernels
 summed) beside the per-call span on the
@@ -155,6 +183,29 @@ ST_DT0 = 2e-4
 N_ST_WARM, N_ST_STEPS = 2, 10
 ST_T_END, ST_T_SPLIT, ST_SAMPLE = 0.01, 0.005, 10
 ST_RAMP_T_END = 0.004
+# the graded 2D-1 case of artifacts/validation/st_2d1_graded_h05.json
+# (scripts/validate_schafer_turek.py --grade 0.0005): 543 x 990, 537,570
+# cells; its settings: MGCG rtol 1e-6, BDF2, maxCo 0.4, max_dt 5e-4 (the
+# artifact's; 2e-3 is st_2d2_graded_h16.json's). The port takes the
+# momentum kernel and the multisweep kernel smoother (the artifact ran
+# the XLA ones), so every sweep of the path is a launch.
+GRADED = dict(h_fine=0.0005, h_coarse=0.004, ratio=1.12, band=0.07)
+GRADED_SHAPE, GRADED_CELLS = (543, 990), 537_570
+GRADED_CFG = dict(max_co=0.4, max_dt=5e-4, ddt="backward",
+                  momentum_smoother="kernel")
+# the step options at their published widths: st_2d1_d47_tan.json and
+# st_2d1_d47_ws2.json (2D-1, delta 0.002133: 192 x 1031; MGCG, Euler,
+# max_dt 5e-3) and st_2d2ddt_d31_backward_corr.json (2D-2, delta 0.0032:
+# 128 x 688; MGCG, BDF2 with ddt_corr, max_dt 5e-3); maxCo 0.4 (the
+# script's default); (label, bench, delta, PisoConfig options)
+OPTION_PATHS = (
+    ("tangential", "2D-1", 0.002133, dict(wall_link="tangential")),
+    ("wall-order-2", "2D-1", 0.002133, dict(wall_order=2)),
+    ("ddt-corr", "2D-2", 0.0032, dict(ddt="backward", ddt_corr=True)),
+)
+# warm-up, timed and profiled steps of the new paths: an even number in
+# all, after which the Courant gate holds from the impulsive start
+N_PATH_WARM, N_PATH_STEPS, N_PATH_PROFILED = 2, 4, 2
 # odd shapes of random operands for the single-pass kernels
 ODD_SHAPES = ((37, 70), (1, 70), (43, 8), (255, 1377))
 SWEEP_ITERS = (1, 2, 8)
@@ -341,6 +392,7 @@ def main() -> int:
                                                 MGCGBackend)
     from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
                                                   make_predictor)
+    from tpufoam_torch.tools import kernel_bounds
     from tpufoam_torch.tools.kernel_bounds import sharded_bound
 
     # float32 matrix products in full float32 (the PCA and stitch matvecs)
@@ -1524,6 +1576,368 @@ def main() -> int:
     check(all(np.isfinite(ser_a.cd)) and all(np.isfinite(ser_a.cl))
           and all(np.isfinite(ser_r.cd)), "st-series: non-finite cd or cl")
     del flow_a, flow_b, flow_r
+
+    # ---- the graded Schaefer-Turek case (st_2d1_graded_h05.json) ---------
+    t = time.time()
+    case_g, u_mean_g = bench.schafer_turek_case("2D-1", delta=None,
+                                                grading=GRADED, device=dev)
+    torch.cuda.synchronize()
+    t_case_g = time.time() - t
+    t = time.time()
+    sdf_g_cpu = bench.schafer_turek_case("2D-1", delta=None, grading=GRADED,
+                                         device="cpu")[0].sdf
+    t_sdf_g_cpu = time.time() - t
+    sdf_g_equal = torch.equal(case_g.sdf.cpu(), sdf_g_cpu)
+    del sdf_g_cpu
+    xs_g, ys_g = case_g.grid.spacing_arrays()
+    say("case-graded", shape=list(case_g.grid.shape),
+        n_cells=case_g.grid.n_cells, grading=GRADED, u_mean=u_mean_g,
+        seconds=round(t_case_g, 3), cpu_case_seconds=round(t_sdf_g_cpu, 3),
+        sdf_equal_cpu=sdf_g_equal, fluid_cells=int(case_g.fluid.sum()),
+        spacing_x=[float(xs_g.min()), float(xs_g.max())],
+        spacing_y=[float(ys_g.min()), float(ys_g.max())])
+    check(case_g.grid.shape == GRADED_SHAPE
+          and case_g.grid.n_cells == GRADED_CELLS,
+          f"case-graded: grid {case_g.grid.shape}, not {GRADED_SHAPE}")
+    check(case_g.grid.stretched, "case-graded: the grid is not stretched")
+    check(sdf_g_equal, "case-graded: the card's SDF differs from the CPU's")
+
+    # ---- rows 2-5 at every level of the graded hierarchy -----------------
+    cfg_g = PisoConfig(**GRADED_CFG)
+    mgcg_kern = MGCGBackend(rtol=1e-6, smoother="kernel")
+    first_g = []
+
+    def capture_g(case_, pcoef_, rhs_, p_prev_, aux_):
+        if not first_g:
+            first_g.append((pcoef_, rhs_))
+        return mgcg_kern(case_, pcoef_, rhs_, p_prev_, aux_)
+
+    flow_g0 = initial_flow(case_g, dt0=ST_DT0)
+    with torch.no_grad():
+        piso_step(case_g, flow_g0, cfg_g, capture_g)
+    graded_levels = hierarchy(*first_g[0])
+    graded_shapes = [tuple(b.shape) for _, b in graded_levels]
+    # neighbouring conductances of the finest operator: their largest
+    # ratio across the grading
+    c0 = first_g[0][0]
+    ratio = max(float((torch.maximum(a[..., 1:], a[..., :-1]) / torch.clamp(
+        torch.minimum(a[..., 1:], a[..., :-1]), min=1e-30))[
+            (a[..., 1:] > 0) & (a[..., :-1] > 0)].max())
+        for a in (c0.c_e, c0.c_n.t()))
+    graded = {"checked": 0, "max_abs_err": 0.0,
+              "variants": collections.Counter()}
+    level_rows = []
+    for prec, dt in dtypes.items():
+        for coef_l, b_l in graded_levels:
+            shape = tuple(b_l.shape)
+            ops = level_operands(coef_l, b_l, dt)
+            c_, x_ = ops[0], ops[1]
+            v_mv = st.pass_geometry(shape, dt).variant
+            key = (v_mv, prec, shape)
+            n0 = st.stencil_matvec.by_shape[key]
+            got = st.stencil_matvec(c_, x_)
+            torch.cuda.synchronize()
+            check(st.stencil_matvec.by_shape[key] == n0 + 1,
+                  f"kernel-graded: stencil_matvec {prec} {shape} not one "
+                  f"launch of the {v_mv} variant")
+            graded["max_abs_err"] = max(graded["max_abs_err"], exact(
+                f"kernel-graded stencil_matvec {prec} {shape}", (got,),
+                (st.stencil_matvec_plain(c_, x_),)))
+            graded["variants"][v_mv] += 1
+            graded["checked"] += 1
+            row = {"dtype": prec, "shape": list(shape),
+                   "stencil_matvec": v_mv}
+            for name in STENCIL:
+                ks = sorted({1, 2, st._max_iters(dt, name)})
+                for k in ks:
+                    graded["max_abs_err"] = max(
+                        graded["max_abs_err"],
+                        held(name, prec, ops, k, f"graded level {shape}"))
+                    graded["variants"][variant(name, shape, dt, k)] += 1
+                    graded["checked"] += 1
+                row[name] = {str(k): variant(name, shape, dt, k)
+                             for k in ks}
+            level_rows.append(row)
+    # device time at the finest level, in each dtype at the sweeps each
+    # kernel runs on its path, beside tools/kernel_bounds.py's bound
+    graded_times = []
+    coef_f, b_f = graded_levels[0]
+    for prec, dt in dtypes.items():
+        ops = level_operands(coef_f, b_f, dt)
+        for name in ("stencil_matvec", *STENCIL):
+            if name == "stencil_matvec":
+                iters = 1
+                v_ = st.pass_geometry(GRADED_SHAPE, dt).variant
+
+                def call(ops=ops):
+                    return st.stencil_matvec(ops[0], ops[1])
+
+                def plain(ops=ops):
+                    return st.stencil_matvec_plain(ops[0], ops[1])
+            else:
+                iters = kernel_bounds.KERNELS[name][4][prec]
+                v_ = variant(name, GRADED_SHAPE, dt, iters)
+
+                def call(name=name, ops=ops, iters=iters):
+                    return stencil_call(name, *ops, iters)
+
+                def plain(name=name, ops=ops, iters=iters):
+                    return stencil_call(name, *ops, iters, True)
+            t_k = timings(call, plain, 100, 20, torch, flush)
+            b_k = kernel_bounds.bound(name, GRADED_SHAPE, prec)
+            graded_times.append({
+                "kernel": name, "dtype": prec, "iters": iters,
+                "variant": v_, **t_k, "bound_ms": b_k["bound_us"] / 1e3,
+                "bound_by": b_k["bound_by"],
+                "share_of_bound": b_k["bound_us"] / 1e3 / t_k["ms"]})
+    say("kernel-graded", levels=[list(s_) for s_ in graded_shapes],
+        max_neighbour_conductance_ratio=ratio, **graded,
+        by_level=level_rows, finest=graded_times)
+    check(graded["checked"] > 0, "kernel-graded: nothing checked")
+
+    # ---- the new paths: graded, the step options, Algorithm 1 ------------
+    from torch.profiler import ProfilerActivity, profile
+
+    def drive_path(label, case_, flow_, cfg_, be_, sm=None, u_ref=None,
+                   sm_calls=None):
+        """N_PATH_WARM steps, then N_PATH_STEPS steps timed with CUDA
+        events, the counters set to 0 just before and read just after,
+        with the drag and lift after each step (the cfg's wall terms),
+        then N_PATH_PROFILED steps under torch.profiler for the device's
+        busy time. Checks the health (finite, continuity < 1e-4, Courant
+        <= maxCo + 1e-3), one momentum launch a step and no sweep loop,
+        and one prediction a step with a surrogate. Returns (flow,
+        stats)."""
+        solves = [0]
+
+        def counted(*args):
+            solves[0] += 1
+            return be_(*args)
+
+        def run(f, k, bound_sm):
+            return run_piso_eager(case_, f, k, cfg=cfg_, backend=counted,
+                                  sm_predict=bound_sm)
+
+        bound_sm = None if sm is None else sm.bind(case_)
+        with torch.no_grad():
+            flow_ = run(flow_, N_PATH_WARM, bound_sm)
+            torch.cuda.synchronize()
+            reset_counts(sm_calls)
+            solves[0] = 0
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(N_PATH_STEPS)]
+            forces_ = []
+            # each MGCG solve's CG iterations and final relative residual,
+            # kept on the device until the timed steps are done
+            solved, mgcg_impl = [], backends_mod.mgcg_pressure
+
+            def mgcg_recorded(*args, **kw):
+                res = mgcg_impl(*args, **kw)
+                solved.append((res.iters, res.residual))
+                return res
+
+            backends_mod.mgcg_pressure = mgcg_recorded
+            try:
+                t = time.time()
+                for e0, e1 in ev:
+                    e0.record()
+                    flow_ = run(flow_, 1, bound_sm)
+                    e1.record()
+                    if u_ref is not None:
+                        rep = obstacle_force(
+                            case_, flow_.u, flow_.v, flow_.p, u_ref=u_ref,
+                            d_ref=bench.D_CYL, wall_order=cfg_.wall_order,
+                            wall_link=cfg_.wall_link)
+                        forces_.append((rep.cd, rep.cl))
+                torch.cuda.synchronize()
+                host_s = time.time() - t
+            finally:
+                backends_mod.mgcg_pressure = mgcg_impl
+            launched, cycles = counts(), mg.v_cycle.cycles
+            loops = fvm.jacobi_momentum.sweep_loops
+            calls = None if sm_calls is None else sm_calls.calls
+            n_solves = solves[0]
+            by_level = launches_by_level(
+                ("jacobi_multisweep", "smooth_residual", "corr_smooth"),
+                N_PATH_STEPS)
+            matvec_by = [{"variant": v_, "dtype": p_, "shape": list(sh_),
+                          "launches_per_step": n_ / N_PATH_STEPS}
+                         for (v_, p_, sh_), n_ in sorted(
+                             st.stencil_matvec.by_shape.items(),
+                             key=lambda kv: (kv[0][1], -kv[0][2][0]))]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.time()
+                flow_ = run(flow_, N_PATH_PROFILED, bound_sm)
+                torch.cuda.synchronize()
+                prof_wall_ms = (time.time() - t) * 1e3 / N_PATH_PROFILED
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 \
+            / N_PATH_PROFILED
+        finite_ = all(bool(torch.isfinite(getattr(flow_, f)).all())
+                      for f in ("u", "v", "p", "phi_x", "phi_y"))
+        cont_ = float(continuity_error(case_, flow_))
+        co_ = float(courant_number(case_, flow_))
+        cd_cl_ = [[float(cd), float(cl)] for cd, cl in forces_]
+        stats_ = dict(
+            shape=list(case_.grid.shape), steps=N_PATH_STEPS,
+            ms_per_step=sum(e0.elapsed_time(e1) for e0, e1 in ev)
+            / N_PATH_STEPS, host_ms_per_step=host_s * 1e3 / N_PATH_STEPS,
+            profiled_steps=N_PATH_PROFILED,
+            profiled_wall_ms_per_step=prof_wall_ms,
+            busy_ms_per_step=busy_ms if busy_ms > 0 else "not measured",
+            idle_share=1.0 - busy_ms / prof_wall_ms if busy_ms > 0
+            else "not measured",
+            device_launches_per_step=sum(e.count for e in kern)
+            / N_PATH_PROFILED,
+            top_kernels=[{"name": e.key[:60],
+                          "launches_per_step": e.count / N_PATH_PROFILED,
+                          "ms_per_step": e.self_device_time_total / 1e3
+                          / N_PATH_PROFILED}
+                         for e in sorted(
+                             kern, key=lambda e: -e.self_device_time_total)[:6]],
+            continuity_error=cont_, courant=co_, t_sim=float(flow_.t),
+            dt=float(flow_.dt), kernel_launches=launched,
+            momentum_sweep_loops=loops, v_cycles=cycles,
+            pressure_solves_per_step=n_solves / N_PATH_STEPS,
+            v_cycles_per_solve=cycles / max(n_solves, 1),
+            cg_iters_per_solve=[int(i) for i, _ in solved],
+            cg_residual_per_solve=[float(r) for _, r in solved],
+            sm_predict_calls=calls, finite=finite_,
+            pressure_launches_by_level=by_level,
+            matvec_launches_by_level=matvec_by, cd_cl=cd_cl_)
+        check(finite_, f"{label}: non-finite field")
+        check(cont_ < 1e-4, f"{label}: continuity error {cont_:.3e}")
+        check(co_ <= cfg_.max_co + 1e-3, f"{label}: Courant {co_:.4f}")
+        check(launched["momentum_multisweep"] == N_PATH_STEPS and loops == 0,
+              f"{label}: momentum kernel launched "
+              f"{launched['momentum_multisweep']} times, the sweep loop "
+              f"{loops} times in {N_PATH_STEPS} steps")
+        check(calls in (None, N_PATH_STEPS),
+              f"{label}: surrogate predicted {calls} times")
+        check(all(np.isfinite(cd_cl_).ravel()), f"{label}: cd, cl {cd_cl_}")
+        check(launched["stencil_matvec"] > 0,
+              f"{label}: the matvec never launched its kernel")
+        return flow_, stats_
+
+    def check_mgcg_levels(label, stats_, shapes):
+        """The MGCG kernel smoother on every kernel level of the path's
+        hierarchy, twice a V-cycle, each launch in its variant; no plain
+        sweep and no fused leg."""
+        k_ = stats_["kernel_launches"]
+        n_lv = len(shapes) - 1
+        check(stats_["v_cycles"] > 0 and k_["jacobi_multisweep"]
+              == 2 * n_lv * stats_["v_cycles"]
+              and k_["smooth_residual"] + k_["corr_smooth"] == 0,
+              f"{label}: launches {k_} for {stats_['v_cycles']} V-cycles "
+              f"on {n_lv} kernel levels")
+        path_variants(st.jacobi_multisweep, "jacobi_multisweep", label)
+        lv = {tuple(r_["shape"]) for r_ in
+              stats_["pressure_launches_by_level"]["jacobi_multisweep"]}
+        check(lv == set(shapes[:-1]),
+              f"{label}: the multisweep kernel ran on {sorted(lv)}, not "
+              f"every kernel level {shapes[:-1]}")
+        check_matvec_levels(label, stats_, shapes)
+
+    def check_matvec_levels(label, stats_, shapes):
+        """The matvec kernel on every level of the path's hierarchy (the
+        coarsest level's sweeps are matvecs), each launch in the variant
+        pass_geometry names."""
+        rows_ = stats_["matvec_launches_by_level"]
+        for r_ in rows_:
+            check(r_["variant"] == st.pass_geometry(
+                tuple(r_["shape"]), dtypes[r_["dtype"]]).variant,
+                f"{label}: matvec launches {r_}")
+        lv = {tuple(r_["shape"]) for r_ in rows_}
+        check(lv == set(shapes), f"{label}: the matvec kernel ran on "
+              f"{sorted(lv)}, not every level {shapes}")
+
+    path_flows = {}
+    flow_g, stats_g = drive_path("step-graded", case_g, flow_g0, cfg_g,
+                                 mgcg_kern, u_ref=u_mean_g)
+    say("step-graded", **stats_g)
+    check_mgcg_levels("step-graded", stats_g, graded_shapes)
+    path_flows["step-graded"] = (case_g, flow_g, cfg_g, u_mean_g)
+    del first_g, graded_levels
+
+    option_stats = {}
+    for label, bench_name, delta_o, opts in OPTION_PATHS:
+        case_o, u_mean_o = bench.schafer_turek_case(bench_name,
+                                                    delta=delta_o,
+                                                    device=dev)
+        cfg_o = PisoConfig(max_co=0.4, max_dt=5e-3,
+                           momentum_smoother="kernel", **opts)
+        flow_o, stats_o = drive_path(
+            f"step-options {label}", case_o,
+            initial_flow(case_o, dt0=ST_DT0), cfg_o, mgcg_kern,
+            u_ref=u_mean_o)
+        say("step-options", option=label, bench=bench_name, delta=delta_o,
+            options=opts, **stats_o)
+        shapes_o = kernel_bounds.level_shapes(*case_o.grid.shape)
+        check_mgcg_levels(f"step-options {label}", stats_o, shapes_o)
+        option_stats[label] = stats_o
+        path_flows[label] = (case_o, flow_o, cfg_o, u_mean_o)
+
+    # Algorithm 1 on the main path: the prediction after the momentum
+    # solve, from the predicted U* and the old p
+    cfg_a1 = dataclasses.replace(cfg, sm_before_predictor=False)
+    at_launch = []
+    bound_main = predictor.bind(case)
+
+    class Alg1:
+        """The main path's predictor, recording the momentum kernel's
+        launch count at each prediction."""
+
+        def bind(self, case_):
+            def predict(c_, p_, aux_):
+                at_launch.append(momentum_multisweep.launches)
+                return bound_main(c_, p_, aux_)
+            return predict
+
+    flow_a1, stats_a1 = drive_path("step-alg1", case, flow0, cfg_a1, backend,
+                                   sm=Alg1(), sm_calls=predictor)
+    timed = at_launch[N_PATH_WARM:N_PATH_WARM + N_PATH_STEPS]
+    say("step-alg1", **stats_a1, momentum_launches_at_predictions=timed)
+    check_matvec_levels("step-alg1", stats_a1,
+                        kernel_bounds.level_shapes(NY, NX))
+    check(timed == list(range(1, N_PATH_STEPS + 1)),
+          f"step-alg1: momentum launches at each prediction {timed}: not "
+          "one prediction a step after the momentum kernel")
+    path_flows["step-alg1"] = (case, flow_a1, cfg_a1, None)
+
+    # ---- parity: one step with the plain momentum and pressure smoothers
+    # against one with the kernels, from each path's state ---------------
+    parity_options = {}
+    for label, (case_p, flow_p, cfg_p, _) in path_flows.items():
+        if label == "step-alg1":
+            be_pl, be_k, sm_p = backend, backend, bound_main
+            tol = PARITY_TOL["bf16"]
+        else:
+            be_pl = MGCGBackend(rtol=1e-6)
+            be_k, sm_p = mgcg_kern, None
+            tol = SMOOTHER_PARITY_TOL["mgcg"]
+        with torch.no_grad():
+            f_plain = piso_step(case_p, flow_p, dataclasses.replace(
+                cfg_p, momentum_smoother="plain"), be_pl, sm_p)
+            torch.cuda.synchronize()
+            reset_counts()
+            f_kern = piso_step(case_p, flow_p, cfg_p, be_k, sm_p)
+            torch.cuda.synchronize()
+        k_ = counts()
+        diffs = {name: compare((getattr(f_kern, name),),
+                               (getattr(f_plain, name),))[1]
+                 for name in ("u", "v", "p")}
+        parity_options[label] = dict(rel_diff=diffs, tol=tol,
+                                     kernel_launches=k_)
+        check(k_["momentum_multisweep"] == 1,
+              f"parity-options {label}: launches {k_}")
+        for name, d in diffs.items():
+            check(d <= tol[name], f"parity-options {label} {name}: rel "
+                  f"diff {d:.3e}")
+    say("parity-options", paths=parity_options)
+    del path_flows, flow_g, flow_a1, case_g
 
     # ---- the fleet: the momentum kernel's batched launch ----------------
     n_fleet = len(FLEET)

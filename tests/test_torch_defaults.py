@@ -80,13 +80,8 @@ PAIRS = list(_pairs())
 # that the port does not take yet, each with the ROADMAP.md section A
 # item that ports it. A call that passes one raises TypeError.
 UNPORTED = {
-    "core.grid.Grid2D": {"xs": "A.2", "ys": "A.2"},
-    "fv.case.build_channel_case": {"grid": "A.2"},
-    "piso.engine.PisoConfig": {"sm_before_predictor": "A.1",
-                               "ddt_corr": "A.1", "wall_order": "A.1",
-                               "wall_link": "A.1", "turb_wall_fn": "A.4"},
-    "fv.momentum.momentum_coeffs": {"wall_grad_p": "A.1", "wall_link": "A.1",
-                                    "nu_t": "A.4", "k_turb": "A.4"},
+    "piso.engine.PisoConfig": {"turb_wall_fn": "A.4"},
+    "fv.momentum.momentum_coeffs": {"nu_t": "A.4", "k_turb": "A.4"},
     "fv.forces.obstacle_force": {"nu_t": "A.4", "k_turb": "A.4"},
     "piso.engine.piso_step": {"nu_t": "A.4", "k_turb": "A.4"},
     "fv.case.save_flow": {"turb": "A.4"},
@@ -108,7 +103,7 @@ UNPORTED = {
     # they belong to the domain-decomposed engine
     "parallel.mesh.Mesh": {"axis_types": "A.7"},
 }
-ROADMAP_A_ITEMS = {"A.1", "A.2", "A.3", "A.4", "A.7", "A.8"}
+ROADMAP_A_ITEMS = {"A.3", "A.4", "A.7", "A.8"}
 # Differences by design: the port's DistributedConfig takes torchrun's
 # names (master_addr, master_port, world_size, rank) for what JAX's
 # distributed initialisation calls these.
@@ -132,25 +127,27 @@ def test_the_walk_finds_the_entry_points():
                   "eval.benchmark.summarize_2d3",
                   "surrogate.pipeline.make_predictor",
                   "solvers.backends.MGBackend",
-                  "solvers.backends.AutoBackend"):
+                  "solvers.backends.AutoBackend",
+                  "core.grid.graded_spacing", "core.grid.make_graded_grid",
+                  "fv.momentum.wall_unit_normal",
+                  "fv.momentum.wall_normal_release",
+                  "fv.momentum.wall_shear2_source",
+                  "piso.engine.run_piso"):
         assert f"tpufoam_torch.{entry}" in names, entry
 
 
 def test_piso_config_has_the_ported_fields_only():
-    """The fields of the Schaefer-Turek path and the sharded step's mesh
-    are there, so the walk above compares their defaults; the options
-    that are not ported have no field, so setting one raises instead of
-    being ignored."""
+    """Every field of the JAX package's config is there, in its order,
+    but the SST model's wall functions, which have no field, so that
+    setting them raises instead of being ignored."""
     from tpufoam.piso.engine import PisoConfig as JaxConfig
     from tpufoam_torch.piso.engine import PisoConfig
-    port = {f.name for f in dataclasses.fields(PisoConfig)}
-    ref = {f.name for f in dataclasses.fields(JaxConfig)}
-    assert {"adjust_dt", "convection", "convection_blend", "ddt",
-            "inlet_scale_fn", "t_stop", "sm_trust", "shard_mesh"} <= port
-    assert ref - port == {"sm_before_predictor", "turb_wall_fn", "ddt_corr",
-                          "wall_order", "wall_link"}
+    port = [f.name for f in dataclasses.fields(PisoConfig)]
+    ref = [f.name for f in dataclasses.fields(JaxConfig)]
+    assert set(ref) - set(port) == {"turb_wall_fn"}
+    assert port == [n for n in ref if n != "turb_wall_fn"]
     with pytest.raises(TypeError):
-        PisoConfig(ddt_corr=True)
+        PisoConfig(turb_wall_fn=True)
 
 
 @pytest.mark.parametrize("name,port,ref", PAIRS, ids=[p[0] for p in PAIRS])

@@ -835,3 +835,108 @@ def test_jacobi_multisweep_one_sweep_equals_jacobi_sweep(cuda):
             coef, x, b = _edge_operands(shape, dtype, sum(shape) + 2, cuda)
             assert torch.equal(ts.jacobi_multisweep(coef, x, b, 1),
                                ts.jacobi_sweep(coef, x, b, 1)), shape
+
+
+# ---- graded grids: the kernels on a stretched operator ---------------------
+
+
+def _first_corrector_system(case, cfg, backend):
+    """The first corrector's pressure operator and right-hand side of one
+    step of `case` from its initial flow."""
+    from tpufoam_torch.fv.case import initial_flow
+    from tpufoam_torch.piso.engine import piso_step
+
+    first = []
+
+    def capture(case_, coef, rhs, p_prev, aux):
+        if not first:
+            first.append((coef, rhs))
+        return backend(case_, coef, rhs, p_prev, aux)
+
+    with torch.no_grad():
+        piso_step(case, initial_flow(case, 5e-4), cfg, capture)
+    return first[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernels_on_the_graded_hierarchy(cuda, dtype):
+    """Rows 2-5 (stencil_matvec, jacobi_multisweep, smooth_residual,
+    corr_smooth) at every level of the multigrid hierarchy of the 44 x 76
+    graded Schaefer-Turek case's first-corrector operator (neighbouring
+    conductances up to ~8:1 apart, odd widths), iters 1, 2 and the most
+    each takes: each launch in the variant the geometry names, bit for
+    bit against its plain version."""
+    from tpufoam_torch.eval.benchmark import schafer_turek_case
+    from tpufoam_torch.piso.engine import PisoConfig
+    from tpufoam_torch.solvers import multigrid as mg
+    from tpufoam_torch.solvers.backends import MGCGBackend
+
+    case, _ = schafer_turek_case("2D-1", delta=None,
+                                 grading=dict(h_fine=0.008), device=cuda)
+    assert case.grid.shape == (44, 76)
+    pcoef, rhs = _first_corrector_system(
+        case, PisoConfig(max_co=0.4, max_dt=2e-3, ddt="backward",
+                         momentum_smoother="kernel"),
+        MGCGBackend(rtol=1e-6, smoother="kernel"))
+    prec = "f32" if dtype == torch.float32 else "bf16"
+    levels, b = mg.build_hierarchy(pcoef), rhs
+    assert [tuple(c.diag.shape) for c in levels] == [(44, 76), (22, 38),
+                                                     (11, 19)]
+    for coef in levels:
+        shape = tuple(b.shape)
+        c = PressureCoeffs(*(t.to(dtype).contiguous() for t in (
+            coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.c_out, coef.diag)))
+        x = (b / coef.diag).to(dtype)
+        bb = b.to(dtype)
+        corr = (0.1 * torch.roll(b / coef.diag, 1, 1)).to(dtype)
+        variant = ts.pass_geometry(shape, dtype).variant
+        before = ts.stencil_matvec.by_shape[variant, prec, shape]
+        got = ts.stencil_matvec(c, x)
+        torch.cuda.synchronize()
+        assert ts.stencil_matvec.by_shape[variant, prec, shape] == before + 1
+        assert torch.equal(got, ts.stencil_matvec_plain(c, x)), shape
+        for kernel in ("jacobi_multisweep", "smooth_residual", "corr_smooth"):
+            counter = getattr(ts, kernel)
+            for iters in sorted({1, 2, ts._max_iters(dtype, kernel)}):
+                variant = ts.multisweep_geometry(shape, dtype, iters,
+                                                 kernel=kernel).variant
+                before = counter.by_shape[variant, prec, shape]
+                got, ref = _stencil_pair(kernel, c, x, bb, corr, iters)
+                torch.cuda.synchronize()
+                assert counter.by_shape[variant, prec, shape] == before + 1
+                for g, r in zip(got, ref):
+                    assert torch.equal(g, r), (kernel, shape, iters, variant)
+        b = mg.restrict(b)
+
+
+def test_run_piso_refuses_autograd_through_the_kernels(cuda):
+    """run_piso keeps autograd on. On the card the momentum kernel's and
+    the pressure matvec's wrappers refuse an operand that requires a
+    gradient (they have no backward), and nothing switches to a plain
+    version: a differentiated rollout runs on the CPU. Without a
+    gradient, run_piso runs on the card and equals run_piso_eager."""
+    import dataclasses
+
+    from tpufoam_torch.core.geometry import ChannelCase
+    from tpufoam_torch.fv.case import build_channel_case, initial_flow
+    from tpufoam_torch.piso.engine import PisoConfig, run_piso, run_piso_eager
+    from tpufoam_torch.solvers.backends import MGBackend
+
+    case = build_channel_case(ChannelCase(length=2.0, height=1.0,
+                                          shape=None, nu=0.05),
+                              delta=1.0 / 16, device=cuda)
+    flow0 = initial_flow(case, dt0=5e-3)
+    cfg = PisoConfig(momentum_smoother="kernel")
+    grad_case = dataclasses.replace(
+        case, inlet_u=case.inlet_u.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="momentum kernel has no backward"):
+        run_piso(grad_case, flow0, 1, cfg=cfg, backend=MGBackend(cycles=2))
+    with pytest.raises(ValueError, match="stencil_matvec kernel has no "
+                       "backward"):
+        run_piso(grad_case, flow0, 1, cfg=PisoConfig(),
+                 backend=MGBackend(cycles=2))
+    got = run_piso(case, flow0, 2, cfg=cfg, backend=MGBackend(cycles=2))
+    ref = run_piso_eager(case, flow0, 2, cfg=cfg, backend=MGBackend(cycles=2))
+    for name in ("u", "v", "p", "phi_x", "phi_y", "dt", "t"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name

@@ -1,8 +1,9 @@
 """The step options of the Schaefer-Turek path against the JAX package, on
 the CPU: `momentum_coeffs`' convection schemes and its variable-step BDF2
 (`ddt="backward"`), the surrogate trust gate (`sm_trust`), the dt options
-`adjust_dt=False` and `t_stop`, the in-step inlet scale, and
-`run_piso_chunked`.
+`adjust_dt=False` and `t_stop`, the in-step inlet scale, the wall options
+(`wall_order=2`, `wall_link="tangential"`), `ddt_corr` under both ddt
+schemes, and `run_piso_chunked`.
 
 Tolerances, max |port - JAX| / max |JAX|:
 - coefficients: 1e-5 (the same float32 operations in the same order; the
@@ -188,6 +189,10 @@ OPTIONS = {
     "inlet-ramp": dict(inlet_scale_fn="ramp"),
     "bdf2": dict(ddt="backward"),
     "blend": dict(convection="blend", convection_blend=0.5),
+    "wall-order-2": dict(wall_order=2),
+    "tangential": dict(wall_link="tangential"),
+    "ddt-corr": dict(ddt_corr=True),
+    "ddt-corr-bdf2": dict(ddt="backward", ddt_corr=True),
 }
 
 

@@ -131,12 +131,6 @@ def test_near_wall_guard_matches_jax(delta, shape):
     np.testing.assert_array_equal(tc.sdf.numpy(), np.asarray(jc.sdf))
 
 
-def test_graded_grids_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        tbench.schafer_turek_case("2D-2", delta=DELTA, device="cpu",
-                                  grading=dict(h_fine=0.002))
-
-
 def test_published_constants_are_the_jax_packages():
     assert tbench.PUBLISHED == jbench.PUBLISHED
     assert tbench.D_CYL == jbench.D_CYL and tbench.CHANNEL == jbench.CHANNEL
@@ -179,14 +173,6 @@ def test_obstacle_force_matches_jax(boundary):
     np.testing.assert_allclose([float(got.cd), float(got.cl)],
                                [float(ref.cd), float(ref.cl)], rtol=0,
                                atol=FORCE_TOL * scale / q)
-
-
-def test_obstacle_force_refuses_unported_wall_terms(st):
-    _, tc, _, _ = st
-    z = torch.zeros(tc.grid.shape)
-    for kw in (dict(wall_order=2), dict(wall_link="tangential")):
-        with pytest.raises(NotImplementedError):
-            tforces.obstacle_force(tc, z, z, z, **kw)
 
 
 def _series(seed=2):

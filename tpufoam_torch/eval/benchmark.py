@@ -11,8 +11,8 @@ the force series of a run, its restart files and its summaries.
 
 Geometry: cylinder D=0.1 centred at (0.2, 0.2) in a 2.2 x 0.41 channel,
 parabolic inlet 6 u_mean (y/H)(1 - y/H), nu = 1e-3, resolved with cut
-cells on the uniform grid. The graded grids of the JAX package
-(`grading=`) are not ported.
+cells on the uniform grid, or on a graded grid that packs cells around
+the cylinder (`grading=`).
 """
 
 from __future__ import annotations
@@ -53,23 +53,44 @@ def ramp_2d3(t: torch.Tensor) -> torch.Tensor:
     return torch.sin(math.pi * torch.clamp(t, 0.0, 8.0) / 8.0)
 
 
-def schafer_turek_case(bench: str, delta: float, alpha_cut: float = 0.05,
-                       cy: float | None = None, grading: dict | None = None,
-                       device=DEFAULT_DEVICE):
-    """The benchmark Case on a uniform grid of spacing `delta`; returns
-    (case, u_mean). alpha_cut is the cut-cell sliver threshold; cy moves
-    the cylinder centre (0.205 is the symmetric control)."""
+def schafer_turek_case(bench: str, delta: float | None,
+                       alpha_cut: float = 0.05, cy: float | None = None,
+                       grading: dict | None = None, device=DEFAULT_DEVICE):
+    """The benchmark Case; returns (case, u_mean). On a uniform grid of
+    spacing `delta`, or with `grading` on a stretched tensor-product grid
+    that packs cells around the cylinder and fits the 0.41 channel
+    exactly. grading's keys: h_fine (the spacing in the cylinder's band;
+    `delta` is then ignored), h_coarse (default 8 h_fine), ratio (the
+    cell growth, default 1.12), band (the margin beyond the cylinder's
+    radius kept at h_fine, default 0.07). alpha_cut is the cut-cell
+    sliver threshold; cy moves the cylinder centre (0.205 is the
+    symmetric control)."""
     from ..core.geometry import channel_case_geometry
+    from ..core.grid import graded_spacing, make_graded_grid
     from ..fv.case import build_channel_case
 
-    if grading:
-        raise NotImplementedError("graded grids are not ported")
     u_mean = PUBLISHED[bench]["u_mean"]
+    cy_v = CHANNEL["cy"] if cy is None else cy
     geom = channel_case_geometry(
         "cylinder", length=CHANNEL["length"], height=CHANNEL["height"],
-        obstacle_size=D_CYL, cx=CHANNEL["cx"],
-        cy=CHANNEL["cy"] if cy is None else cy, u_mean=u_mean,
+        obstacle_size=D_CYL, cx=CHANNEL["cx"], cy=cy_v, u_mean=u_mean,
         nu=CHANNEL["nu"])
+    if grading:
+        h_f = float(grading["h_fine"])
+        h_c = float(grading.get("h_coarse", 8.0 * h_f))
+        ratio = float(grading.get("ratio", 1.12))
+        band = float(grading.get("band", 0.07))
+        r_cyl = 0.5 * D_CYL
+        xs = graded_spacing(CHANNEL["length"], h_c,
+                            [(CHANNEL["cx"] - r_cyl - band,
+                              CHANNEL["cx"] + r_cyl + band, h_f)], ratio)
+        ys = graded_spacing(CHANNEL["height"], h_c,
+                            [(cy_v - r_cyl - band,
+                              cy_v + r_cyl + band, h_f)], ratio)
+        grid = make_graded_grid(0.0, CHANNEL["length"], 0.0,
+                                CHANNEL["height"], xs, ys)
+        return build_channel_case(geom, grid=grid, alpha_cut=alpha_cut,
+                                  device=device), u_mean
     return build_channel_case(geom, delta=delta, alpha_cut=alpha_cut,
                               device=device), u_mean
 
@@ -158,7 +179,8 @@ def run_force_series(case, flow, t_end: float, u_ref: float,
     time-dependent inside the step, and the run lands exactly on t_end:
     near it the runs shrink to single steps, so the capped landing step is
     the last one taken. `sm_predict` runs the hybrid step (surrogate warm
-    start + capped polish). `on_sample(flow, make_series)` is called after
+    start + capped polish). The force report takes cfg's wall options.
+    `on_sample(flow, make_series)` is called after
     every sample, with a zero-argument callable that builds the segment's
     series (the checkpoint hook: save_run_state). A resumed run passes the
     loaded flow back in and merges the returned segment with
@@ -189,7 +211,8 @@ def run_force_series(case, flow, t_end: float, u_ref: float,
                               sm_predict=sm_predict)
         steps += n
         rep = obstacle_force(case, flow.u, flow.v, flow.p, u_ref=u_ref,
-                             d_ref=d_ref)
+                             d_ref=d_ref, wall_order=cfg.wall_order,
+                             wall_link=cfg.wall_link)
         ts.append(float(flow.t))
         cds.append(float(rep.cd))
         cls_.append(float(rep.cl))
@@ -231,10 +254,16 @@ def pressure_probe(case, p, x: float, y: float, k: int = 4) -> float:
     g = case.grid
     p = _host(p)
     fluid = _host(case.fluid) > 0
-    i0 = int((y - g.y0) / g.dy)
-    j0 = int((x - g.x0) / g.dx)
-    xcen = g.x0 + (np.arange(g.nx) + 0.5) * g.dx
-    ycen = g.y0 + (np.arange(g.ny) + 0.5) * g.dy
+    if g.stretched:
+        i0, j0 = (int(k) for k in g.point_to_index(np.array([[x, y]]))[0])
+        xe, ye = g.x_edges(), g.y_edges()
+        xcen = 0.5 * (xe[:-1] + xe[1:])
+        ycen = 0.5 * (ye[:-1] + ye[1:])
+    else:
+        i0 = int((y - g.y0) / g.dy)
+        j0 = int((x - g.x0) / g.dx)
+        xcen = g.x0 + (np.arange(g.nx) + 0.5) * g.dx
+        ycen = g.y0 + (np.arange(g.ny) + 0.5) * g.dy
     w = 6  # search window (cells) around the probe
     i_lo, i_hi = max(i0 - w, 0), min(i0 + w + 1, g.ny)
     j_lo, j_hi = max(j0 - w, 0), min(j0 + w + 1, g.nx)

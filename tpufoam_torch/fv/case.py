@@ -17,6 +17,7 @@ Boundary model (channel with obstacle):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -61,22 +62,69 @@ class Case:
 
 
 class GridMetrics:
-    """FV metric terms of a uniform grid: cell spacings, centre-to-centre
-    distances toward each neighbour and the face interpolation weight of
-    the cell at its own face (0.5)."""
+    """FV metric terms: cell spacings, centre-to-centre distances toward
+    each neighbour, and the face interpolation weight of the cell at its
+    own face.
+
+    On a uniform grid every term is a Python float (the spacings, 0.5
+    weights), so a uniform step keeps the scalar arithmetic. On a
+    stretched grid (Grid2D.xs/ys) they are float32 tensors of shape
+    (1, nx) or (ny, 1) on `device`, made from the float64 spacings as the
+    JAX package makes them; they broadcast over ([B,] ny, nx) fields. The
+    domain-edge entries (no neighbour) carry the cell's own spacing: their
+    faces are closed or have boundary closures of their own. `wfx`/`wfy`
+    (stretched only) are the weights of the left/lower cell at each
+    interior face, for fluxes_from_velocity."""
 
     __slots__ = ("dxc", "dyc", "hx_e", "hx_w", "hy_n", "hy_s",
-                 "wx_e", "wx_w", "wy_n", "wy_s")
+                 "wx_e", "wx_w", "wy_n", "wy_s", "wfx", "wfy", "stretched")
 
-    def __init__(self, grid: Grid2D):
-        self.dxc, self.dyc = grid.dx, grid.dy
-        self.hx_e = self.hx_w = grid.dx
-        self.hy_n = self.hy_s = grid.dy
-        self.wx_e = self.wx_w = self.wy_n = self.wy_s = 0.5
+    def __init__(self, grid: Grid2D, device=DEFAULT_DEVICE):
+        self.stretched = grid.stretched
+        if not grid.stretched:
+            self.dxc, self.dyc = grid.dx, grid.dy
+            self.hx_e = self.hx_w = grid.dx
+            self.hy_n = self.hy_s = grid.dy
+            self.wx_e = self.wx_w = self.wy_n = self.wy_s = 0.5
+            self.wfx = self.wfy = None
+            return
+        xs, ys = grid.spacing_arrays()
+
+        def row(v):
+            return torch.as_tensor(v.astype(np.float32), device=device)[None]
+
+        def col(v):
+            return torch.as_tensor(v.astype(np.float32),
+                                   device=device)[:, None]
+
+        self.dxc, self.dyc = row(xs), col(ys)
+        xe = np.append(xs[1:], xs[-1])
+        xw = np.concatenate([xs[:1], xs[:-1]])
+        yn = np.append(ys[1:], ys[-1])
+        yso = np.concatenate([ys[:1], ys[:-1]])
+        self.hx_e = row(0.5 * (xs + xe))
+        self.hx_w = row(0.5 * (xs + xw))
+        self.hy_n = col(0.5 * (ys + yn))
+        self.hy_s = col(0.5 * (ys + yso))
+        # linear face interpolation: the east face's value is
+        # wx_e f_P + (1 - wx_e) f_E with wx_e = dx_E / (dx_P + dx_E)
+        self.wx_e = row(xe / (xs + xe))
+        self.wx_w = row(xw / (xs + xw))
+        self.wy_n = col(yn / (ys + yn))
+        self.wy_s = col(yso / (ys + yso))
+        self.wfx = row(xs[1:] / (xs[:-1] + xs[1:]))
+        self.wfy = col(ys[1:] / (ys[:-1] + ys[1:]))
 
 
-def grid_metrics(grid: Grid2D) -> GridMetrics:
-    return GridMetrics(grid)
+@functools.lru_cache(maxsize=16)
+def _metrics(grid: Grid2D, device: torch.device) -> GridMetrics:
+    return GridMetrics(grid, device)
+
+
+def grid_metrics(grid: Grid2D, device=DEFAULT_DEVICE) -> GridMetrics:
+    """The metric terms of `grid` (see GridMetrics), made once per grid
+    and device; pass the case's device."""
+    return _metrics(grid, torch.device(device))
 
 
 def domain_row_masks(case: Case):
@@ -121,13 +169,15 @@ class Flow:
     p_prev: torch.Tensor
 
 
-def build_channel_case(geom: ChannelCase, delta: float,
+def build_channel_case(geom: ChannelCase, delta: float | None = None,
                        n_boundary: int = 720,
                        boundary: str = "cutcell",
                        alpha_cut: float = 0.05,
+                       grid: Grid2D | None = None,
                        device=DEFAULT_DEVICE) -> Case:
-    """Discretize a ChannelCase onto a uniform grid (one-time setup; the
-    masks are host numpy, the SDF runs on `device`).
+    """Discretize a ChannelCase onto a grid (one-time setup; the masks are
+    host numpy, the SDF runs on `device`): the uniform grid of spacing
+    `delta`, or a prebuilt `grid` (a graded make_graded_grid).
 
     boundary: 'cutcell' resolves the obstacle with sub-cell face apertures
     and volume fractions (fv.cutcell); 'blank' is the binary centre-inside
@@ -136,7 +186,11 @@ def build_channel_case(geom: ChannelCase, delta: float,
     from .cutcell import cut_masks
 
     device = torch.device(device)
-    grid = make_grid(0.0, geom.length, 0.0, geom.height, delta)
+    if grid is None:
+        if delta is None:
+            raise ValueError("pass either delta (uniform) or grid")
+        grid = make_grid(0.0, geom.length, 0.0, geom.height, delta)
+    # float64 centres, cast to float32 for the SDF as the JAX package casts
     pts = grid.cell_centers_flat()
 
     top_b = geom.boundary_points_top(4 * n_boundary)
@@ -171,7 +225,11 @@ def build_channel_case(geom: ChannelCase, delta: float,
     sdf = (torch.minimum(d_obst, d_top) * on_dev(domain)).reshape(grid.shape)
     sdf = sdf * on_dev(fluid_np)
 
-    y = grid.y0 + (np.arange(grid.ny) + 0.5) * grid.dy
+    if not grid.stretched:
+        y = grid.y0 + (np.arange(grid.ny) + 0.5) * grid.dy
+    else:
+        ye = grid.y_edges()
+        y = 0.5 * (ye[:-1] + ye[1:])
     inlet_u = geom.inlet_profile(y).astype(np.float32)
 
     _validate_connectivity(fluid_np)
@@ -291,10 +349,19 @@ def fluxes_from_velocity(case: Case, u: torch.Tensor, v: torch.Tensor):
     (upwind cell value), wall/solid faces = 0.
     """
     grid = case.grid
-    dy, dx = grid.dy, grid.dx
-    face_val_x = 0.5 * (u[..., :-1] + u[..., 1:])      # faces j=1..nx-1
-    face_val_y = 0.5 * (v[..., :-1, :] + v[..., 1:, :])  # faces i=1..ny-1
-    dy_col = dy * torch.ones((grid.ny, 1), dtype=u.dtype, device=u.device)
+    if not grid.stretched:
+        dy, dx = grid.dy, grid.dx
+        face_val_x = 0.5 * (u[..., :-1] + u[..., 1:])      # faces j=1..nx-1
+        face_val_y = 0.5 * (v[..., :-1, :] + v[..., 1:, :])  # faces i=1..ny-1
+        dy_col = dy * torch.ones((grid.ny, 1), dtype=u.dtype, device=u.device)
+    else:
+        # distance-weighted face values; face areas per row (x-faces) and
+        # per column (y-faces)
+        m = grid_metrics(grid, case.device)
+        face_val_x = m.wfx * u[..., :-1] + (1.0 - m.wfx) * u[..., 1:]
+        face_val_y = m.wfy * v[..., :-1, :] + (1.0 - m.wfy) * v[..., 1:, :]
+        dy, dx = m.dyc, m.dxc
+        dy_col = dy
 
     phi_x = torch.cat([
         case.inlet_u[..., :, None] * case.fluid[..., :1] * dy_col,

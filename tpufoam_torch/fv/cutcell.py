@@ -1,7 +1,8 @@
 """Cut-cell (embedded-boundary) geometry: face apertures + volume fractions.
 
-Host numpy, one-time setup; a copy of the JAX package's cut-cell module for
-uniform grids. The body is represented by sub-cell geometry:
+Host numpy, one-time setup; a copy of the JAX package's cut-cell module,
+for uniform and stretched grids (per-axis spacings and edges there). The
+body is represented by sub-cell geometry:
 
   alpha   (ny, nx)    fluid volume fraction of each cell
   theta_x (ny, nx+1)  open-area fraction of each x-normal face
@@ -11,7 +12,8 @@ uniform grids. The body is represented by sub-cell geometry:
                       A_wall = -((th_e - th_w) dy, (th_n - th_s) dx)
   wall_len (ny, nx)   embedded-wall wetted length (the friction area)
   wall_dist           fluid-centroid -> discrete-wall distance, clipped to
-                      [0.05 h, h/2]
+                      [0.05 h, h/2] (h the local cell size on a stretched
+                      grid)
 
 In the binary limit (apertures in {0,1} from a centre-inside test) every
 formula reduces to the blanked-cell scheme. Cells with alpha < alpha_cut
@@ -40,11 +42,23 @@ def cut_masks(grid, shape, inside_centers: np.ndarray,
     Returns dict of numpy arrays (see module docstring).
     """
     ny, nx = grid.shape
-    DX, DY = grid.dx, grid.dy
-    h = min(grid.dx, grid.dy)
-    h_pad = 2.0 * h
-    cx = grid.x0 + (np.arange(nx) + 0.5) * grid.dx
-    cy = grid.y0 + (np.arange(ny) + 0.5) * grid.dy
+    stretched = grid.stretched
+    if stretched:
+        # per-axis spacing and edge arrays; the uniform branch keeps the
+        # scalar arithmetic
+        xs_c, ys_c = grid.spacing_arrays()
+        xe_c, ye_c = grid.x_edges(), grid.y_edges()
+        DX, DY = xs_c[None, :], ys_c[:, None]       # (1,nx), (ny,1)
+        h = float(min(xs_c.min(), ys_c.min()))
+        h_pad = 2.0 * float(max(xs_c.max(), ys_c.max()))
+        cx = 0.5 * (xe_c[:-1] + xe_c[1:])
+        cy = 0.5 * (ye_c[:-1] + ye_c[1:])
+    else:
+        DX, DY = grid.dx, grid.dy
+        h = min(grid.dx, grid.dy)
+        h_pad = 2.0 * h
+        cx = grid.x0 + (np.arange(nx) + 0.5) * grid.dx
+        cy = grid.y0 + (np.arange(ny) + 0.5) * grid.dy
     dx, dy = grid.dx, grid.dy
 
     thx = np.ones((ny, nx + 1), dtype=np.float64)
@@ -66,8 +80,14 @@ def cut_masks(grid, shape, inside_centers: np.ndarray,
             off = (np.arange(n_sub) + 0.5) / n_sub
 
             # cell volume fractions + fluid-part centroids (midpoint grid)
-            xs = grid.x0 + (j_sel[None, :, None] + off[None, None, :]) * dx
-            ys = grid.y0 + (i_sel[:, None, None] + off[None, None, :]) * dy
+            if stretched:
+                xs = (xe_c[j_sel][None, :, None]
+                      + off[None, None, :] * xs_c[j_sel][None, :, None])
+                ys = (ye_c[i_sel][:, None, None]
+                      + off[None, None, :] * ys_c[i_sel][:, None, None])
+            else:
+                xs = grid.x0 + (j_sel[None, :, None] + off[None, None, :]) * dx
+                ys = grid.y0 + (i_sel[:, None, None] + off[None, None, :]) * dy
             # (ni, nj, k, k, 2): broadcast x along one sample axis, y other
             px = np.broadcast_to(xs[:, :, None, :],
                                  (i1 - i0, j1 - j0, n_sub, n_sub))
@@ -88,8 +108,14 @@ def cut_masks(grid, shape, inside_centers: np.ndarray,
                 CY[i0:i1, j0:j1])
 
             # x-face apertures: faces j0..j1 (inclusive), rows i0..i1
-            fx = grid.x0 + np.arange(j0, j1 + 1) * dx
-            fy = grid.y0 + (np.arange(i0, i1)[:, None] + off[None, :]) * dy
+            if stretched:
+                fx = xe_c[j0:j1 + 1]
+                fy = (ye_c[i0:i1][:, None]
+                      + off[None, :] * ys_c[i0:i1][:, None])
+            else:
+                fx = grid.x0 + np.arange(j0, j1 + 1) * dx
+                fy = grid.y0 + (np.arange(i0, i1)[:, None]
+                                + off[None, :]) * dy
             pfx = np.broadcast_to(fx[None, :, None],
                                   (i1 - i0, j1 - j0 + 1, n_sub))
             pfy = np.broadcast_to(fy[:, None, :],
@@ -98,9 +124,14 @@ def cut_masks(grid, shape, inside_centers: np.ndarray,
                 shape, np.stack([pfx, pfy], axis=-1))
 
             # y-face apertures: faces i0..i1 (inclusive), cols j0..j1
-            gy = grid.y0 + np.arange(i0, i1 + 1) * dy
-            gx = grid.x0 + (np.arange(j0, j1)[None, :, None]
-                            + off[None, None, :]) * dx
+            if stretched:
+                gy = ye_c[i0:i1 + 1]
+                gx = (xe_c[j0:j1][None, :, None]
+                      + off[None, None, :] * xs_c[j0:j1][None, :, None])
+            else:
+                gy = grid.y0 + np.arange(i0, i1 + 1) * dy
+                gx = grid.x0 + (np.arange(j0, j1)[None, :, None]
+                                + off[None, None, :]) * dx
             pgy = np.broadcast_to(gy[:, None, None],
                                   (i1 - i0 + 1, j1 - j0, n_sub))
             pgx = np.broadcast_to(gx, (i1 - i0 + 1, j1 - j0, n_sub))
@@ -151,7 +182,11 @@ def cut_masks(grid, shape, inside_centers: np.ndarray,
             tree = cKDTree(bpts)
             cen = np.stack([cent_x[sel], cent_y[sel]], axis=-1)
             d, _ = tree.query(cen)
-            wall_dist[sel] = np.clip(d, 0.05 * h, 0.5 * h)
+            # clip bounds follow the LOCAL cell size on stretched grids
+            h_cell = (np.minimum(np.broadcast_to(DX, (ny, nx)),
+                                 np.broadcast_to(DY, (ny, nx)))[sel]
+                      if stretched else h)
+            wall_dist[sel] = np.clip(d, 0.05 * h_cell, 0.5 * h_cell)
         else:
             # blank mode: the discrete wall IS the closed face, half a
             # cell away ALONG ITS OWN AXIS (a centre can graze the true

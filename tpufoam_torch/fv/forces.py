@@ -3,7 +3,9 @@
 The force on the obstacle is assembled from its wall terms, in kinematic
 units (per density) and per unit depth. Cut-cell cases take the discrete
 momentum-consistent embedded-wall terms; blanked cases sample the stair
-faces. One case: (ny, nx) fields.
+faces. One case: (ny, nx) fields. The cut-cell report takes the step's
+wall options (second-order shear, tangential link) as the momentum
+equation does.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ import dataclasses
 import torch
 
 from .case import Case
+from .momentum import wall_shear2_source, wall_unit_normal
 from .operators import nb_e, nb_n, nb_s, nb_w
+from .pressure import pressure_gradient
 
 
 @dataclasses.dataclass
@@ -61,17 +65,31 @@ def _report(f_pres: torch.Tensor, f_visc: torch.Tensor, u_ref: float,
 
 def _obstacle_force_cut(case: Case, u: torch.Tensor, v: torch.Tensor,
                         p: torch.Tensor, u_ref: float = 1.0,
-                        d_ref: float = 1.0) -> ForceReport:
+                        d_ref: float = 1.0, wall_order: int = 1,
+                        wall_link: str = "full") -> ForceReport:
     """Cut-cell force, the discrete momentum-consistent wall terms:
         F_p  = sum_cells p_P A_w    (the pressure gradient's wall closure)
         F_nu = sum_cells a_wall U_P (the no-slip link nu L_w / d_w of
                                      fv.momentum)
-    i.e. the momentum the discretized equations transfer to the body."""
+    i.e. the momentum the discretized equations transfer to the body. The
+    step's wall options change that transfer, and the report follows:
+    wall_link='tangential' takes off the released normal part
+    a_wall (U.n) n, wall_order=2 the second-order shear correction that
+    the fluid gained."""
     fpx = torch.sum(p * case.wall_ax)
     fpy = torch.sum(p * case.wall_ay)
     a_wall = case.nu * case.wall_len / case.wall_dist
     fvx = torch.sum(a_wall * u)
     fvy = torch.sum(a_wall * v)
+    if wall_link == "tangential":
+        nxh, nyh = wall_unit_normal(case)
+        un = (u * nxh + v * nyh) * case.fluid
+        fvx = fvx - torch.sum(a_wall * un * nxh)
+        fvy = fvy - torch.sum(a_wall * un * nyh)
+    if wall_order == 2:
+        ws_u, ws_v = wall_shear2_source(case, *pressure_gradient(case, p))
+        fvx = fvx - torch.sum(ws_u)
+        fvy = fvy - torch.sum(ws_v)
     return _report(torch.stack([fpx, fpy]), torch.stack([fvx, fvy]), u_ref,
                    d_ref)
 
@@ -112,13 +130,16 @@ def obstacle_force(case: Case, u: torch.Tensor, v: torch.Tensor,
                    wall_link: str = "full") -> ForceReport:
     """Pressure + viscous force on the obstacle and its coefficients
     (reference velocity u_ref, length d_ref): the cut-cell terms when
-    case.cut, else the stair-face sampling. Laminar only; wall_order=2 and
-    wall_link='tangential' (their momentum terms) are not ported."""
-    if wall_order != 1 or wall_link != "full":
-        raise NotImplementedError(
-            f"obstacle_force(wall_order={wall_order}, "
-            f"wall_link={wall_link!r}) is not ported: only the first-order "
-            "full wall link")
+    case.cut, else the stair-face sampling. Laminar only. Pass the step's
+    PisoConfig.wall_order and wall_link, so that a cut-cell report stays
+    the momentum the step transferred (the stair path has neither
+    term)."""
+    if wall_order not in (1, 2):
+        raise ValueError(f"unknown wall order {wall_order!r}")
+    if wall_link not in ("full", "tangential"):
+        raise ValueError(f"unknown wall link {wall_link!r}")
     if case.cut:
-        return _obstacle_force_cut(case, u, v, p, u_ref=u_ref, d_ref=d_ref)
+        return _obstacle_force_cut(case, u, v, p, u_ref=u_ref, d_ref=d_ref,
+                                   wall_order=wall_order,
+                                   wall_link=wall_link)
     return _obstacle_force_stair(case, u, v, p, u_ref=u_ref, d_ref=d_ref)

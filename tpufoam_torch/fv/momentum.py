@@ -4,8 +4,10 @@ Implicit FV discretization of
     ddt(U) + div(phi, U) - laplacian(nu, U) == -grad(p)
 with Euler or variable-step BDF2 ddt, upwind implicit convection plus a
 deferred correction (limitedLinearV, or an unlimited central blend), and
-central diffusion on a cut-cell uniform grid, laminar. The solve is a
-fixed number of Jacobi sweeps. Fields are ([B,] ny, nx): a leading case
+central diffusion on a cut-cell grid, uniform or stretched, laminar; the
+embedded wall's no-slip link optionally carries a second-order shear
+correction or acts on the tangential velocity only. The solve is a fixed
+number of Jacobi sweeps. Fields are ([B,] ny, nx): a leading case
 axis, or none.
 
 Units: integrated FV (a in m^2/s for 2D unit depth); aP/V == UEqn.A(),
@@ -59,7 +61,7 @@ def _deferred_central_correction(case: Case, f_e, f_w, f_n, f_s,
     implicit matrix stays upwind. Faces are oriented L->R along the
     positive axis: for a cell's east/north face the cell is L, for its
     west/south face the cell is R."""
-    m = grid_metrics(case.grid)
+    m = grid_metrics(case.grid, case.device)
 
     def face_corr(f_flux, left, right, open_mask, w_left):
         central = w_left * left + (1.0 - w_left) * right
@@ -99,7 +101,7 @@ def _limited_linear_corrections(case: Case, f_e, f_w, f_n, f_s,
         # F already carries the face aperture — only gate on open
         return torch.where(open_mask > 0, F * psi * (central - upwind), 0.0)
 
-    m = grid_metrics(case.grid)
+    m = grid_metrics(case.grid, case.device)
     # (face flux, L-shift, R-shift, LL-shift, RR-shift, open mask, sign,
     #  left-cell interpolation weight)
     faces = (
@@ -125,13 +127,56 @@ def _limited_linear_corrections(case: Case, f_e, f_w, f_n, f_s,
     return -corr_u, -corr_v
 
 
+def wall_unit_normal(case: Case):
+    """Unit embedded-wall normal (n_x, n_y) per cell from the wall-area
+    vector (case.wall_ax/ay); zero where the cell has no wall piece. Its
+    sign follows A_w (into the body); every user is sign-invariant."""
+    ax, ay = case.wall_ax, case.wall_ay
+    amag = torch.hypot(ax, ay)
+    ok = amag > 1e-12
+    inv = torch.where(ok, 1.0 / torch.where(ok, amag, 1.0), 0.0)
+    return ax * inv, ay * inv
+
+
+def wall_normal_release(case: Case, a_wall: torch.Tensor,
+                        u: torch.Tensor, v: torch.Tensor):
+    """Deferred correction that restricts the embedded-wall no-slip link
+    to the tangential velocity (PisoConfig.wall_link='tangential'): the
+    source pair + a_wall (U.n) n, added to (b_u, b_v), so that at
+    convergence the wall exerts only -a_wall (U.t) t on the fluid (the
+    viscous traction of a no-slip wall has no normal component;
+    no-penetration comes from the closed wall-face apertures)."""
+    nx, ny = wall_unit_normal(case)
+    un = u * nx + v * ny
+    c = a_wall * un
+    return c * nx * case.fluid, c * ny * case.fluid
+
+
+def wall_shear2_source(case: Case, gpx: torch.Tensor, gpy: torch.Tensor):
+    """Second-order wall-shear deferred correction (a source pair).
+
+    At a stationary no-slip wall the tangential momentum equation reduces
+    to nu d2u_t/dn2 = dp/ds, so the quadratic near-wall profile gives
+    tau_w = nu U_t / d_w - (d_w / 2) dp/ds. The implicit matrix keeps the
+    link nu L_w / d_w; this returns the explicit remainder
+    + (L_w d_w / 2)(t . grad p) t for (b_u, b_v), and fv.forces subtracts
+    the same term from the body force."""
+    nx, ny = wall_unit_normal(case)
+    tx, ty = -ny, nx                       # unit tangent (sign-invariant)
+    dpds = tx * gpx + ty * gpy
+    c = 0.5 * case.wall_len * case.wall_dist * dpds
+    return c * tx * case.fluid, c * ty * case.fluid
+
+
 def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
                     u_old: torch.Tensor, v_old: torch.Tensor,
                     dt: torch.Tensor, *, convection_blend: float = 0.0,
                     convection: str = "blend", ddt: str = "euler",
                     u_nm1: torch.Tensor | None = None,
                     v_nm1: torch.Tensor | None = None,
-                    dt_prev: torch.Tensor | None = None) -> MomentumCoeffs:
+                    dt_prev: torch.Tensor | None = None,
+                    wall_grad_p=None,
+                    wall_link: str = "full") -> MomentumCoeffs:
     """Laminar UEqn coefficients: an upwind implicit matrix, no-slip walls
     (half-cell domain walls, embedded-wall link nu L_w / d_w on the
     obstacle), fixed-velocity inlet. `dt` is one per case: () or (B,).
@@ -147,16 +192,24 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
     enters a_P and the source carries (1+r) u^n - r^2/(1+r) u^{n-1}; on
     the bootstrap step (u^{n-1} == u^n) the two cancel to Euler's.
 
-    The JAX package's turbulence (nu_t, k_turb) and wall options
-    (wall_grad_p, wall_link) are not ported."""
+    wall_grad_p: optional (gpx, gpy) cell-centred pressure gradient; on a
+    cut-cell case it adds the second-order wall-shear correction
+    `wall_shear2_source` to (b_u, b_v) (PisoConfig.wall_order=2).
+    wall_link: 'full' keeps the isotropic embedded-wall link;
+    'tangential' adds `wall_normal_release` on a cut-cell case, so the
+    link acts on the tangential velocity only.
+
+    The JAX package's turbulence (nu_t, k_turb) is not ported."""
     if convection not in ("limitedLinear", "blend", "upwind"):
         raise ValueError(f"unknown convection scheme {convection!r}")
     if ddt not in ("euler", "backward"):
         raise ValueError(f"unknown ddt scheme {ddt!r}")
+    if wall_link not in ("full", "tangential"):
+        raise ValueError(f"unknown wall link {wall_link!r}")
     dt = per_case(dt)
-    grid = case.grid
     nu = case.nu
-    m = grid_metrics(grid)
+    # scalars on a uniform grid, (1, nx) / (ny, 1) tensors on a stretched
+    m = grid_metrics(case.grid, case.device)
     dx, dy = m.dxc, m.dyc
     vol = dx * dy
     # conductances: face area / centre-to-centre distance
@@ -218,6 +271,17 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
             case, f_e, f_w, f_n, f_s, u_old, convection_blend) * case.fluid
         b_v = b_v + _deferred_central_correction(
             case, f_e, f_w, f_n, f_s, v_old, convection_blend) * case.fluid
+    if wall_grad_p is not None and case.cut:
+        # cut-cell cases only: the stair force report carries no closure
+        # corrections, so a blank grid keeps the first-order link
+        ws_u, ws_v = wall_shear2_source(case, wall_grad_p[0], wall_grad_p[1])
+        b_u = b_u + ws_u
+        b_v = b_v + ws_v
+    if wall_link == "tangential" and case.cut:
+        # deferred on u_old like the other corrections
+        r_u, r_v = wall_normal_release(case, a_wall, u_old, v_old)
+        b_u = b_u + r_u
+        b_v = b_v + r_v
     return MomentumCoeffs(a_e=a_e, a_w=a_w, a_n=a_n, a_s=a_s, a_p=a_p,
                           b_u=b_u, b_v=b_v)
 

@@ -39,7 +39,7 @@ class PressureCoeffs:
 
 
 def pressure_coeffs(case: Case, rau: torch.Tensor) -> PressureCoeffs:
-    m = grid_metrics(case.grid)
+    m = grid_metrics(case.grid, case.device)
 
     rau_e = m.wx_e * rau + (1.0 - m.wx_e) * nb_e(rau)
     rau_w = m.wx_w * rau + (1.0 - m.wx_w) * nb_w(rau)
@@ -97,7 +97,7 @@ def pressure_gradient(case: Case, p: torch.Tensor):
     including the embedded-wall closure term p_P * A_wall (zero-grad wall
     pressure). BC face values: zero-grad at walls/inlet (p_f = p_P),
     Dirichlet 0 at the outlet."""
-    m = grid_metrics(case.grid)
+    m = grid_metrics(case.grid, case.device)
 
     s_e = case.open_e * (m.wx_e * p + (1.0 - m.wx_e) * nb_e(p))
     s_w = case.open_w * (m.wx_w * p + (1.0 - m.wx_w) * nb_w(p)) \

@@ -59,7 +59,8 @@ def _kernel(window: bool = False):
 def _check(ops, sweeps: int) -> bool:
     """True for CPU operands (take the plain version), False for CUDA
     operands; raises on too many sweeps, differing shapes or another
-    device."""
+    device, and on CUDA on an operand that requires a gradient (the
+    kernel has no backward)."""
     u0 = ops[7]
     if not 0 <= sweeps <= MAX_SWEEPS:
         raise ValueError(f"sweeps={sweeps} outside [0, {MAX_SWEEPS}]")
@@ -71,6 +72,9 @@ def _check(ops, sweeps: int) -> bool:
         return True
     if u0.device.type != "cuda":
         raise ValueError(f"no momentum kernel for device {u0.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        raise ValueError("the momentum kernel has no backward; call it "
+                         "under torch.no_grad()")
     return False
 
 

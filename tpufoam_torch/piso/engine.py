@@ -2,9 +2,10 @@
 
 One step: Courant-limited adaptive dt, the optional surrogate pressure
 prediction before the momentum predictor (Algorithm 2 of the DLPoissonFoam
-coupling), the implicit momentum predictor (UEqn), and nCorrectors PISO
-pressure corrections (pEqn). PyTorch runs it eagerly; the only host
-synchronisation per step is the residual safeguard's gate.
+coupling) or between it and the correctors (Algorithm 1), the implicit
+momentum predictor (UEqn), and nCorrectors PISO pressure corrections
+(pEqn). PyTorch runs it eagerly; the only host synchronisation per step is
+the residual safeguard's gate. The grid is uniform or stretched.
 
 The step takes one case, or a stacked fleet of cases (piso.batched) with
 a leading case axis on every field and `dt`, `t` of shape (B,). Each case
@@ -15,12 +16,14 @@ acts only on the cases that need it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 
 import torch
 
-from ..fv.case import Case, Flow, per_case
+from ..fv.case import (Case, Flow, fluxes_from_velocity, grid_metrics,
+                       per_case)
 from ..fv.momentum import h_operator, jacobi_momentum, momentum_coeffs
 from ..fv.operators import divergence
 from ..fv.pressure import (correct_fluxes, face_fluxes_hbya, pressure_coeffs,
@@ -31,34 +34,56 @@ from ..solvers.cg import _norm
 
 @dataclasses.dataclass(frozen=True)
 class PisoConfig:
-    """The step's knobs, with the JAX package's defaults: nCorrectors 2,
-    maxCo 0.5, limitedLinearV convection, Euler ddt. Its options
-    ddt_corr, wall_order, wall_link, sm_before_predictor (Algorithm 1)
-    and turb_wall_fn are not ported and have no field."""
+    """The step's knobs, with the JAX package's defaults and field order:
+    nCorrectors 2, maxCo 0.5, limitedLinearV convection, Euler ddt,
+    Algorithm 2. Every option of the JAX package's laminar step is here;
+    its turb_wall_fn (the SST model's wall functions) is not ported and
+    has no field."""
     n_correctors: int = 2
     momentum_sweeps: int = 8          # the kernel takes <= 8; more run
                                       # the sweep loop
     max_co: float = 0.5
     max_dt: float = 0.05
     adjust_dt: bool = True            # False: keep the incoming dt
+    sm_before_predictor: bool = True  # True: Algorithm 2 (the prediction
+                                      # before the momentum predictor);
+                                      # False: Algorithm 1 (after it, from
+                                      # the predicted U* and the old p)
     convection: str = "limitedLinear"  # | 'blend' | 'upwind'
                                        # (fv.momentum.momentum_coeffs)
     convection_blend: float = 0.0     # gamma for convection='blend'
     ddt: str = "euler"                # | 'backward' (variable-step BDF2
                                       # from u_prev, v_prev and the
                                       # previous step size)
-    inlet_scale_fn: object = None     # optional callable t -> scale of
-                                      # case.inlet_u at the new time level
-                                      # (the 2D-3 ramp eval.benchmark.
-                                      # ramp_2d3), evaluated in the step
-    t_stop: float = 0.0               # > 0: cap dt so the run lands on
-                                      # t_stop; steps at or past it take a
-                                      # 1e-6 floor dt
     momentum_smoother: str = "plain"  # 'plain' (JAX 'xla'): the sweep
                                       # loop of fv.momentum; 'kernel' (JAX
                                       # 'pallas'): ops.momentum (the CUDA
                                       # kernel on the card, its plain
                                       # version on the CPU)
+    inlet_scale_fn: object = None     # optional callable t -> scale of
+                                      # case.inlet_u at the new time level
+                                      # (the 2D-3 ramp eval.benchmark.
+                                      # ramp_2d3), evaluated in the step
+    ddt_corr: bool = False            # fvc::ddtCorr: each corrector's
+                                      # phiHbyA takes back the old face
+                                      # flux phi^n in place of the
+                                      # interpolated u^n (interior faces,
+                                      # OpenFOAM's coupling limiter); under
+                                      # 'backward' scaled by the BDF2
+                                      # implicit coefficient, without the
+                                      # phi^{n-1} term
+    t_stop: float = 0.0               # > 0: cap dt so the run lands on
+                                      # t_stop; steps at or past it take a
+                                      # 1e-6 floor dt
+    wall_order: int = 1               # 2: the second-order embedded-wall
+                                      # shear correction (fv.momentum.
+                                      # wall_shear2_source), with its term
+                                      # in fv.forces; cut-cell cases only
+    wall_link: str = "full"           # 'tangential': the embedded no-slip
+                                      # link on the tangential velocity
+                                      # only (fv.momentum.
+                                      # wall_normal_release), with its term
+                                      # in fv.forces; cut-cell cases only
     sm_safeguard: float = 0.5         # residual gate on the first SM-warm-
                                       # started corrector solve: above it
                                       # (or NaN) the solve restarts from the
@@ -87,6 +112,11 @@ def courant_number(case: Case, flow: Flow) -> torch.Tensor:
                + torch.abs(flow.phi_y[..., :-1, :]))
     # cut cells: floor alpha at 0.5 so sliver cells don't collapse dt
     alpha_co = torch.clamp(case.alpha, min=0.5)
+    if grid.stretched:
+        m = grid_metrics(grid, case.device)
+        return 0.5 * torch.amax(sum_phi * case.fluid
+                                / (alpha_co * (m.dxc * m.dyc)),
+                                dim=(-2, -1)) * flow.dt
     vol = grid.dx * grid.dy
     return 0.5 * torch.amax(sum_phi * case.fluid / alpha_co,
                             dim=(-2, -1)) / vol * flow.dt
@@ -164,9 +194,17 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
     `backend(case, coef, rhs, p_prev, aux) -> p` solves the pressure
     equation each corrector. `sm_predict(case, p_prev, aux) -> p`
     optionally replaces the initial pressure with a surrogate prediction:
-    it warm-starts the step, it does not replace the corrector solve."""
+    it warm-starts the step, it does not replace the corrector solve. It
+    runs before the momentum predictor (Algorithm 2), or with
+    cfg.sm_before_predictor False after it (Algorithm 1); `aux` holds u,
+    v and p as they stand when it is called."""
     grid = case.grid
-    volc = case.alpha * (grid.dx * grid.dy)   # cut-cell fluid volumes
+    if grid.stretched:
+        m = grid_metrics(grid, case.device)
+        vol = m.dxc * m.dyc                   # (ny, nx) cell volumes
+    else:
+        vol = grid.dx * grid.dy
+    volc = case.alpha * vol                   # cut-cell fluid volumes
     dt = _next_dt(case, flow, cfg) if cfg.adjust_dt else flow.dt
     if cfg.t_stop and cfg.t_stop > 0:
         # land exactly on t_stop, whether or not dt adapts
@@ -182,16 +220,22 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
     u, v, p = flow.u, flow.v, flow.p
     phi_x, phi_y = flow.phi_x, flow.phi_y
 
+    # reads u, v and p when it is called: Algorithm 1's prediction sees
+    # the predicted U* and the old p
     def _aux():
         return dict(u=u, v=v, p=p, dt=dt, u_prev=flow.u_prev,
                     v_prev=flow.v_prev, p_prev=flow.p_prev)
 
+    def _predict(p_in):
+        p_sm = sm_predict(case, p_in, _aux())
+        return (_gate_sm_prediction(p_sm, p_in, case.fluid,
+                                    trust=cfg.sm_trust)
+                if cfg.sm_safeguard > 0.0 or cfg.sm_trust > 0.0
+                else p_sm * case.fluid)
+
     # --- surrogate pressure prediction (Algorithm 2: before UEqn) ---
-    if sm_predict is not None:
-        p_sm = sm_predict(case, p, _aux())
-        p = (_gate_sm_prediction(p_sm, p, case.fluid, trust=cfg.sm_trust)
-             if cfg.sm_safeguard > 0.0 or cfg.sm_trust > 0.0
-             else p_sm * case.fluid)
+    if sm_predict is not None and cfg.sm_before_predictor:
+        p = _predict(p)
 
     # --- momentum predictor: solve(UEqn == -grad p) ---
     gpx, gpy = pressure_gradient(case, p)
@@ -199,11 +243,18 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
                            convection_blend=cfg.convection_blend,
                            convection=cfg.convection, ddt=cfg.ddt,
                            u_nm1=flow.u_prev, v_nm1=flow.v_prev,
-                           dt_prev=flow.dt)
+                           dt_prev=flow.dt,
+                           wall_grad_p=(gpx, gpy) if cfg.wall_order == 2
+                           else None,
+                           wall_link=cfg.wall_link)
     u, v = jacobi_momentum(coef, case, u, v, -gpx * volc, -gpy * volc,
                            sweeps=cfg.momentum_sweeps,
                            smoother=cfg.momentum_smoother,
                            mesh=cfg.shard_mesh)
+
+    # --- surrogate pressure prediction (Algorithm 1: after UEqn) ---
+    if sm_predict is not None and not cfg.sm_before_predictor:
+        p = _predict(p)
 
     # --- PISO corrector loop (pEqn, nCorrectors times) ---
     for i_corr in range(cfg.n_correctors):
@@ -212,6 +263,9 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
         hbya_u = hu * case.fluid / coef.a_p  # HbyA = H()/A() = h/a_P
         hbya_v = hv * case.fluid / coef.a_p
         phi_hx, phi_hy = face_fluxes_hbya(case, hbya_u, hbya_v)
+        if cfg.ddt_corr:
+            phi_hx, phi_hy = _ddt_corr(case, flow, cfg, dt, rau, phi_hx,
+                                       phi_hy)
 
         pcoef = pressure_coeffs(case, rau)
         rhs = pressure_rhs(case, phi_hx, phi_hy)
@@ -230,6 +284,43 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
     return Flow(u=u, v=v, p=p, phi_x=phi_x, phi_y=phi_y,
                 dt=dt, t=flow.t + dt,
                 u_prev=flow.u, v_prev=flow.v, p_prev=flow.p)
+
+
+def _ddt_corr(case: Case, flow: Flow, cfg: PisoConfig, dt, rau, phi_hx,
+              phi_hy):
+    """fvc::ddtCorr(U, phi) on phiHbyA, out of place: the ddt source of the
+    b-vector enters phiHbyA as interp(u^n); the correction puts the old
+    face flux phi^n in its place, scaled by rAU_f * (the implicit ddt
+    coefficient) / dt and OpenFOAM's coupling limiter
+    (EulerDdtScheme::fvcDdtPhiCorr). Under ddt='backward' the implicit
+    coefficient is the BDF2 one, and the phi^{n-1} term of
+    backwardDdtScheme::fvcDdtPhiCorr is left out (the flow carries no
+    old-old fluxes). Interior faces only: the domain's boundary fluxes
+    are constrained."""
+    dt = per_case(dt)
+    if cfg.ddt == "backward":
+        rr = dt / torch.clamp(per_case(flow.dt), min=1e-30)
+        cddt = (1.0 + 2.0 * rr) / (1.0 + rr)
+    else:
+        cddt = 1.0
+    phi_ux, phi_uy = fluxes_from_velocity(case, flow.u, flow.v)
+    old_x, old_y = flow.phi_x[..., 1:-1], flow.phi_y[..., 1:-1, :]
+    dpx = old_x - phi_ux[..., 1:-1]
+    dpy = old_y - phi_uy[..., 1:-1, :]
+    lim_x = 1.0 - torch.clamp(torch.abs(dpx) / (torch.abs(old_x) + 1e-30),
+                              max=1.0)
+    lim_y = 1.0 - torch.clamp(torch.abs(dpy) / (torch.abs(old_y) + 1e-30),
+                              max=1.0)
+    rau_fx = 0.5 * (rau[..., :-1] + rau[..., 1:])
+    rau_fy = 0.5 * (rau[..., :-1, :] + rau[..., 1:, :])
+    phi_hx = torch.cat([phi_hx[..., :1],
+                        phi_hx[..., 1:-1] + cddt * lim_x * rau_fx / dt * dpx,
+                        phi_hx[..., -1:]], dim=-1)
+    phi_hy = torch.cat([phi_hy[..., :1, :],
+                        phi_hy[..., 1:-1, :]
+                        + cddt * lim_y * rau_fy / dt * dpy,
+                        phi_hy[..., -1:, :]], dim=-2)
+    return phi_hx, phi_hy
 
 
 def _bind_sm(sm_predict, case: Case):
@@ -259,17 +350,34 @@ def _warn_stiff_max_dt(case: Case, cfg: PisoConfig, limit: float = 4.0):
 
 
 def _rollout(case: Case, flow: Flow, chunks, cfg: PisoConfig, backend,
-             sm_predict) -> Flow:
+             sm_predict, grad: bool = False) -> Flow:
     """Eager PISO steps in `chunks` (step counts), the predictor bound
-    once."""
+    once; under torch.no_grad() unless `grad`."""
     if sm_predict is not None:
         sm_predict = _bind_sm(sm_predict, case)
-    with torch.no_grad():
+    with contextlib.nullcontext() if grad else torch.no_grad():
         for steps in chunks:
             for _ in range(steps):
                 flow = piso_step(case, flow, cfg=cfg, backend=backend,
                                  sm_predict=sm_predict)
     return flow
+
+
+def run_piso(case: Case, flow: Flow, n_steps: int,
+             cfg: PisoConfig = PisoConfig(), backend=CGBackend(),
+             sm_predict=None) -> Flow:
+    """Rollout of n_steps PISO steps with autograd on: the form to
+    differentiate through (torch.autograd.grad of a loss of the result).
+    The JAX package scans a jitted step; PyTorch has no scan, so this is
+    the loop of run_piso_eager without torch.no_grad() and equals it bit
+    for bit. The kernels have no backward: on the card their wrappers
+    (the momentum kernel's and every pressure matvec's) raise on a tensor
+    that requires grad, and nothing switches to a plain version quietly,
+    so a differentiated rollout runs on the CPU, where the wrappers take
+    their plain versions."""
+    _warn_stiff_max_dt(case, cfg)
+    return _rollout(case, flow, (n_steps,), cfg, backend, sm_predict,
+                    grad=True)
 
 
 def run_piso_eager(case: Case, flow: Flow, n_steps: int,

@@ -205,7 +205,15 @@ class Predictor:
         (one per case of a stacked fleet); the same case gives the same
         operators. JAX's vmapped predictor solves the offset system
         in-graph instead: the same least-squares solution, up to
-        rounding."""
+        rounding. A stretched (graded) grid raises ValueError before any
+        block layout is built: the surrogate takes uniform blocks of a
+        uniform grid, and graded grids are a capability of the pure
+        solver, as in the JAX package."""
+        if case.grid.stretched:
+            raise ValueError(
+                "surrogate predictors require a uniform grid; this case "
+                "uses a stretched (graded) Grid2D — run the pure solver "
+                "backends there, or resample to a uniform grid")
         members = ([case] if case.sdf.dim() == 2 else
                    [fleet_member(case, k) for k in range(case.sdf.shape[0])])
         if self.stitch == "scan":
