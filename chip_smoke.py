@@ -136,6 +136,40 @@ Phases, each printing one JSON line with its elapsed seconds:
           momentum and pressure smoothers against one with the kernels,
           from the path's state, at the parity (hybrid) or
           parity-pressure (MGCG) tolerances
+  case-turb  the turbulent channel of artifacts/validation/
+          turb_channel_hybrid_ny256.json (turbulent_channel_case, nu 5e-5,
+          length 32, delta 2/256: 256 x 4096); its 1/7-power inlet and SDF
+          on the card against the CPU's (bit for bit)
+  step-turb  that run's lane: the k-omega SST model with wall functions
+          (run_piso_sst_eager), sm_turb256 (lstsq), MG bf16, the momentum
+          kernel: 2 + 5 event-timed steps, 2 under torch.profiler; k,
+          omega, nu_t finite and at their floors or above; the channel's
+          wall shear (channel_wall_cf)
+  step-turb-mgcg  the Dean lane (turb_channel_dean_ny256.json): the same
+          with MGCGBackend(rtol=1e-5) and the multisweep kernel smoother;
+          CG iterations per solve, launches by variant and level
+  step-turb-sharded  make_sharded_sst_step on a 2 x 2 mesh of the card,
+          one step from step-turb's state against piso_step_sst: bit for
+          bit, one window launch of the sharded momentum kernel
+  parity-turb  one SST step (MGCG) on the card against the same step on
+          the CPU, from the Dean lane's state: u, v, p, k, omega, and nu_t
+          by the limiter's branch; the SST alone from one velocity on
+          both, and in float64 from each side's velocity
+  step-poisson  the poisson family's held-out case (triangle 0.55, nu
+          6e-3, 128 x 512) with sm_poisson128 (lstsq), MG bf16, the
+          momentum kernel; its prediction against the CPU's
+  gradp-tier  sm_gradp128 on that case: blocks forward, the two gradient
+          channels stitched and integrated to p (integrate_gradp), against
+          the CPU; make_predictor refuses the bundle
+  sm-options  the predictor's options on the main path's state with
+          sm_ref512: precision='bf16' against the f32 predictor (rel-L2,
+          predict ms), apply_filter with the scan stitch (the filter alone
+          with cuDNN's TF32 on outside it, against the CPU), and
+          near_wall_dist=0.1 (the guarded cells against the CPU's)
+  models  the attention and conv1d models of ARCH_TABLE at their full
+          widths (sm_ref512's PC counts, a batch of its 105 blocks),
+          seeded parameters in the JAX layout, against the CPU; ms per
+          forward
 A kernel's time is its device time from torch.profiler with the L2
 cache flushed before each call (ms, plain_ms: the plain version's kernels
 summed) beside the per-call span on the
@@ -276,6 +310,52 @@ PATH_DTYPE = {"jacobi_multisweep": "f32", "smooth_residual": "bf16",
 PATH_SWEEPS = {"jacobi_multisweep": {"f32": 1, "bf16": 2},
                "smooth_residual": {"f32": 2, "bf16": 2},
                "corr_smooth": {"f32": 2, "bf16": 2}}
+FLOW_FIELDS = ("u", "v", "p", "phi_x", "phi_y", "dt")
+TURB_FIELDS = ("k", "omega", "nu_t", "k_in", "w_in")
+# the turbulent channel of artifacts/validation/turb_channel_hybrid_ny256
+# .json and turb_channel_dean_ny256.json (scripts/validate_turbulent_
+# channel.py:89-109): nu 5e-5, length 32, delta 2/256 (256 x 4096), maxCo
+# 0.5, max_dt 0.05, the SST wall functions, dt0 5e-3; the hybrid with
+# sm_turb256 (lstsq) and MG bf16 (2 cycles), the Dean lane with MGCG
+# rtol 1e-5. The port takes the momentum kernel on both and the
+# multisweep kernel smoother on the Dean lane (the artifacts ran XLA's).
+TURB = dict(nu=5e-5, length=32.0, delta=2.0 / 256)
+TURB_SHAPE = (256, 4096)
+TURB_CFG = dict(max_co=0.5, max_dt=0.05, turb_wall_fn=True,
+                momentum_smoother="kernel")
+TURB_DT0 = 5e-3
+N_TURB_WARM, N_TURB_STEPS, N_TURB_PROFILED = 2, 5, 2
+N_DEAN_WARM, N_DEAN_STEPS, N_DEAN_PROFILED = 2, 2, 2
+# one SST step on the card against the CPU's (MGCG, float32): u, v, k,
+# omega and nu_t as the float32 step parity (PARITY_TOL), p as the MGCG
+# smoother parity (SMOOTHER_PARITY_TOL). nu_t = a1 k / max(a1 omega, S F2)
+# is held at 1e-4 where the omega branch binds on both sides (nu_t =
+# k / omega); where S F2 binds, nu_t takes S's relative difference, and S,
+# a difference quotient of the step's u and v, is smallest in the core,
+# where it carries the velocity's difference (v's, from the pressure
+# solve to rtol 1e-5) as a larger share: 1e-3 there, admitted only with
+# the witnesses that (a) the card's SST alone, from the CPU's velocity,
+# gives the CPU's k, omega and nu_t within 1e-4 and (b) each float32 SST
+# is within 1e-4 of a float64 SST from the same velocity, and only on the
+# S-limited cells where nu_t differs by no more than S does, cell by cell
+# (TURB_S_SLACK for the float32 arithmetic of k and F2)
+TURB_PARITY_TOL = {"u": 1e-4, "v": 1e-4, "p": 5e-2, "k": 1e-4,
+                   "omega": 1e-4, "nu_t": 1e-4, "nu_t_s_limited": 1e-3}
+TURB_WITNESS_TOL = 1e-4
+TURB_S_SLACK = 1e-5
+# the poisson family's held-out case (docs/EVAL_REPORT.md:164-181):
+# triangle 0.55, nu 6e-3, at delta 1/64 (128 x 512; sm_poisson128 was
+# trained on 127 x 511 grids with 64-blocks)
+POISSON = dict(shape_name="triangle", length=8.0, height=2.0,
+               obstacle_size=0.55, nu=6e-3)
+POISSON_DELTA, POISSON_SHAPE = 1.0 / 64, (128, 512)
+# a prediction, the card's against the CPU's: the bf16 MLP rounds inputs
+# that differ in their last float32 bit to neighbouring bf16 values
+# (tests/test_torch_families.py holds the port to JAX at the same bound);
+# the seam filter alone: float32 sums in another order (as against JAX
+# and scipy in the CPU tests)
+PRED_TOL = 2e-2
+FILTER_TOL = 1e-5
 
 
 def say(phase, **kv):
@@ -377,21 +457,35 @@ def main() -> int:
     from tpufoam_torch.ops import stencil as st
     from tpufoam_torch.ops.momentum import (momentum_multisweep,
                                             momentum_multisweep_plain)
+    from tpufoam_torch.fv import turbulence
+    from tpufoam_torch.fv.turbulence import K_FLOOR, W_FLOOR, init_turbulence
+    from tpufoam_torch.models.mlp import (ModelDef, apply_model,
+                                         count_params, params_from_numpy)
     from tpufoam_torch.parallel.mesh import (device_mesh,
                                              make_sharded_fleet_step,
                                              make_sharded_piso_step,
+                                             make_sharded_sst_step,
                                              shard_case, shard_flow,
-                                             shard_fleet, unshard_fleet)
+                                             shard_fleet, shard_turbulence,
+                                             unshard_fleet)
     from tpufoam_torch.piso import engine
     from tpufoam_torch.piso.engine import (PisoConfig, continuity_error,
                                            courant_number, piso_step,
-                                           run_piso_eager)
+                                           piso_step_sst, run_piso_eager,
+                                           run_piso_sst_eager)
     from tpufoam_torch.solvers import backends as backends_mod
     from tpufoam_torch.solvers import multigrid as mg
     from tpufoam_torch.solvers.backends import (AutoBackend, MGBackend,
                                                 MGCGBackend)
+    from tpufoam_torch.surrogate.blocks import (assemble_lstsq,
+                                                build_block_layout,
+                                                extract_blocks,
+                                                gaussian_filter2d)
+    from tpufoam_torch.surrogate.features import FAMILIES, u_max_norm
+    from tpufoam_torch.surrogate.gradp_integrate import integrate_gradp
     from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
-                                                  make_predictor)
+                                                  make_predictor,
+                                                  surrogate_blocks_forward)
     from tpufoam_torch.tools import kernel_bounds
     from tpufoam_torch.tools.kernel_bounds import sharded_bound
 
@@ -1699,34 +1793,44 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     def drive_path(label, case_, flow_, cfg_, be_, sm=None, u_ref=None,
-                   sm_calls=None):
-        """N_PATH_WARM steps, then N_PATH_STEPS steps timed with CUDA
-        events, the counters set to 0 just before and read just after,
-        with the drag and lift after each step (the cfg's wall terms),
-        then N_PATH_PROFILED steps under torch.profiler for the device's
-        busy time. Checks the health (finite, continuity < 1e-4, Courant
-        <= maxCo + 1e-3), one momentum launch a step and no sweep loop,
-        and one prediction a step with a surrogate. Returns (flow,
-        stats)."""
+                   sm_calls=None, turb=None, n_warm=N_PATH_WARM,
+                   n_steps=N_PATH_STEPS, n_prof=N_PATH_PROFILED):
+        """n_warm steps, then n_steps steps timed with CUDA events, the
+        counters set to 0 just before and read just after, with the drag
+        and lift after each step (the cfg's wall terms), then n_prof
+        steps under torch.profiler for the device's busy time. With a
+        TurbState `turb` the steps are run_piso_sst_eager's. Checks the
+        health (finite, continuity < 1e-4, Courant <= maxCo + 1e-3; with
+        turb, k, omega and nu_t finite and k, omega at their floors or
+        above on fluid cells), one momentum launch a step and no sweep
+        loop, and one prediction a step with a surrogate. Returns (flow,
+        stats, turb)."""
         solves = [0]
 
         def counted(*args):
             solves[0] += 1
             return be_(*args)
 
+        state = [turb]
+
         def run(f, k, bound_sm):
-            return run_piso_eager(case_, f, k, cfg=cfg_, backend=counted,
-                                  sm_predict=bound_sm)
+            if state[0] is None:
+                return run_piso_eager(case_, f, k, cfg=cfg_, backend=counted,
+                                      sm_predict=bound_sm)
+            f, state[0] = run_piso_sst_eager(case_, f, state[0], k, cfg=cfg_,
+                                             backend=counted,
+                                             sm_predict=bound_sm)
+            return f
 
         bound_sm = None if sm is None else sm.bind(case_)
         with torch.no_grad():
-            flow_ = run(flow_, N_PATH_WARM, bound_sm)
+            flow_ = run(flow_, n_warm, bound_sm)
             torch.cuda.synchronize()
             reset_counts(sm_calls)
             solves[0] = 0
             ev = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
-                  for _ in range(N_PATH_STEPS)]
+                  for _ in range(n_steps)]
             forces_ = []
             # each MGCG solve's CG iterations and final relative residual,
             # kept on the device until the timed steps are done
@@ -1760,48 +1864,48 @@ def main() -> int:
             n_solves = solves[0]
             by_level = launches_by_level(
                 ("jacobi_multisweep", "smooth_residual", "corr_smooth"),
-                N_PATH_STEPS)
+                n_steps)
             matvec_by = [{"variant": v_, "dtype": p_, "shape": list(sh_),
-                          "launches_per_step": n_ / N_PATH_STEPS}
+                          "launches_per_step": n_ / n_steps}
                          for (v_, p_, sh_), n_ in sorted(
                              st.stencil_matvec.by_shape.items(),
                              key=lambda kv: (kv[0][1], -kv[0][2][0]))]
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t = time.time()
-                flow_ = run(flow_, N_PATH_PROFILED, bound_sm)
+                flow_ = run(flow_, n_prof, bound_sm)
                 torch.cuda.synchronize()
-                prof_wall_ms = (time.time() - t) * 1e3 / N_PATH_PROFILED
+                prof_wall_ms = (time.time() - t) * 1e3 / n_prof
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 \
-            / N_PATH_PROFILED
+            / n_prof
         finite_ = all(bool(torch.isfinite(getattr(flow_, f)).all())
                       for f in ("u", "v", "p", "phi_x", "phi_y"))
         cont_ = float(continuity_error(case_, flow_))
         co_ = float(courant_number(case_, flow_))
         cd_cl_ = [[float(cd), float(cl)] for cd, cl in forces_]
         stats_ = dict(
-            shape=list(case_.grid.shape), steps=N_PATH_STEPS,
+            shape=list(case_.grid.shape), steps=n_steps,
             ms_per_step=sum(e0.elapsed_time(e1) for e0, e1 in ev)
-            / N_PATH_STEPS, host_ms_per_step=host_s * 1e3 / N_PATH_STEPS,
-            profiled_steps=N_PATH_PROFILED,
+            / n_steps, host_ms_per_step=host_s * 1e3 / n_steps,
+            profiled_steps=n_prof,
             profiled_wall_ms_per_step=prof_wall_ms,
             busy_ms_per_step=busy_ms if busy_ms > 0 else "not measured",
             idle_share=1.0 - busy_ms / prof_wall_ms if busy_ms > 0
             else "not measured",
             device_launches_per_step=sum(e.count for e in kern)
-            / N_PATH_PROFILED,
+            / n_prof,
             top_kernels=[{"name": e.key[:60],
-                          "launches_per_step": e.count / N_PATH_PROFILED,
+                          "launches_per_step": e.count / n_prof,
                           "ms_per_step": e.self_device_time_total / 1e3
-                          / N_PATH_PROFILED}
+                          / n_prof}
                          for e in sorted(
                              kern, key=lambda e: -e.self_device_time_total)[:6]],
             continuity_error=cont_, courant=co_, t_sim=float(flow_.t),
             dt=float(flow_.dt), kernel_launches=launched,
             momentum_sweep_loops=loops, v_cycles=cycles,
-            pressure_solves_per_step=n_solves / N_PATH_STEPS,
+            pressure_solves_per_step=n_solves / n_steps,
             v_cycles_per_solve=cycles / max(n_solves, 1),
             cg_iters_per_solve=[int(i) for i, _ in solved],
             cg_residual_per_solve=[float(r) for _, r in solved],
@@ -1811,16 +1915,29 @@ def main() -> int:
         check(finite_, f"{label}: non-finite field")
         check(cont_ < 1e-4, f"{label}: continuity error {cont_:.3e}")
         check(co_ <= cfg_.max_co + 1e-3, f"{label}: Courant {co_:.4f}")
-        check(launched["momentum_multisweep"] == N_PATH_STEPS and loops == 0,
+        check(launched["momentum_multisweep"] == n_steps and loops == 0,
               f"{label}: momentum kernel launched "
               f"{launched['momentum_multisweep']} times, the sweep loop "
-              f"{loops} times in {N_PATH_STEPS} steps")
-        check(calls in (None, N_PATH_STEPS),
+              f"{loops} times in {n_steps} steps")
+        check(calls in (None, n_steps),
               f"{label}: surrogate predicted {calls} times")
         check(all(np.isfinite(cd_cl_).ravel()), f"{label}: cd, cl {cd_cl_}")
         check(launched["stencil_matvec"] > 0,
               f"{label}: the matvec never launched its kernel")
-        return flow_, stats_
+        turb_ = state[0]
+        if turb_ is not None:
+            fl_ = case_.fluid > 0
+            k_, w_ = turb_.k[fl_], turb_.omega[fl_]
+            stats_["turb"] = dict(
+                k_min=float(k_.min()), k_max=float(k_.max()),
+                omega_min=float(w_.min()), omega_max=float(w_.max()),
+                nu_t_max=float(turb_.nu_t.max()))
+            check(all(bool(torch.isfinite(getattr(turb_, f_)).all())
+                      for f_ in ("k", "omega", "nu_t")),
+                  f"{label}: non-finite turbulence field")
+            check(bool((k_ >= K_FLOOR).all()) and bool((w_ >= W_FLOOR).all()),
+                  f"{label}: k or omega below its floor: {stats_['turb']}")
+        return flow_, stats_, turb_
 
     def check_mgcg_levels(label, stats_, shapes):
         """The MGCG kernel smoother on every kernel level of the path's
@@ -1855,7 +1972,7 @@ def main() -> int:
               f"{sorted(lv)}, not every level {shapes}")
 
     path_flows = {}
-    flow_g, stats_g = drive_path("step-graded", case_g, flow_g0, cfg_g,
+    flow_g, stats_g, _ = drive_path("step-graded", case_g, flow_g0, cfg_g,
                                  mgcg_kern, u_ref=u_mean_g)
     say("step-graded", **stats_g)
     check_mgcg_levels("step-graded", stats_g, graded_shapes)
@@ -1869,7 +1986,7 @@ def main() -> int:
                                                     device=dev)
         cfg_o = PisoConfig(max_co=0.4, max_dt=5e-3,
                            momentum_smoother="kernel", **opts)
-        flow_o, stats_o = drive_path(
+        flow_o, stats_o, _ = drive_path(
             f"step-options {label}", case_o,
             initial_flow(case_o, dt0=ST_DT0), cfg_o, mgcg_kern,
             u_ref=u_mean_o)
@@ -1896,8 +2013,8 @@ def main() -> int:
                 return bound_main(c_, p_, aux_)
             return predict
 
-    flow_a1, stats_a1 = drive_path("step-alg1", case, flow0, cfg_a1, backend,
-                                   sm=Alg1(), sm_calls=predictor)
+    flow_a1, stats_a1, _ = drive_path("step-alg1", case, flow0, cfg_a1,
+                                      backend, sm=Alg1(), sm_calls=predictor)
     timed = at_launch[N_PATH_WARM:N_PATH_WARM + N_PATH_STEPS]
     say("step-alg1", **stats_a1, momentum_launches_at_predictions=timed)
     check_matvec_levels("step-alg1", stats_a1,
@@ -1938,6 +2055,434 @@ def main() -> int:
                   f"diff {d:.3e}")
     say("parity-options", paths=parity_options)
     del path_flows, flow_g, flow_a1, case_g
+
+    # ---- the turbulent channel (turb_channel_*_ny256.json) ---------------
+    def on(tree, device):
+        """A Flow or TurbState with every tensor field on `device`."""
+        return dataclasses.replace(tree, **{
+            f.name: getattr(tree, f.name).to(device)
+            for f in dataclasses.fields(tree)})
+
+    t = time.time()
+    case_t, u_bulk = bench.turbulent_channel_case(**TURB, device=dev)
+    torch.cuda.synchronize()
+    t_case_t = time.time() - t
+    t = time.time()
+    case_tc, _ = bench.turbulent_channel_case(**TURB, device="cpu")
+    t_case_tc = time.time() - t
+    inlet_t_equal = torch.equal(case_t.inlet_u.cpu(), case_tc.inlet_u)
+    sdf_t_equal = torch.equal(case_t.sdf.cpu(), case_tc.sdf)
+    re_m = u_bulk * 2.0 / TURB["nu"]
+    say("case-turb", shape=list(case_t.grid.shape),
+        cells=case_t.grid.ny * case_t.grid.nx,
+        fluid_cells=int(case_t.fluid.sum()), u_bulk=u_bulk, re_m=re_m,
+        dean_cf=bench.dean_cf(re_m), seconds=round(t_case_t, 3),
+        cpu_seconds=round(t_case_tc, 3), inlet_equal=inlet_t_equal,
+        sdf_equal=sdf_t_equal)
+    check(tuple(case_t.grid.shape) == TURB_SHAPE,
+          f"case-turb: grid {case_t.grid.shape}, not {TURB_SHAPE}")
+    check(inlet_t_equal and sdf_t_equal,
+          "case-turb: the card's inlet profile or SDF differs from the CPU's")
+
+    bundle_t = SurrogateBundle.load(os.path.join(ROOT, "artifacts",
+                                                 "sm_turb256"), device=dev)
+    pred_t = make_predictor(bundle_t, stitch="lstsq")
+    cfg_t = PisoConfig(**TURB_CFG)
+    turb_t0 = init_turbulence(case_t)
+    flow_t0 = initial_flow(case_t, dt0=TURB_DT0)
+    turb_shapes = kernel_bounds.level_shapes(*TURB_SHAPE)
+    flow_t, stats_t, turb_t = drive_path(
+        "step-turb", case_t, flow_t0, cfg_t, backend, sm=pred_t,
+        sm_calls=pred_t, turb=turb_t0, n_warm=N_TURB_WARM,
+        n_steps=N_TURB_STEPS, n_prof=N_TURB_PROFILED)
+    cf_t = bench.channel_wall_cf(case_t, flow_t, turb_t, u_bulk)
+    say("step-turb", **stats_t, wall_cf=cf_t)
+    check(all(np.isfinite(v_) for v_ in cf_t.values()),
+          f"step-turb: channel_wall_cf {cf_t}")
+    check_matvec_levels("step-turb", stats_t, turb_shapes)
+    turb_launches = stats_t["kernel_launches"]
+
+    # the Dean lane: the pure solver with the multisweep kernel smoother
+    be_dean = MGCGBackend(rtol=1e-5, smoother="kernel")
+    flow_d, stats_d, turb_d = drive_path(
+        "step-turb-mgcg", case_t, flow_t0, cfg_t, be_dean, turb=turb_t0,
+        n_warm=N_DEAN_WARM, n_steps=N_DEAN_STEPS, n_prof=N_DEAN_PROFILED)
+    say("step-turb-mgcg", **stats_d,
+        wall_cf=bench.channel_wall_cf(case_t, flow_d, turb_d, u_bulk))
+    check_mgcg_levels("step-turb-mgcg", stats_d, turb_shapes)
+    dean_launches = stats_d["kernel_launches"]
+
+    # the turbulent step over a 2 x 2 mesh of the card, one step from
+    # step-turb's state, against piso_step_sst
+    mesh_t = device_mesh(4, devices=[dev] * 4)
+    bound_t = pred_t.bind(case_t)
+    step_tsh = make_sharded_sst_step(mesh_t, cfg_t, backend,
+                                     sm_predict=bound_t)
+    with torch.no_grad():
+        args_sh = (shard_case(mesh_t, case_t), shard_flow(mesh_t, flow_t),
+                   shard_turbulence(mesh_t, turb_t))
+        torch.cuda.synchronize()
+        reset_counts()
+        f_tsh, t_tsh = step_tsh(*args_sh)
+        torch.cuda.synchronize()
+        tsh_launches, tsh_routes = counts(), dict(
+            sh.momentum_multisweep_sharded.by_route)
+        f_t1, t_t1 = piso_step_sst(case_t, flow_t, turb_t, cfg_t, backend,
+                                   bound_t)
+        torch.cuda.synchronize()
+    diffs = {name: compare((getattr(f_tsh, name),), (getattr(f_t1, name),))[0]
+             for name in FLOW_FIELDS}
+    diffs.update({name: compare((getattr(t_tsh, name),),
+                                (getattr(t_t1, name),))[0]
+                  for name in TURB_FIELDS})
+    say("step-turb-sharded", mesh=mesh_t.shape, max_abs_diff=diffs,
+        kernel_launches=tsh_launches, routes=tsh_routes)
+    check(all(d == 0 for d in diffs.values()),
+          f"step-turb-sharded: differs from piso_step_sst: {diffs}")
+    check(tsh_launches["momentum_multisweep_sharded"] == 1
+          and tsh_launches["momentum_multisweep"] == 0
+          and tsh_routes == {"window": 1},
+          f"step-turb-sharded: launches {tsh_launches}, routes {tsh_routes}")
+    del args_sh, f_tsh, t_tsh, f_t1, t_t1
+
+    # one SST step on the card against the port's step on the CPU, from
+    # the Dean lane's state (MGCG: a float32 solve to rtol 1e-5)
+    def sst_on(case_, turb_, f_, dtype=None):
+        """sst_step from a step's velocity and fluxes, in `dtype`."""
+        def cast(x):
+            return x.to(dtype) if dtype is not None else x
+        turb_ = dataclasses.replace(turb_, **{
+            n: cast(getattr(turb_, n)) for n in TURB_FIELDS})
+        return turbulence.sst_step(
+            case_, turb_, cast(f_.u), cast(f_.v), cast(f_.phi_x),
+            cast(f_.phi_y), cast(f_.dt), wall_fn=cfg_t.turb_wall_fn)
+
+    with torch.no_grad():
+        f_gpu, t_gpu = piso_step_sst(case_t, flow_d, turb_d, cfg_t, be_dean)
+        torch.cuda.synchronize()
+        t = time.time()
+        turb_dc = on(turb_d, "cpu")
+        f_cpu, t_cpu = piso_step_sst(case_tc, on(flow_d, "cpu"), turb_dc,
+                                     cfg_t, be_dean)
+        cpu_step_s = time.time() - t
+        f_gpu, t_gpu = on(f_gpu, "cpu"), on(t_gpu, "cpu")
+        # the witnesses: the card's SST from the CPU's velocity, and float64
+        # SSTs from each side's velocity
+        t_iso = on(sst_on(case_t, turb_d, on(f_cpu, dev)), "cpu")
+        t64_cpu = sst_on(case_tc, turb_dc, f_cpu, torch.float64)
+        t64_gpu = sst_on(case_tc, turb_dc, f_gpu, torch.float64)
+    diffs = {name: compare((getattr(f_gpu, name),), (getattr(f_cpu, name),))[1]
+             for name in ("u", "v", "p")}
+    diffs.update({name: compare((getattr(t_gpu, name),),
+                                (getattr(t_cpu, name),))[1]
+                  for name in ("k", "omega")})
+
+    def strain(f_):
+        """The SST step's strain rate S of a step's velocity, in float64."""
+        dudx, dudy = turbulence._masked_grad(case_tc, f_.u.double())
+        dvdx, dvdy = turbulence._masked_grad(case_tc, f_.v.double())
+        return torch.sqrt(2.0 * (dudx ** 2 + dvdy ** 2) + (dudy + dvdx) ** 2)
+
+    # nu_t by the limiter's branch: omega where nu_t = k / omega (to 1e-5)
+    # on both sides, S F2 elsewhere. The 1e-3 bound holds only on
+    # S-limited cells whose nu_t differs by no more than S does (nu_t ~
+    # 1 / S there); every other cell is held at 1e-4
+    fluid_t = case_tc.fluid > 0
+
+    def omega_limited(t_):
+        return (t_.nu_t.double() >= t_.k.double() / t_.omega.double()
+                * (1.0 - 1e-5)) & fluid_t
+
+    on_w = omega_limited(t_gpu) & omega_limited(t_cpu)
+    on_s = fluid_t & ~on_w
+    nu_g, nu_c = t_gpu.nu_t.double(), t_cpu.nu_t.double()
+    d_nu, nu_max = (nu_g - nu_c).abs(), float(nu_c.abs().max())
+    s_g, s_c = strain(f_gpu), strain(f_cpu)
+    s_local = (s_g - s_c).abs() / s_c.clamp(min=1e-30)
+    nu_local = d_nu / nu_c.clamp(min=1e-30)
+    by_s = on_s & (nu_local <= s_local + TURB_S_SLACK)
+    diffs["nu_t"] = float(d_nu[~by_s].max()) / nu_max
+    diffs["nu_t_s_limited"] = (float(d_nu[by_s].max()) / nu_max
+                               if bool(by_s.any()) else 0.0)
+    at = int(d_nu.argmax())
+    i_at, j_at = divmod(at, case_tc.grid.nx)
+    witness = {
+        "sst_card_vs_cpu_same_velocity": {
+            n: compare((getattr(t_iso, n),), (getattr(t_cpu, n),))[1]
+            for n in ("k", "omega", "nu_t")},
+        "sst_f32_vs_f64_cpu_velocity": {
+            n: compare((getattr(t_cpu, n),), (getattr(t64_cpu, n),))[1]
+            for n in ("k", "omega", "nu_t")},
+        "sst_f32_vs_f64_card_velocity": {
+            n: compare((getattr(t_gpu, n),), (getattr(t64_gpu, n),))[1]
+            for n in ("k", "omega", "nu_t")},
+        "sst_f64_card_vs_cpu_velocity": {
+            n: compare((getattr(t64_gpu, n),), (getattr(t64_cpu, n),))[1]
+            for n in ("k", "omega", "nu_t")}}
+    say("parity-turb", rel_diff=diffs, tol=TURB_PARITY_TOL,
+        cells={"omega_limited": int(on_w.sum()), "s_limited": int(on_s.sum()),
+               "nu_t_differs_as_s": int(by_s.sum())},
+        largest_nu_t_diff={
+            "i": i_at, "j": j_at, "sdf": float(case_tc.sdf[i_at, j_at]),
+            "branch": "omega" if bool(on_w[i_at, j_at]) else "S",
+            "nu_t": float(nu_c[i_at, j_at]),
+            "k_over_omega": float(t_cpu.k[i_at, j_at]
+                                  / t_cpu.omega[i_at, j_at]),
+            "s": float(s_c[i_at, j_at]), "s_max": float(s_c.max()),
+            "s_local_rel_diff": float(s_local[i_at, j_at]),
+            "nu_t_local_rel_diff": float(nu_local[i_at, j_at])},
+        strain_rel_diff=compare((s_g,), (s_c,))[1],
+        witness=witness,
+        witness_tol=TURB_WITNESS_TOL, s_slack=TURB_S_SLACK,
+        cpu_step_s=round(cpu_step_s, 3))
+    for name, d in diffs.items():
+        check(d <= TURB_PARITY_TOL[name],
+              f"parity-turb {name}: rel diff {d:.3e}")
+    for label, ds in witness.items():
+        if label == "sst_f64_card_vs_cpu_velocity":
+            continue    # the velocity's difference itself, reported
+        for name, d in ds.items():
+            check(d <= TURB_WITNESS_TOL,
+                  f"parity-turb witness {label} {name}: rel diff {d:.3e}")
+    del f_gpu, t_gpu, f_cpu, t_cpu, t_iso, t64_cpu, t64_gpu, turb_dc
+    del s_g, s_c, s_local, nu_local, d_nu, nu_g, nu_c, on_w, on_s, by_s
+    del case_tc, flow_d, turb_d
+
+    # ---- the poisson family's held-out case (docs/EVAL_REPORT.md) --------
+    geom_p = channel_case_geometry(**POISSON)
+    case_p = build_channel_case(geom_p, delta=POISSON_DELTA, device=dev)
+    case_pc = build_channel_case(geom_p, delta=POISSON_DELTA, device="cpu")
+    check(tuple(case_p.grid.shape) == POISSON_SHAPE,
+          f"step-poisson: grid {case_p.grid.shape}, not {POISSON_SHAPE}")
+    path_p = os.path.join(ROOT, "artifacts", "sm_poisson128")
+    pred_p = make_predictor(SurrogateBundle.load(path_p, device=dev),
+                            stitch="lstsq")
+    flow_p, stats_p, _ = drive_path("step-poisson", case_p,
+                                    initial_flow(case_p, dt0=5e-4), cfg,
+                                    backend, sm=pred_p, sm_calls=pred_p)
+    check_matvec_levels("step-poisson", stats_p,
+                        kernel_bounds.level_shapes(*POISSON_SHAPE))
+    poisson_launches = stats_p["kernel_launches"]
+
+    def aux_of(flow_, device):
+        return {n_: getattr(flow_, n_).to(device)
+                for n_ in ("u", "v", "p", "u_prev", "v_prev", "p_prev")}
+
+    def pred_change(pred_, case_, flow_, device):
+        aux_ = aux_of(flow_, device)
+        with torch.no_grad():
+            return (pred_(case_, aux_["p"], aux_) - aux_["p"]).cpu()
+
+    got = pred_change(pred_p, case_p, flow_p, dev)
+    ref = pred_change(make_predictor(SurrogateBundle.load(
+        path_p, device="cpu"), stitch="lstsq"), case_pc, flow_p, "cpu")
+    rel_p = compare((got,), (ref,))[1]
+    say("step-poisson", **stats_p, predicted_change_rel_err=rel_p,
+        tol=PRED_TOL)
+    check(rel_p <= PRED_TOL, f"step-poisson: the card's prediction differs "
+          f"from the CPU's by {rel_p:.3e}")
+
+    # ---- the U_gradP tier on step-poisson's case ---------------------------
+    def gradp_tier(bundle_, case_, fields):
+        """Blocks forward, each gradient channel stitched by least squares
+        and scaled by maxs_out, integrated to p (the JAX package's
+        eval/evaluation.py tier)."""
+        lay = build_block_layout(case_.grid.ny, case_.grid.nx,
+                                 bundle_.block_size, bundle_.overlap_ratio)
+        um = u_max_norm(fields["u"], fields["v"])
+        yb = surrogate_blocks_forward(
+            bundle_, lay, FAMILIES["U_gradP"].build_inputs(case_, fields),
+            case_.sdf)
+        mb = extract_blocks(lay, case_.sdf)
+        lx = case_.grid.nx * case_.grid.dx
+        ly = case_.grid.ny * case_.grid.dy
+        gx = assemble_lstsq(lay, yb[..., 0], mb) * bundle_.maxs_out[0]
+        gy = assemble_lstsq(lay, yb[..., 1], mb) * bundle_.maxs_out[1]
+        return integrate_gradp(case_, gx * um**2 / lx, gy * um**2 / ly)
+
+    path_g = os.path.join(ROOT, "artifacts", "sm_gradp128")
+    bundle_g = SurrogateBundle.load(path_g, device=dev)
+    with torch.no_grad():
+        p_g = gradp_tier(bundle_g, case_p, aux_of(flow_p, dev))
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(5):
+            gradp_tier(bundle_g, case_p, aux_of(flow_p, dev))
+        e1.record()
+        torch.cuda.synchronize()
+        p_gc = gradp_tier(SurrogateBundle.load(path_g, device="cpu"),
+                          case_pc, aux_of(flow_p, "cpu"))
+    rel_g = compare((p_g.cpu(),), (p_gc,))[1]
+    try:
+        make_predictor(bundle_g)
+        refused = False
+    except ValueError:
+        refused = True
+    say("gradp-tier", shape=list(case_p.grid.shape), rel_err=rel_g,
+        tol=PRED_TOL, ms_per_tier=e0.elapsed_time(e1) / 5,
+        finite=bool(torch.isfinite(p_g).all()),
+        make_predictor_refuses=refused)
+    check(bool(torch.isfinite(p_g).all()), "gradp-tier: non-finite p")
+    check(rel_g <= PRED_TOL, f"gradp-tier: card vs CPU {rel_g:.3e}")
+    check(refused, "gradp-tier: make_predictor served a U_gradP bundle")
+    del case_pc, bundle_g, p_g, p_gc
+
+    # ---- the predictor's options on the main path's state (sm_ref512) -----
+    case_c = build_channel_case(geom, delta=delta, device="cpu")
+    bundle_c = SurrogateBundle.load(os.path.join(ROOT, "artifacts",
+                                                 "sm_ref512"), device="cpu")
+
+    def predict_ms(pred_, n=5):
+        bound_ = pred_.bind(case)
+        aux_ = aux_of(flow, dev)
+        with torch.no_grad():
+            bound_(case, aux_["p"], aux_)
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            for _ in range(n):
+                bound_(case, aux_["p"], aux_)
+            e1.record()
+            torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / n
+
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+
+    options = {}
+    # bf16 PCA against the f32 predictor, on the card and on the CPU
+    d_f = pred_change(predictor, case, flow, dev)
+    d_b = pred_change(make_predictor(bundle, stitch="lstsq",
+                                     precision="bf16"), case, flow, dev)
+    d_fc = pred_change(make_predictor(bundle_c, stitch="lstsq"), case_c,
+                       flow, "cpu")
+    d_bc = pred_change(make_predictor(bundle_c, stitch="lstsq",
+                                      precision="bf16"), case_c, flow, "cpu")
+    options["bf16"] = dict(
+        rel_l2_bf16_vs_f32=rel_l2(d_b, d_f),
+        rel_l2_bf16_vs_f32_cpu=rel_l2(d_bc, d_fc),
+        rel_err_bf16_vs_f32=compare((d_b,), (d_f,))[1],
+        rel_err_card_vs_cpu=compare((d_b,), (d_bc,))[1],
+        rel_err_f32_card_vs_cpu=compare((d_f,), (d_fc,))[1],
+        predict_ms_f32=predict_ms(predictor),
+        predict_ms_bf16=predict_ms(make_predictor(bundle, stitch="lstsq",
+                                                  precision="bf16")))
+    # the seam filter with the scan stitch: the filter alone on the card
+    # with cuDNN's TF32 at PyTorch's default (on) outside the call, against
+    # the CPU, and the predictor with it against the CPU's
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        f_card = gaussian_filter2d(flow.p, 10.0).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    f_cpu = gaussian_filter2d(flow.p.cpu(), 10.0)
+    d_sf = pred_change(make_predictor(bundle, stitch="scan",
+                                      apply_filter=True), case, flow, dev)
+    d_sfc = pred_change(make_predictor(bundle_c, stitch="scan",
+                                       apply_filter=True), case_c, flow,
+                        "cpu")
+    options["filter"] = dict(
+        filter_rel_err=compare((f_card,), (f_cpu,))[1],
+        rel_err_card_vs_cpu=compare((d_sf,), (d_sfc,))[1],
+        predict_ms=predict_ms(make_predictor(bundle, stitch="scan",
+                                             apply_filter=True)))
+    # the near-wall guard at 0.1
+    pred_nw = make_predictor(bundle, stitch="lstsq", near_wall_dist=0.1)
+    guard = (case.sdf < 0.1) | (case.fluid == 0)
+    guard_c = (case_c.sdf < 0.1) | (case_c.fluid == 0)
+    d_nw = pred_change(pred_nw, case, flow, dev)
+    options["near-wall-0.1"] = dict(
+        guarded=int(guard.sum()), guarded_cpu=int(guard_c.sum()),
+        guarded_at_0_05=int(((case.sdf < 0.05) | (case.fluid == 0)).sum()),
+        kept=bool((d_nw[guard.cpu()] == 0).all()))
+    say("sm-options", shape=[NY, NX], tol=PRED_TOL, **options)
+    check(options["bf16"]["rel_err_card_vs_cpu"] <= PRED_TOL
+          and options["bf16"]["rel_l2_bf16_vs_f32"] <= PRED_TOL,
+          f"sm-options bf16: {options['bf16']}")
+    check(options["filter"]["filter_rel_err"] <= FILTER_TOL
+          and options["filter"]["rel_err_card_vs_cpu"] <= PRED_TOL,
+          f"sm-options filter: {options['filter']}")
+    nw = options["near-wall-0.1"]
+    check(nw["guarded"] == nw["guarded_cpu"] and nw["kept"]
+          and nw["guarded"] > nw["guarded_at_0_05"],
+          f"sm-options near-wall: {nw}")
+    del case_c, bundle_c
+
+    # ---- the attention and conv1d models at their full widths -------------
+    def numpy_params(mdef, rng):
+        """Glorot-uniform parameters in the JAX package's layout, with
+        small random biases and LayerNorm gains."""
+        def u(shape, fan):
+            lim = np.sqrt(6.0 / fan)
+            return rng.uniform(-lim, lim, shape).astype(np.float32)
+
+        def b(n, base=0.0):
+            return (base + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+        w = list(mdef.widths)
+        if mdef.kind == "conv1d":
+            layers, c_in = [], 1
+            for c in w:
+                layers.append({"w": u((mdef.kernel_size, c_in, c),
+                                      mdef.kernel_size * c_in + c),
+                               "b": b(c)})
+                c_in = c
+            head_in = mdef.in_dim * w[-1]
+        else:
+            dims = [mdef.in_dim] + w
+            layers = [{"w": u((dims[i], dims[i + 1]), dims[i] + dims[i + 1]),
+                       "b": b(dims[i + 1])} for i in range(len(w))]
+            head_in = w[-1]
+        params = {"layers": layers,
+                  "head": {"w": u((head_in, mdef.out_dim),
+                                  head_in + mdef.out_dim),
+                           "b": b(mdef.out_dim)}}
+        if mdef.kind == "attention":
+            d, h, kd = w[0], mdef.num_heads, mdef.key_dim
+            params["attn"] = {n_: u((d, h, kd), d + h * kd)
+                              for n_ in ("wq", "wk", "wv")}
+            params["attn"]["wo"] = u((h, kd, d), d + h * kd)
+            params["attn"]["bo"] = b(d)
+            params["ln"] = [{"g": b(d, 1.0), "b": b(d)}
+                            for _ in range(1 + len(w))]
+        return params
+
+    n_blocks = build_block_layout(NY, NX, bundle.block_size,
+                                  bundle.overlap_ratio).n_blocks
+    rng = np.random.default_rng(0)
+    models = {}
+    for arch in ("MLP_attention", "conv1D"):
+        mdef = ModelDef.from_arch(arch, in_dim=bundle.pc_in,
+                                  out_dim=bundle.pc_out)
+        tree = numpy_params(mdef, rng)
+        x_np = rng.standard_normal((n_blocks, mdef.in_dim)).astype(
+            np.float32)
+        p_dev, x_dev = params_from_numpy(tree, dev), torch.as_tensor(
+            x_np, device=dev)
+        with torch.no_grad():
+            y_dev = apply_model(p_dev, mdef, x_dev)
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            for _ in range(20):
+                apply_model(p_dev, mdef, x_dev)
+            e1.record()
+            torch.cuda.synchronize()
+            y_cpu = apply_model(params_from_numpy(tree, "cpu"), mdef,
+                                torch.as_tensor(x_np))
+        models[arch] = dict(
+            kind=mdef.kind, widths=list(mdef.widths), in_dim=mdef.in_dim,
+            out_dim=mdef.out_dim, batch=n_blocks,
+            params=count_params(p_dev), rel_err=compare((y_dev.cpu(),),
+                                                        (y_cpu,))[1],
+            ms_per_forward=e0.elapsed_time(e1) / 20,
+            finite=bool(torch.isfinite(y_dev).all()))
+    say("models", tol=PRED_TOL, **models)
+    for arch, r_ in models.items():
+        check(r_["finite"] and r_["rel_err"] <= PRED_TOL,
+              f"models {arch}: {r_}")
 
     # ---- the fleet: the momentum kernel's batched launch ----------------
     n_fleet = len(FLEET)
@@ -2298,6 +2843,17 @@ def main() -> int:
         "launches_per_call": t_jsh["launches_per_call"],
         "library_ms": None,
     })
+    # the launches of each kernel on the turbulent and poisson paths (their
+    # counts set to 0 just before each path's timed steps)
+    new_paths = {"step-turb": turb_launches, "step-turb-mgcg": dean_launches,
+                 "step-turb-sharded": tsh_launches,
+                 "step-poisson": poisson_launches}
+    for row in kernels:
+        name = row["name"].split(" ")[0]
+        if row["name"].endswith("(batched launch)"):
+            continue
+        row["launches_by_path"] = {path: k_[name]
+                                   for path, k_ in new_paths.items()}
     say("done", total_s=round(time.time() - T0, 3))
     print(json.dumps({"kernels": kernels}))
     print(card)

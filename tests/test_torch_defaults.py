@@ -80,22 +80,6 @@ PAIRS = list(_pairs())
 # that the port does not take yet, each with the ROADMAP.md section A
 # item that ports it. A call that passes one raises TypeError.
 UNPORTED = {
-    "piso.engine.PisoConfig": {"turb_wall_fn": "A.4"},
-    "fv.momentum.momentum_coeffs": {"nu_t": "A.4", "k_turb": "A.4"},
-    "fv.forces.obstacle_force": {"nu_t": "A.4", "k_turb": "A.4"},
-    "piso.engine.piso_step": {"nu_t": "A.4", "k_turb": "A.4"},
-    "fv.case.save_flow": {"turb": "A.4"},
-    "eval.benchmark.save_run_state": {"turb": "A.4"},
-    "surrogate.pipeline.make_predictor": {"family": "A.3",
-                                          "apply_filter": "A.3",
-                                          "near_wall_dist": "A.3",
-                                          "precision": "A.3"},
-    "surrogate.pipeline.surrogate_blocks_forward": {"pca_dtype": "A.3"},
-    "surrogate.blocks.assemble_scan": {"apply_filter": "A.3",
-                                       "filter_sigma": "A.3"},
-    "surrogate.blocks.assemble_lstsq": {"ref_bc": "A.3"},
-    "surrogate.blocks.stitch_offsets_lstsq": {"ref_bc": "A.3",
-                                              "anchor_weight": "A.3"},
     "models.mlp.apply_model": {"dropout_key": "A.8"},
     "surrogate.features.FamilyConfig": {"build_targets": "A.8"},
     # jax.sharding.Mesh's sharding axis types: the port's mesh is a grid
@@ -103,7 +87,7 @@ UNPORTED = {
     # they belong to the domain-decomposed engine
     "parallel.mesh.Mesh": {"axis_types": "A.7"},
 }
-ROADMAP_A_ITEMS = {"A.3", "A.4", "A.7", "A.8"}
+ROADMAP_A_ITEMS = {"A.7", "A.8"}
 # Differences by design: the port's DistributedConfig takes torchrun's
 # names (master_addr, master_port, world_size, rank) for what JAX's
 # distributed initialisation calls these.
@@ -132,22 +116,44 @@ def test_the_walk_finds_the_entry_points():
                   "fv.momentum.wall_unit_normal",
                   "fv.momentum.wall_normal_release",
                   "fv.momentum.wall_shear2_source",
-                  "piso.engine.run_piso"):
+                  "piso.engine.run_piso",
+                  "models.mlp.ModelDef", "models.mlp.define_model_arch",
+                  "models.mlp.l2_penalty", "models.mlp.count_params",
+                  "surrogate.pca.PCAModel",
+                  "surrogate.features.masked_gradient",
+                  "surrogate.features.smart_arcsinh",
+                  "surrogate.features.poisson_source",
+                  "surrogate.features.f_u_term",
+                  "surrogate.blocks.gaussian_filter2d",
+                  "surrogate.blocks.apply_deltaU_weighting",
+                  "surrogate.pipeline.surrogate_blocks_forward",
+                  "surrogate.gradp_integrate.integrate_gradp",
+                  "fv.turbulence.TurbState", "fv.turbulence.init_turbulence",
+                  "fv.turbulence.sst_step", "fv.turbulence.wall_cell_masks",
+                  "fv.momentum.wall_conductance",
+                  "piso.engine.piso_step_sst", "piso.engine.run_piso_sst",
+                  "piso.engine.run_piso_sst_eager",
+                  "fv.case.load_turbulence", "eval.benchmark.dean_cf",
+                  "eval.benchmark.turbulent_channel_case",
+                  "eval.benchmark.channel_wall_cf",
+                  "eval.benchmark.save_run_state",
+                  "parallel.mesh.shard_turbulence",
+                  "parallel.mesh.make_sharded_sst_step"):
         assert f"tpufoam_torch.{entry}" in names, entry
 
 
 def test_piso_config_has_the_ported_fields_only():
-    """Every field of the JAX package's config is there, in its order,
-    but the SST model's wall functions, which have no field, so that
-    setting them raises instead of being ignored."""
+    """Every field of the JAX package's config is there, in its order, and
+    no other: a field the port lacked would raise when set, one it added
+    would be one the JAX package ignores."""
     from tpufoam.piso.engine import PisoConfig as JaxConfig
     from tpufoam_torch.piso.engine import PisoConfig
     port = [f.name for f in dataclasses.fields(PisoConfig)]
     ref = [f.name for f in dataclasses.fields(JaxConfig)]
-    assert set(ref) - set(port) == {"turb_wall_fn"}
-    assert port == [n for n in ref if n != "turb_wall_fn"]
+    assert port == ref
+    assert PisoConfig(turb_wall_fn=True).turb_wall_fn is True
     with pytest.raises(TypeError):
-        PisoConfig(turb_wall_fn=True)
+        PisoConfig(wall_functions=True)
 
 
 @pytest.mark.parametrize("name,port,ref", PAIRS, ids=[p[0] for p in PAIRS])

@@ -940,3 +940,83 @@ def test_run_piso_refuses_autograd_through_the_kernels(cuda):
     ref = run_piso_eager(case, flow0, 2, cfg=cfg, backend=MGBackend(cycles=2))
     for name in ("u", "v", "p", "phi_x", "phi_y", "dt", "t"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+def test_gaussian_filter_on_the_card_equals_the_cpu(cuda):
+    """The seam filter's two float32 convolutions on the card, with TF32
+    left at PyTorch's default outside the call (cuDNN's is on): the filter
+    turns it off inside, so the card's result is the CPU's to float32
+    rounding (sums of 81 terms in another order: 1e-5 of the largest
+    value, the CPU tests' bound against JAX and scipy), and the flag is
+    as it was after the call."""
+    from tpufoam_torch.surrogate.blocks import gaussian_filter2d
+
+    assert torch.backends.cudnn.allow_tf32
+    f = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (96, 256)).astype(np.float32))
+    for sigma in (10.0, 3.0):
+        ref = gaussian_filter2d(f, sigma)
+        got = gaussian_filter2d(f.to(cuda), sigma).cpu()
+        assert float((got - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max()), sigma
+    assert torch.backends.cudnn.allow_tf32
+
+
+def test_sst_step_on_the_card_matches_the_cpu(cuda):
+    """One k-omega SST step (both wall treatments) on the card against the
+    same on the CPU, from one seeded state: elementwise float32 operations
+    and four Jacobi sweeps each, 1e-5 of each field's largest value."""
+    import dataclasses
+
+    from tpufoam_torch.eval.benchmark import turbulent_channel_case
+    from tpufoam_torch.fv.case import fluxes_from_velocity, initial_flow
+    from tpufoam_torch.fv.turbulence import init_turbulence, sst_step
+
+    cases = {d: turbulent_channel_case(nu=5e-5, length=8.0, delta=2.0 / 16,
+                                       device=d)[0] for d in ("cpu", cuda)}
+    rng = np.random.default_rng(2)
+    c = cases["cpu"]
+    noise = torch.as_tensor(rng.standard_normal((2,) + c.grid.shape).astype(
+        np.float32))
+    u = (initial_flow(c).u + 0.1 * noise[0]) * c.fluid
+    v = 0.1 * noise[1] * c.fluid
+    t0 = init_turbulence(c)
+    for wall_fn in (False, True):
+        out = {}
+        for d, case in cases.items():
+            ud, vd = u.to(d), v.to(d)
+            phi_x, phi_y = fluxes_from_velocity(case, ud, vd)
+            turb = dataclasses.replace(t0, **{
+                f: getattr(t0, f).to(d) for f in ("k", "omega", "nu_t",
+                                                  "k_in", "w_in")})
+            out[d] = sst_step(case, turb, ud, vd, phi_x, phi_y,
+                              torch.tensor(4e-3, device=d), wall_fn=wall_fn)
+        for f in ("k", "omega", "nu_t"):
+            ref, got = getattr(out["cpu"], f), getattr(out[cuda], f).cpu()
+            assert torch.isfinite(got).all()
+            assert float((got - ref).abs().max()) <= 1e-5 * float(
+                ref.abs().max()), (wall_fn, f)
+
+
+def test_bf16_pca_transform_has_a_float32_result(cuda):
+    """The bf16 PCA encode on the card: bf16 operands, float32 sums and a
+    float32 result that is not rounded to bf16 (the JAX package's
+    preferred_element_type=float32), equal to the CPU's float32 product of
+    the rounded operands to float32 rounding."""
+    from tpufoam_torch.surrogate.pca import PCAModel
+
+    rng = np.random.default_rng(3)
+    d, k = 3 * 64 * 64, 24
+    comp = torch.as_tensor(np.linalg.qr(rng.standard_normal((d, k)))[0].T
+                           .astype(np.float32))
+    mean = torch.as_tensor(rng.standard_normal(d).astype(np.float32))
+    x = torch.as_tensor(rng.standard_normal((40, d)).astype(np.float32))
+    ones = torch.ones(k)
+    ref = PCAModel(mean, comp, ones, ones).transform(x, dtype=torch.bfloat16)
+    pca = PCAModel(mean.to(cuda), comp.to(cuda).bfloat16(), ones.to(cuda),
+                   ones.to(cuda))
+    got = pca.transform(x.to(cuda), dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    assert not torch.equal(got, got.bfloat16().float())
+    assert float((got.cpu() - ref).abs().max()) <= 1e-5 * float(
+        ref.abs().max())

@@ -514,9 +514,7 @@ def test_sharded_fleet_equals_the_batched_fleet(fleet, n_dev):
 
 def test_unported_pieces_raise():
     for fn, args in ((tmesh.mlp_partition_specs, ({},)),
-                     (tmesh.make_sharded_train_step, (None, None, None)),
-                     (tmesh.shard_turbulence, (None, None)),
-                     (tmesh.make_sharded_sst_step, (None,))):
+                     (tmesh.make_sharded_train_step, (None, None, None))):
         with pytest.raises(NotImplementedError):
             fn(*args)
 

@@ -28,6 +28,7 @@ Tolerances:
 
 import dataclasses
 import functools
+import inspect
 import os
 
 import jax.numpy as jnp
@@ -124,8 +125,10 @@ def test_near_wall_guard_matches_jax(delta, shape):
     assert tc.grid.shape == shape
     fl = np.asarray(jc.fluid)
     j_guard = (np.asarray(jc.sdf) < 0.05) | (fl == 0)
-    t_guard = ((tc.sdf < tpipe.Predictor.NEAR_WALL_DIST)
-               | (tc.fluid == 0)).numpy()
+    # the guard distance is make_predictor's default near_wall_dist
+    near_wall = inspect.signature(tpipe.make_predictor).parameters[
+        "near_wall_dist"].default
+    t_guard = ((tc.sdf < near_wall) | (tc.fluid == 0)).numpy()
     rows = sorted(set(np.argwhere(j_guard != t_guard)[:, 0].tolist()))
     assert not rows, f"guard differs on rows {rows}"
     np.testing.assert_array_equal(tc.sdf.numpy(), np.asarray(jc.sdf))

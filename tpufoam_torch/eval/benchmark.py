@@ -1,6 +1,9 @@
 """The Schaefer & Turek (1996) laminar cylinder-in-channel benchmarks
 ("Benchmark computations of laminar flow around a cylinder"): the case,
-the force series of a run, its restart files and its summaries.
+the force series of a run, its restart files and its summaries; and the
+turbulent-channel anchor of the k-omega SST model (Dean's skin-friction
+correlation, the empty channel with a 1/7-power inlet, the wall shear of
+a run).
 
     2D-1 (steady, Re=20):   cd in [5.57, 5.59], cl in [0.0104, 0.0110]
     2D-2 (unsteady, Re=100): cd_max in [3.22, 3.24], cl_max in [0.99, 1.01],
@@ -104,12 +107,12 @@ class ForceSeries:
                         # spaced once the single-step t_stop tail engages)
 
 
-def save_run_state(path: str, flow, series: ForceSeries, *,
+def save_run_state(path: str, flow, series: ForceSeries, *, turb=None,
                    meta: dict | None = None) -> None:
-    """Write a force-series run (solver state and the series so far) for a
-    restart, in the JAX package's format. `meta` (a flat json-able dict:
-    bench, delta, ddt, backend, ...) is stored as a fingerprint that
-    `load_run_state` verifies."""
+    """Write a force-series run (solver state, the SST state `turb` if
+    given, and the series so far) for a restart, in the JAX package's
+    format. `meta` (a flat json-able dict: bench, delta, ddt, backend,
+    ...) is stored as a fingerprint that `load_run_state` verifies."""
     from ..fv.case import save_flow
 
     extra = dict(series_t=np.asarray(series.t),
@@ -119,7 +122,7 @@ def save_run_state(path: str, flow, series: ForceSeries, *,
     if meta is not None:
         extra["run_meta"] = np.frombuffer(
             json.dumps(meta, sort_keys=True).encode(), dtype=np.uint8)
-    save_flow(path, flow, extra=extra)
+    save_flow(path, flow, turb=turb, extra=extra)
 
 
 def load_run_state(path: str, expect_meta: dict | None = None,
@@ -310,3 +313,67 @@ def summarize_2d2(series: ForceSeries, settle_t: float) -> dict:
         cl_amp=float(0.5 * (series.cl[sel].max() - series.cl[sel].min())),
         strouhal=strouhal_from_cl(series.t[sel], series.cl[sel]),
     )
+
+
+# ---------------------------------------------------------------------------
+# Turbulent-channel external anchor (k-omega SST + wall functions)
+# ---------------------------------------------------------------------------
+
+def dean_cf(re_m: float) -> float:
+    """Dean (1978) turbulent-channel skin-friction correlation:
+    Cf = tau_w / (0.5 rho U_b^2) = 0.073 Re_m^(-1/4), Re_m = U_b 2 delta
+    / nu (delta the half-height)."""
+    return 0.073 * re_m ** -0.25
+
+
+def turbulent_channel_case(nu: float = 5e-5, height: float = 2.0,
+                           length: float = 48.0, delta: float = 2.0 / 32,
+                           u_bulk: float = 1.0, device=DEFAULT_DEVICE):
+    """Empty plane channel with a 1/7th-power turbulent inlet profile of
+    mean u_bulk (made in float64, cast to float32), the external
+    validation case of the SST model with wall functions. Returns
+    (case, u_bulk)."""
+    from ..core.geometry import ChannelCase
+    from ..fv.case import build_channel_case
+
+    geom = ChannelCase(length=length, height=height, shape=None,
+                       u_mean=u_bulk, nu=nu)
+    case = build_channel_case(geom, delta=delta, device=device)
+    y = (np.arange(case.grid.ny) + 0.5) * case.grid.dy
+    eta = np.abs(2.0 * y / height - 1.0)
+    prof = (1.0 - eta) ** (1.0 / 7.0)
+    prof = prof / prof.mean() * u_bulk
+    return dataclasses.replace(case, inlet_u=torch.as_tensor(
+        prof.astype(np.float32), device=case.device)), u_bulk
+
+
+def channel_wall_cf(case, flow, turb, u_bulk: float,
+                    x_window=(0.6, 0.9)) -> dict:
+    """Wall shear in the developed region, two independent ways: tau_wf,
+    the log-law wall-function stress g u at the wall rows (what the
+    momentum equation applies), and tau_dpdx, from the streamwise
+    pressure gradient (dp/dx H = -2 tau_w in a developed channel); their
+    Cf values, the centreline/bulk ratio and the mean wall-row k."""
+    from ..fv.momentum import wall_conductance
+
+    g = case.grid
+    j0, j1 = int(x_window[0] * g.nx), int(x_window[1] * g.nx)
+    d = 0.5 * g.dy
+    u = _host(flow.u)
+    k = _host(turb.k)
+    g_bot = _host(wall_conductance(case.nu, turb.k[0, :], d))
+    g_top = _host(wall_conductance(case.nu, turb.k[-1, :], d))
+    tau_wf = 0.5 * (np.mean(g_bot[j0:j1] * u[0, j0:j1])
+                    + np.mean(g_top[j0:j1] * u[-1, j0:j1]))
+
+    height = g.ny * g.dy
+    p_mean = _host(flow.p).mean(axis=0)
+    dpdx = (p_mean[j1] - p_mean[j0]) / ((j1 - j0) * g.dx)
+    tau_dpdx = -dpdx * height / 2.0
+
+    q = 0.5 * u_bulk**2
+    u_prof = u[:, j0:j1].mean(axis=1)
+    return dict(tau_wf=float(tau_wf), tau_dpdx=float(tau_dpdx),
+                cf_wf=float(tau_wf / q), cf_dpdx=float(tau_dpdx / q),
+                uc_over_ub=float(u_prof.max() / max(u_prof.mean(), 1e-12)),
+                k_wall_mean=float(k[0, j0:j1].mean()))

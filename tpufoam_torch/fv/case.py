@@ -318,14 +318,21 @@ _FLOW_FIELDS = ("u", "v", "p", "phi_x", "phi_y", "dt", "t",
                 "u_prev", "v_prev", "p_prev")
 
 
-def save_flow(path: str, flow: Flow, *, extra: dict | None = None) -> None:
+_TURB_FIELDS = ("k", "omega", "nu_t", "k_in", "w_in")
+
+
+def save_flow(path: str, flow: Flow, *, turb=None,
+              extra: dict | None = None) -> None:
     """Write the full solver state for a restart to the .npz `path`, with
     the JAX package's keys, so each package reads the other's files.
-    `extra` appends caller arrays (a force-series history). The write is
-    atomic (tmp + rename). The JAX package's `turb` (the SST state) is not
-    ported."""
+    `turb` appends the k-omega SST state (fv.turbulence.TurbState, as
+    turb_k, turb_omega, ...); `extra` appends caller arrays (a
+    force-series history). The write is atomic (tmp + rename)."""
     arrays = {f: getattr(flow, f).detach().cpu().numpy()
               for f in _FLOW_FIELDS}
+    if turb is not None:
+        arrays.update({f"turb_{f}": getattr(turb, f).detach().cpu().numpy()
+                       for f in _TURB_FIELDS})
     if extra:
         arrays.update({k: np.asarray(v) for k, v in extra.items()})
     tmp = path + ".tmp.npz"
@@ -339,6 +346,17 @@ def load_flow(path, device=DEFAULT_DEVICE) -> Flow:
     d = path if hasattr(path, "files") else np.load(path)
     return Flow(**{k: torch.as_tensor(d[k], device=device)
                    for k in _FLOW_FIELDS})
+
+
+def load_turbulence(path, device=DEFAULT_DEVICE):
+    """The TurbState saved with a save_flow .npz path (or an opened
+    NpzFile) on `device`, or None if the state file is laminar."""
+    d = path if hasattr(path, "files") else np.load(path)
+    if "turb_k" not in d.files:
+        return None
+    from .turbulence import TurbState
+    return TurbState(**{f: torch.as_tensor(d[f"turb_{f}"], device=device)
+                        for f in _TURB_FIELDS})
 
 
 def fluxes_from_velocity(case: Case, u: torch.Tensor, v: torch.Tensor):

@@ -1,11 +1,12 @@
-"""Obstacle force and force-coefficient diagnostics, laminar.
+"""Obstacle force and force-coefficient diagnostics.
 
 The force on the obstacle is assembled from its wall terms, in kinematic
 units (per density) and per unit depth. Cut-cell cases take the discrete
 momentum-consistent embedded-wall terms; blanked cases sample the stair
 faces. One case: (ny, nx) fields. The cut-cell report takes the step's
-wall options (second-order shear, tangential link) as the momentum
-equation does.
+wall treatment as the momentum equation does: the eddy viscosity and
+the wall functions of a turbulent step, or the laminar wall options
+(second-order shear, tangential link).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import dataclasses
 import torch
 
 from .case import Case
-from .momentum import wall_shear2_source, wall_unit_normal
+from .momentum import wall_conductance, wall_shear2_source, wall_unit_normal
 from .operators import nb_e, nb_n, nb_s, nb_w
 from .pressure import pressure_gradient
 
@@ -65,28 +66,37 @@ def _report(f_pres: torch.Tensor, f_visc: torch.Tensor, u_ref: float,
 
 def _obstacle_force_cut(case: Case, u: torch.Tensor, v: torch.Tensor,
                         p: torch.Tensor, u_ref: float = 1.0,
-                        d_ref: float = 1.0, wall_order: int = 1,
+                        d_ref: float = 1.0, nu_t=None, k_turb=None,
+                        wall_order: int = 1,
                         wall_link: str = "full") -> ForceReport:
     """Cut-cell force, the discrete momentum-consistent wall terms:
         F_p  = sum_cells p_P A_w    (the pressure gradient's wall closure)
-        F_nu = sum_cells a_wall U_P (the no-slip link nu L_w / d_w of
-                                     fv.momentum)
+        F_nu = sum_cells a_wall U_P (the no-slip link of fv.momentum:
+                                     nu L_w / d_w laminar, nu_eff L_w / d_w
+                                     with an eddy viscosity, g L_w with
+                                     the wall functions of k_turb)
     i.e. the momentum the discretized equations transfer to the body. The
-    step's wall options change that transfer, and the report follows:
-    wall_link='tangential' takes off the released normal part
+    step's laminar wall options change that transfer, and the report
+    follows: wall_link='tangential' takes off the released normal part
     a_wall (U.n) n, wall_order=2 the second-order shear correction that
-    the fluid gained."""
+    the fluid gained (neither under wall functions)."""
     fpx = torch.sum(p * case.wall_ax)
     fpy = torch.sum(p * case.wall_ay)
-    a_wall = case.nu * case.wall_len / case.wall_dist
+    if k_turb is not None:
+        a_wall = wall_conductance(case.nu, k_turb,
+                                  case.wall_dist) * case.wall_len
+    elif nu_t is not None:
+        a_wall = (case.nu + nu_t) * case.wall_len / case.wall_dist
+    else:
+        a_wall = case.nu * case.wall_len / case.wall_dist
     fvx = torch.sum(a_wall * u)
     fvy = torch.sum(a_wall * v)
-    if wall_link == "tangential":
+    if wall_link == "tangential" and k_turb is None:
         nxh, nyh = wall_unit_normal(case)
         un = (u * nxh + v * nyh) * case.fluid
         fvx = fvx - torch.sum(a_wall * un * nxh)
         fvy = fvy - torch.sum(a_wall * un * nyh)
-    if wall_order == 2:
+    if wall_order == 2 and k_turb is None:
         ws_u, ws_v = wall_shear2_source(case, *pressure_gradient(case, p))
         fvx = fvx - torch.sum(ws_u)
         fvy = fvy - torch.sum(ws_v)
@@ -126,20 +136,23 @@ def _obstacle_force_stair(case: Case, u: torch.Tensor, v: torch.Tensor,
 
 def obstacle_force(case: Case, u: torch.Tensor, v: torch.Tensor,
                    p: torch.Tensor, u_ref: float = 1.0,
-                   d_ref: float = 1.0, *, wall_order: int = 1,
+                   d_ref: float = 1.0, *, nu_t=None, k_turb=None,
+                   wall_order: int = 1,
                    wall_link: str = "full") -> ForceReport:
     """Pressure + viscous force on the obstacle and its coefficients
     (reference velocity u_ref, length d_ref): the cut-cell terms when
-    case.cut, else the stair-face sampling. Laminar only. Pass the step's
-    PisoConfig.wall_order and wall_link, so that a cut-cell report stays
-    the momentum the step transferred (the stair path has neither
-    term)."""
+    case.cut, else the stair-face sampling. Pass the step's wall
+    treatment, so that a cut-cell report stays the momentum the step
+    transferred: for a turbulent step its `nu_t`, and `k_turb` when its
+    wall functions are on; for a laminar one PisoConfig.wall_order and
+    wall_link. The stair path is laminar and takes none of them."""
     if wall_order not in (1, 2):
         raise ValueError(f"unknown wall order {wall_order!r}")
     if wall_link not in ("full", "tangential"):
         raise ValueError(f"unknown wall link {wall_link!r}")
     if case.cut:
         return _obstacle_force_cut(case, u, v, p, u_ref=u_ref, d_ref=d_ref,
+                                   nu_t=nu_t, k_turb=k_turb,
                                    wall_order=wall_order,
                                    wall_link=wall_link)
     return _obstacle_force_stair(case, u, v, p, u_ref=u_ref, d_ref=d_ref)

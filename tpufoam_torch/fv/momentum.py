@@ -4,7 +4,9 @@ Implicit FV discretization of
     ddt(U) + div(phi, U) - laplacian(nu, U) == -grad(p)
 with Euler or variable-step BDF2 ddt, upwind implicit convection plus a
 deferred correction (limitedLinearV, or an unlimited central blend), and
-central diffusion on a cut-cell grid, uniform or stretched, laminar; the
+central diffusion on a cut-cell grid, uniform or stretched, laminar or
+with an eddy viscosity nu_t (nu_eff = nu + nu_t, with the transpose
+term of div(nu_eff (grad U)^T)) and the log-law wall functions; the
 embedded wall's no-slip link optionally carries a second-order shear
 correction or acts on the tangential velocity only. The solve is a fixed
 number of Jacobi sweeps. Fields are ([B,] ny, nx): a leading case
@@ -23,7 +25,7 @@ import torch
 from ..ops.momentum import MAX_SWEEPS, momentum_multisweep
 from ..ops.sharded import momentum_multisweep_sharded, sharded_available_for
 from .case import Case, domain_row_masks, grid_metrics, per_case
-from .operators import nb_e, nb_n, nb_s, nb_w
+from .operators import nb_e, nb_n, nb_s, nb_w, rdiv
 
 
 @dataclasses.dataclass
@@ -127,6 +129,64 @@ def _limited_linear_corrections(case: Case, f_e, f_w, f_n, f_s,
     return -corr_u, -corr_v
 
 
+def _transpose_diffusion_source(case: Case, nu_t: torch.Tensor,
+                                u: torch.Tensor, v: torch.Tensor):
+    """div(nu_eff (grad U)^T), the transpose term of
+    `turbulence->divDevSigma(U)`. For incompressible flow it reduces
+    pointwise to (grad nu_t . d U_j/d x_i), nonzero only where the eddy
+    viscosity varies:
+        s_u = dnut/dx * du/dx + dnut/dy * dv/dx
+        s_v = dnut/dx * du/dy + dnut/dy * dv/dy
+    Per unit volume; the caller multiplies by V."""
+    m = grid_metrics(case.grid, case.device)
+    me, mw = nb_e(case.fluid), nb_w(case.fluid)
+    mn, ms = nb_n(case.fluid), nb_s(case.fluid)
+
+    def grad(f):
+        fe = torch.where(me > 0, nb_e(f), f)
+        fw = torch.where(mw > 0, nb_w(f), f)
+        fn = torch.where(mn > 0, nb_n(f), f)
+        fs = torch.where(ms > 0, nb_s(f), f)
+        if not m.stretched:
+            gx = (fe - fw) / (torch.clamp(me + mw, min=1.0) * m.dxc)
+            gy = (fn - fs) / (torch.clamp(mn + ms, min=1.0) * m.dyc)
+        else:
+            # the actual centre spans; a one-sided (masked) neighbour
+            # contributes its own distance
+            gx = (fe - fw) / torch.maximum(me * m.hx_e + mw * m.hx_w,
+                                           0.5 * m.dxc)
+            gy = (fn - fs) / torch.maximum(mn * m.hy_n + ms * m.hy_s,
+                                           0.5 * m.dyc)
+        return gx, gy
+
+    ntx, nty = grad(nu_t)
+    dudx, dudy = grad(u)
+    dvdx, dvdy = grad(v)
+    s_u = ntx * dudx + nty * dvdx
+    s_v = ntx * dudy + nty * dvdy
+    return s_u * case.fluid, s_v * case.fluid
+
+
+def wall_conductance(nu: float, k_wall: torch.Tensor, d,
+                     kappa: float = 0.41, e_rough: float = 9.8,
+                     cmu: float = 0.09):
+    """Per-unit-area no-slip wall conductance g with tau_w = g * U_t.
+
+    Low-Re (viscous) branch: g = nu / d (the half-cell link). Log-law
+    branch (the k-based nutkWallFunction form): with u* = Cmu^{1/4}
+    sqrt(k) and y* = u* d / nu, g = u* kappa / ln(E y*), the log clamped
+    at 1 so that g_log vanishes with u* below the crossover. The branches
+    combine as the 4-norm (g_vis^4 + g_log^4)^{1/4}, a Spalding-profile
+    approximation. Independent of |U_t|: the momentum wall link stays
+    implicit and linear. `d` is a Python number or a tensor."""
+    ustar = cmu**0.25 * torch.sqrt(torch.clamp(k_wall, min=0.0))
+    ystar = torch.clamp(ustar * d / nu, min=1e-10)
+    g_log = ustar * kappa / torch.clamp(
+        torch.log(torch.clamp(e_rough * ystar, min=1e-10)), min=1.0)
+    g_vis = nu / d if not isinstance(d, torch.Tensor) else rdiv(nu, d)
+    return (g_vis**4 + g_log**4) ** 0.25
+
+
 def wall_unit_normal(case: Case):
     """Unit embedded-wall normal (n_x, n_y) per cell from the wall-area
     vector (case.wall_ax/ay); zero where the cell has no wall piece. Its
@@ -171,15 +231,27 @@ def wall_shear2_source(case: Case, gpx: torch.Tensor, gpy: torch.Tensor):
 def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
                     u_old: torch.Tensor, v_old: torch.Tensor,
                     dt: torch.Tensor, *, convection_blend: float = 0.0,
-                    convection: str = "blend", ddt: str = "euler",
+                    nu_t: torch.Tensor | None = None,
+                    convection: str = "blend",
+                    k_turb: torch.Tensor | None = None,
+                    ddt: str = "euler",
                     u_nm1: torch.Tensor | None = None,
                     v_nm1: torch.Tensor | None = None,
                     dt_prev: torch.Tensor | None = None,
                     wall_grad_p=None,
                     wall_link: str = "full") -> MomentumCoeffs:
-    """Laminar UEqn coefficients: an upwind implicit matrix, no-slip walls
+    """UEqn coefficients: an upwind implicit matrix, no-slip walls
     (half-cell domain walls, embedded-wall link nu L_w / d_w on the
     obstacle), fixed-velocity inlet. `dt` is one per case: () or (B,).
+
+    nu_t: optional (ny, nx) eddy viscosity: nu_eff = nu + nu_t in every
+    conductance (face-interpolated), with the transpose-gradient term
+    div(nu_eff (grad U)^T) in the source. None: the laminar path (scalar
+    conductances).
+    k_turb: optional turbulent kinetic energy: the no-slip wall links take
+    the log-law wall-function conductance `wall_conductance` (the
+    nutkWallFunction role); the wall_grad_p and wall_link options are off
+    under it (the log law models the whole traction).
 
     convection: 'limitedLinear' adds the limitedLinearV-1 deferred
     correction to the explicit source; 'blend' adds an unlimited central
@@ -197,9 +269,7 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
     `wall_shear2_source` to (b_u, b_v) (PisoConfig.wall_order=2).
     wall_link: 'full' keeps the isotropic embedded-wall link;
     'tangential' adds `wall_normal_release` on a cut-cell case, so the
-    link acts on the tangential velocity only.
-
-    The JAX package's turbulence (nu_t, k_turb) is not ported."""
+    link acts on the tangential velocity only."""
     if convection not in ("limitedLinear", "blend", "upwind"):
         raise ValueError(f"unknown convection scheme {convection!r}")
     if ddt not in ("euler", "backward"):
@@ -212,13 +282,26 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
     m = grid_metrics(case.grid, case.device)
     dx, dy = m.dxc, m.dyc
     vol = dx * dy
-    # conductances: face area / centre-to-centre distance
-    d_e = nu * m.dyc / m.hx_e
-    d_w = nu * m.dyc / m.hx_w
-    d_n = nu * m.dxc / m.hy_n
-    d_s = nu * m.dxc / m.hy_s
-    d_cx = nu * dy / dx
-    d_cy = nu * dx / dy
+    if nu_t is None:
+        # conductances: face area / centre-to-centre distance
+        d_e = nu * m.dyc / m.hx_e
+        d_w = nu * m.dyc / m.hx_w
+        d_n = nu * m.dxc / m.hy_n
+        d_s = nu * m.dxc / m.hy_s
+        d_cx = nu * dy / dx
+        d_cy = nu * dx / dy
+    else:
+        nu_eff = nu + nu_t
+        d_e = (m.wx_e * nu_eff + (1 - m.wx_e) * nb_e(nu_eff)) \
+            * m.dyc / m.hx_e
+        d_w = (m.wx_w * nu_eff + (1 - m.wx_w) * nb_w(nu_eff)) \
+            * m.dyc / m.hx_w
+        d_n = (m.wy_n * nu_eff + (1 - m.wy_n) * nb_n(nu_eff)) \
+            * m.dxc / m.hy_n
+        d_s = (m.wy_s * nu_eff + (1 - m.wy_s) * nb_s(nu_eff)) \
+            * m.dxc / m.hy_s
+        d_cx = nu_eff * dy / dx   # half-cell wall/inlet conductances
+        d_cy = nu_eff * dx / dy
 
     f_e = phi_x[..., 1:]
     f_w = phi_x[..., :-1]
@@ -238,8 +321,16 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
                                           torch.clamp(f_s, min=0.0), 0.0)
 
     dom_n, dom_s = domain_row_masks(case)
-    wall_contrib = 2.0 * d_cy * (dom_n + dom_s)
-    a_wall = nu * case.wall_len / case.wall_dist
+    if k_turb is not None:
+        # turbulent wall functions: g = tau_w / U_t from the log law
+        g_dom = wall_conductance(nu, k_turb, 0.5 * dy)
+        g_obst = wall_conductance(nu, k_turb, case.wall_dist)
+        wall_contrib = g_dom * dx * (dom_n + dom_s)
+        a_wall = g_obst * case.wall_len
+    else:
+        wall_contrib = 2.0 * d_cy * (dom_n + dom_s)
+        nu_w = nu if nu_t is None else nu_eff
+        a_wall = nu_w * case.wall_len / case.wall_dist
 
     # inlet (fixed U): diffusion at half distance + upwinded inflow
     a_in = case.inlet_w * (2.0 * d_cx + torch.clamp(f_w, min=0.0))
@@ -271,13 +362,17 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
             case, f_e, f_w, f_n, f_s, u_old, convection_blend) * case.fluid
         b_v = b_v + _deferred_central_correction(
             case, f_e, f_w, f_n, f_s, v_old, convection_blend) * case.fluid
-    if wall_grad_p is not None and case.cut:
+    if nu_t is not None:
+        s_u, s_v = _transpose_diffusion_source(case, nu_t, u_old, v_old)
+        b_u = b_u + s_u * vol * case.fluid
+        b_v = b_v + s_v * vol * case.fluid
+    if wall_grad_p is not None and k_turb is None and case.cut:
         # cut-cell cases only: the stair force report carries no closure
         # corrections, so a blank grid keeps the first-order link
         ws_u, ws_v = wall_shear2_source(case, wall_grad_p[0], wall_grad_p[1])
         b_u = b_u + ws_u
         b_v = b_v + ws_v
-    if wall_link == "tangential" and case.cut:
+    if wall_link == "tangential" and k_turb is None and case.cut:
         # deferred on u_old like the other corrections
         r_u, r_v = wall_normal_release(case, a_wall, u_old, v_old)
         b_u = b_u + r_u

@@ -12,6 +12,13 @@ import torch
 import torch.nn.functional as F
 
 
+def rdiv(c, t: torch.Tensor) -> torch.Tensor:
+    """c / t elementwise for a Python number c, rounded once (a true
+    division, as JAX divides a weakly typed number by an array; PyTorch's
+    `number / tensor` multiplies by the reciprocal instead)."""
+    return torch.div(torch.full_like(t, c), t)
+
+
 def nb_e(f: torch.Tensor) -> torch.Tensor:
     """East-neighbour values (j+1); zero beyond the domain."""
     return F.pad(f[..., 1:], (0, 1))

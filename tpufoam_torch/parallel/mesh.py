@@ -23,10 +23,13 @@ The fleet is the other layout: its case axis is split over the mesh and
 each device steps its own sub-stack of whole cases, with no exchange at
 all.
 
+The turbulent step over a mesh (`shard_turbulence`,
+`make_sharded_sst_step`) is the sharded PISO step with the SST model: the
+fields, the SST state and its transport solves stay whole on the lead
+device, and the momentum kernel runs per block.
+
 Not ported: the tensor-parallel MLP (`mlp_partition_specs`,
-`make_sharded_train_step`) waits for the training port, and the sharded
-SST step (`shard_turbulence`, `make_sharded_sst_step`) for the SST model;
-they raise.
+`make_sharded_train_step`) waits for the training port; they raise.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import math
 import torch
 
 from ..fv.case import Case, Flow
-from ..piso.engine import PisoConfig, piso_step
+from ..piso.engine import PisoConfig, piso_step, piso_step_sst
 from ..solvers.backends import CGBackend
 
 
@@ -130,6 +133,7 @@ _CELL = ("data", "model")
 _CASE_SPLIT = {"inlet_u": ("data",)}
 _FLOW_SPLIT = {"phi_x": ("data", None), "phi_y": (None, "model"),
                "dt": (), "t": ()}
+_TURB_SPLIT = {"k_in": (), "w_in": ()}
 
 
 def _place(mesh: Mesh, tree, split: dict):
@@ -181,6 +185,34 @@ def make_sharded_piso_step(mesh: Mesh, cfg: PisoConfig = PisoConfig(),
     def step(case: Case, flow: Flow) -> Flow:
         return piso_step(case, flow, cfg=cfg, backend=backend,
                          sm_predict=sm_predict)
+
+    return step
+
+
+def shard_turbulence(mesh: Mesh, turb):
+    """The SST state (fv.turbulence.TurbState) on the mesh's lead device,
+    after checking that k, omega and nu_t divide over the mesh as the JAX
+    package's `_turb_specs` demand (k_in, w_in replicated)."""
+    return _place(mesh, turb, _TURB_SPLIT)
+
+
+def make_sharded_sst_step(mesh: Mesh, cfg: PisoConfig = PisoConfig(),
+                          backend=None, sm_predict=None):
+    """The turbulent step over `mesh`: step(case, flow, turb) -> (flow,
+    turb), with the case, flow and SST state of `shard_case`, `shard_flow`
+    and `shard_turbulence`. As `make_sharded_piso_step`: with
+    momentum_smoother='kernel' the momentum kernel runs per block of the
+    mesh (`cfg.shard_mesh`), and everything else, the SST transport solves
+    included, runs on the lead device as in `piso_step_sst`, whose result
+    it equals. (The JAX package lets GSPMD partition the SST stencils; the
+    fields are whole on the lead device here, so they need no exchange.)"""
+    backend = backend or CGBackend(rtol=1e-5, maxiter=200)
+    if cfg.momentum_smoother == "kernel" and cfg.shard_mesh is None:
+        cfg = dataclasses.replace(cfg, shard_mesh=mesh)
+
+    def step(case: Case, flow: Flow, turb):
+        return piso_step_sst(case, flow, turb, cfg=cfg, backend=backend,
+                             sm_predict=sm_predict)
 
     return step
 
@@ -259,11 +291,3 @@ def mlp_partition_specs(params):
 def make_sharded_train_step(mesh, mdef, opt, loss_scale: float = 1e6):
     _not_ported("make_sharded_train_step", "the training port")
 
-
-def shard_turbulence(mesh, turb):
-    _not_ported("shard_turbulence", "the SST model")
-
-
-def make_sharded_sst_step(mesh, cfg: PisoConfig = PisoConfig(), backend=None,
-                          sm_predict=None):
-    _not_ported("make_sharded_sst_step", "the SST model")

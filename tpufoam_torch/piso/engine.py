@@ -5,7 +5,11 @@ prediction before the momentum predictor (Algorithm 2 of the DLPoissonFoam
 coupling) or between it and the correctors (Algorithm 1), the implicit
 momentum predictor (UEqn), and nCorrectors PISO pressure corrections
 (pEqn). PyTorch runs it eagerly; the only host synchronisation per step is
-the residual safeguard's gate. The grid is uniform or stretched.
+the residual safeguard's gate. The grid is uniform or stretched. The
+turbulent step (`piso_step_sst`) adds the k-omega SST model: the PISO step
+with nu_eff = nu + nu_t (and the log-law wall links with
+cfg.turb_wall_fn), then `turbulence->correct()` on the corrected
+velocity.
 
 The step takes one case, or a stacked fleet of cases (piso.batched) with
 a leading case axis on every field and `dt`, `t` of shape (B,). Each case
@@ -36,9 +40,7 @@ from ..solvers.cg import _norm
 class PisoConfig:
     """The step's knobs, with the JAX package's defaults and field order:
     nCorrectors 2, maxCo 0.5, limitedLinearV convection, Euler ddt,
-    Algorithm 2. Every option of the JAX package's laminar step is here;
-    its turb_wall_fn (the SST model's wall functions) is not ported and
-    has no field."""
+    Algorithm 2. Every option of the JAX package's step is here."""
     n_correctors: int = 2
     momentum_sweeps: int = 8          # the kernel takes <= 8; more run
                                       # the sweep loop
@@ -60,6 +62,12 @@ class PisoConfig:
                                       # 'pallas'): ops.momentum (the CUDA
                                       # kernel on the card, its plain
                                       # version on the CPU)
+    turb_wall_fn: bool = False        # high-Re wall functions for the SST
+                                      # model and log-law momentum wall
+                                      # links (fv.turbulence.sst_step
+                                      # wall_fn; for uniform grids whose
+                                      # first cell sits in the log layer);
+                                      # laminar steps ignore it
     inlet_scale_fn: object = None     # optional callable t -> scale of
                                       # case.inlet_u at the new time level
                                       # (the 2D-3 ramp eval.benchmark.
@@ -185,7 +193,8 @@ def _rescue_if_unconverged(case: Case, pcoef, rhs, p_cand, p_fallback,
 
 
 def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
-              backend=CGBackend(), sm_predict=None) -> Flow:
+              backend=CGBackend(), sm_predict=None, nu_t=None,
+              k_turb=None) -> Flow:
     """Advance one PISO timestep (the JAX package's `_piso_step_impl`;
     PyTorch runs it eagerly, so no jit wrapper sits around it). For a
     stacked fleet it advances every case in lockstep, with one momentum
@@ -197,7 +206,10 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
     it warm-starts the step, it does not replace the corrector solve. It
     runs before the momentum predictor (Algorithm 2), or with
     cfg.sm_before_predictor False after it (Algorithm 1); `aux` holds u,
-    v and p as they stand when it is called."""
+    v and p as they stand when it is called. `nu_t` adds an eddy
+    viscosity to the momentum predictor (fv.turbulence supplies it);
+    `k_turb` switches its wall links to the log-law wall functions when
+    cfg.turb_wall_fn is set."""
     grid = case.grid
     if grid.stretched:
         m = grid_metrics(grid, case.device)
@@ -240,8 +252,10 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
     # --- momentum predictor: solve(UEqn == -grad p) ---
     gpx, gpy = pressure_gradient(case, p)
     coef = momentum_coeffs(case, phi_x, phi_y, u, v, dt,
-                           convection_blend=cfg.convection_blend,
-                           convection=cfg.convection, ddt=cfg.ddt,
+                           convection_blend=cfg.convection_blend, nu_t=nu_t,
+                           convection=cfg.convection,
+                           k_turb=k_turb if cfg.turb_wall_fn else None,
+                           ddt=cfg.ddt,
                            u_nm1=flow.u_prev, v_nm1=flow.v_prev,
                            dt_prev=flow.dt,
                            wall_grad_p=(gpx, gpy) if cfg.wall_order == 2
@@ -349,18 +363,41 @@ def _warn_stiff_max_dt(case: Case, cfg: PisoConfig, limit: float = 4.0):
             stacklevel=3)
 
 
+def piso_step_sst(case: Case, flow: Flow, turb,
+                  cfg: PisoConfig = PisoConfig(), backend=CGBackend(),
+                  sm_predict=None):
+    """One turbulent timestep: PISO with nu_eff = nu + nu_t (the log-law
+    wall links with cfg.turb_wall_fn), then `turbulence->correct()`
+    (fv.turbulence.sst_step) on the corrected velocity, fluxes and dt.
+    The predictor sees the laminar aux, as in the JAX package. Returns
+    (Flow, TurbState)."""
+    from ..fv.turbulence import sst_step
+    flow2 = piso_step(case, flow, cfg=cfg, backend=backend,
+                      sm_predict=sm_predict, nu_t=turb.nu_t,
+                      k_turb=turb.k if cfg.turb_wall_fn else None)
+    turb2 = sst_step(case, turb, flow2.u, flow2.v, flow2.phi_x, flow2.phi_y,
+                     flow2.dt, wall_fn=cfg.turb_wall_fn)
+    return flow2, turb2
+
+
 def _rollout(case: Case, flow: Flow, chunks, cfg: PisoConfig, backend,
-             sm_predict, grad: bool = False) -> Flow:
+             sm_predict, grad: bool = False, turb=None):
     """Eager PISO steps in `chunks` (step counts), the predictor bound
-    once; under torch.no_grad() unless `grad`."""
+    once; under torch.no_grad() unless `grad`. With `turb` the steps are
+    `piso_step_sst`'s and the result is (Flow, TurbState)."""
     if sm_predict is not None:
         sm_predict = _bind_sm(sm_predict, case)
     with contextlib.nullcontext() if grad else torch.no_grad():
         for steps in chunks:
             for _ in range(steps):
-                flow = piso_step(case, flow, cfg=cfg, backend=backend,
-                                 sm_predict=sm_predict)
-    return flow
+                if turb is None:
+                    flow = piso_step(case, flow, cfg=cfg, backend=backend,
+                                     sm_predict=sm_predict)
+                else:
+                    flow, turb = piso_step_sst(case, flow, turb, cfg=cfg,
+                                               backend=backend,
+                                               sm_predict=sm_predict)
+    return flow if turb is None else (flow, turb)
 
 
 def run_piso(case: Case, flow: Flow, n_steps: int,
@@ -405,3 +442,25 @@ def run_piso_chunked(case: Case, flow: Flow, n_steps: int,
     n_chunks, rem = divmod(n_steps, k)
     return _rollout(case, flow, (k,) * n_chunks + (rem,), cfg, backend,
                     sm_predict)
+
+
+def run_piso_sst(case: Case, flow: Flow, turb, n_steps: int,
+                 cfg: PisoConfig = PisoConfig(), backend=CGBackend(),
+                 sm_predict=None):
+    """Turbulent n-step rollout with autograd on (see run_piso); equals
+    run_piso_sst_eager bit for bit. Returns (Flow, TurbState)."""
+    _warn_stiff_max_dt(case, cfg)
+    return _rollout(case, flow, (n_steps,), cfg, backend, sm_predict,
+                    grad=True, turb=turb)
+
+
+def run_piso_sst_eager(case: Case, flow: Flow, turb, n_steps: int,
+                       cfg: PisoConfig = PisoConfig(), backend=CGBackend(),
+                       sm_predict=None):
+    """Forward turbulent rollout of n_steps `piso_step_sst` steps.
+    Returns (Flow, TurbState)."""
+    if n_steps <= 0:
+        return flow, turb
+    _warn_stiff_max_dt(case, cfg)
+    return _rollout(case, flow, (n_steps,), cfg, backend, sm_predict,
+                    turb=turb)

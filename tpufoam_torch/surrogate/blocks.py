@@ -12,9 +12,10 @@ stitchers reconstruct the global field:
                   pairwise overlap mismatches (a small SPD system), then
                   smooth cosine-window blending.
 
-Both end with the global outlet anchor. Every device operation here is
-deterministic (no atomic accumulation), so a prediction repeats bit for
-bit.
+Both end with the global outlet anchor; `gaussian_filter2d` is the
+reference's optional seam filter after it (scipy's gaussian_filter).
+Every device operation here is deterministic (no atomic accumulation),
+so a prediction repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -301,12 +302,18 @@ def _outlet_anchor(result: torch.Tensor) -> torch.Tensor:
 
 
 def assemble_scan(layout: BlockLayout, blocks: torch.Tensor,
-                  masks: torch.Tensor, ref_bc: float = 0.0) -> torch.Tensor:
+                  masks: torch.Tensor, ref_bc: float = 0.0,
+                  apply_filter: bool = False,
+                  filter_sigma: float = 10.0) -> torch.Tensor:
     """The reference's reconstruction: sequential corrections, overwrite
-    placement and the global outlet anchor (the JAX package's default
-    stitch; its optional Gaussian filter is not ported)."""
+    placement, the global outlet anchor and, with `apply_filter`, the
+    Gaussian filter of width `filter_sigma` that hides block seams."""
     corr = stitch_offsets_scan(layout, blocks, masks, ref_bc)
-    return _outlet_anchor(_place_blocks(layout, blocks - corr[:, None, None]))
+    result = _outlet_anchor(_place_blocks(layout,
+                                          blocks - corr[:, None, None]))
+    if apply_filter:
+        result = gaussian_filter2d(result, filter_sigma)
+    return result
 
 
 def _neighbor_pairs(layout: BlockLayout):
@@ -419,14 +426,20 @@ def stitch_solve_op(layout: BlockLayout, masks: torch.Tensor) -> torch.Tensor:
 
 
 def stitch_offsets_lstsq(layout: BlockLayout, blocks: torch.Tensor,
-                         masks: torch.Tensor,
+                         masks: torch.Tensor, ref_bc: float = 0.0,
+                         anchor_weight: float = 1.0,
                          solve_op: torch.Tensor | None = None) -> torch.Tensor:
     """Per-block offsets minimizing all neighbour overlap-mean mismatches:
 
         min_c  sum_pairs w_ab ((m_a - c_a) - (m_b - c_b))^2
 
     solved with one dense solve of the normal equations, or one matvec
-    with the host-precomputed `solve_op`. The right-hand side gathers each
+    with the host-precomputed `solve_op`. `ref_bc` and `anchor_weight` are
+    taken and change nothing, as in the JAX package: the pair graph fixes
+    the offsets only up to one constant, which the ridge and the global
+    outlet anchor after assembly fix (anchoring each outlet block to
+    ref_bc would conflict with the row-to-row differences of their
+    means). The right-hand side gathers each
     block's at most 4 pair terms and adds them in a fixed order (an
     index_add_ would accumulate them atomically, in no fixed order, on a
     CUDA tensor)."""
@@ -466,12 +479,13 @@ def _blend_constants(layout: BlockLayout, device: torch.device):
 
 
 def assemble_lstsq(layout: BlockLayout, blocks: torch.Tensor,
-                   masks: torch.Tensor,
+                   masks: torch.Tensor, ref_bc: float = 0.0,
                    solve_op: torch.Tensor | None = None) -> torch.Tensor:
     """Offset solve + smooth weighted blending, then the global outlet
     anchor. `solve_op` (stitch_solve_op) replaces the dense solve with one
-    matvec."""
-    corr = stitch_offsets_lstsq(layout, blocks, masks, solve_op=solve_op)
+    matvec; `ref_bc` changes nothing (see stitch_offsets_lstsq)."""
+    corr = stitch_offsets_lstsq(layout, blocks, masks, ref_bc,
+                                solve_op=solve_op)
     corrected = blocks - corr[:, None, None]
     w, inv_den = _blend_constants(layout, blocks.device)
     s = layout.size
@@ -491,3 +505,58 @@ def assemble_lstsq(layout: BlockLayout, blocks: torch.Tensor,
         v = torch.movedim(v, 1, 2).reshape(my * gs, mx * gs)
         num[ys_g[0]:ys_g[0] + my * gs, xs_g[0]:xs_g[0] + mx * gs] += v
     return _outlet_anchor(num[:layout.ny, :layout.nx] * inv_den)
+
+
+def apply_deltaU_weighting(result: torch.Tensor, dp_prev_grid: torch.Tensor,
+                           du_change_grid: torch.Tensor,
+                           sigma_wgt: float = 50.0,
+                           sigma_out: float = 10.0) -> torch.Tensor:
+    """The reference's delta-U weighting: where the velocity delta barely
+    changed since the previous step, trust the previous delta-p over the
+    fresh prediction.
+
+        w          = gaussian(du_change_grid, sigma_wgt)
+        change     = gaussian((result - dp_prev) * w, sigma_out)
+        weighted   = dp_prev + change
+
+    `du_change_grid` is |dU - dU_prev| summed over components and
+    normalized to [0, 1]."""
+    w = gaussian_filter2d(du_change_grid, sigma_wgt)
+    change = gaussian_filter2d((result - dp_prev_grid) * w, sigma_out)
+    return dp_prev_grid + change
+
+
+@functools.lru_cache(maxsize=32)
+def _symmetric_index(n: int, radius: int) -> np.ndarray:
+    """Indices of numpy's 'symmetric' pad of a length-n axis by `radius`
+    on both sides (the edge sample repeated, reflected again as often as
+    the radius needs)."""
+    i = np.arange(-radius, n + radius) % (2 * n)
+    return np.where(i >= n, 2 * n - 1 - i, i)
+
+
+def gaussian_filter2d(field: torch.Tensor, sigma: float,
+                      truncate: float = 4.0) -> torch.Tensor:
+    """Separable Gaussian blur of a (ny, nx) field matching
+    scipy.ndimage.gaussian_filter's defaults (its 'reflect' boundary is
+    numpy's 'symmetric' pad): radius int(truncate sigma + 0.5), a float32
+    kernel normalized to sum 1, each axis one float32 convolution. TF32
+    is off inside the call, so that the card sums in float32 as the CPU
+    does."""
+    radius = int(truncate * sigma + 0.5)
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                     device=field.device)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    k = (k / k.sum()).to(field.dtype).reshape(1, 1, -1)
+
+    def conv1d(f, dim):
+        f = f.movedim(dim, -1)
+        idx = torch.as_tensor(_symmetric_index(f.shape[-1], radius),
+                              device=f.device)
+        fp = f.index_select(-1, idx)
+        out = F.conv1d(fp.reshape(-1, 1, fp.shape[-1]), k)
+        return out.reshape(f.shape).movedim(-1, dim)
+
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                    deterministic=True, allow_tf32=False):
+        return conv1d(conv1d(field, 0), 1)

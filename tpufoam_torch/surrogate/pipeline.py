@@ -1,11 +1,15 @@
 """End-to-end surrogate inference: grid -> blocks -> PCA -> MLP -> stitch.
 
 `make_predictor` builds `predict(case, p_prev, aux) -> p` with the call
-chain: feature grid -> max-abs rescale -> overlapping blocks -> PCA encode
--> standardize -> MLP -> de-standardize -> PCA decode -> per-block
-zero-mean -> stitch (the reference's sequential scan, or least squares)
--> outlet anchor -> redimensionalize by max_abs_p * U_max^2 -> near-wall
-guard + non-finite fallback to the previous pressure.
+chain: feature grid (the bundle's family, or the one given) -> max-abs
+rescale -> overlapping blocks -> PCA encode -> standardize -> MLP ->
+de-standardize -> PCA decode -> per-block zero-mean -> stitch (the
+reference's sequential scan, or least squares) -> outlet anchor ->
+optional Gaussian seam filter -> redimensionalize by max_abs_p * U_max^2
+-> near-wall guard + non-finite fallback to the previous pressure. A
+family with more than one output channel (U_gradP's pressure gradient)
+is not a pressure guess and is refused; `surrogate_blocks_forward`,
+`blocks.assemble_lstsq` and `gradp_integrate.integrate_gradp` evaluate it.
 """
 
 from __future__ import annotations
@@ -20,26 +24,17 @@ import torch
 
 from .. import DEFAULT_DEVICE
 from ..fv.case import Case, fleet_member
-from ..models.mlp import ModelDef, apply_model, params_from_numpy
+from ..models.mlp import (ModelDef, apply_model, params_from_numpy,
+                          unflatten_params)
 from .blocks import (BlockLayout, assemble_lstsq, assemble_scan,
                      block_zero_mean, build_block_layout, extract_blocks,
-                     stitch_solve_op)
-from .features import FAMILIES, u_max_norm
-
-STITCHES = ("scan", "lstsq")
+                     gaussian_filter2d, stitch_solve_op)
+from .features import FAMILIES, FamilyConfig, u_max_norm
 from .pca import PCAModel
 
-
-def _params_from_flat(flat: list, n_layers: int) -> dict:
-    """Rebuild the dense-MLP parameter tree from the bundle's flat
-    `param_i` list. The bundle writes the leaves in sorted-key order:
-    head.b, head.w, then layers[0].b, layers[0].w, layers[1].b, ..."""
-    if len(flat) != 2 + 2 * n_layers:
-        raise ValueError(f"expected {2 + 2 * n_layers} dense parameters, "
-                         f"found {len(flat)}")
-    return {"head": {"b": flat[0], "w": flat[1]},
-            "layers": [{"b": flat[2 + 2 * i], "w": flat[3 + 2 * i]}
-                       for i in range(n_layers)]}
+STITCHES = ("scan", "lstsq")
+PRECISIONS = {"f32": None, "bf16": torch.bfloat16}
+NORM_METHODS = ("std", "min_max", "max_abs")
 
 
 @dataclasses.dataclass
@@ -53,22 +48,35 @@ class SurrogateBundle:
     pca_out: PCAModel
     pc_in: int
     pc_out: int
-    norm_method: str                  # 'std' (the only method in use)
-    norm: dict                        # mean_in, std_in, mean_out, std_out
+    norm_method: str                  # 'std' | 'min_max' | 'max_abs'
+    norm: dict                        # tensors per method: mean/std,
+                                      # min/max or max_abs, _in and _out
     maxs_in: torch.Tensor             # per-input-channel max-abs
     maxs_out: torch.Tensor            # per-target-channel max-abs
     block_size: int = 128
     overlap_ratio: float = 0.25
 
+    def trimmed(self) -> "SurrogateBundle":
+        """The bundle without the PCA components beyond its pc counts (a
+        serving bundle needs no more of the fitted basis)."""
+        def cut(pca: PCAModel, k: int) -> PCAModel:
+            return PCAModel(mean=pca.mean, components=pca.components[:k],
+                            explained_variance=pca.explained_variance[:k],
+                            explained_variance_ratio=(
+                                pca.explained_variance_ratio[:k]))
+
+        return dataclasses.replace(self, pca_in=cut(self.pca_in, self.pc_in),
+                                   pca_out=cut(self.pca_out, self.pc_out))
+
     @staticmethod
     def load(path: str, device=DEFAULT_DEVICE) -> "SurrogateBundle":
         """Load `manifest.json` + `arrays.npz` (the JAX package's bundle
-        format) onto `device`."""
+        format, any of its model kinds and norm methods) onto `device`."""
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        if manifest["norm_method"] != "std":
-            raise ValueError(f"norm_method {manifest['norm_method']!r} is "
-                             "not ported; bundles use 'std'")
+        if manifest["norm_method"] not in NORM_METHODS:
+            raise ValueError(
+                f"unknown norm_method {manifest['norm_method']!r}")
         mdef = ModelDef(**{**manifest["mdef"],
                            "widths": tuple(manifest["mdef"]["widths"])})
         with np.load(os.path.join(path, "arrays.npz")) as data:
@@ -78,9 +86,8 @@ class SurrogateBundle:
             return params_from_numpy(a, device)
 
         n_params = sum(k.startswith("param_") for k in arrays)
-        params = _params_from_flat(
-            [t(arrays[f"param_{i}"]) for i in range(n_params)],
-            len(mdef.widths))
+        params = unflatten_params(
+            mdef, [t(arrays[f"param_{i}"]) for i in range(n_params)])
 
         def pca(tag):
             return PCAModel(mean=t(arrays[f"pca_{tag}_mean"]),
@@ -103,27 +110,41 @@ class SurrogateBundle:
 
     # ---- normalization in PCA space --------------------------------------
     def standardize_in(self, z: torch.Tensor) -> torch.Tensor:
-        return (z - self.norm["mean_in"]) / self.norm["std_in"]
+        n = self.norm
+        if self.norm_method == "std":
+            return (z - n["mean_in"]) / n["std_in"]
+        if self.norm_method == "min_max":
+            return (z - n["min_in"]) / (n["max_in"] - n["min_in"])
+        return z / n["max_abs_in"]
 
     def destandardize_out(self, z: torch.Tensor) -> torch.Tensor:
-        return z * self.norm["std_out"] + self.norm["mean_out"]
+        n = self.norm
+        if self.norm_method == "std":
+            return z * n["std_out"] + n["mean_out"]
+        if self.norm_method == "min_max":
+            return z * (n["max_out"] - n["min_out"]) + n["min_out"]
+        return z * n["max_abs_out"]
 
 
 def surrogate_blocks_forward(bundle: SurrogateBundle, layout: BlockLayout,
                              input_grid: torch.Tensor,
-                             mask_grid: torch.Tensor) -> torch.Tensor:
+                             mask_grid: torch.Tensor,
+                             pca_dtype=None) -> torch.Tensor:
     """Blocks -> PCA -> MLP -> PCA^-1. Returns (N, S, S, n_out) zero-mean
-    block predictions in nondimensional units."""
+    block predictions in nondimensional units. `pca_dtype` (bfloat16)
+    rounds the PCA products' operands to it, with float32 sums and
+    results."""
     n_out = FAMILIES[bundle.family].n_out
     scaled = input_grid / bundle.maxs_in
 
     xb = extract_blocks(layout, scaled)                     # (N, S, S, C)
     n = xb.shape[0]
-    z_in = bundle.pca_in.transform(xb.reshape(n, -1), bundle.pc_in)
+    z_in = bundle.pca_in.transform(xb.reshape(n, -1), bundle.pc_in,
+                                   dtype=pca_dtype)
     z_in = bundle.standardize_in(z_in)
     z_out = apply_model(bundle.params, bundle.mdef, z_in)
     z_out = bundle.destandardize_out(z_out)
-    y = bundle.pca_out.inverse_transform(z_out)
+    y = bundle.pca_out.inverse_transform(z_out, dtype=pca_dtype)
     y = y.reshape(n, layout.size, layout.size, n_out)
 
     if FAMILIES[bundle.family].target_zero_mean:
@@ -146,14 +167,28 @@ class Predictor:
     prediction bit for bit: the hybrid step's bf16 multigrid turns a
     one-ulp change of the warm start into a percent-level change of the
     step, and B x N blocks through one matrix product (or one reduction)
-    round differently from N. `calls` counts calls, one per lockstep."""
+    round differently from N. `calls` counts calls, one per lockstep.
 
-    NEAR_WALL_DIST = 0.05   # keep p_prev where the SDF is below this
+    `near_wall_dist`: keep p_prev where the SDF is below it.
+    `apply_filter`: the Gaussian seam filter (sigma 10) after the stitch.
+    `precision` 'bf16': the PCA products on bf16 operands, float32 sums;
+    the bundle's bases are cast to bf16 once, here."""
 
-    def __init__(self, bundle: SurrogateBundle, stitch: str = "scan"):
+    def __init__(self, bundle: SurrogateBundle, family: FamilyConfig,
+                 stitch: str = "scan", apply_filter: bool = False,
+                 near_wall_dist: float = 0.05, precision: str = "f32"):
+        self.pca_dtype = PRECISIONS[precision]
+        if self.pca_dtype is not None:
+            def cast(p: PCAModel) -> PCAModel:
+                return dataclasses.replace(
+                    p, components=p.components.to(self.pca_dtype))
+            bundle = dataclasses.replace(bundle, pca_in=cast(bundle.pca_in),
+                                         pca_out=cast(bundle.pca_out))
         self.bundle = bundle
-        self.family = FAMILIES[bundle.family]
+        self.family = family
         self.stitch = stitch
+        self.apply_filter = apply_filter
+        self.near_wall_dist = near_wall_dist
         self.calls = 0
         self._ops: "OrderedDict[int, tuple]" = OrderedDict()
 
@@ -183,20 +218,23 @@ class Predictor:
 
         x_grid = family.build_inputs(case, fields)
         mask = case.sdf
-        y_blocks = surrogate_blocks_forward(bundle, layout, x_grid, mask)
+        y_blocks = surrogate_blocks_forward(bundle, layout, x_grid, mask,
+                                            pca_dtype=self.pca_dtype)
         mb = extract_blocks(layout, mask)
         if self.stitch == "scan":
             field = assemble_scan(layout, y_blocks[..., 0], mb)
         else:
             field = assemble_lstsq(layout, y_blocks[..., 0], mb,
                                    solve_op=solve_op)
+        if self.apply_filter:
+            field = gaussian_filter2d(field, 10.0)
 
         # redimensionalize: p * max_abs_p * U_max^2
         field = field * bundle.maxs_out[0] * um**2
         p_new = p_prev + field if family.predicts_delta else field
 
         # near-wall guard + non-finite fallback
-        guard = (case.sdf < self.NEAR_WALL_DIST) | (case.fluid == 0)
+        guard = (case.sdf < self.near_wall_dist) | (case.fluid == 0)
         p_new = torch.where(guard, p_prev, p_new)
         return torch.where(torch.isfinite(p_new), p_new, p_prev)
 
@@ -242,13 +280,28 @@ class Predictor:
 
 
 def make_predictor(bundle: SurrogateBundle,
-                   stitch: str = "scan") -> Predictor:
-    """Build the surrogate pressure predictor. stitch='scan' reproduces the
-    reference's sequential corrector; 'lstsq' takes the least-squares
-    offsets and blended placement. Only the deltaU_deltaP family is
-    ported."""
+                   family: FamilyConfig | None = None,
+                   stitch: str = "scan", apply_filter: bool = False,
+                   near_wall_dist: float = 0.05,
+                   precision: str = "f32") -> Predictor:
+    """Build the surrogate pressure predictor of `bundle`, with its own
+    family's features unless `family` is given. stitch='scan' reproduces
+    the reference's sequential corrector; 'lstsq' takes the least-squares
+    offsets and blended placement. precision='bf16' runs the PCA encode
+    and decode on bf16 operands with float32 sums (the bases cast once,
+    here). A family with more than one output channel raises ValueError:
+    it predicts no pressure."""
+    family = FAMILIES[bundle.family] if family is None else family
+    if family.n_out != 1:
+        raise ValueError(
+            f"family {family.name!r} predicts {family.n_out} output "
+            f"channels; make_predictor serves single-channel pressure "
+            f"families only (use tpufoam-eval for gradient bundles)")
     if stitch not in STITCHES:
         raise ValueError(f"stitch={stitch!r} not in {STITCHES}")
-    if bundle.family not in FAMILIES:
-        raise NotImplementedError(f"family {bundle.family!r} is not ported")
-    return Predictor(bundle, stitch)
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r} not in "
+                         f"{tuple(PRECISIONS)}")
+    return Predictor(bundle, family, stitch=stitch,
+                     apply_filter=apply_filter,
+                     near_wall_dist=near_wall_dist, precision=precision)
