@@ -170,6 +170,32 @@ Phases, each printing one JSON line with its elapsed seconds:
           widths (sm_ref512's PC counts, a batch of its 105 blocks),
           seeded parameters in the JAX layout, against the CPU; ms per
           forward
+  train-data  the training path at scripts/train_ref_scale.py's envelope,
+          one of its ten cases (the cylinder, obstacle 0.5, nu 8e-3, 256 x
+          1024): the PISO rollout (MGCG rtol 1e-6 with the multisweep
+          kernel smoother, the momentum kernel) to frames
+          (frames_from_rollout), then build_block_dataset (128-blocks, 3
+          input channels: D 49,152; 120 samples a frame with the y-flip);
+          the depth cuts; blocks, seconds, the rollout's kernel launches
+  train-pca  the PCA stage of train_surrogate with pca_device_cache
+          (_fit_encode_staged: each side staged on the card, StreamingPCA,
+          max_num_pc 512 at variance 0.95); on a subset, the streaming fit
+          against fit_pca_exact on the card (leading explained-variance
+          ratios, principal angles of the top 8 components) and against
+          the port's streaming fit on the CPU (pc count, explained-
+          variance ratios)
+  train-step  one make_sharded_train_step step (MLP_small, bf16 compute,
+          batch 1024, Adam lr 2e-4) on a (1, 1) mesh of the card against
+          the same step on the CPU, and on a (2, 2) mesh of the card
+          against the (1, 1) one: the loss and the parameters
+  train   train_surrogate from the PCA stage's codes (loss weighting
+          'variance', batch 1024, lr 2e-4), with a checkpoint: epochs,
+          epochs/s, krows/s, the best validation loss and epoch; the train
+          loss must fall below half its first
+  train-serve  the bundle trimmed, saved (the JAX package's three files,
+          sm_ref512's array keys), loaded, and served by make_predictor
+          (lstsq) on 2 hybrid steps of the same case (MG bf16, the
+          momentum kernel)
 A kernel's time is its device time from torch.profiler with the L2
 cache flushed before each call (ms, plain_ms: the plain version's kernels
 summed) beside the per-call span on the
@@ -356,6 +382,41 @@ POISSON_DELTA, POISSON_SHAPE = 1.0 / 64, (128, 512)
 # and scipy in the CPU tests)
 PRED_TOL = 2e-2
 FILTER_TOL = 1e-5
+# the training path at scripts/train_ref_scale.py's envelope: one of its
+# ten cases (the cylinder, obstacle 0.5, nu 8e-3, delta 2/256: 256 x
+# 1024), PisoConfig(max_co=0.5, max_dt=5e-3) and MGCGBackend(rtol=1e-6)
+# (the port takes the momentum kernel and the multisweep kernel smoother
+# where the artifact ran XLA's); 128-blocks of 3 channels (D 49,152), 120
+# samples a frame with the y-flip, max_num_pc 512 at variance 0.95,
+# MLP_small (bf16 compute), batch 1024, lr 2e-4, pca_device_cache,
+# loss_weighting 'variance'. Depth cut: 1 of 10 cases, warm-up 100 ->
+# TRAIN_WARMUP steps, 24 -> TRAIN_FRAMES frames of 5 -> TRAIN_SPF steps,
+# 800 -> TRAIN_EPOCHS epochs.
+TRAIN_CASE = dict(shape_name="cylinder", length=8.0, height=2.0,
+                  obstacle_size=0.5, nu=8e-3)
+TRAIN_DELTA, TRAIN_SHAPE = 2.0 / 256, (256, 1024)
+TRAIN_PISO = dict(max_co=0.5, max_dt=5e-3, momentum_smoother="kernel")
+TRAIN_WARMUP, TRAIN_FRAMES, TRAIN_SPF = 20, 12, 2
+TRAIN_SAMPLES, TRAIN_BLOCK = 120, 128
+TRAIN_EPOCHS = 100
+TRAIN_MIN_ROWS = 2048
+TRAIN_CFG = dict(arch="MLP_small", lr=2e-4, batch_size=1024,
+                 max_epochs=TRAIN_EPOCHS, max_num_pc=512, var_in=0.95,
+                 var_out=0.95, best_after_epoch=20, pca_device_cache=True,
+                 loss_weighting="variance")
+# the PCA checks' subset: rows of each side (an exact SVD on the card, a
+# streaming fit on the CPU in well under 20 s); the streaming fit against
+# the exact one (leading explained-variance ratios; principal angles of
+# the top 8 components, rad) and against the CPU's (the ratios)
+TRAIN_PCA_SUBSET = 1024
+TRAIN_PCA_TOL = {"evr_exact": 1e-3, "angle_top8": 1e-2, "evr_cpu": 1e-4}
+# one train step, card against CPU and the 2 x 2 mesh against the 1 x 1
+# one: tests/test_torch_train.py's bf16 bounds (the loss, relative; the
+# parameters' relative L2 norm over the tree). bf16 products rounded in
+# other orders, and Adam's first step moves every element by about lr
+# whatever its gradient's size, so a sign flip of a gradient near 0 moves
+# its element by 2 lr: no per-leaf bound holds.
+TRAIN_STEP_TOL = {"loss": 1e-3, "params_l2": 1e-2}
 
 
 def say(phase, **kv):
@@ -435,6 +496,253 @@ def bound(n_bytes, n_ops):
     t_mem, t_ops = n_bytes / MEM_RATE, n_ops / F32_RATE
     return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops \
         else "operations"
+
+
+def train_phases(torch, dev, card, reset_counts, counts):
+    """The training path's five phases (train-data, train-pca,
+    train-step, train, train-serve). Returns the kernel launches of the
+    training rollout and of the served steps, {path: {kernel: n}}."""
+    import tempfile
+
+    import numpy as np
+
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.fv.case import build_channel_case, initial_flow
+    from tpufoam_torch.models.mlp import (ModelDef, init_model,
+                                         tree_leaves)
+    from tpufoam_torch.parallel.mesh import (device_mesh,
+                                             make_sharded_train_step)
+    from tpufoam_torch.piso.engine import (PisoConfig, continuity_error,
+                                           courant_number, run_piso_eager)
+    from tpufoam_torch.solvers.backends import MGBackend, MGCGBackend
+    from tpufoam_torch.surrogate.pca import StreamingPCA, fit_pca_exact
+    from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
+                                                  make_predictor)
+    from tpufoam_torch.train.dataset import (build_block_dataset,
+                                             frames_from_rollout)
+    from tpufoam_torch.train.trainer import (TrainConfig, _fit_encode_staged,
+                                             Adam, normalize_pc_space,
+                                             train_surrogate)
+
+    def sync_time(t0):
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    rows = ("momentum_multisweep", "stencil_matvec", "jacobi_multisweep")
+    launches = {}
+
+    # ---- train-data: the rollout's frames, then the block dataset --------
+    case = build_channel_case(channel_case_geometry(**TRAIN_CASE),
+                              delta=TRAIN_DELTA, device=dev)
+    check(tuple(case.grid.shape) == TRAIN_SHAPE,
+          f"train-data: grid {case.grid.shape}, not {TRAIN_SHAPE}")
+    cfg = PisoConfig(**TRAIN_PISO)
+    backend = MGCGBackend(rtol=1e-6, smoother="kernel")
+    steps = TRAIN_WARMUP + TRAIN_FRAMES * TRAIN_SPF
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    flow = run_piso_eager(case, initial_flow(case, 1e-3), TRAIN_WARMUP,
+                          cfg=cfg, backend=backend)
+    frames = frames_from_rollout(case, flow, TRAIN_FRAMES, TRAIN_SPF,
+                                 cfg=cfg, backend=backend)
+    rollout_s = sync_time(t)
+    launches["train-data"] = counts()
+    t = time.time()
+    ds = build_block_dataset(case, frames, family="deltaU_deltaP",
+                             n_samples_per_frame=TRAIN_SAMPLES,
+                             block_size=TRAIN_BLOCK, seed=0)
+    dataset_s = sync_time(t)
+    d_in = int(np.prod(ds.x.shape[1:]))
+    tcfg = TrainConfig(**TRAIN_CFG)
+    n_val = max(int(ds.n * tcfg.val_fraction), 1)
+    cont = float(continuity_error(case, flow))
+    say("train-data", card=card, shape=list(TRAIN_SHAPE),
+        cuts={"cases": "1 of 10 (cylinder 0.5, nu 8e-3)",
+              "warmup_steps": f"100 -> {TRAIN_WARMUP}",
+              "frames": f"24 -> {TRAIN_FRAMES}",
+              "steps_per_frame": f"5 -> {TRAIN_SPF}",
+              "epochs": f"800 -> {TRAIN_EPOCHS}"},
+        rollout_steps=steps, rollout_s=rollout_s,
+        ms_per_rollout_step=rollout_s * 1e3 / steps, dataset_s=dataset_s,
+        blocks=ds.n, train_rows=ds.n - n_val, d_in=d_in,
+        d_out=int(np.prod(ds.y.shape[1:])),
+        dataset_host_gb=(ds.x.nbytes + ds.y.nbytes) / 1e9,
+        rollout_launches={k: launches["train-data"][k] for k in rows},
+        continuity_error_after_warmup=cont)
+    check(d_in == TRAIN_BLOCK**2 * 3, f"train-data: D {d_in}, not "
+          f"{TRAIN_BLOCK**2 * 3}")
+    check(ds.n - n_val >= TRAIN_MIN_ROWS,
+          f"train-data: {ds.n - n_val} training rows < {TRAIN_MIN_ROWS}")
+    check(launches["train-data"]["momentum_multisweep"] == steps,
+          f"train-data: momentum launches {launches['train-data']}")
+    check(all(launches["train-data"][k] > 0 for k in rows),
+          f"train-data: a kernel of rows 1-3 never launched: "
+          f"{launches['train-data']}")
+    del frames
+
+    # ---- train-pca: the device-cached PCA fit and encode -----------------
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    pca_in, pca_out, pc_in, pc_out, z_in, z_out = _fit_encode_staged(
+        ds, tcfg, dev)
+    pca_s = sync_time(t)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the subset checks, on the inputs side (D 49,152)
+    sub = ds.flat_normalized(slice(0, TRAIN_PCA_SUBSET), side=0)
+    k_sub = min(tcfg.max_num_pc, len(sub))
+    t = time.time()
+    s_card = StreamingPCA(k_sub, seed=tcfg.seed).fit(
+        lambda: iter([torch.as_tensor(sub, device=dev)]))
+    sub_card_s = sync_time(t)
+    e_card = fit_pca_exact(torch.as_tensor(sub, device=dev), k_sub)
+    t = time.time()
+    s_cpu = StreamingPCA(k_sub, seed=tcfg.seed).fit(lambda: iter([sub]),
+                                                    device="cpu")
+    sub_cpu_s = time.time() - t
+    evr_s = s_card.explained_variance_ratio.cpu().numpy()
+    evr_e = e_card.explained_variance_ratio.cpu().numpy()
+    evr_c = s_cpu.explained_variance_ratio.numpy()
+    lead = s_card.n_components_for_variance(tcfg.var_in, k_sub)
+    # principal angles of the top 8: the singular values of Qa Qb^T
+    top = 8
+    sv = torch.linalg.svdvals(s_card.components[:top].double()
+                              @ e_card.components[:top].double().T)
+    angle = float(torch.arccos(torch.clamp(sv.min(), max=1.0)))
+    pca_chk = dict(
+        rows=len(sub), k=k_sub,
+        evr_vs_exact=float(np.abs(evr_s[:lead] - evr_e[:lead]).max()),
+        angle_top8_vs_exact=angle,
+        pc_count_card_cpu=[lead, s_cpu.n_components_for_variance(
+            tcfg.var_in, k_sub)],
+        evr_card_vs_cpu=float(np.abs(evr_s - evr_c).max()),
+        streaming_card_s=sub_card_s, streaming_cpu_s=sub_cpu_s)
+    say("train-pca", card=card, blocks=ds.n, d_in=d_in, pc_in=pc_in,
+        pc_out=pc_out, k_cap=min(tcfg.max_num_pc, ds.n),
+        evr_in_at_pc=float(pca_in.explained_variance_ratio[:pc_in].sum()),
+        evr_out_at_pc=float(pca_out.explained_variance_ratio[:pc_out].sum()),
+        seconds=pca_s, peak_device_gb=peak_gb, subset=pca_chk,
+        tol=TRAIN_PCA_TOL)
+    check(pca_chk["evr_vs_exact"] <= TRAIN_PCA_TOL["evr_exact"]
+          and angle <= TRAIN_PCA_TOL["angle_top8"],
+          f"train-pca: streaming vs exact {pca_chk}")
+    check(pca_chk["pc_count_card_cpu"][0] == pca_chk["pc_count_card_cpu"][1]
+          and pca_chk["evr_card_vs_cpu"] <= TRAIN_PCA_TOL["evr_cpu"],
+          f"train-pca: card vs CPU {pca_chk}")
+    check(np.isfinite(z_in).all() and np.isfinite(z_out).all(),
+          "train-pca: non-finite codes")
+    del sub, s_card, e_card, s_cpu
+
+    # ---- train-step: one data-parallel step, card against the CPU --------
+    x_n, y_n, _ = normalize_pc_space(z_in, z_out, tcfg.standardization)
+    xb = torch.as_tensor(x_n[:tcfg.batch_size], dtype=torch.float32)
+    yb = torch.as_tensor(y_n[:tcfg.batch_size], dtype=torch.float32)
+    mdef = ModelDef.from_arch(tcfg.arch, in_dim=pc_in, out_dim=pc_out)
+    p0 = init_model(tcfg.seed, mdef, device="cpu")
+
+    def one_step(devices):
+        mesh = device_mesh(len(devices), devices=devices)
+        opt = Adam(tcfg.lr, b1=tcfg.beta1)
+        step, shard = make_sharded_train_step(mesh, mdef, opt)
+        p, s_, xs, ys = shard(p0, opt.init(p0), xb, yb)
+        t0 = time.time()
+        p, _, loss = step(p, s_, xs, ys)
+        loss = float(loss)
+        return [a.cpu() for a in tree_leaves(p)], loss, time.time() - t0
+
+    def diff(a, b):
+        (pa, la, _), (pb, lb, _) = a, b
+        num = sum(float(((x.double() - y.double()) ** 2).sum())
+                  for x, y in zip(pa, pb))
+        den = sum(float((y.double() ** 2).sum()) for y in pb)
+        return {"loss": abs(la - lb) / abs(lb), "params_l2": (num / den)**.5,
+                "params_leaf_max": max(
+                    float((x - y).abs().max() / y.abs().max().clamp(
+                        min=1e-30)) for x, y in zip(pa, pb))}
+
+    card1 = one_step([dev])
+    card1 = one_step([dev])      # the first call's set-up left out
+    cpu1 = one_step(["cpu"])
+    card4 = one_step([dev] * 4)
+    step_chk = {"card_vs_cpu": diff(card1, cpu1),
+                "mesh2x2_vs_1x1": diff(card4, card1)}
+    say("train-step", card=card, batch=tcfg.batch_size, arch=tcfg.arch,
+        compute_dtype=mdef.compute_dtype, in_dim=pc_in, out_dim=pc_out,
+        loss=card1[1], step_ms_1x1=card1[2] * 1e3,
+        step_ms_2x2=card4[2] * 1e3, tol=TRAIN_STEP_TOL, **step_chk)
+    for name, d_ in step_chk.items():
+        check(d_["loss"] <= TRAIN_STEP_TOL["loss"]
+              and d_["params_l2"] <= TRAIN_STEP_TOL["params_l2"],
+              f"train-step {name}: {d_}")
+
+    # ---- train: train_surrogate from the PCA stage's codes ----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        bundle, state = train_surrogate(
+            ds, "deltaU_deltaP", tcfg, overlap_ratio=0.25,
+            checkpoint_path=os.path.join(tmp, "ck.pt"),
+            checkpoint_every=TRAIN_EPOCHS // 2,
+            precomputed=(pca_in, pca_out, pc_in, pc_out, z_in, z_out),
+            device=dev)
+        train_s = sync_time(t)
+        n_tr = ds.n - n_val
+        bs = min(tcfg.batch_size, n_tr)
+        epochs = len(state.history)
+        hist = np.asarray(state.history)
+        say("train", card=card, epochs=epochs, seconds=train_s,
+            epochs_per_s=epochs / train_s,
+            krows_per_s=epochs * (n_tr // bs) * bs / train_s / 1e3,
+            train_rows=n_tr, batches_per_epoch=n_tr // bs,
+            first_train_loss=float(hist[0]), last_train_loss=float(hist[-1]),
+            best_val=state.best_val, best_epoch=state.best_epoch,
+            val_first_last=[state.val_history[0], state.val_history[-1]])
+        check(np.isfinite(hist).all() and np.isfinite(state.val_history).all(),
+              "train: non-finite loss")
+        check(hist[-1] < 0.5 * hist[0],
+              f"train: last train loss {hist[-1]:.4g} not below half the "
+              f"first {hist[0]:.4g}")
+
+        # ---- train-serve: save, load, predict on the hybrid step ---------
+        path = os.path.join(tmp, "sm")
+        t = time.time()
+        bundle.trimmed().save(path)
+        files = sorted(os.listdir(path))
+        with np.load(path + "/arrays.npz") as a, \
+                np.load(os.path.join(ROOT, "artifacts", "sm_ref512",
+                                     "arrays.npz")) as ref:
+            keys_ok = sorted(a.files) == sorted(ref.files)
+        loaded = SurrogateBundle.load(path, device=dev)
+        save_load_s = sync_time(t)
+    predictor = make_predictor(loaded, stitch="lstsq")
+    be = MGBackend(cycles=2, precision="bf16")
+    n_serve = 2
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts(predictor)
+        t = time.time()
+        flow2 = run_piso_eager(case, flow, n_serve, cfg=cfg, backend=be,
+                               sm_predict=predictor)
+        serve_s = sync_time(t)
+    launches["train-serve"] = counts()
+    cont = float(continuity_error(case, flow2))
+    co = float(courant_number(case, flow2))
+    finite = all(bool(torch.isfinite(getattr(flow2, f)).all())
+                 for f in ("u", "v", "p", "phi_x", "phi_y"))
+    say("train-serve", card=card, files=files, sm_ref512_keys=keys_ok,
+        pc_in=loaded.pc_in, pc_out=loaded.pc_out, save_load_s=save_load_s,
+        steps=n_serve, ms_per_step=serve_s * 1e3 / n_serve,
+        predictions=predictor.calls, continuity_error=cont, courant=co,
+        finite=finite, kernel_launches={k: launches["train-serve"][k]
+                                        for k in rows})
+    check(files == ["arrays.npz", "manifest.json", "params_tree.json"]
+          and keys_ok, f"train-serve: saved {files}, keys {keys_ok}")
+    check(finite and cont < 1e-4 and co <= TRAIN_PISO["max_co"] + 1e-3,
+          f"train-serve: finite {finite}, continuity {cont:.3e}, Co {co}")
+    check(predictor.calls == n_serve
+          and launches["train-serve"]["momentum_multisweep"] == n_serve,
+          f"train-serve: {predictor.calls} predictions, launches "
+          f"{launches['train-serve']} in {n_serve} steps")
+    return launches
 
 
 def main() -> int:
@@ -2726,6 +3034,9 @@ def main() -> int:
           f"step-fleet-mgcg: {len(cg_fleet_iters)} solves, launches "
           f"{k_mgcg}")
 
+    # ---- the training path -------------------------------------------------
+    train_launches = train_phases(torch, dev, card, reset_counts, counts)
+
     kernels = [{
         "name": "momentum_multisweep",
         "route": "cuda",
@@ -2773,7 +3084,8 @@ def main() -> int:
     })
     # no path of either package calls jacobi_sweep: its count over every
     # driven path, each path's counts set to 0 just before its steps
-    paths = (step_launches, sharded_step_launches, fused_launches,
+    paths = (*train_launches.values(), step_launches,
+             sharded_step_launches, fused_launches,
              mgcg_launches, st_launches, fleet_launches, fsh_launches,
              k_mgcg)
     sweep_launches = sum(k_["jacobi_sweep"] for k_ in paths)
@@ -2847,7 +3159,7 @@ def main() -> int:
     # counts set to 0 just before each path's timed steps)
     new_paths = {"step-turb": turb_launches, "step-turb-mgcg": dean_launches,
                  "step-turb-sharded": tsh_launches,
-                 "step-poisson": poisson_launches}
+                 "step-poisson": poisson_launches, **train_launches}
     for row in kernels:
         name = row["name"].split(" ")[0]
         if row["name"].endswith("(batched launch)"):

@@ -80,14 +80,12 @@ PAIRS = list(_pairs())
 # that the port does not take yet, each with the ROADMAP.md section A
 # item that ports it. A call that passes one raises TypeError.
 UNPORTED = {
-    "models.mlp.apply_model": {"dropout_key": "A.8"},
-    "surrogate.features.FamilyConfig": {"build_targets": "A.8"},
     # jax.sharding.Mesh's sharding axis types: the port's mesh is a grid
     # of devices driven by one process, with no compiler to annotate;
     # they belong to the domain-decomposed engine
     "parallel.mesh.Mesh": {"axis_types": "A.7"},
 }
-ROADMAP_A_ITEMS = {"A.7", "A.8"}
+ROADMAP_A_ITEMS = {"A.7"}
 # Differences by design: the port's DistributedConfig takes torchrun's
 # names (master_addr, master_port, world_size, rank) for what JAX's
 # distributed initialisation calls these.
@@ -138,7 +136,34 @@ def test_the_walk_finds_the_entry_points():
                   "eval.benchmark.channel_wall_cf",
                   "eval.benchmark.save_run_state",
                   "parallel.mesh.shard_turbulence",
-                  "parallel.mesh.make_sharded_sst_step"):
+                  "parallel.mesh.make_sharded_sst_step",
+                  "surrogate.pca.StreamingPCA", "surrogate.pca.fit_pca_exact",
+                  "models.mlp.init_model", "models.mlp.apply_model",
+                  "surrogate.features.FamilyConfig",
+                  "surrogate.pipeline.SurrogateBundle",
+                  "train.sampler.lhs_sample",
+                  "train.sampler.sample_block_corners",
+                  "train.sampler.gather_training_blocks",
+                  "train.dataset.BlockDataset",
+                  "train.dataset.frame_is_relevant",
+                  "train.dataset.build_block_dataset",
+                  "train.dataset.save_block_dataset",
+                  "train.dataset.load_block_dataset",
+                  "train.dataset.frames_from_rollout",
+                  "train.dataset.frames_from_sst_rollout",
+                  "train.trainer.TrainConfig", "train.trainer.TrainState",
+                  "train.trainer.mse_loss_1e6", "train.trainer.fit_pcas",
+                  "train.trainer.encode_dataset",
+                  "train.trainer.normalize_pc_space",
+                  "train.trainer.relative_change_early_stop",
+                  "train.trainer.save_checkpoint",
+                  "train.trainer.load_checkpoint",
+                  "train.trainer.train_surrogate",
+                  "parallel.mesh.mlp_partition_specs",
+                  "parallel.mesh.make_sharded_train_step",
+                  "utils.metrics.ErrorReport", "utils.metrics.error_metrics",
+                  "eval.evaluation.EvalReport",
+                  "eval.evaluation.evaluate_bundle"):
         assert f"tpufoam_torch.{entry}" in names, entry
 
 

@@ -1020,3 +1020,140 @@ def test_bf16_pca_transform_has_a_float32_result(cuda):
     assert not torch.equal(got, got.bfloat16().float())
     assert float((got.cpu() - ref).abs().max()) <= 1e-5 * float(
         ref.abs().max())
+
+
+# ---- the training path --------------------------------------------------------
+
+
+def test_streaming_pca_on_the_card_matches_the_cpu(cuda):
+    """StreamingPCA of chunks on the card against the same fit on the
+    CPU, on data with a clear spectral gap: explained-variance ratios
+    within 1e-4, principal angles of the fitted subspace below 1e-3 rad
+    (the two devices draw different random starts)."""
+    from tpufoam_torch.surrogate.pca import StreamingPCA
+
+    rng = np.random.default_rng(5)
+    n, d, k = 2048, 3 * 32 * 32, 16
+    x = (rng.standard_normal((n, k)) * np.linspace(10, 1, k)
+         @ rng.standard_normal((k, d))
+         + 0.01 * rng.standard_normal((n, d)) + rng.standard_normal(d)
+         ).astype(np.float32)
+    chunks = [x[i:i + 512] for i in range(0, n, 512)]
+    cpu = StreamingPCA(k, oversample=32).fit(lambda: iter(chunks),
+                                             device="cpu")
+    on_card = [torch.as_tensor(c, device=cuda) for c in chunks]
+    got = StreamingPCA(k, oversample=32).fit(lambda: iter(on_card))
+    assert got.components.device.type == "cuda"
+    assert float((got.explained_variance_ratio.cpu()
+                  - cpu.explained_variance_ratio).abs().max()) <= 1e-4
+    sv = torch.linalg.svdvals(got.components.cpu().double()
+                              @ cpu.components.double().T)
+    assert float(torch.arccos(torch.clamp(sv.min(), max=1.0))) <= 1e-3
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, cdt):
+    """One data-parallel Adam step on a (1, 1) and a (2, 2) mesh of the
+    card against the CPU's (1, 1) step: float32 compute within 1e-5 of
+    the loss and of each leaf's largest parameter; bf16 compute within
+    1e-3 of the loss and 1e-2 in the parameters' relative L2 norm
+    (tests/test_torch_train.py)."""
+    from tpufoam_torch.models.mlp import ModelDef, init_model, tree_leaves
+    from tpufoam_torch.parallel.mesh import (device_mesh,
+                                             make_sharded_train_step)
+    from tpufoam_torch.train.trainer import Adam
+
+    mdef = ModelDef.from_arch("MLP_small", in_dim=13, out_dim=64,
+                              compute_dtype=cdt)
+    p0 = init_model(0, mdef, device="cpu")
+    rng = np.random.default_rng(6)
+    xb = torch.as_tensor(rng.standard_normal((256, 13)).astype(np.float32))
+    yb = torch.as_tensor(rng.standard_normal((256, 64)).astype(np.float32))
+
+    def run(devices):
+        opt = Adam(2e-4)
+        step, shard = make_sharded_train_step(
+            device_mesh(len(devices), devices=devices), mdef, opt)
+        p, s, loss = step(*shard(p0, opt.init(p0), xb, yb))
+        return [a.cpu() for a in tree_leaves(p)], float(loss)
+
+    ref, l_ref = run(["cpu"])
+    for devices in ([cuda], [cuda] * 4):
+        got, loss = run(devices)
+        if cdt == "float32":
+            assert abs(loss - l_ref) <= 1e-5 * abs(l_ref)
+            for g, r in zip(got, ref):
+                assert float((g - r).abs().max()) <= 1e-5 * float(
+                    r.abs().max())
+        else:
+            assert abs(loss - l_ref) <= 1e-3 * abs(l_ref)
+            num = sum(float(((g - r) ** 2).sum()) for g, r in zip(got, ref))
+            den = sum(float((r ** 2).sum()) for r in ref)
+            assert (num / den) ** 0.5 <= 1e-2
+
+
+def test_bundle_save_load_predict_on_the_card(cuda, tmp_path):
+    """A bundle trained on the card (a tiny rollout's blocks), saved in
+    the JAX package's three files, loaded onto the card and onto the CPU:
+    the two predictors agree (PRED_TOL, 2e-2: the bf16 MLP), and the
+    card's reloaded predictor equals the trained bundle's."""
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.fv.case import build_channel_case, initial_flow
+    from tpufoam_torch.piso.engine import PisoConfig, run_piso_eager
+    from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
+                                                  make_predictor)
+    from tpufoam_torch.train.dataset import (build_block_dataset,
+                                             frames_from_rollout)
+    from tpufoam_torch.train.trainer import TrainConfig, train_surrogate
+
+    geom = channel_case_geometry("cylinder", length=8.0, height=2.0,
+                                 obstacle_size=0.5, nu=8e-3)
+    cases = {d: build_channel_case(geom, delta=2.0 / 32, device=d)
+             for d in ("cpu", cuda)}
+    cfg = PisoConfig(max_co=0.5, max_dt=5e-3)
+    flow = run_piso_eager(cases[cuda], initial_flow(cases[cuda], 1e-3), 10,
+                          cfg=cfg)
+    frames = frames_from_rollout(cases[cuda], flow, 8, 2, cfg=cfg)
+    ds = build_block_dataset(cases[cuda], frames, n_samples_per_frame=60,
+                             block_size=16)
+    bundle, state = train_surrogate(ds, "deltaU_deltaP", TrainConfig(
+        batch_size=128, max_epochs=10, max_num_pc=32, best_after_epoch=2,
+        pca_device_cache=True), device=cuda)
+    assert bundle.pca_in.components.device.type == "cuda"
+    bundle.trimmed().save(str(tmp_path / "sm"))
+    assert sorted(p.name for p in tmp_path.joinpath("sm").iterdir()) == [
+        "arrays.npz", "manifest.json", "params_tree.json"]
+    changes = {}
+    for d, case in cases.items():
+        pred = make_predictor(SurrogateBundle.load(str(tmp_path / "sm"),
+                                                   device=d), stitch="lstsq")
+        aux = {k: v.to(d) for k, v in frames[-1].items()}
+        changes[d] = (pred(case, aux["p_prev"], aux) - aux["p_prev"]).cpu()
+    trained = make_predictor(bundle.trimmed(), stitch="lstsq")
+    aux = frames[-1]
+    direct = (trained(cases[cuda], aux["p_prev"], aux) - aux["p_prev"]).cpu()
+    assert torch.equal(direct, changes[cuda])
+    ref = changes["cpu"]
+    assert torch.isfinite(changes[cuda]).all() and ref.abs().max() > 0
+    assert float((changes[cuda] - ref).abs().max()) <= 2e-2 * float(
+        ref.abs().max())
+
+
+def test_exact_pca_on_the_card_is_exact(cuda):
+    """fit_pca_exact on the card against a float64 fit of the same rows:
+    principal angles of the top 8 components below 1e-3 rad (cuSOLVER's
+    gesvd; the default Jacobi driver missed by 1.5e-2 on a block matrix
+    of the training path)."""
+    from tpufoam_torch.surrogate.pca import fit_pca_exact
+
+    rng = np.random.default_rng(7)
+    n, d, k = 512, 3 * 64 * 64, 12
+    x = (rng.standard_normal((n, k)) * np.geomspace(30, 1, k)
+         @ rng.standard_normal((k, d)) + 0.1 * rng.standard_normal((n, d))
+         ).astype(np.float32)
+    got = fit_pca_exact(torch.as_tensor(x, device=cuda), 8)
+    xc = torch.as_tensor(x, dtype=torch.float64)
+    xc = xc - xc.mean(0)
+    ref = torch.linalg.svd(xc, full_matrices=False)[2][:8]
+    sv = torch.linalg.svdvals(got.components.cpu().double() @ ref.T)
+    assert float(torch.arccos(torch.clamp(sv.min(), max=1.0))) <= 1e-3

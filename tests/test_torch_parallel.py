@@ -513,10 +513,22 @@ def test_sharded_fleet_equals_the_batched_fleet(fleet, n_dev):
 
 
 def test_unported_pieces_raise():
-    for fn, args in ((tmesh.mlp_partition_specs, ({},)),
-                     (tmesh.make_sharded_train_step, (None, None, None))):
-        with pytest.raises(NotImplementedError):
-            fn(*args)
+    """The mesh's training pieces, once stubs, are ported
+    (tests/test_torch_train.py holds them to JAX); they raise only where
+    the JAX package's do: a tree without dense layers has no partition
+    specs, and a batch must divide over the mesh's 'data' axis."""
+    from tpufoam_torch.models.mlp import ModelDef, init_model
+    from tpufoam_torch.train.trainer import Adam
+    for mod in (tmesh, jmesh):
+        with pytest.raises(KeyError):
+            mod.mlp_partition_specs({})
+    mesh = tmesh.device_mesh(2, shape=(2, 1), devices=["cpu"] * 2)
+    mdef = ModelDef.from_arch("MLP_small", in_dim=4, out_dim=2)
+    params = init_model(0, mdef, device="cpu")
+    opt = Adam(1e-3)
+    step, shard = tmesh.make_sharded_train_step(mesh, mdef, opt)
+    with pytest.raises(ValueError, match="divide"):
+        shard(params, opt.init(params), torch.zeros(3, 4), torch.zeros(3, 2))
 
 
 # ---- the process group --------------------------------------------------------

@@ -14,6 +14,10 @@ plain dictionaries in the JAX package's layout:
   conv1d     "layers": [{"w": (kernel, c_in, c_out), "b": (c_out,)}, ...]
              and a dense "head" over the flattened (PC, channel) axes
 
+`init_model` draws a tree from a torch.Generator (glorot-uniform
+weights, zero biases, the JAX package's shapes and order of draws; not
+its bits). `apply_model` takes a dropout generator in training.
+
 Products run in `compute_dtype` (bf16 by default) with float32
 parameters and bias adds. The dense and attention products round their
 result to the compute dtype, as JAX's `@` and `einsum` do; the
@@ -104,34 +108,122 @@ def param_skeleton(mdef: ModelDef) -> dict:
     return tree
 
 
-def _leaves(tree) -> list:
+def tree_leaves(tree) -> list:
     """The leaves in JAX's flattening order: dict keys sorted, lists in
     order."""
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def treedef_str(tree) -> str:
+    """The structure of a parameter tree as JAX prints its PyTreeDef
+    (a bundle's `params_tree.json`)."""
+    def s(t):
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {s(t[k])}"
+                                   for k in sorted(t)) + "}"
+        if isinstance(t, list):
+            return "[" + ", ".join(s(v) for v in t) + "]"
+        return "*"
+
+    return f"PyTreeDef({s(tree)})"
+
+
+def tree_unflatten(like, flat: list):
+    """The tree of `like`'s structure with `flat` as its leaves, in
+    tree_leaves order."""
+    it = iter(flat)
+
+    def fill(t):
+        if isinstance(t, dict):
+            return {k: fill(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [fill(v) for v in t]
+        return next(it)
+
+    return fill(like)
 
 
 def unflatten_params(mdef: ModelDef, flat: list) -> dict:
     """The parameter tree of `mdef` from its leaves in JAX's flattening
     order (a bundle's `param_i` list)."""
     skel = param_skeleton(mdef)
-    n = len(_leaves(skel))
+    n = len(tree_leaves(skel))
     if len(flat) != n:
         raise ValueError(f"expected {n} {mdef.kind} parameters, found "
                          f"{len(flat)}")
-    it = iter(flat)
+    return tree_unflatten(skel, flat)
 
-    def fill(t):
-        if isinstance(t, dict):
-            return {k: fill(t[k]) for k in sorted(t)}
-        if isinstance(t, list):
-            return [fill(v) for v in t]
-        return next(it)
 
-    return fill(skel)
+def _generator(key, on) -> torch.Generator:
+    """`key` as a torch.Generator: a generator as it is, an int as a new
+    generator on the device `on` seeded with it."""
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator(on).manual_seed(int(key))
+
+
+def _uniform(gen: torch.Generator, shape, lim: float) -> torch.Tensor:
+    return torch.empty(shape, device=gen.device).uniform_(-lim, lim,
+                                                          generator=gen)
+
+
+def _dense_init(gen: torch.Generator, fan_in: int, fan_out: int) -> dict:
+    """Glorot-uniform kernel, zero bias."""
+    lim = float(np.sqrt(6.0 / (fan_in + fan_out)))
+    return {"w": _uniform(gen, (fan_in, fan_out), lim),
+            "b": torch.zeros((fan_out,), device=gen.device)}
+
+
+def init_model(key, mdef: ModelDef, device=DEFAULT_DEVICE) -> dict:
+    """Initial parameters of `mdef` on `device`, drawn from `key` (a
+    torch.Generator, or an int seed of a CPU generator): glorot-uniform
+    kernels, zero biases, unit LayerNorm gains, in the JAX package's tree
+    and order of draws (layers, head, then the attention weights)."""
+    gen = _generator(key, "cpu")
+    params = {"layers": []}
+    if mdef.kind in ("dense", "attention"):
+        dims = [mdef.in_dim, *mdef.widths]
+        for i in range(len(mdef.widths)):
+            params["layers"].append(_dense_init(gen, dims[i], dims[i + 1]))
+        params["head"] = _dense_init(gen, mdef.widths[-1], mdef.out_dim)
+        if mdef.kind == "attention":
+            d, h, kd = mdef.widths[0], mdef.num_heads, mdef.key_dim
+            lim = float(np.sqrt(6.0 / (d + h * kd)))
+            params["attn"] = {n: _uniform(gen, (d, h, kd), lim)
+                              for n in ("wq", "wk", "wv")}
+            params["attn"]["wo"] = _uniform(gen, (h, kd, d), lim)
+            params["attn"]["bo"] = torch.zeros((d,), device=gen.device)
+            params["ln"] = [{"g": torch.ones((d,), device=gen.device),
+                             "b": torch.zeros((d,), device=gen.device)}
+                            for _ in range(1 + len(mdef.widths))]
+    elif mdef.kind == "conv1d":
+        c_in = 1
+        for w in mdef.widths:
+            lim = float(np.sqrt(6.0 / (mdef.kernel_size * c_in + w)))
+            params["layers"].append({
+                "w": _uniform(gen, (mdef.kernel_size, c_in, w), lim),
+                "b": torch.zeros((w,), device=gen.device)})
+            c_in = w
+        params["head"] = _dense_init(gen, mdef.in_dim * mdef.widths[-1],
+                                     mdef.out_dim)
+    else:
+        raise ValueError(mdef.kind)
+    return tree_map(lambda t: t.to(device), params)
+
+
+def tree_map(fn, *trees):
+    """fn over the leaves of parameter trees of one structure (nested
+    dicts and lists), the structure kept."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return [tree_map(fn, *parts) for parts in zip(*trees)]
+    return fn(*trees)
 
 
 def _layernorm(x, g, b, eps=1e-3):
@@ -154,23 +246,37 @@ def _conv_same(h: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
         return F.conv1d(x, k).transpose(1, 2)            # (B, W, C_out)
 
 
-def apply_model(params: dict, mdef: ModelDef,
-                x: torch.Tensor) -> torch.Tensor:
-    """Forward pass, (batch, PC_in) -> (batch, PC_out) (no dropout: the
-    serving form)."""
+def apply_model(params: dict, mdef: ModelDef, x: torch.Tensor,
+                dropout_key=None) -> torch.Tensor:
+    """Forward pass, (batch, PC_in) -> (batch, PC_out). Pass
+    `dropout_key` (a torch.Generator on x's device, or an int seed of
+    one) only in training: with `mdef.dropout_rate` set, each layer's
+    activations then take a fresh mask drawn from it, kept with
+    probability 1 - rate and scaled by 1 / (1 - rate). Without it, no
+    dropout (the serving form)."""
     cdt = _DTYPES[mdef.compute_dtype]
+    rate = mdef.dropout_rate
+    gen = (_generator(dropout_key, x.device)
+           if rate and dropout_key is not None else None)
 
     def dense(p, h):
         return (h.to(cdt) @ p["w"].to(cdt)).float() + p["b"]
 
+    def maybe_dropout(h):
+        if gen is None:
+            return h
+        keep = torch.rand(h.shape, generator=gen, device=h.device) \
+            < 1.0 - rate
+        return torch.where(keep, h / (1.0 - rate), 0.0)
+
     if mdef.kind == "dense":
         h = x
         for p in params["layers"]:
-            h = torch.relu(dense(p, h))
+            h = maybe_dropout(torch.relu(dense(p, h)))
         return dense(params["head"], h)
 
     if mdef.kind == "attention":
-        h = torch.relu(dense(params["layers"][0], x)).to(cdt)
+        h = maybe_dropout(torch.relu(dense(params["layers"][0], x))).to(cdt)
         a = params["attn"]
         q = torch.einsum("bd,dhk->bhk", h, a["wq"].to(cdt))
         k_ = torch.einsum("bd,dhk->bhk", h, a["wk"].to(cdt))
@@ -183,7 +289,7 @@ def apply_model(params: dict, mdef: ModelDef,
                          a["wo"].to(cdt)).float() + a["bo"]
         res = _layernorm(o, params["ln"][0]["g"], params["ln"][0]["b"])
         for i, p in enumerate(params["layers"][1:], start=1):
-            hh = torch.relu(dense(p, res))
+            hh = maybe_dropout(torch.relu(dense(p, res)))
             res = _layernorm(hh + res, params["ln"][i]["g"],
                              params["ln"][i]["b"])
         return dense(params["head"], res)
@@ -191,7 +297,8 @@ def apply_model(params: dict, mdef: ModelDef,
     if mdef.kind == "conv1d":
         h = x[:, :, None]                                # (B, PC_in, 1)
         for p in params["layers"]:
-            h = torch.relu(_conv_same(h, p["w"], cdt) + p["b"])
+            h = maybe_dropout(torch.relu(_conv_same(h, p["w"], cdt)
+                                         + p["b"]))
         return dense(params["head"], h.reshape(h.shape[0], -1))
 
     raise ValueError(mdef.kind)
@@ -204,4 +311,4 @@ def l2_penalty(params: dict) -> torch.Tensor:
 
 
 def count_params(params) -> int:
-    return sum(int(np.prod(t.shape)) for t in _leaves(params))
+    return sum(int(np.prod(t.shape)) for t in tree_leaves(params))

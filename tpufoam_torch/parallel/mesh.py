@@ -28,8 +28,13 @@ The turbulent step over a mesh (`shard_turbulence`,
 fields, the SST state and its transport solves stay whole on the lead
 device, and the momentum kernel runs per block.
 
-Not ported: the tensor-parallel MLP (`mlp_partition_specs`,
-`make_sharded_train_step`) waits for the training port; they raise.
+The train step over a mesh (`make_sharded_train_step`) is data
+parallel: the batch is split into slices along the mesh's 'data' axis,
+each slice's loss gradient is taken on its device, and the gradients are
+summed on the lead device in a fixed order, where Adam updates the whole
+weights. `mlp_partition_specs` returns the JAX package's tensor-parallel
+spec tree; the weights are not split over 'model' (that belongs to the
+domain-decomposed engine, with the fields).
 """
 
 from __future__ import annotations
@@ -276,18 +281,80 @@ def make_sharded_fleet_step(mesh: Mesh, cfg: PisoConfig = PisoConfig(),
 
 
 # ---------------------------------------------------------------------------
-# not ported yet
+# the MLP train step over a mesh
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str, waits_for: str):
-    raise NotImplementedError(f"{what} is not ported yet: it waits for "
-                              f"{waits_for}")
+def mlp_partition_specs(params: dict) -> dict:
+    """The JAX package's Megatron-style specs of a parameter tree, each a
+    tuple of mesh axis names (a PartitionSpec's entries): even dense
+    layers split their output dim over 'model', odd layers their input
+    dim; the head and every other leaf replicated (())."""
+    from ..models.mlp import tree_map
+    specs = tree_map(lambda _: (), params)
+    for i in range(len(specs["layers"])):
+        specs["layers"][i] = ({"w": (None, "model"), "b": ("model",)}
+                              if i % 2 == 0 else
+                              {"w": ("model", None), "b": ()})
+    if "head" in specs:
+        specs["head"] = {"w": (None, None), "b": ()}
+    return specs
 
 
-def mlp_partition_specs(params):
-    _not_ported("mlp_partition_specs", "the training port")
+def make_sharded_train_step(mesh: Mesh, mdef, opt, loss_scale: float = 1e6):
+    """A data-parallel train step over `mesh`: returns (step, shard).
 
+    shard(params, opt_state, xb, yb) -> (params, opt_state, xs, ys): the
+    parameters and optimizer state on the lead device, the batch split
+    along its first axis into one slice per row of the mesh (its 'data'
+    axis), slice i on devices[i][0]; the batch must divide.
 
-def make_sharded_train_step(mesh, mdef, opt, loss_scale: float = 1e6):
-    _not_ported("make_sharded_train_step", "the training port")
+    step(params, opt_state, xs, ys) -> (params, opt_state, loss): each
+    slice's share of the gradient of loss_scale * mean((model(x) - y)^2)
+    over the whole batch is taken on its device, the shares are summed on
+    the lead device in slice order, and `opt` (train.trainer.Adam, or any
+    object with its update contract) updates the whole weights there.
+    A tensor in place of xs, ys is one slice."""
+    from ..models.mlp import apply_model, tree_map
+    from ..train.trainer import apply_updates, value_and_grad
+    lead = mesh.lead
+    rows = [r[0] for r in mesh.devices]
 
+    def shard(params, opt_state, xb, yb):
+        def on_lead(tree):
+            return tree_map(lambda a: a.to(lead)
+                            if isinstance(a, torch.Tensor) else a, tree)
+
+        n = xb.shape[0]
+        if n % len(rows):
+            raise ValueError(f"batch of {n} does not divide over the "
+                             f"mesh's 'data' axis of {len(rows)}")
+        m = n // len(rows)
+        return (on_lead(params), on_lead(opt_state),
+                tuple(xb[i * m:(i + 1) * m].to(d) for i, d in
+                      enumerate(rows)),
+                tuple(yb[i * m:(i + 1) * m].to(d) for i, d in
+                      enumerate(rows)))
+
+    def step(params, opt_state, xs, ys):
+        if isinstance(xs, torch.Tensor):
+            xs, ys = (xs,), (ys,)
+        numel = sum(y.numel() for y in ys)
+
+        def share(p, xb, yb):
+            return loss_scale * torch.sum(
+                (apply_model(p, mdef, xb) - yb) ** 2) / numel
+
+        loss, grads = None, None
+        for xb, yb in zip(xs, ys, strict=True):
+            p = tree_map(lambda a: a.to(xb.device), params)
+            l_s, g_s = value_and_grad(share, p, xb, yb)
+            l_s, g_s = l_s.to(lead), tree_map(lambda a: a.to(lead), g_s)
+            if loss is None:
+                loss, grads = l_s, g_s
+            else:
+                loss = loss + l_s
+                grads = tree_map(torch.add, grads, g_s)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    return step, shard

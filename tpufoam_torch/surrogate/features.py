@@ -12,8 +12,9 @@
 with Um the instantaneous max |U|. The input functions map ([B,] ny, nx)
 fields to ([B,] ny, nx, C), with one Um per case (the poisson and M_fU
 features take one case: their derivatives and the arcsinh band are
-whole-field). The dataset's max-abs scaling lives in the artifact bundle.
-Training targets are not ported.
+whole-field); the target functions (the training data's, and the
+evaluation's) likewise. The dataset's max-abs scaling lives in the
+artifact bundle.
 """
 
 from __future__ import annotations
@@ -95,6 +96,7 @@ class FamilyConfig:
     target_zero_mean: bool        # subtract per-block masked mean of target
     predicts_delta: bool          # p_new = p_prev + prediction
     build_inputs: Callable        # (case, fields) -> (ny, nx, n_in)
+    build_targets: Callable       # (case, fields) -> (ny, nx, n_out)
 
 
 def _in_deltas(case, fields):
@@ -102,6 +104,12 @@ def _in_deltas(case, fields):
     dv = fields["v"] - fields["v_prev"]
     um = per_case(u_max_norm(fields["u"], fields["v"]))
     return torch.stack([du / um, dv / um, case.sdf], dim=-1)
+
+
+def _out_deltas(case, fields):
+    dp = fields["p"] - fields["p_prev"]
+    um = per_case(u_max_norm(fields["u"], fields["v"]))
+    return (dp / um**2)[..., None]
 
 
 def _in_poisson(case, fields):
@@ -120,17 +128,36 @@ def _in_mu(case, fields):
                        dim=-1)
 
 
+def _out_p(case, fields):
+    um = per_case(u_max_norm(fields["u"], fields["v"]))
+    return (fields["p"] / um**2)[..., None]
+
+
 def _in_mfu(case, fields):
     um = u_max_norm(fields["u"], fields["v"])
     f_u = f_u_term(case, fields["u"], fields["v"]) / um**2
     return torch.stack([f_u, case.sdf], dim=-1)
 
 
+def _out_gradp(case, fields):
+    """[dp/dx Lx/Um^2, dp/dy Ly/Um^2] by np.gradient's rule in physical
+    spacing, zero on solid cells."""
+    um = per_case(u_max_norm(fields["u"], fields["v"]))
+    gy, gx = torch.gradient(fields["p"], dim=(-2, -1))
+    gx = gx / case.grid.dx * case.fluid
+    gy = gy / case.grid.dy * case.fluid
+    lx = case.grid.nx * case.grid.dx
+    ly = case.grid.ny * case.grid.dy
+    return torch.stack([gx * lx / um**2, gy * ly / um**2], dim=-1)
+
+
 FAMILIES = {
     "deltaU_deltaP": FamilyConfig("deltaU_deltaP", 3, 1, True, True,
-                                  _in_deltas),
-    "poisson": FamilyConfig("poisson", 4, 1, True, True, _in_poisson),
-    "M_u": FamilyConfig("M_u", 3, 1, True, False, _in_mu),
-    "M_fU": FamilyConfig("M_fU", 2, 1, True, False, _in_mfu),
-    "U_gradP": FamilyConfig("U_gradP", 3, 2, False, False, _in_mu),
+                                  _in_deltas, _out_deltas),
+    "poisson": FamilyConfig("poisson", 4, 1, True, True, _in_poisson,
+                            _out_deltas),
+    "M_u": FamilyConfig("M_u", 3, 1, True, False, _in_mu, _out_p),
+    "M_fU": FamilyConfig("M_fU", 2, 1, True, False, _in_mfu, _out_p),
+    "U_gradP": FamilyConfig("U_gradP", 3, 2, False, False, _in_mu,
+                            _out_gradp),
 }

@@ -25,7 +25,7 @@ import torch
 from .. import DEFAULT_DEVICE
 from ..fv.case import Case, fleet_member
 from ..models.mlp import (ModelDef, apply_model, params_from_numpy,
-                          unflatten_params)
+                          tree_leaves, treedef_str, unflatten_params)
 from .blocks import (BlockLayout, assemble_lstsq, assemble_scan,
                      block_zero_mean, build_block_layout, extract_blocks,
                      gaussian_filter2d, stitch_solve_op)
@@ -67,6 +67,44 @@ class SurrogateBundle:
 
         return dataclasses.replace(self, pca_in=cut(self.pca_in, self.pc_in),
                                    pca_out=cut(self.pca_out, self.pc_out))
+
+    def save(self, path: str) -> None:
+        """Write the JAX package's bundle format: `manifest.json` (version
+        1), `arrays.npz` (`param_i` in JAX's leaf order, the PCA, norm and
+        max-abs arrays, float32) and `params_tree.json` (the tree's
+        PyTreeDef as JAX prints it)."""
+        os.makedirs(path, exist_ok=True)
+        manifest = {
+            "version": 1,
+            "family": self.family,
+            "mdef": dataclasses.asdict(self.mdef),
+            "pc_in": self.pc_in,
+            "pc_out": self.pc_out,
+            "norm_method": self.norm_method,
+            "block_size": self.block_size,
+            "overlap_ratio": self.overlap_ratio,
+        }
+        with open(os.path.join(path, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=2)
+        with open(os.path.join(path, "params_tree.json"), "w") as f:
+            json.dump(treedef_str(self.params), f)
+
+        def a(t):
+            return np.asarray(t.detach().cpu() if isinstance(t, torch.Tensor)
+                              else t, dtype=np.float32)
+
+        arrays = {f"param_{i}": a(x)
+                  for i, x in enumerate(tree_leaves(self.params))}
+        for tag, pca in (("in", self.pca_in), ("out", self.pca_out)):
+            arrays[f"pca_{tag}_mean"] = a(pca.mean)
+            arrays[f"pca_{tag}_components"] = a(pca.components)
+            arrays[f"pca_{tag}_ev"] = a(pca.explained_variance)
+            arrays[f"pca_{tag}_evr"] = a(pca.explained_variance_ratio)
+        for k, v in self.norm.items():
+            arrays[f"norm_{k}"] = a(v)
+        arrays["maxs_in"] = a(self.maxs_in)
+        arrays["maxs_out"] = a(self.maxs_out)
+        np.savez(os.path.join(path, "arrays.npz"), **arrays)
 
     @staticmethod
     def load(path: str, device=DEFAULT_DEVICE) -> "SurrogateBundle":
