@@ -108,6 +108,14 @@ Phases, each printing one JSON line with its elapsed seconds:
           against step-fleet's lockstep
   step-fleet-mgcg  run_piso_batched with its default MGCGBackend(rtol=
           1e-5) on four 256 x 1024 cases: per-case CG iterations
+  step-fleet-auto  the four cases of step-fleet with AutoBackend() (the
+          sm_ref512 warm start, the batched momentum launch), 2 + 3
+          event-timed locksteps: escalations per case, per-case health,
+          launches per lockstep; one lockstep each with
+          HybridBackend(predict=sm) and SurrogateBackend(predict=sm); each
+          backend's lockstep against the four cases stepped alone (every
+          fleet solve also solved case by case: the same result and, for
+          AutoBackend, the same escalation verdicts)
   case-graded  the graded 2D-1 case of artifacts/validation/
           st_2d1_graded_h05.json (grading h_fine 0.0005, h_coarse 0.004,
           ratio 1.12, band 0.07): 543 x 990, 537,570 cells, as the artifact
@@ -196,6 +204,19 @@ Phases, each printing one JSON line with its elapsed seconds:
           sm_ref512's array keys), loaded, and served by make_predictor
           (lstsq) on 2 hybrid steps of the same case (MG bf16, the
           momentum kernel)
+  bridge  the port's BridgeServer (bridge/server.py) in a thread on the
+          card, driven through the C API of the repo's bridge/ library
+          (built with its Makefile into tpufoam_torch/_build/bridge/,
+          called with ctypes): the cells of train-data's last 3 frames
+          (rollout_to_records: the fluid cells of 256 x 1024) with the
+          channel's boundary points; 3 steps each of the identity,
+          poisson and sm:artifacts/sm_ref512 models; the server's grid,
+          the prep's parts (the SDF on the card, both Delaunay builds),
+          ms per step (tb_last_step_ms and the server's), the matvec's
+          launches per step; the first step's raw output against the
+          port's compute on the CPU (relative L2), and a 4-rank world
+          (tb_init_rank, one thread a rank, contiguous quarters of the
+          cells) against the single rank, bit for bit
 A kernel's time is its device time from torch.profiler with the L2
 cache flushed before each call (ms, plain_ms: the plain version's kernels
 summed) beside the per-call span on the
@@ -292,6 +313,11 @@ MGCG_FLEET_NY, N_MGCG_FLEET = 256, 2
 # card); dt comes from the same incoming state, a maximum and scalar
 # arithmetic: 1e-6.
 FLEET_PARITY_TOL = {"u": 1e-2, "v": 1e-2, "p": 1e-2, "dt": 1e-6}
+# the fleet with AutoBackend() (scripts/bench_fleet_ab.py's cases): from
+# the impulsive start, 2 + 3 event-timed locksteps. After an odd number of
+# steps the damped dt control leaves the Courant number above maxCo (see
+# FLEET), so this phase gates continuity and finiteness and reports Co.
+N_AUTO_WARM, N_AUTO_STEPS = 2, 3
 KERNEL_LEVELS = 6             # levels 512x2048 .. 16x64; 8x32 is plain
 # the sharded kernels' meshes, all of one card; the first is the sharded
 # step's (device_mesh(4) of one card) and the timed one
@@ -417,6 +443,16 @@ TRAIN_PCA_TOL = {"evr_exact": 1e-3, "angle_top8": 1e-2, "evr_cpu": 1e-4}
 # whatever its gradient's size, so a sign flip of a gradient near 0 moves
 # its element by 2 lr: no per-leaf bound holds.
 TRAIN_STEP_TOL = {"loss": 1e-3, "params_l2": 1e-2}
+# the bridge: 3 steps of each model on the last frames of train-data's
+# rollout; the first step against the port's compute on the CPU from the
+# same cells: sm (sm_ref512's bf16 MLP), the raw output's relative L2,
+# PRED_TOL; poisson, the true residual of the card's grid solution in the
+# CPU's system against that of the CPU's own, within a factor of 3 (a
+# float32 MGCG from the PISO pressure reaches only a floor of the true
+# residual, and solves that round apart land anywhere in it: see
+# bridge_phase's poisson_check)
+BRIDGE_STEPS = 3
+BRIDGE_TOL = {"poisson": 3.0, "sm": PRED_TOL}
 
 
 def say(phase, **kv):
@@ -498,10 +534,197 @@ def bound(n_bytes, n_ops):
         else "operations"
 
 
+def fleet_backend_phases(torch, card, case_b, flow_b0, fcases, cfg,
+                         predictor, reset_counts, counts, fleet_health,
+                         check_fleet_health):
+    """step-fleet-auto: the fleet of step-fleet with AutoBackend() (the
+    surrogate warm start, the batched momentum launch), then one lockstep
+    each with HybridBackend and SurrogateBackend (sm_ref512 as the
+    backend's predictor), each backend's lockstep against the four cases
+    stepped alone. Returns the AutoBackend locksteps' launches."""
+    import numpy as np
+
+    from tpufoam_torch.fv.case import fleet_member
+    from tpufoam_torch.fv.pressure import PressureCoeffs
+    from tpufoam_torch.piso.batched import run_piso_batched_eager
+    from tpufoam_torch.piso.engine import piso_step
+    from tpufoam_torch.solvers.backends import (AutoBackend, HybridBackend,
+                                                SurrogateBackend)
+
+    n_fleet = len(fcases)
+    verdicts = []
+
+    class CountedAuto(AutoBackend):
+        """AutoBackend recording each solve's per-case verdicts."""
+
+        def needs_escalation(self, case_, coef_, rhs_, p1_):
+            need_ = super().needs_escalation(case_, coef_, rhs_, p1_)
+            verdicts.append(need_)
+            return need_
+
+    class Alone:
+        """A backend whose every fleet solve is also solved case by case
+        from the same operands: the largest relative difference of a
+        case's result, and the verdicts of the solves alone."""
+
+        def __init__(self, backend):
+            self.backend, self.diff, self.alone = backend, 0.0, []
+
+        def __call__(self, case_, coef_, rhs_, p_prev_, aux_):
+            out_ = self.backend(case_, coef_, rhs_, p_prev_, aux_)
+            if rhs_.dim() == 3:
+                n0 = len(verdicts)
+                for k in range(rhs_.shape[0]):
+                    one = self.backend(
+                        fleet_member(case_, k),
+                        PressureCoeffs(*(getattr(coef_, f.name)[k] for f in
+                                         dataclasses.fields(coef_))),
+                        rhs_[k], p_prev_[k], {n: a[k] for n, a in
+                                             aux_.items()})
+                    self.diff = max(self.diff, float(
+                        (out_[k] - one).abs().max()
+                        / one.abs().max().clamp(min=1e-30)))
+                self.alone.append([bool(v) for v in verdicts[n0:]])
+                del verdicts[n0:]
+            return out_
+
+    def events(n):
+        return [(torch.cuda.Event(enable_timing=True),
+                 torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+
+    rows = {}
+    auto = CountedAuto()
+    with torch.no_grad():
+        flow = run_piso_batched_eager(case_b, flow_b0, N_AUTO_WARM, cfg=cfg,
+                                      backend=auto, sm_predict=predictor)
+        torch.cuda.synchronize()
+        reset_counts(predictor)
+        verdicts.clear()
+        # what re-resolving the predictor's stitch operators costs a call
+        # (the engine binds it once a rollout; a backend's predict does not)
+        t = time.perf_counter()
+        for _ in range(20):
+            predictor.bind(case_b)
+        bind_us = (time.perf_counter() - t) / 20 * 1e6
+        ev = events(N_AUTO_STEPS)
+        t = time.time()
+        for e0, e1 in ev:
+            e0.record()
+            flow = run_piso_batched_eager(case_b, flow, 1, cfg=cfg,
+                                          backend=auto, sm_predict=predictor)
+            e1.record()
+        torch.cuda.synchronize()
+        host_s = time.time() - t
+        launches, calls = counts(), predictor.calls
+    need = torch.stack(verdicts).cpu().numpy()          # (solves, cases)
+    finite, cont, co = fleet_health(case_b, flow)
+    rows["auto"] = dict(
+        ms_per_lockstep=sum(a.elapsed_time(b) for a, b in ev)
+        / N_AUTO_STEPS, host_ms_per_lockstep=host_s * 1e3 / N_AUTO_STEPS,
+        solves=int(need.shape[0]),
+        escalations_per_case=need.sum(axis=0).tolist(),
+        continuity_error=cont, courant=co, finite=finite,
+        momentum_batched_launches_per_lockstep=launches[
+            "momentum_multisweep"] / N_AUTO_STEPS,
+        stencil_matvec_launches_per_lockstep=launches["stencil_matvec"]
+        / N_AUTO_STEPS, sm_predict_calls=calls,
+        predictor_bind_us_per_call=bind_us)
+    check_fleet_health("step-fleet-auto", finite, cont)
+    check(launches["momentum_multisweep"] == N_AUTO_STEPS
+          and calls == N_AUTO_STEPS,
+          f"step-fleet-auto: {launches['momentum_multisweep']} momentum "
+          f"launches, {calls} predictions in {N_AUTO_STEPS} locksteps")
+    check(launches["stencil_matvec"] > 0,
+          "step-fleet-auto: the pressure matvec never launched its kernel")
+
+    # one lockstep each with the surrogate as the backend, from the
+    # AutoBackend fleet's state; health: finite (a pure-surrogate p is
+    # not held to continuity)
+    others = {"hybrid": HybridBackend(predict=predictor),
+              "surrogate": SurrogateBackend(predict=predictor)}
+    with torch.no_grad():
+        for name, be in others.items():
+            torch.cuda.synchronize()
+            reset_counts(predictor)
+            (e0, e1), = events(1)
+            e0.record()
+            out = run_piso_batched_eager(case_b, flow, 1, cfg=cfg,
+                                         backend=be)
+            e1.record()
+            torch.cuda.synchronize()
+            k_ = counts()
+            finite_o, cont_o, co_o = fleet_health(case_b, out)
+            rows[name] = dict(ms_per_lockstep=e0.elapsed_time(e1),
+                              continuity_error=cont_o, courant=co_o,
+                              finite=finite_o,
+                              momentum_batched_launches=k_[
+                                  "momentum_multisweep"],
+                              stencil_matvec_launches=k_["stencil_matvec"],
+                              sm_predict_calls=predictor.calls)
+            check(finite_o and k_["momentum_multisweep"] == 1,
+                  f"step-fleet-auto {name}: finite {finite_o}, launches "
+                  f"{k_}")
+
+    # each backend's lockstep against the four cases stepped alone from
+    # the same state; every fleet solve also solved case by case
+    bound = predictor.bind(case_b)
+    singles_sm = [predictor.bind(c) for c in fcases]
+    parity = {}
+    for name, be in (("auto", CountedAuto()), *others.items()):
+        checked = Alone(be)
+        sm_b, sm_1 = ((bound, singles_sm) if name == "auto"
+                      else (None, [None] * n_fleet))
+        verdicts.clear()
+        with torch.no_grad():
+            got = piso_step(case_b, flow, cfg, checked, sm_b)
+            fleet_need = [v.tolist() for v in verdicts]
+            verdicts.clear()
+            alone_need = []
+            singles = []
+            for k, c in enumerate(fcases):
+                singles.append(piso_step(c, fleet_member(flow, k), cfg, be,
+                                         sm_1[k]))
+                alone_need.append([bool(v) for v in verdicts])
+                verdicts.clear()
+            torch.cuda.synchronize()
+        diffs = [{f: compare((getattr(got, f)[k],),
+                             (getattr(single, f),))[1]
+                  for f in ("u", "v", "p", "dt")}
+                 for k, single in enumerate(singles)]
+        parity[name] = dict(rel_diff=diffs, solve_rel_diff=checked.diff)
+        for k, d in enumerate(diffs):
+            for f, v in d.items():
+                check(v <= FLEET_PARITY_TOL[f],
+                      f"step-fleet-auto parity {name} case {k} {f}: rel "
+                      f"diff {v:.3e}")
+        check(checked.diff <= FLEET_PARITY_TOL["p"],
+              f"step-fleet-auto {name}: a fleet solve against its cases "
+              f"alone: rel diff {checked.diff:.3e}")
+        if name == "auto":
+            # every solve's verdict per case equals the case's alone; and
+            # a case that escalates in the lockstep's kept solves does so
+            # when stepped alone
+            check([list(map(bool, v)) for v in fleet_need]
+                  == checked.alone,
+                  f"step-fleet-auto: verdicts {fleet_need} vs alone "
+                  f"{checked.alone}")
+            parity[name].update(verdicts_lockstep=fleet_need,
+                                verdicts_alone=alone_need)
+            for k in range(n_fleet):
+                check(not fleet_need[0][k] or alone_need[k][0],
+                      f"step-fleet-auto: case {k} escalates in the "
+                      f"lockstep's first solve but not alone")
+    say("step-fleet-auto", card=card, cases=n_fleet,
+        locksteps=N_AUTO_STEPS, backends=rows, parity=parity,
+        tol=FLEET_PARITY_TOL)
+    return launches
+
+
 def train_phases(torch, dev, card, reset_counts, counts):
     """The training path's five phases (train-data, train-pca,
     train-step, train, train-serve). Returns the kernel launches of the
-    training rollout and of the served steps, {path: {kernel: n}}."""
+    training rollout and of the served steps, {path: {kernel: n}}, and
+    the rollout's case and last BRIDGE_STEPS frames."""
     import tempfile
 
     import numpy as np
@@ -579,6 +802,7 @@ def train_phases(torch, dev, card, reset_counts, counts):
     check(all(launches["train-data"][k] > 0 for k in rows),
           f"train-data: a kernel of rows 1-3 never launched: "
           f"{launches['train-data']}")
+    bridge_frames = frames[-BRIDGE_STEPS:]
     del frames
 
     # ---- train-pca: the device-cached PCA fit and encode -----------------
@@ -742,7 +966,247 @@ def train_phases(torch, dev, card, reset_counts, counts):
           and launches["train-serve"]["momentum_multisweep"] == n_serve,
           f"train-serve: {predictor.calls} predictions, launches "
           f"{launches['train-serve']} in {n_serve} steps")
-    return launches
+    return launches, case, bridge_frames
+
+
+def bridge_phase(torch, dev, card, case, frames, reset_counts, counts):
+    """bridge: the port's BridgeServer on the card, driven through the C
+    API of the repo's bridge/ library (built with its Makefile, called
+    with ctypes), with the cells of the training rollout's last frames.
+    Returns the kernel launches of the served steps, summed over the
+    models."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from tpufoam_torch.bridge import client
+    from tpufoam_torch.bridge import server as bridge_server
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.eval import evaluation
+    from tpufoam_torch.utils.hdf5_io import rollout_to_records
+
+    sdf_impl, resample_impl = evaluation.domain_and_sdf, \
+        evaluation.build_resample
+
+    t = time.time()
+    lib = client.load_library(client.build_library(
+        os.path.join(ROOT, "tpufoam_torch", "_build", "bridge")))
+    build_s = time.time() - t
+    geom = channel_case_geometry(**TRAIN_CASE)
+    top = geom.boundary_points_top(2000)
+    obst = geom.shape.boundary_points(720)
+    # the solver's cells, [Ux, Uy, Cx, Cy, p], one array a step
+    steps = [np.ascontiguousarray(r[:, [0, 1, 3, 4, 2]], dtype=np.float64)
+             for r in rollout_to_records(case, frames)]
+    n = len(steps[0])
+
+    # the one-time prep's parts, timed inside the servers' preps: the SDF
+    # on the card (synchronized), the two Delaunay builds on the host
+    # (cells -> grid, then grid -> cells)
+    prep_s = collections.defaultdict(list)
+
+    def timed(label, fn, sync=False):
+        def run(*args, **kw):
+            t0 = time.time()
+            out_ = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            prep_s[label].append(time.time() - t0)
+            return out_
+        return run
+
+    evaluation.domain_and_sdf = timed("sdf_on_card",
+                                      evaluation.domain_and_sdf, sync=True)
+    evaluation.build_resample = timed("delaunay", evaluation.build_resample)
+
+    # a short path for the socket (AF_UNIX allows 107 bytes)
+    sock_dir = tempfile.mkdtemp(prefix="tb")
+    sock = os.path.join(sock_dir, "tb.sock")
+    models = {"identity": "identity", "poisson": "poisson",
+              "sm": "sm:" + os.path.join(ROOT, "artifacts", "sm_ref512")}
+    rows, total = {}, collections.Counter()
+
+    def world(n_ranks, world_id):
+        """p of each step from n_ranks client threads, contiguous slices
+        of the cells, through tb_init_rank."""
+        cuts = [k * n // n_ranks for k in range(n_ranks + 1)]
+        out = [[None] * len(steps) for _ in range(n_ranks)]
+        errors = []
+
+        def rank(k):
+            try:
+                lo, hi = cuts[k], cuts[k + 1]
+                cl = client.Client(lib, sock, steps[0][lo:hi], top, obst,
+                                   rank=k, n_ranks=n_ranks,
+                                   world_id=world_id)
+                for s_, c_ in enumerate(steps):
+                    out[k][s_] = cl.step(c_[lo:hi])[0]
+                cl.close()
+            except Exception as e:
+                errors.append(repr(e))
+
+        ths = [threading.Thread(target=rank, args=(k,))
+               for k in range(n_ranks)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=600)
+        check(not errors and not any(th.is_alive() for th in ths),
+              f"bridge world: {errors}")
+        return [np.concatenate([out[k][s_] for k in range(n_ranks)])
+                for s_ in range(len(steps))]
+
+    def poisson_check(ref, cells):
+        """The poisson model's solve, card against CPU, in the CPU's
+        system: the same cells on the same mesh (moved to the card) give
+        the same operator and right-hand side bit for bit, and each
+        device's MGCG stops at rtol 1e-6 of its recurrence residual. Its
+        right-hand side is the divergence of a nearly solenoidal velocity,
+        small against the warm start's residual, so a float32 solve
+        reaches only a floor of the true residual, and two solves that
+        round apart differ widely inside it: the gate is the card's true
+        residual against the CPU's own, with the rel-L2 of the two and of
+        a CPU solve from a one-ulp change of the right-hand side beside
+        it."""
+        from tpufoam_torch.fv.case import fluxes_from_velocity
+        from tpufoam_torch.fv.pressure import (pressure_coeffs,
+                                               pressure_matvec, pressure_rhs)
+        from tpufoam_torch.solvers.multigrid import mgcg_pressure
+
+        def solve(compute, scale=1.0):
+            uc = compute.ucase
+            u, v, p = (uc.grid_field(cells[:, i].astype(np.float32))
+                       for i in (0, 1, 4))
+            case_ = uc.case
+            coef = pressure_coeffs(case_, torch.ones(case_.grid.shape,
+                                                     device=u.device)
+                                   * case_.fluid)
+            rhs = pressure_rhs(case_, *fluxes_from_velocity(case_, u, v))
+            x = mgcg_pressure(coef, rhs * scale, x0=p,
+                              rtol=1e-6).x * case_.fluid
+            return x.cpu(), coef, rhs
+
+        card = bridge_server._Compute(ref.model, TRAIN_DELTA,
+                                      TRAIN_CASE["nu"], device=dev)
+        card.attach(ref.ucase.to(dev))
+        x_card, _, _ = solve(card)
+        x_cpu, coef, rhs = solve(ref)
+        x_ulp, _, _ = solve(ref, 1.0 + 2.0**-23)
+        fluid = ref.ucase.case.fluid
+
+        def residual(x):
+            return float(torch.linalg.vector_norm(
+                (rhs - pressure_matvec(coef, x)) * fluid)
+                / torch.linalg.vector_norm(rhs * fluid))
+
+        def rel_l2(a, b):
+            return float(torch.linalg.vector_norm(a - b)
+                         / torch.linalg.vector_norm(b))
+
+        return dict(residual_card=residual(x_card),
+                    residual_cpu=residual(x_cpu),
+                    residual_cpu_one_ulp=residual(x_ulp),
+                    grid_rel_l2_card_vs_cpu=rel_l2(x_card, x_cpu),
+                    grid_rel_l2_one_ulp_vs_cpu=rel_l2(x_ulp, x_cpu),
+                    bound=f"residual_card <= {BRIDGE_TOL['poisson']} x "
+                          "residual_cpu")
+
+    cpu_ref = {}
+
+    def reference(model):
+        """The port's compute on the CPU from the first step's cells: the
+        mesh prepared once, then attached to each model's compute."""
+        ref = bridge_server._Compute(model, TRAIN_DELTA, TRAIN_CASE["nu"],
+                                     device="cpu")
+        if not cpu_ref:
+            ref.prepare(steps[0], top, obst)
+            cpu_ref["ucase"] = ref.ucase
+        else:
+            ref.attach(cpu_ref["ucase"])
+        return ref
+
+    try:
+        for name, model in models.items():
+            srv = bridge_server.BridgeServer(sock, model, delta=TRAIN_DELTA,
+                                             nu=TRAIN_CASE["nu"], device=dev)
+            th = threading.Thread(target=srv.serve_forever, daemon=True)
+            th.start()
+            try:
+                prep_s.clear()
+                t = time.time()
+                cl = client.Client(lib, sock, steps[0], top, obst)
+                row = dict(cells=n, init_s=time.time() - t,
+                           prep_s={k: list(v) for k, v in prep_s.items()})
+                torch.cuda.synchronize()
+                reset_counts()
+                srv.step_ms.clear()
+                ps, raws, client_ms = [], [], []
+                for c_ in steps:
+                    p_, raw_ = cl.step(c_)
+                    ps.append(p_)
+                    raws.append(raw_)
+                    client_ms.append(cl.last_step_ms)
+                k_ = counts()
+                cl.close()
+                total.update(k_)
+                row.update(client_ms=client_ms, server_ms=list(srv.step_ms),
+                           stencil_matvec_launches_per_step=k_[
+                               "stencil_matvec"] / len(steps),
+                           finite=all(bool(np.isfinite(p_).all())
+                                      for p_ in ps))
+                rows[name] = row
+                check(row["finite"], f"bridge {name}: non-finite p")
+                if name == "identity":
+                    check(all(np.array_equal(p_, c_[:, 4])
+                              for p_, c_ in zip(ps, steps)),
+                          "bridge identity: p is not the cells' p")
+                    continue
+                ref = reference(model)
+                shape = tuple(ref.ucase.case.grid.shape)
+                _, raw_cpu = ref.step(steps[0])
+                rel = float(np.linalg.norm(raws[0] - raw_cpu)
+                            / np.linalg.norm(raw_cpu))
+                row.update(grid=list(shape), rel_l2_vs_cpu=rel,
+                           p_range=[float(ps[-1].min()),
+                                    float(ps[-1].max())])
+                check(shape[0] >= TRAIN_SHAPE[0]
+                      and shape[1] >= TRAIN_SHAPE[1],
+                      f"bridge: the server's grid {shape} is below "
+                      f"{TRAIN_SHAPE}")
+                if name == "sm":
+                    row["bound"] = BRIDGE_TOL[name]
+                    check(rel <= BRIDGE_TOL[name],
+                          f"bridge {name}: rel-L2 {rel:.3e} against the CPU")
+                else:
+                    row.update(poisson_check(ref, steps[0]))
+                    check(row["residual_card"] <= BRIDGE_TOL[name]
+                          * row["residual_cpu"],
+                          f"bridge poisson: {row}")
+                check(np.ptp(ps[-1]) > 0, f"bridge {name}: constant p")
+                if name == "poisson":
+                    check(k_["stencil_matvec"] > 0,
+                          "bridge poisson: the matvec never launched")
+                    # four ranks, contiguous quarters: the single rank's p
+                    t = time.time()
+                    multi = world(4, world_id=1)
+                    row["world4_s"] = time.time() - t
+                    row["world4_max_abs_diff"] = max(
+                        float(np.abs(a_ - b_).max())
+                        for a_, b_ in zip(ps, multi))
+                    check(row["world4_max_abs_diff"] == 0.0,
+                          f"bridge {name}: 4-rank world vs single rank "
+                          f"{row['world4_max_abs_diff']:.3e}")
+            finally:
+                srv.stop()
+                th.join(timeout=10)
+    finally:
+        evaluation.domain_and_sdf = sdf_impl
+        evaluation.build_resample = resample_impl
+    os.rmdir(sock_dir)
+    say("bridge", card=card, build_s=build_s, grid=rows["poisson"]["grid"],
+        client_grid=list(TRAIN_SHAPE), steps=len(steps), models=rows)
+    return dict(total)
 
 
 def main() -> int:
@@ -2995,7 +3459,13 @@ def main() -> int:
     for name, d in fsh_diff.items():
         check(d == 0.0, f"step-fleet-sharded vs step-fleet {name}: max "
               f"|diff| {d:.3e}")
-    del flow_b, case_b, parts_c, parts_f, flow_fsh
+    del flow_b, parts_c, parts_f, flow_fsh
+
+    # ---- the fleet with AutoBackend, HybridBackend and SurrogateBackend --
+    auto_launches = fleet_backend_phases(
+        torch, card, case_b, flow_b0, fcases, cfg, predictor, reset_counts,
+        counts, fleet_health, check_fleet_health)
+    del case_b
 
     # ---- the MGCG fleet: per-case masked CG on the card ------------------
     mcases = fleet_cases(MGCG_FLEET_NY)
@@ -3035,7 +3505,13 @@ def main() -> int:
           f"{k_mgcg}")
 
     # ---- the training path -------------------------------------------------
-    train_launches = train_phases(torch, dev, card, reset_counts, counts)
+    train_launches, train_case, bridge_frames = train_phases(
+        torch, dev, card, reset_counts, counts)
+
+    # ---- the bridge server on the training rollout's cells ----------------
+    bridge_launches = bridge_phase(torch, dev, card, train_case,
+                                   bridge_frames, reset_counts, counts)
+    del train_case, bridge_frames
 
     kernels = [{
         "name": "momentum_multisweep",
@@ -3087,7 +3563,7 @@ def main() -> int:
     paths = (*train_launches.values(), step_launches,
              sharded_step_launches, fused_launches,
              mgcg_launches, st_launches, fleet_launches, fsh_launches,
-             k_mgcg)
+             k_mgcg, auto_launches, bridge_launches)
     sweep_launches = sum(k_["jacobi_sweep"] for k_ in paths)
     check(sweep_launches == 0,
           f"a path launched jacobi_sweep {sweep_launches} times")
@@ -3157,15 +3633,24 @@ def main() -> int:
     })
     # the launches of each kernel on the turbulent and poisson paths (their
     # counts set to 0 just before each path's timed steps)
+    # and on the fleet with AutoBackend (every momentum launch there is the
+    # batched launch) and the bridge's served steps
     new_paths = {"step-turb": turb_launches, "step-turb-mgcg": dean_launches,
                  "step-turb-sharded": tsh_launches,
-                 "step-poisson": poisson_launches, **train_launches}
+                 "step-poisson": poisson_launches, **train_launches,
+                 "bridge": bridge_launches}
+    fleet_paths = {"step-fleet-auto": auto_launches}
     for row in kernels:
         name = row["name"].split(" ")[0]
         if row["name"].endswith("(batched launch)"):
+            row["launches_by_path"] = {path: k_[name]
+                                       for path, k_ in fleet_paths.items()}
             continue
-        row["launches_by_path"] = {path: k_[name]
-                                   for path, k_ in new_paths.items()}
+        by_path = dict(new_paths)
+        if name != "momentum_multisweep":
+            by_path.update(fleet_paths)
+        row["launches_by_path"] = {path: k_.get(name, 0)
+                                   for path, k_ in by_path.items()}
     say("done", total_s=round(time.time() - T0, 3))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -59,8 +59,7 @@ from tpufoam_torch.piso import batched as tbat
 from tpufoam_torch.piso import engine as teng
 from tpufoam_torch.solvers import cg as tcg
 from tpufoam_torch.solvers import multigrid as tmg
-from tpufoam_torch.solvers.backends import (AutoBackend, CGBackend,
-                                            HybridBackend, MGBackend,
+from tpufoam_torch.solvers.backends import (CGBackend, MGBackend,
                                             MGCGBackend)
 from tpufoam_torch.surrogate.pipeline import make_predictor
 from test_torch_piso import bundle_to_torch
@@ -303,12 +302,15 @@ def test_pcg_fixed_iters_per_case(state):
 
 
 def test_unported_batched_solvers_refuse(state):
+    """The kernel smoothers' batched launch is not ported: a fleet's
+    multigrid with a kernel smoother raises (AutoBackend, HybridBackend
+    and SurrogateBackend take a fleet: tests/test_torch_fleet_backends.py).
+    """
     bc, bf, _, _ = state
     bco, _, b, x0 = _pressure_problem(state)
     for backend in (MGBackend(cycles=1, smoother="kernel"),
                     MGBackend(cycles=1, smoother="kernel-fused"),
-                    MGCGBackend(smoother="kernel"), AutoBackend(),
-                    HybridBackend(predict=None)):
+                    MGCGBackend(smoother="kernel")):
         with pytest.raises(ValueError, match="not ported"):
             backend(bc, bco, b, x0, {})
 

@@ -163,7 +163,21 @@ def test_the_walk_finds_the_entry_points():
                   "parallel.mesh.make_sharded_train_step",
                   "utils.metrics.ErrorReport", "utils.metrics.error_metrics",
                   "eval.evaluation.EvalReport",
-                  "eval.evaluation.evaluate_bundle"):
+                  "eval.evaluation.evaluate_bundle",
+                  "core.sdf.domain_and_sdf", "core.grid.scatter_to_grid",
+                  "core.grid.gather_from_grid",
+                  "surrogate.blocks.extract_blocks_gather",
+                  "solvers.backends.PressureBackend",
+                  "core.interp.ResampleOp", "core.interp.build_resample",
+                  "core.interp.apply_resample", "utils.hdf5_io.SimFrame",
+                  "utils.hdf5_io.write_dataset", "utils.hdf5_io.read_frame",
+                  "utils.hdf5_io.rollout_to_records",
+                  "eval.evaluation.UnstructuredCase",
+                  "models.keras_compat.load_keras_dense_h5",
+                  "surrogate.reference_io.load_sklearn_ipca",
+                  "surrogate.reference_io.bundle_from_reference_sidecars",
+                  "surrogate.reference_io.export_reference_sidecars",
+                  "bridge.server.BridgeServer", "bridge.server.serve"):
         assert f"tpufoam_torch.{entry}" in names, entry
 
 

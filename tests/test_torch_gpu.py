@@ -1157,3 +1157,120 @@ def test_exact_pca_on_the_card_is_exact(cuda):
     ref = torch.linalg.svd(xc, full_matrices=False)[2][:8]
     sv = torch.linalg.svdvals(got.components.cpu().double() @ ref.T)
     assert float(torch.arccos(torch.clamp(sv.min(), max=1.0))) <= 1e-3
+
+
+def _fleet_pressure_problem(device):
+    """Three channel cases at 64 x 256 on `device`, stacked, and a seeded
+    pressure system whose warm starts leave the cases' polishes apart."""
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.fv.case import build_channel_case
+    from tpufoam_torch.fv.pressure import pressure_coeffs, pressure_matvec
+    from tpufoam_torch.piso.batched import stack_cases
+
+    cases = [build_channel_case(channel_case_geometry(
+        s, length=8.0, height=2.0, obstacle_size=z, nu=8e-3),
+        delta=2.0 / 64, device=device)
+        for s, z in (("cylinder", 0.5), ("rectangle", 0.4),
+                     ("triangle", 0.45))]
+    bc = stack_cases(cases)
+    rng = np.random.default_rng(11)
+
+    def field():
+        return torch.as_tensor(rng.standard_normal(tuple(bc.fluid.shape))
+                               .astype(np.float32), device=device) * bc.fluid
+
+    rau = bc.alpha * bc.fluid * (1.0 + 0.5 * field().abs()) * 1e-3
+    x_true = field()
+    b = pressure_matvec(pressure_coeffs(bc, rau), x_true) * bc.fluid
+    x0 = x_true + torch.tensor([1.0, 3e-2, 1e-3], device=device)[
+        :, None, None] * field()
+    return bc, cases, rau, b, x0
+
+
+@pytest.mark.parametrize("kind", ["auto", "hybrid", "surrogate"])
+def test_batched_backends_on_the_card_match_single_cases(cuda, kind):
+    """AutoBackend (its tau between the cases' polish residuals, so that
+    one case escalates), HybridBackend and SurrogateBackend on the card's
+    stacked fleet against each case alone on the card: bit for bit (each
+    case's norms and inner products reduced as alone), the same
+    escalation verdicts; a case that needs no escalation keeps its polish
+    exactly."""
+    from tpufoam_torch.fv.pressure import pressure_coeffs, pressure_matvec
+    from tpufoam_torch.solvers import backends as tb
+    from tpufoam_torch.solvers.multigrid import mg_solve
+
+    bc, cases, rau, b, x0 = _fleet_pressure_problem(cuda)
+    bco = pressure_coeffs(bc, rau)
+    y = torch.linspace(0.0, 1.0, b.shape[-2], device=cuda)[:, None]
+
+    def predict(case, p_prev, aux):
+        return 0.5 * p_prev + y
+
+    log = []
+
+    class Verdicts(tb.AutoBackend):
+        def needs_escalation(self, case, coef, rhs, p1):
+            need = super().needs_escalation(case, coef, rhs, p1)
+            log.append(need.cpu())
+            return need
+
+    if kind == "auto":
+        p1 = mg_solve(bco, b, x0, cycles=2) * bc.fluid
+        r = torch.linalg.vector_norm((b - pressure_matvec(bco, p1))
+                                     * bc.fluid, dim=(-2, -1))
+        ratio = sorted((r / torch.linalg.vector_norm(
+            b * bc.fluid, dim=(-2, -1))).tolist())
+        backend = Verdicts(tau=float(np.sqrt(ratio[-1] * ratio[-2])),
+                           precision="f32")
+    else:
+        backend = (tb.HybridBackend if kind == "hybrid"
+                   else tb.SurrogateBackend)(predict=predict)
+    got = backend(bc, bco, b, x0, {})
+    for k, c in enumerate(cases):
+        one = backend(c, pressure_coeffs(c, rau[k]), b[k], x0[k], {})
+        assert torch.equal(got[k], one), k
+    assert torch.isfinite(got).all()
+    if kind == "auto":
+        need = log[0]
+        assert need.tolist().count(True) == 1
+        assert [bool(v) for v in log[1:]] == need.tolist()
+        for k in range(len(cases)):
+            if not need[k]:
+                assert torch.equal(got[k], p1[k])
+
+
+def test_resample_and_unstructured_case_on_the_card_equal_the_cpu(cuda):
+    """build_resample's operator on the card, applied there, equals the
+    CPU's bit for bit; UnstructuredCase.from_frame on the card (the SDF
+    on the card) equals the CPU's: masks, SDF and a resampled field."""
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.core.interp import build_resample
+    from tpufoam_torch.eval.evaluation import UnstructuredCase
+    from tpufoam_torch.fv.case import build_channel_case
+    from tpufoam_torch.utils.hdf5_io import (CH_DELTAS, SimFrame,
+                                             rollout_to_records)
+
+    rng = np.random.default_rng(5)
+    src = rng.uniform(0, 1, (4000, 2))
+    dst = rng.uniform(-0.05, 1.05, (6000, 2))
+    vals = rng.standard_normal(4000).astype(np.float32)
+    ops = {d: build_resample(src, dst, device=d) for d in ("cpu", cuda)}
+    assert ops[cuda].vertices.device.type == "cuda"
+    assert torch.equal(ops[cuda](vals).cpu(), ops["cpu"](vals))
+
+    geom = channel_case_geometry("cylinder", length=8.0, height=2.0,
+                                 obstacle_size=0.5, nu=8e-3)
+    case = build_channel_case(geom, delta=2.0 / 64, device="cpu")
+    fluid = case.fluid.numpy()
+    frame = {k: rng.standard_normal(fluid.shape).astype(np.float32) * fluid
+             for k in ("u", "v", "p", "u_prev", "v_prev", "p_prev")}
+    fr = SimFrame(data=rollout_to_records(case, [frame])[0],
+                  top=geom.boundary_points_top(2000),
+                  obst=geom.shape.boundary_points(720), channels=CH_DELTAS)
+    uc = {d: UnstructuredCase.from_frame(fr, 2.0 / 64, device=d)
+          for d in ("cpu", cuda)}
+    for name in ("fluid", "sdf", "open_e", "wall_n", "inlet_u"):
+        assert torch.equal(getattr(uc[cuda].case, name).cpu(),
+                           getattr(uc["cpu"].case, name)), name
+    assert torch.equal(uc[cuda].grid_field(fr.data[:, 0]).cpu(),
+                       uc["cpu"].grid_field(fr.data[:, 0]))

@@ -1,1 +1,2 @@
-"""Grids, geometry and the wall-distance feature."""
+"""Grids, geometry, the wall-distance feature and mesh <-> grid
+resampling."""

@@ -4,7 +4,8 @@ Fields are (ny, nx) arrays, row index i = y, column index j = x. A grid is
 uniform by default; per-axis spacing tuples (`xs`, `ys`) make it a graded
 grid that packs cells around walls and obstacles (`graded_spacing`,
 `make_graded_grid`). All of it is host numpy in float64, as in the JAX
-package.
+package, but for `scatter_to_grid` and `gather_from_grid`, which move
+per-point values into and out of a field on its device.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,3 +169,24 @@ def make_graded_grid(x_min: float, x_max: float, y_min: float, y_max: float,
                   x0=x_min, y0=y_min,
                   xs=tuple(float(v) for v in xs),
                   ys=tuple(float(v) for v in ys))
+
+
+def _index(indices, device) -> tuple[torch.Tensor, torch.Tensor]:
+    idx = torch.as_tensor(indices, device=device).long()
+    return idx[:, 0], idx[:, 1]
+
+
+def scatter_to_grid(grid: Grid2D, indices, values: torch.Tensor,
+                    fill: float = 0.0) -> torch.Tensor:
+    """Scatter per-point values into a (ny, nx) field at (i, j) `indices`
+    ((n, 2) array or tensor), on the values' device; cells no index
+    names hold `fill`."""
+    out = torch.full(grid.shape, fill, dtype=values.dtype,
+                     device=values.device)
+    out[_index(indices, values.device)] = values
+    return out
+
+
+def gather_from_grid(field: torch.Tensor, indices) -> torch.Tensor:
+    """Per-point values of a (ny, nx) field at (i, j) `indices`."""
+    return field[_index(indices, field.device)]

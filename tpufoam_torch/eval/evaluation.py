@@ -5,8 +5,11 @@ irrelevant-timestep skip and the aggregates over the frames.
 
 Frames are in-memory grid-space field dicts (arrays or tensors), such as
 `train.dataset.frames_from_rollout` makes; each is evaluated on the
-case's device. The JAX package's `UnstructuredCase` (reference HDF5
-datasets resampled onto the grid) is not ported here.
+case's device. `UnstructuredCase` is the mesh prep of a reference HDF5
+dataset (or of the cells an embedded solver sends, bridge.server): the
+uniform grid over the cells' extents, the domain and SDF from the
+boundary points, and the resampling operators in both directions, once
+per case; then each cell-wise field is resampled onto the grid.
 """
 
 from __future__ import annotations
@@ -16,7 +19,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..fv.case import Case
+from .. import DEFAULT_DEVICE
+from ..core.grid import make_grid
+from ..core.interp import ResampleOp, build_resample
+from ..core.sdf import domain_and_sdf
+from ..fv.case import Case, _assemble_masks
+from ..fv.cutcell import binary_masks_from_fluid
 from ..surrogate.blocks import (apply_deltaU_weighting, assemble_lstsq,
                                 block_zero_mean, build_block_layout,
                                 extract_blocks)
@@ -25,7 +33,110 @@ from ..surrogate.gradp_integrate import integrate_gradp
 from ..surrogate.pipeline import (SurrogateBundle, make_predictor,
                                   surrogate_blocks_forward)
 from ..train.dataset import frame_is_relevant, frame_on
+from ..utils.hdf5_io import SimFrame, read_frame
 from ..utils.metrics import ErrorReport, error_metrics
+
+
+@dataclasses.dataclass
+class UnstructuredCase:
+    """Mesh prep for one simulation of a reference-format dataset: the
+    case on the grid, the resampling operators mesh -> grid and grid ->
+    mesh, the (i, j) indices of the grid's fluid cells and the record's
+    channel names. Every tensor is on the case's device."""
+
+    case: Case
+    resample: ResampleOp        # mesh -> grid
+    resample_back: ResampleOp   # grid -> mesh
+    indices: np.ndarray         # (n_grid_cells_in_domain, 2)
+    channels: tuple
+
+    @staticmethod
+    def from_hdf5(path: str, sim: int, delta: float, nu: float = 8e-3,
+                  device=DEFAULT_DEVICE) -> "UnstructuredCase":
+        """From record (sim, 0) of a dataset (needs h5py)."""
+        return UnstructuredCase.from_frame(read_frame(path, sim, 0), delta,
+                                           nu, device=device)
+
+    @staticmethod
+    def from_frame(fr: SimFrame, delta: float, nu: float = 8e-3,
+                   device=DEFAULT_DEVICE) -> "UnstructuredCase":
+        """From one record. The grid spans the cell centres' extents
+        rounded to 2 decimals at spacing `delta` (so it can differ by a
+        cell from the grid the records came from); the domain and SDF are
+        `domain_and_sdf` of the record's boundary points, the masks the
+        blank-mode ones of that domain, the inlet the parabola over the
+        rounded height."""
+        ci = fr.channels.index
+        pts = fr.data[:, [ci("Cx"), ci("Cy")]].astype(np.float64)
+        x_min, x_max = round(pts[:, 0].min(), 2), round(pts[:, 0].max(), 2)
+        y_min, y_max = round(pts[:, 1].min(), 2), round(pts[:, 1].max(), 2)
+        grid = make_grid(x_min, x_max, y_min, y_max, delta)
+        gpts = grid.cell_centers_flat()
+
+        domain, sdf = domain_and_sdf(gpts, fr.top, fr.obst, device=device)
+        fluid = domain.cpu().numpy().reshape(grid.shape).astype(np.float32)
+        sdf = sdf.reshape(grid.shape)
+
+        op = build_resample(pts, gpts, device=device)
+        op_back = build_resample(gpts, pts, device=device)
+
+        y = grid.y0 + (np.arange(grid.ny) + 0.5) * grid.dy
+        h = y_max - y_min
+        inlet_u = (6.0 * (y - y_min) / h
+                   * (1 - (y - y_min) / h)).astype(np.float32)
+
+        case = _assemble_masks(
+            grid, fluid, sdf * torch.as_tensor(fluid, device=sdf.device),
+            inlet_u, nu, binary_masks_from_fluid(grid, fluid), cut=False,
+            device=device)
+        return UnstructuredCase(case=case, resample=op, resample_back=op_back,
+                                indices=np.argwhere(fluid > 0),
+                                channels=fr.channels)
+
+    def to(self, device) -> "UnstructuredCase":
+        """The same prepared mesh with every tensor on `device` (the
+        Delaunay set-up is not run again)."""
+        def move(obj):
+            return dataclasses.replace(obj, **{
+                f.name: getattr(obj, f.name).to(device)
+                for f in dataclasses.fields(obj)
+                if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+        return dataclasses.replace(self, case=move(self.case),
+                                   resample=move(self.resample),
+                                   resample_back=move(self.resample_back))
+
+    def grid_field(self, cell_values) -> torch.Tensor:
+        """One cell-wise field resampled onto the (ny, nx) grid (0 where
+        the resampling fills or is not finite, and in solid cells)."""
+        vals = self.resample(cell_values, fill_value=0.0)
+        return torch.nan_to_num(vals).reshape(self.case.grid.shape) \
+            * self.case.fluid
+
+    def fields_from_frame(self, fr: SimFrame) -> dict:
+        """A record's fields on the grid: u, v, p, the previous step's
+        (from the deltas, or the same fields without them) and the
+        previous deltas where the record has them."""
+        ci = fr.channels.index
+        d = fr.data
+
+        def g(name):
+            return self.grid_field(d[:, ci(name)])
+
+        fields = dict(u=g("Ux"), v=g("Uy"), p=g("p"))
+        if "dUx" in fr.channels:
+            fields["u_prev"] = fields["u"] - g("dUx")
+            fields["v_prev"] = fields["v"] - g("dUy")
+            fields["p_prev"] = fields["p"] - g("dp")
+        else:
+            fields["u_prev"] = fields["u"]
+            fields["v_prev"] = fields["v"]
+            fields["p_prev"] = fields["p"]
+        if "dUx_prev" in fr.channels:
+            fields["du_prev"] = g("dUx_prev")
+            fields["dv_prev"] = g("dUy_prev")
+            fields["dp_prev"] = g("dp_prev")
+        return fields
 
 
 @dataclasses.dataclass

@@ -14,31 +14,29 @@ values: "plain" (JAX "xla", the default), "kernel" (JAX "pallas": the
 multisweep kernel) and "kernel-fused" (JAX "pallas-fused": the fused
 down- and up-leg kernels); see `multigrid`.
 
-CGBackend, MGBackend and MGCGBackend also take a fleet's (B, ny, nx)
-operands (piso.batched), with the plain smoother. The kernel smoothers,
-AutoBackend, SurrogateBackend and HybridBackend take one case and raise
-on a case axis: their batched forms are not ported.
+Every backend also takes a fleet's (B, ny, nx) operands (piso.batched),
+where the JAX package vmaps it: each case is solved as if alone (per-case
+norms, exits and escalation). The kernel smoothers take one case and
+raise on a case axis (multigrid.v_cycle).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Callable
+from typing import Callable, Protocol
 
 import torch
 
-from ..fv.pressure import pressure_matvec
-from .cg import pcg_fixed_iters, pcg_pressure
+from ..fv.case import Case
+from ..fv.pressure import PressureCoeffs, pressure_matvec
+from .cg import _norm, pcg_fixed_iters, pcg_pressure
 from .multigrid import mg_solve, mgcg_pressure
 
 
-def _one_case(backend, rhs: torch.Tensor) -> None:
-    if rhs.dim() != 2:
-        raise ValueError(
-            f"{type(backend).__name__} takes one case's (ny, nx) operands, "
-            f"got {tuple(rhs.shape)}: its batched form is not ported; a "
-            "fleet runs CGBackend, MGBackend or MGCGBackend")
+class PressureBackend(Protocol):
+    def __call__(self, case: Case, coef: PressureCoeffs, rhs: torch.Tensor,
+                 p_prev: torch.Tensor, aux: dict) -> torch.Tensor: ...
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,8 +126,12 @@ class AutoBackend:
     """The fixed `cycles`-cycle polish, escalated per solve to MGCG at
     `rtol` and `maxiter`, warm-started from the polished result, when the
     polish leaves a relative residual above `tau` or a non-finite one.
-    The residual probe is read on the host (JAX's lax.cond becomes a host
-    branch)."""
+
+    JAX's lax.cond becomes one host read of the per-case verdicts. On a
+    fleet, as under JAX's vmap (where the cond runs both branches and
+    selects per case), the escalation runs on the whole stack when any
+    case needs it, each case's MGCG exiting on its own residual, and a
+    case that needs none keeps the polished result exactly."""
     cycles: int = 2
     tau: float = 0.05
     rtol: float = 1e-3
@@ -137,41 +139,47 @@ class AutoBackend:
     precision: str = "bf16"          # fast-path polish precision
     escalate_precision: str = "f32"  # preconditioner dtype inside MGCG
 
+    def needs_escalation(self, case, coef, rhs, p1) -> torch.Tensor:
+        """Per case, () or (B,) bool: the polish's relative residual is
+        above `tau` or not finite (NaN compares False)."""
+        r = _norm((rhs - pressure_matvec(coef, p1)) * case.fluid)
+        b = _norm(rhs * case.fluid)
+        return ~(r <= self.tau * b)
+
     def __call__(self, case, coef, rhs, p_prev, aux):
-        _one_case(self, rhs)
         dtype = torch.bfloat16 if self.precision == "bf16" else None
         p1 = mg_solve(coef, rhs, p_prev, cycles=self.cycles,
                       dtype=dtype) * case.fluid
-        r = torch.linalg.norm((rhs - pressure_matvec(coef, p1)) * case.fluid)
-        b = torch.linalg.norm(rhs * case.fluid)
-        # NaN compares False: escalate on a non-finite residual too
-        if bool(r <= self.tau * b):
+        need = self.needs_escalation(case, coef, rhs, p1)
+        if not bool(need.any()):
             return p1
         edtype = torch.bfloat16 if self.escalate_precision == "bf16" \
             else None
-        return mgcg_pressure(coef, rhs, x0=p1, rtol=self.rtol,
-                             maxiter=self.maxiter,
-                             dtype=edtype).x * case.fluid
+        p_esc = mgcg_pressure(coef, rhs, x0=p1, rtol=self.rtol,
+                              maxiter=self.maxiter,
+                              dtype=edtype).x * case.fluid
+        return torch.where(need[..., None, None], p_esc, p1)
 
 
 @dataclasses.dataclass(frozen=True)
 class SurrogateBackend:
-    """The surrogate's pressure alone: p = predict(case, p_prev, aux)."""
+    """The surrogate's pressure alone: p = predict(case, p_prev, aux). A
+    fleet's stacked case goes to `predict` whole (a Predictor predicts it
+    case by case)."""
     predict: Callable
 
     def __call__(self, case, coef, rhs, p_prev, aux):
-        _one_case(self, rhs)
         return self.predict(case, p_prev, aux) * case.fluid
 
 
 @dataclasses.dataclass(frozen=True)
 class HybridBackend:
-    """Surrogate initial guess, then `polish_iters` PCG iterations."""
+    """Surrogate initial guess, then `polish_iters` PCG iterations (per
+    case on a fleet)."""
     predict: Callable
     polish_iters: int = 6
 
     def __call__(self, case, coef, rhs, p_prev, aux):
-        _one_case(self, rhs)
         p_guess = self.predict(case, p_prev, aux) * case.fluid
         return pcg_fixed_iters(coef, rhs, p_guess,
                                iters=self.polish_iters).x * case.fluid

@@ -6,9 +6,10 @@ iteration count (`pcg_fixed_iters`, the capped polish of a warm start; no
 host read).
 
 Operands are (ny, nx) or (B, ny, nx). With a case axis the norms, inner
-products and step lengths are per case, and a case that has converged is
-frozen while the others iterate (a batched lax.while_loop's semantics),
-so each case takes the iterations it would take alone.
+products and step lengths are per case (each case reduced as it would be
+alone), and a case that has converged is frozen while the others iterate
+(a batched lax.while_loop's semantics), so each case takes the
+iterations it would take alone.
 """
 
 from __future__ import annotations
@@ -32,14 +33,25 @@ def diag_precond(coef: PressureCoeffs) -> torch.Tensor:
     return 1.0 / coef.diag
 
 
+def _per_case(reduce, x: torch.Tensor) -> torch.Tensor:
+    """`reduce` of each case's (ny, nx) field: () or (B,). A stack is
+    reduced case by case, so that each case's sum is grouped as it would
+    be alone (one reduction over a (B, ny, nx) tensor may group a case's
+    float32 sum differently, and the bf16 multigrid after an escalated
+    solve turns that last bit into percents)."""
+    if x.dim() == 2:
+        return reduce(x)
+    return torch.stack([reduce(x[k]) for k in range(x.shape[0])])
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-case inner product over the last two dims: () or (B,)."""
-    return (a * b).sum(dim=(-2, -1))
+    return _per_case(lambda x: x.sum(dim=(-2, -1)), a * b)
 
 
 def _norm(a: torch.Tensor) -> torch.Tensor:
     """Per-case 2-norm over the last two dims: () or (B,)."""
-    return torch.linalg.vector_norm(a, dim=(-2, -1))
+    return _per_case(lambda x: torch.linalg.vector_norm(x, dim=(-2, -1)), a)
 
 
 def _running(more: torch.Tensor, k: np.ndarray, limit: int) -> np.ndarray:

@@ -175,6 +175,19 @@ def extract_blocks(layout: BlockLayout, field: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts)[torch.as_tensor(inv, device=field.device)]
 
 
+def extract_blocks_gather(layout: BlockLayout,
+                          field: torch.Tensor) -> torch.Tensor:
+    """All blocks as (N, S, S[, C]) by one indexed read (the JAX
+    package's comparison variant of `extract_blocks`)."""
+    dev = field.device
+    ar = torch.arange(layout.size, device=dev)
+    rows = torch.as_tensor(layout.y0s, device=dev)[:, None, None] \
+        + ar[None, :, None]
+    cols = torch.as_tensor(layout.x0s, device=dev)[:, None, None] \
+        + ar[None, None, :]
+    return field[rows, cols]
+
+
 def block_zero_mean(blocks: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """Remove the per-block masked mean (the surrogate predicts pressure
     only up to a per-block constant)."""

@@ -290,14 +290,15 @@ class Predictor:
                 "surrogate predictors require a uniform grid; this case "
                 "uses a stretched (graded) Grid2D — run the pure solver "
                 "backends there, or resample to a uniform grid")
-        members = ([case] if case.sdf.dim() == 2 else
-                   [fleet_member(case, k) for k in range(case.sdf.shape[0])])
         if self.stitch == "scan":
-            ops = [None] * len(members)
+            ops = [None] * (1 if case.sdf.dim() == 2 else case.sdf.shape[0])
         else:
             key = id(case.sdf)
             hit = self._ops.get(key)
             if hit is None or hit[0] is not case.sdf:
+                members = ([case] if case.sdf.dim() == 2 else
+                           [fleet_member(case, k)
+                            for k in range(case.sdf.shape[0])])
                 layout = self._layout(case)
                 hit = (case.sdf, [stitch_solve_op(
                     layout, extract_blocks(layout, m.sdf)) for m in members])
