@@ -217,6 +217,35 @@ Phases, each printing one JSON line with its elapsed seconds:
           port's compute on the CPU (relative L2), and a 4-rank world
           (tb_init_rank, one thread a rank, contiguous quarters of the
           cells) against the single rank, bit for bit
+  cli-piso  tpufoam_torch/cli.py's piso_main (tpufoam-piso) with
+          bench.py's main path as flags (--backend hybrid, sm_ref512,
+          lstsq, bf16, --momentum-smoother kernel, dt0 5e-4) at 512 x 2048:
+          10 steps written to --state, then 2 resumed with --out and
+          --forces-out; the resumed --out against 12 straight steps of
+          run_piso_eager with the same config built by hand (bit for
+          bit), one momentum launch a step, the matvec launches a step,
+          the CLI's own ms/step lines, health; one more step under
+          utils.profiling.trace (a trace file written) and
+          utils.profiling.memory_report (device_0)
+  cli-piso-small  the CLI's default 128 x 512 with --backend mgcg
+          --smoother kernel (jacobi_multisweep and stencil_matvec
+          launches) and with --turbulence kOmegaSST --turb-wall-fn (k,
+          omega, nu_t finite and at their floors on the fluid cells), 2
+          steps each
+  cli-pinn  pinn_main at its defaults' width (7 x 50 tanh, 20,000
+          collocation points), formulations 1 and 3, 50 Adam and 10
+          L-BFGS steps each, writing a .pkl: the loss falls, the card's
+          loss at the saved parameters against the CPU's; ms per Adam
+          and per L-BFGS step
+  pointcloud  the point-cloud model (models/pointnet.py) on train-data's
+          last 4 frames as clouds (rollout_to_records, n_pts 4096, batch
+          2, a fourth pair padded in its last 96 rows): train_pointcloud
+          8 epochs after a 1-epoch warm-up (ms per train step; the loss
+          falls), its forward against the CPU's, a 3-step rollout
+          (padded rows stay PAD) and rollout_report
+  cli-casegen  casegen_main --sweep 3 and one --shape of each kind: the
+          files written; then one line naming the entry points that read
+          or write HDF5 or plot (not driven here; the CPU tests do)
 A kernel's time is its device time from torch.profiler with the L2
 cache flushed before each call (ms, plain_ms: the plain version's kernels
 summed) beside the per-call span on the
@@ -453,6 +482,36 @@ TRAIN_STEP_TOL = {"loss": 1e-3, "params_l2": 1e-2}
 # bridge_phase's poisson_check)
 BRIDGE_STEPS = 3
 BRIDGE_TOL = {"poisson": 3.0, "sm": PRED_TOL}
+# The command-line entry points (tpufoam_torch/cli.py). cli-piso:
+# bench.py's main path through tpufoam-piso's flags at its full width
+# (512 x 2048, the defaults' length 8 and height 2), CLI_STEPS_A steps
+# written to --state, then CLI_STEPS_B resumed from it: equal to
+# CLI_STEPS_A + CLI_STEPS_B straight steps of run_piso_eager bit for bit.
+# 12 steps in all, as the step phase's 2 + 10: from the impulsive start
+# the flow accelerates under the dt that the last step's Courant number
+# set, so the Courant number reaches maxCo only after some steps (0.562
+# after 3, 0.524 after 5 on the H100).
+# Then the defaults' 128 x 512 with the MGCG kernel smoother and with the
+# SST, CLI_STEPS_SMALL steps each.
+CLI_BUNDLE, CLI_DELTA, CLI_SHAPE = "artifacts/sm_ref512", 0.00390625, \
+    (512, 2048)
+CLI_PISO = ["--backend", "hybrid", "--bundle", CLI_BUNDLE, "--stitch",
+            "lstsq", "--precision", "bf16", "--momentum-smoother", "kernel",
+            "--delta", str(CLI_DELTA), "--dt0", "5e-4"]
+CLI_STEPS_A, CLI_STEPS_B, CLI_STEPS_SMALL = 10, 2, 2
+# cli-pinn: pinn_main at its defaults' width (7 x 50 tanh, 20,000
+# collocation points), formulations 1 and 3, cut in depth from 5,000 Adam
+# and 1,000 L-BFGS steps; the card's loss at the trained parameters
+# against the CPU's, relative
+CLI_PINN_FORMS, CLI_PINN_ADAM, CLI_PINN_LBFGS = (1, 3), 50, 10
+CLI_PINN_TOL = 1e-4
+# pointcloud: the point-cloud model on train-data's last PC_FRAMES frames
+# (pairs of consecutive frames, pointcloud_main's n_pts 4096 and batch 2;
+# a fourth pair is the first with its last PC_PAD rows padded, as a
+# smaller mesh's cloud), PC_EPOCHS epochs after a 1-epoch warm-up call;
+# the card's forward against the CPU's with TF32 off, relative
+PC_FRAMES, PC_NPTS, PC_BATCH, PC_PAD, PC_EPOCHS = 4, 4096, 2, 96, 8
+PC_TOL = 1e-4
 
 
 def say(phase, **kv):
@@ -724,7 +783,7 @@ def train_phases(torch, dev, card, reset_counts, counts):
     """The training path's five phases (train-data, train-pca,
     train-step, train, train-serve). Returns the kernel launches of the
     training rollout and of the served steps, {path: {kernel: n}}, and
-    the rollout's case and last BRIDGE_STEPS frames."""
+    the rollout's case and last PC_FRAMES frames."""
     import tempfile
 
     import numpy as np
@@ -802,7 +861,7 @@ def train_phases(torch, dev, card, reset_counts, counts):
     check(all(launches["train-data"][k] > 0 for k in rows),
           f"train-data: a kernel of rows 1-3 never launched: "
           f"{launches['train-data']}")
-    bridge_frames = frames[-BRIDGE_STEPS:]
+    last_frames = frames[-max(PC_FRAMES, BRIDGE_STEPS):]
     del frames
 
     # ---- train-pca: the device-cached PCA fit and encode -----------------
@@ -966,7 +1025,7 @@ def train_phases(torch, dev, card, reset_counts, counts):
           and launches["train-serve"]["momentum_multisweep"] == n_serve,
           f"train-serve: {predictor.calls} predictions, launches "
           f"{launches['train-serve']} in {n_serve} steps")
-    return launches, case, bridge_frames
+    return launches, case, last_frames
 
 
 def bridge_phase(torch, dev, card, case, frames, reset_counts, counts):
@@ -1207,6 +1266,331 @@ def bridge_phase(torch, dev, card, case, frames, reset_counts, counts):
     say("bridge", card=card, build_s=build_s, grid=rows["poisson"]["grid"],
         client_grid=list(TRAIN_SHAPE), steps=len(steps), models=rows)
     return dict(total)
+
+
+def cli_phases(torch, dev, card, case, frames, reset_counts, counts):
+    """cli-piso, cli-pinn, pointcloud and cli-casegen: the port's
+    command-line entry points on the card (tpufoam_torch/cli.py), the
+    PINN and the point-cloud model. `case` and `frames` are train-data's
+    channel and its rollout's last PC_FRAMES frames. Returns the kernel
+    launches of each CLI run, {path: {kernel: n}}."""
+    import contextlib
+    import io
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from tpufoam_torch import cli
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.eval.pointcloud_rollout import rollout, rollout_report
+    from tpufoam_torch.fv import momentum as fvm
+    from tpufoam_torch.fv.case import build_channel_case, initial_flow
+    from tpufoam_torch.fv.turbulence import K_FLOOR, W_FLOOR
+    from tpufoam_torch.models import pinn
+    from tpufoam_torch.models.pointnet import PAD, PointNetUNet
+    from tpufoam_torch.piso.engine import (PisoConfig, continuity_error,
+                                           courant_number, run_piso_eager)
+    from tpufoam_torch.solvers.backends import MGBackend
+    from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
+                                                  make_predictor)
+    from tpufoam_torch.train.pointcloud import (_pairs_from_array,
+                                                train_pointcloud)
+    from tpufoam_torch.utils import profiling
+    from tpufoam_torch.utils.hdf5_io import rollout_to_records
+
+    launches = {}
+    tmp = tempfile.TemporaryDirectory()
+    work = tmp.name
+    platform = ["--platform", torch.device(dev).type]
+
+    def run(main, argv, path=None):
+        """main(argv) with its printed lines captured (and echoed); its
+        kernel launches under `path`, counted from 0."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        if path:
+            reset_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if path:
+            launches[path] = counts()
+        text = buf.getvalue()
+        sys.stdout.write(text)
+        return text, wall
+
+    def step_lines(text):
+        """The per-step lines' Co, contErr and ms/step."""
+        return [dict(co=float(m.group(1)), cont=float(m.group(2)),
+                     ms_per_step=float(m.group(3)))
+                for m in re.finditer(r"Co=([\d.e+-]+) contErr=([\d.e+-]+)"
+                                     r".*\[([\d.]+) ms/step\]", text)]
+
+    # ---- cli-piso: bench.py's main path through tpufoam-piso ---------------
+    old_cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        state = os.path.join(work, "state.npz")
+        out = os.path.join(work, "out.npz")
+        csv = os.path.join(work, "forces.csv")
+        text_a, wall_a = run(cli.piso_main, CLI_PISO + platform + [
+            "--steps", str(CLI_STEPS_A), "--state", state])
+        text_b, wall_b = run(cli.piso_main, CLI_PISO + platform + [
+            "--steps", str(CLI_STEPS_B), "--state", state, "--out", out,
+            "--forces-out", csv], path="cli-piso")
+        loops = fvm.jacobi_momentum.sweep_loops
+    finally:
+        os.chdir(old_cwd)
+    k_piso = launches["cli-piso"]
+    got = np.load(out)
+    rows = [line.split(",") for line in open(csv).read().split()]
+
+    # the same config built by hand, CLI_STEPS_A + CLI_STEPS_B straight
+    geom = channel_case_geometry("cylinder", length=8.0, height=2.0,
+                                 obstacle_size=0.5, nu=8e-3)
+    rcase = build_channel_case(geom, delta=CLI_DELTA, device=dev)
+    check(tuple(rcase.grid.shape) == CLI_SHAPE,
+          f"cli-piso: grid {tuple(rcase.grid.shape)}")
+    rcfg = PisoConfig(n_correctors=2, max_co=0.5, convection="limitedLinear",
+                      convection_blend=1.0, ddt="euler", ddt_corr=False,
+                      wall_order=1, wall_link="full",
+                      momentum_smoother="kernel", turb_wall_fn=False)
+    rbe = MGBackend(cycles=2, precision="bf16", smoother="plain")
+    rpred = make_predictor(SurrogateBundle.load(
+        os.path.join(ROOT, CLI_BUNDLE), device=dev),
+        stitch="lstsq", precision="bf16")
+    ref = run_piso_eager(rcase, initial_flow(rcase, 5e-4),
+                         CLI_STEPS_A + CLI_STEPS_B, cfg=rcfg, backend=rbe,
+                         sm_predict=rpred)
+    diff = {k: float(np.abs(got[k] - getattr(ref, k).cpu().numpy()).max())
+            for k in ("u", "v", "p")}
+    diff["t"] = abs(float(got["t"]) - float(ref.t))
+    finite = all(bool(np.isfinite(got[k]).all()) for k in ("u", "v", "p"))
+    cont = float(continuity_error(rcase, ref))
+    co = float(courant_number(rcase, ref))
+    # one more step under the profiling module's trace, and its memory
+    trace_dir = os.path.join(work, "trace")
+    with profiling.trace(trace_dir):
+        ref = run_piso_eager(rcase, ref, 1, cfg=rcfg, backend=rbe,
+                             sm_predict=rpred)
+        torch.cuda.synchronize()
+    traces = os.listdir(trace_dir)
+    trace_bytes = sum(os.path.getsize(os.path.join(trace_dir, f))
+                      for f in traces)
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        trace_momentum = "momentum" in f.read()
+    mem = profiling.memory_report()
+    lines_b = step_lines(text_b)
+    say("cli-piso", card=card, argv=CLI_PISO + platform,
+        shape=list(CLI_SHAPE),
+        steps=[CLI_STEPS_A, CLI_STEPS_B], resumed="resumed from" in text_b,
+        cli_lines=step_lines(text_a) + lines_b,
+        wall_s=[wall_a, wall_b],
+        max_abs_diff_vs_run_piso_eager=diff, kernel_launches=k_piso,
+        launches_per_step={k: v / CLI_STEPS_B for k, v in k_piso.items()},
+        continuity_error=cont, courant=co, finite=finite,
+        forces_rows=len(rows) - 1, momentum_sweep_loops=loops,
+        trace_files=len(traces), trace_bytes=trace_bytes,
+        trace_has_momentum_kernel=trace_momentum,
+        memory_report={k: v for k, v in mem.items()
+                       if k.startswith("device_")})
+    for k, d in diff.items():
+        check(d == 0.0, f"cli-piso: --out {k} against {CLI_STEPS_A} + "
+              f"{CLI_STEPS_B} straight steps: max |diff| {d:.3e}")
+    check(k_piso["momentum_multisweep"] == CLI_STEPS_B and loops == 0,
+          f"cli-piso: {k_piso['momentum_multisweep']} momentum launches in "
+          f"{CLI_STEPS_B} steps, {loops} sweep loops")
+    check(k_piso["stencil_matvec"] > 0, f"cli-piso: launches {k_piso}")
+    check(finite and cont < 1e-4 and co <= 0.5 + 1e-3,
+          f"cli-piso: finite {finite}, continuity {cont:.3e}, Co {co}")
+    check(all(l_["cont"] < 1e-4 and l_["co"] <= 0.5 + 1e-3
+              for l_ in lines_b) and len(lines_b) == 1,
+          f"cli-piso: the CLI's lines {lines_b}")
+    check(len(rows) == 2 and rows[0] == ["t", "Cd", "Cl"]
+          and all(np.isfinite(float(x)) for x in rows[1]),
+          f"cli-piso: forces CSV {rows}")
+    check(len(traces) == 1 and trace_bytes > 0,
+          f"cli-piso: trace directory {traces}")
+    check("device_0" in mem and mem["device_0"]["bytes_in_use"] > 0,
+          f"cli-piso: memory_report {mem}")
+    del rcase, ref, rpred, got
+
+    # ---- the defaults' 128 x 512: MGCG with the kernel smoother, the SST ---
+    small = {}
+    for path, extra in (("cli-mgcg", ["--backend", "mgcg", "--smoother",
+                                      "kernel"]),
+                        ("cli-sst", ["--turbulence", "kOmegaSST",
+                                     "--turb-wall-fn"])):
+        o = os.path.join(work, f"{path}.npz")
+        text, wall = run(cli.piso_main, extra + [
+            "--steps", str(CLI_STEPS_SMALL), "--out", o] + platform,
+            path=path)
+        d = np.load(o)
+        small[path] = dict(
+            cli_lines=step_lines(text), wall_s=wall,
+            kernel_launches=launches[path],
+            finite={k: bool(np.isfinite(d[k]).all()) for k in d.files
+                    if k != "t"},
+            shape=list(d["u"].shape))
+        if path == "cli-sst":
+            # on the fluid cells, as step-turb's check (the solid ones
+            # hold 0); the CLI's default grid, height / 128
+            fl = build_channel_case(geom, delta=2.0 / 128,
+                                    device=dev).fluid.cpu().numpy() > 0
+            small[path]["min"] = {k: float(d[k][fl].min())
+                                  for k in ("k", "omega", "nu_t")}
+            small[path]["floors"] = dict(
+                k=bool((d["k"][fl] >= K_FLOOR).all()),
+                omega=bool((d["omega"][fl] >= W_FLOOR).all()),
+                nu_t=bool((d["nu_t"][fl] >= 0).all()))
+    say("cli-piso-small", card=card, **small)
+    for path, r in small.items():
+        check(all(r["finite"].values()) and r["shape"] == [128, 512]
+              and all(l_["cont"] < 1e-4 and l_["co"] <= 0.5 + 1e-3
+                      for l_ in r["cli_lines"]),
+              f"{path}: {r}")
+    check(launches["cli-mgcg"]["jacobi_multisweep"] > 0
+          and launches["cli-mgcg"]["stencil_matvec"] > 0,
+          f"cli-mgcg: launches {launches['cli-mgcg']}")
+    check(all(small["cli-sst"]["floors"].values()),
+          f"cli-sst: floors {small['cli-sst']['floors']}")
+
+    # ---- cli-pinn: pinn_main at its defaults' width ----------------------
+    phase_s = {"adam": [], "lbfgs": []}
+    impl = {"adam": pinn._adam_phase, "lbfgs": pinn._lbfgs_phase}
+
+    def timed(key):
+        def fn(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r = impl[key](*a, **kw)
+            torch.cuda.synchronize()
+            phase_s[key].append(time.time() - t0)
+            return r
+        return fn
+
+    pinn_rows = []
+    pinn._adam_phase, pinn._lbfgs_phase = timed("adam"), timed("lbfgs")
+    try:
+        for form in CLI_PINN_FORMS:
+            pkl = os.path.join(work, f"pinn{form}.pkl")
+            text, wall = run(cli.pinn_main, [
+                "--formulation", str(form), "--adam-steps",
+                str(CLI_PINN_ADAM), "--lbfgs-steps", str(CLI_PINN_LBFGS),
+                "--out", pkl] + platform)
+            with open(pkl, "rb") as f:
+                blob = pickle.load(f)
+            cfg = pinn.PinnConfig(**blob["cfg"])
+            batch = pinn.make_training_points(cfg, n_colloc=20000,
+                                              device="cpu")
+            loss = {}
+            for where in (dev, "cpu"):
+                p = pinn.pinn_params_from_numpy(blob["params"], device=where)
+                b = {k: v.to(where) for k, v in batch.items()}
+                loss[str(where)] = float(pinn.pinn_loss(p, cfg, b).detach())
+            hist = blob["history"]
+            pinn_rows.append(dict(
+                formulation=form, history=hist, wall_s=wall,
+                ms_per_adam_step=phase_s["adam"][-1] * 1e3 / CLI_PINN_ADAM,
+                ms_per_lbfgs_step=(phase_s["lbfgs"][-1] * 1e3
+                                   / CLI_PINN_LBFGS),
+                loss_card=loss[str(dev)], loss_cpu=loss["cpu"],
+                rel_diff=abs(loss[str(dev)] - loss["cpu"])
+                / abs(loss["cpu"])))
+    finally:
+        pinn._adam_phase, pinn._lbfgs_phase = impl["adam"], impl["lbfgs"]
+    say("cli-pinn", card=card, width=[50] * 7, n_colloc=20000,
+        adam_steps=CLI_PINN_ADAM, lbfgs_steps=CLI_PINN_LBFGS,
+        runs=pinn_rows, tol=CLI_PINN_TOL)
+    for r in pinn_rows:
+        check(np.isfinite(r["history"]).all()
+              and r["history"][-1] < r["history"][0],
+              f"cli-pinn {r['formulation']}: history {r['history']}")
+        check(r["rel_diff"] <= CLI_PINN_TOL,
+              f"cli-pinn {r['formulation']}: card {r['loss_card']} vs CPU "
+              f"{r['loss_cpu']}")
+
+    # ---- pointcloud: train-data's last frames as point clouds -------------
+    t0 = time.time()
+    data = np.stack(rollout_to_records(case, frames))[None]
+    ds = _pairs_from_array(data, n_pts=PC_NPTS)
+    padded = {k: getattr(ds, k)[:1].copy()
+              for k in ("fields", "targets", "coords")}
+    for a in padded.values():
+        a[:, -PC_PAD:] = PAD
+    for k, a in padded.items():
+        setattr(ds, k, np.concatenate([getattr(ds, k), a]))
+    ds.sim_ids = np.concatenate([ds.sim_ids, ds.sim_ids[:1]])
+    prep_s = time.time() - t0
+    train_pointcloud(ds, epochs=1, batch_size=PC_BATCH, device=dev)
+    n_steps = PC_EPOCHS * (len(ds.fields) // PC_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model, params, hist = train_pointcloud(ds, epochs=PC_EPOCHS,
+                                           batch_size=PC_BATCH, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    start = len(ds.fields) - 1             # the padded copy of pair 0
+    f_ = torch.tensor(ds.fields[start:], device=dev)
+    c_ = torch.tensor(ds.coords[start:], device=dev)
+    with torch.no_grad():
+        out_card = model(f_, c_)[0].cpu()
+        cpu_model = PointNetUNet()
+        cpu_model.load_state_dict({k: v.cpu() for k, v in params.items()})
+        out_cpu = cpu_model(f_.cpu(), c_.cpu())[0]
+    fwd_err = float((out_card - out_cpu).abs().max()
+                    / out_cpu.abs().max())
+    t0 = time.time()
+    pred = rollout(model, None, ds.fields[start], ds.coords[start], 3)
+    roll_s = time.time() - t0
+    true = ds.targets[:3].copy()
+    true[:, -PC_PAD:] = PAD
+    rep = rollout_report(pred, true)
+    pad_kept = bool((pred[:, -PC_PAD:] == PAD).all())
+    say("pointcloud", card=card, pairs=len(ds.fields), n_pts=PC_NPTS,
+        batch=PC_BATCH, epochs=PC_EPOCHS, history=hist, prep_s=prep_s,
+        ms_per_train_step=train_s * 1e3 / n_steps, rollout_s=roll_s,
+        forward_rel_err_vs_cpu=fwd_err, pad_rows_kept=pad_kept,
+        rollout_rmse_pct={k: [r.rmse_pct for r in v]
+                          for k, v in rep.items()})
+    check(np.isfinite(hist).all() and hist[-1] < hist[0],
+          f"pointcloud: loss history {hist}")
+    check(fwd_err <= PC_TOL, f"pointcloud: card vs CPU forward {fwd_err:.3e}")
+    check(pad_kept and np.isfinite(pred[:, :-PC_PAD]).all(),
+          "pointcloud: the rollout's padded rows left PAD")
+    del model, params, cpu_model
+
+    # ---- cli-casegen: the OpenFOAM case writers ---------------------------
+    made = {}
+    for name, argv in [("sweep", ["--sweep", "3"])] + [
+            (s, ["--shape", s]) for s in ("cylinder", "rectangle",
+                                          "triangle", "ellipse", "plate")]:
+        d = os.path.join(work, "cases", name)
+        run(cli.casegen_main, argv + ["--out", d])
+        made[name] = sorted(os.path.relpath(os.path.join(r, f), d)
+                            for r, _, fs in os.walk(d) for f in fs)
+    say("cli-casegen", files=made)
+    check(made["sweep"] == sorted(
+        f"{i}/{f}" for i in range(3) for f in (
+            "params.json", "system/blockMeshDict", "system/mirrorMeshDict")),
+        f"cli-casegen: sweep wrote {made['sweep']}")
+    for name in ("cylinder", "rectangle", "triangle", "ellipse", "plate"):
+        check("system/blockMeshDict" in made[name],
+              f"cli-casegen {name}: {made[name]}")
+    say("cli-not-driven", entry_points=[
+        "datagen_main", "train_main", "eval_main",
+        "bundle_main import-ref / export-ref", "pinn_main and "
+        "pointcloud_main with .h5 files", "eval_main --save-plots",
+        "pointcloud_main rollout --plots-dir"],
+        why="they read or write HDF5 (h5py) or draw plots (matplotlib); "
+            "tests/test_torch_cli_data.py, test_torch_pinn.py, "
+            "test_torch_pointcloud.py and test_torch_utils.py drive them "
+            "on the CPU")
+    tmp.cleanup()
+    return launches
 
 
 def main() -> int:
@@ -3505,13 +3889,18 @@ def main() -> int:
           f"{k_mgcg}")
 
     # ---- the training path -------------------------------------------------
-    train_launches, train_case, bridge_frames = train_phases(
+    train_launches, train_case, train_frames = train_phases(
         torch, dev, card, reset_counts, counts)
 
     # ---- the bridge server on the training rollout's cells ----------------
     bridge_launches = bridge_phase(torch, dev, card, train_case,
-                                   bridge_frames, reset_counts, counts)
-    del train_case, bridge_frames
+                                   train_frames[-BRIDGE_STEPS:],
+                                   reset_counts, counts)
+
+    # ---- the command-line entry points, PINN, the point-cloud model -------
+    cli_launches = cli_phases(torch, dev, card, train_case,
+                              train_frames[-PC_FRAMES:], reset_counts, counts)
+    del train_case, train_frames
 
     kernels = [{
         "name": "momentum_multisweep",
@@ -3563,7 +3952,8 @@ def main() -> int:
     paths = (*train_launches.values(), step_launches,
              sharded_step_launches, fused_launches,
              mgcg_launches, st_launches, fleet_launches, fsh_launches,
-             k_mgcg, auto_launches, bridge_launches)
+             k_mgcg, auto_launches, bridge_launches,
+             *cli_launches.values())
     sweep_launches = sum(k_["jacobi_sweep"] for k_ in paths)
     check(sweep_launches == 0,
           f"a path launched jacobi_sweep {sweep_launches} times")
@@ -3638,7 +4028,7 @@ def main() -> int:
     new_paths = {"step-turb": turb_launches, "step-turb-mgcg": dean_launches,
                  "step-turb-sharded": tsh_launches,
                  "step-poisson": poisson_launches, **train_launches,
-                 "bridge": bridge_launches}
+                 "bridge": bridge_launches, **cli_launches}
     fleet_paths = {"step-fleet-auto": auto_launches}
     for row in kernels:
         name = row["name"].split(" ")[0]

@@ -89,8 +89,13 @@ ROADMAP_A_ITEMS = {"A.7"}
 # Differences by design: the port's DistributedConfig takes torchrun's
 # names (master_addr, master_port, world_size, rank) for what JAX's
 # distributed initialisation calls these.
+# flax modules are dataclasses whose `parent` and `name` place them in a
+# module tree; the port's are torch.nn.Modules, which take their input
+# width instead of inferring it.
 DELIBERATE = {"parallel.distributed.DistributedConfig": {
-    "coordinator_address", "num_processes", "process_id"}}
+    "coordinator_address", "num_processes", "process_id"},
+    **{f"models.pointnet.{c}": {"parent", "name"}
+       for c in ("ConvBN", "DenseBN", "TNet", "Inception", "PointNetUNet")}}
 
 
 def test_the_walk_finds_the_entry_points():
@@ -177,7 +182,41 @@ def test_the_walk_finds_the_entry_points():
                   "surrogate.reference_io.load_sklearn_ipca",
                   "surrogate.reference_io.bundle_from_reference_sidecars",
                   "surrogate.reference_io.export_reference_sidecars",
-                  "bridge.server.BridgeServer", "bridge.server.serve"):
+                  "bridge.server.BridgeServer", "bridge.server.serve",
+                  "cli.piso_main", "cli.casegen_main", "cli.datagen_main",
+                  "cli.train_main", "cli.pinn_main", "cli.pointcloud_main",
+                  "cli.eval_main", "cli.bundle_main",
+                  "models.pinn.PinnConfig", "models.pinn.init_pinn",
+                  "models.pinn.uvp_fn", "models.pinn.pinn_loss",
+                  "models.pinn.make_training_points",
+                  "models.pinn.train_pinn", "models.pinn.save_pinn_h5",
+                  "models.pinn.load_pinn_h5", "models.pointnet.ConvBN",
+                  "models.pointnet.DenseBN", "models.pointnet.TNet",
+                  "models.pointnet.Inception",
+                  "models.pointnet.PointNetUNet",
+                  "models.pointnet.masked_mse",
+                  "models.pointnet.pointnet_loss",
+                  "train.pointcloud.PointCloudDataset",
+                  "train.pointcloud.build_pointcloud_dataset",
+                  "train.pointcloud.train_pointcloud",
+                  "eval.pointcloud_rollout.rollout",
+                  "eval.pointcloud_rollout.rasterize",
+                  "eval.pointcloud_rollout.rollout_report",
+                  "data.casegen.write_blockmesh_dict",
+                  "data.casegen.write_openfoam_case",
+                  "data.casegen.write_mirror_mesh_dict",
+                  "data.blockmesh.MeshSpec2D", "data.blockmesh.write_spec",
+                  "data.blockmesh.cylinder_spec",
+                  "utils.determinism.enable_determinism",
+                  "utils.h5ckpt.save_pytree_h5",
+                  "utils.h5ckpt.load_pytree_h5",
+                  "utils.plotting.plot_fields",
+                  "utils.plotting.save_eval_plots",
+                  "utils.plotting.plot_loss_history",
+                  "utils.profiling.StageTimer", "utils.profiling.trace",
+                  "utils.profiling.memory_report",
+                  "utils.vtk_io.read_legacy_vtk",
+                  "utils.vtk_io.write_legacy_vtk"):
         assert f"tpufoam_torch.{entry}" in names, entry
 
 

@@ -1274,3 +1274,84 @@ def test_resample_and_unstructured_case_on_the_card_equal_the_cpu(cuda):
                            getattr(uc["cpu"].case, name)), name
     assert torch.equal(uc[cuda].grid_field(fr.data[:, 0]).cpu(),
                        uc["cpu"].grid_field(fr.data[:, 0]))
+
+
+def test_pointnet_forward_on_the_card_equals_the_cpu(cuda):
+    """The point-cloud model at n_pts 4096 (pointcloud_main's default),
+    batch 2, seeded weights, TF32 off: its output and penalty on the card
+    against the CPU's to rel 1e-4 (cuDNN's convolutions sum in other
+    orders)."""
+    from tpufoam_torch.models.pointnet import PAD, PointNetUNet
+
+    rng = np.random.default_rng(0)
+    f = rng.uniform(0, 1, (2, 4096, 3)).astype(np.float32)
+    c = rng.uniform(0, 4, (2, 4096, 2)).astype(np.float32)
+    f[1, 3000:], c[1, 3000:] = PAD, PAD
+    model = PointNetUNet(generator=torch.Generator().manual_seed(0))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            ref, ref_o = model(torch.tensor(f), torch.tensor(c))
+            got, got_o = model.to(cuda)(torch.tensor(f, device=cuda),
+                                        torch.tensor(c, device=cuda))
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = float((got.cpu() - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+    assert abs(float(got_o) - float(ref_o)) <= 1e-4 * max(float(ref_o), 1e-6)
+
+
+def test_pinn_loss_on_the_card_equals_the_cpu(cuda):
+    """The 7 x 50 tanh PINN's loss (third derivatives for the psi form)
+    and its gradient at one set of parameters, card against CPU, rel
+    1e-4."""
+    from tpufoam_torch.models import pinn
+    from tpufoam_torch.train.trainer import value_and_grad
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _pinn_card_vs_cpu(cuda, pinn, value_and_grad)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _pinn_card_vs_cpu(cuda, pinn, value_and_grad):
+    from tpufoam_torch.models.mlp import tree_map
+
+    for form in (1, 3):
+        cfg = pinn.PinnConfig(formulation=form)
+        batch = pinn.make_training_points(cfg, n_colloc=2000, device="cpu")
+        params = pinn.init_pinn(form, cfg, device="cpu")
+
+        def on(tree):
+            return tree_map(lambda t: t.to(cuda), tree)
+
+        ref, rg = value_and_grad(lambda p: pinn.pinn_loss(p, cfg, batch),
+                                 params)
+        got, gg = value_and_grad(lambda p: pinn.pinn_loss(p, cfg, on(batch)),
+                                 on(params))
+        assert abs(float(got) - float(ref)) <= 1e-4 * abs(float(ref))
+        for a, b in zip(gg["layers"], rg["layers"]):
+            err = float((a["w"].cpu() - b["w"]).abs().max())
+            assert err <= 1e-4 * float(b["w"].abs().max()) + 1e-7
+
+
+def test_piso_main_on_the_card_launches_the_momentum_kernel(cuda, tmp_path,
+                                                            capsys):
+    """tpufoam-piso --platform cuda at 32 x 128 with the momentum kernel
+    (JAX's flag value "pallas"): one launch a step, finite fields."""
+    from tpufoam_torch.cli import piso_main
+
+    out = str(tmp_path / "out.npz")
+    before = tmom.momentum_multisweep.launches
+    piso_main(["--platform", "cuda", "--delta", "0.0625", "--steps", "2",
+               "--momentum-smoother", "pallas", "--out", out])
+    assert tmom.momentum_multisweep.launches - before == 2
+    d = np.load(out)
+    assert all(np.isfinite(d[k]).all() for k in ("u", "v", "p"))
+    assert "step 2/2" in capsys.readouterr().out

@@ -47,7 +47,7 @@ SKIPPED = {"ops/stencil.py"}
 # Names of ported JAX modules that the port does not define yet, each
 # with the ROADMAP.md section A item that ports it.
 UNPORTED: dict = {}
-ROADMAP_A_ITEMS = {"A.5", "A.6", "A.7", "A.8", "A.9"}
+ROADMAP_A_ITEMS = {"A.5", "A.6", "A.7"}
 # Differences by design: the port's shard_fleet returns one sub-stack per
 # mesh device, so no NamedSharding (a JAX placement object) exists to
 # return.
@@ -95,8 +95,29 @@ def test_the_walk_finds_this_slices_modules():
                 "surrogate/blocks.py", "solvers/backends.py",
                 "utils/hdf5_io.py", "eval/evaluation.py",
                 "models/keras_compat.py", "surrogate/reference_io.py",
-                "bridge/server.py", "parallel/mesh.py"):
+                "bridge/server.py", "parallel/mesh.py", "cli.py",
+                "data/casegen.py", "data/blockmesh.py", "models/pinn.py",
+                "models/pointnet.py", "train/pointcloud.py",
+                "eval/pointcloud_rollout.py", "utils/determinism.py",
+                "utils/h5ckpt.py", "utils/plotting.py", "utils/profiling.py",
+                "utils/vtk_io.py"):
         assert rel in MODULES, rel
+
+
+def _modules(package: str) -> set:
+    root = os.path.join(ROOT, package)
+    return {os.path.relpath(os.path.join(d, f), root)
+            for d, _, files in os.walk(root) for f in files
+            if f.endswith(".py")}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every .py module of the JAX package (its package `__init__` files
+    too) has one at the same path in the port, but `ops/stencil.py`,
+    whose Pallas kernels the launchers of `tpufoam_torch/ops/` replace."""
+    missing = _modules("tpufoam") - _modules("tpufoam_torch") - SKIPPED
+    assert not missing, sorted(missing)
+    assert "ops/stencil.py" in _modules("tpufoam")
 
 
 @pytest.mark.parametrize("rel", MODULES)
@@ -134,6 +155,14 @@ def test_new_modules_import_without_h5py_matplotlib_or_jax():
             "import tpufoam_torch.core.interp, tpufoam_torch.bridge.client\n"
             "import tpufoam_torch.models.keras_compat\n"
             "import tpufoam_torch.surrogate.reference_io\n"
+            "import tpufoam_torch.cli, tpufoam_torch.data.blockmesh\n"
+            "import tpufoam_torch.models.pinn, tpufoam_torch.models.pointnet\n"
+            "import tpufoam_torch.train.pointcloud\n"
+            "import tpufoam_torch.eval.pointcloud_rollout\n"
+            "import tpufoam_torch.utils.h5ckpt, tpufoam_torch.utils.plotting\n"
+            "import tpufoam_torch.utils.profiling\n"
+            "import tpufoam_torch.utils.determinism\n"
+            "import tpufoam_torch.utils.vtk_io\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
