@@ -69,12 +69,22 @@ Phases, each printing one JSON line with its elapsed seconds:
           rest (assembly) and the launches of a call
   step    the hybrid PISO main path (run_piso_eager, MG bf16 backend with
           the plain smoother, sm_ref512 warm start) for a few steps
-  step-sharded  the same path through parallel.mesh.make_sharded_piso_step
-          on a 2 x 2 mesh of the one card: the momentum kernel per block
-          (one launch a step), no single-device launch, no sweep loop
-  parity-sharded  one sharded step against one piso_step from the same
-          state, with the plain and with the kernel pressure smoother
-          (which the sharded step passes through): bit for bit
+  step-sharded  the same path through the domain-decomposed step
+          (parallel.mesh.make_sharded_piso_step) on a 2 x 2 mesh of the
+          one card, 2 + 4 steps: every field resident per block, each
+          stage on haloed windows, the momentum kernel once per block a
+          step (4 launches), every matvec and smoother launch on a
+          block's window (none on a whole level), the coarsest level
+          gathered; its ms/step, launches per step by kernel and route
+          and device memory (torch.cuda.max_memory_allocated, and the
+          peak less what was allocated before the steps) beside the
+          whole step's (step), the case's bytes whole and per block;
+          then one step under a TorchDispatchMode: no op output of a
+          whole-field shape but in the surrogate's gather and the
+          agglomerated levels
+  parity-sharded  one decomposed step against one piso_step from the
+          same state, with the plain, the kernel and the kernel-fused
+          pressure smoothers (each launched per block): bit for bit
   step-fused  the same path with MGBackend(smoother="kernel-fused"); its
           launches per step of smooth_residual and corr_smooth by variant
           and level, each level once a V-cycle in the variant the geometry
@@ -129,8 +139,8 @@ Phases, each printing one JSON line with its elapsed seconds:
           level beside tools/kernel_bounds.py's bound
   step-graded  the graded case with the artifact's settings (MGCG rtol
           1e-6 with the kernel smoother, BDF2, maxCo 0.4, max_dt 5e-4, the
-          momentum kernel): 2 + 4 steps timed with CUDA events (drag and
-          lift after each), then 2 under torch.profiler (busy ms, idle
+          momentum kernel): 2 + 3 steps timed with CUDA events (drag and
+          lift after each), then 1 under torch.profiler (busy ms, idle
           share); the pressure kernels' launches per step by variant and
           level, on every level
   step-options  the same for the three option runs at their published
@@ -156,9 +166,10 @@ Phases, each printing one JSON line with its elapsed seconds:
   step-turb-mgcg  the Dean lane (turb_channel_dean_ny256.json): the same
           with MGCGBackend(rtol=1e-5) and the multisweep kernel smoother;
           CG iterations per solve, launches by variant and level
-  step-turb-sharded  make_sharded_sst_step on a 2 x 2 mesh of the card,
-          one step from step-turb's state against piso_step_sst: bit for
-          bit, one window launch of the sharded momentum kernel
+  step-turb-sharded  the decomposed make_sharded_sst_step on a 2 x 2
+          mesh of the card (k, omega, nu_t resident per block), one step
+          from step-turb's state against piso_step_sst: bit for bit, the
+          momentum kernel once per block, no whole-field sharded launch
   parity-turb  one SST step (MGCG) on the card against the same step on
           the CPU, from the Dean lane's state: u, v, p, k, omega, and nu_t
           by the limiter's branch; the SST alone from one velocity on
@@ -279,6 +290,7 @@ T0 = time.time()
 NY, NX = 512, 2048            # the main path's grid (bench.py)
 SWEEPS = 8
 N_WARM, N_STEPS = 2, 10
+N_SHARDED = 4                 # the decomposed step's timed steps (even)
 N_MGCG = 3                    # pure-solver steps from the impulsive start
 # the Schaefer-Turek 2D-2 hybrid run of artifacts/validation/
 # st_2d2_hybrid_d62_auto.json (scripts/validate_schafer_turek.py): D/delta
@@ -314,8 +326,9 @@ OPTION_PATHS = (
     ("ddt-corr", "2D-2", 0.0032, dict(ddt="backward", ddt_corr=True)),
 )
 # warm-up, timed and profiled steps of the new paths: an even number in
-# all, after which the Courant gate holds from the impulsive start
-N_PATH_WARM, N_PATH_STEPS, N_PATH_PROFILED = 2, 4, 2
+# all, after which the Courant gate holds from the impulsive start (cut
+# from 2 + 4 + 2, whose profiled steps took most of the script's time)
+N_PATH_WARM, N_PATH_STEPS, N_PATH_PROFILED = 2, 3, 1
 # odd shapes of random operands for the single-pass kernels
 ODD_SHAPES = ((37, 70), (1, 70), (43, 8), (255, 1377))
 SWEEP_ITERS = (1, 2, 8)
@@ -1623,7 +1636,9 @@ def main() -> int:
                                              make_sharded_sst_step,
                                              shard_case, shard_flow,
                                              shard_fleet, shard_turbulence,
-                                             unshard_fleet)
+                                             unshard_fleet, unshard_flow,
+                                             unshard_turbulence)
+    from tpufoam_torch.parallel import blocks as pblocks
     from tpufoam_torch.piso import engine
     from tpufoam_torch.piso.engine import (PisoConfig, continuity_error,
                                            courant_number, piso_step,
@@ -2445,11 +2460,14 @@ def main() -> int:
 
     # ---- the main path ---------------------------------------------------
     def drive(label, flow, n, be, sm, warm=0, run=None,
-              momentum="momentum_multisweep"):
+              momentum="momentum_multisweep", per_step=1, whole=None):
         """`warm` steps, then `n` steps with the counters set to 0 just
         before and read just after; checks the step's health and that the
-        `momentum` kernel launched once a step. `run(flow, k)` takes k
-        steps (run_piso_eager by default)."""
+        `momentum` kernel launched `per_step` times a step. `run(flow, k)`
+        takes k steps (run_piso_eager by default); `whole(flow)` gives the
+        whole fields of its flow for the health checks. The device memory
+        the steps took: the peak allocated during them, less what was
+        allocated before them (torch.cuda.max_memory_allocated)."""
         if run is None:
             def run(flow_, k):
                 return run_piso_eager(case, flow_, k, cfg=cfg, backend=be,
@@ -2459,6 +2477,8 @@ def main() -> int:
                 flow = run(flow, warm)
             torch.cuda.synchronize()
             reset_counts(predictor)
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
             t = time.time()
@@ -2467,23 +2487,30 @@ def main() -> int:
             ev1.record()
             torch.cuda.synchronize()
             host_s = time.time() - t
+            mem_peak = torch.cuda.max_memory_allocated()
             launched, cycles = counts(), mg.v_cycle.cycles
             loops = fvm.jacobi_momentum.sweep_loops
             sm_calls = predictor.calls
-        finite = all(bool(torch.isfinite(getattr(flow, f)).all())
+        flow_w = flow if whole is None else whole(flow)
+        finite = all(bool(torch.isfinite(getattr(flow_w, f)).all())
                      for f in ("u", "v", "p", "phi_x", "phi_y"))
-        cont = float(continuity_error(case, flow))
-        co = float(courant_number(case, flow))
+        cont = float(continuity_error(case, flow_w))
+        co = float(courant_number(case, flow_w))
         stats = dict(steps=n, ms_per_step=ev0.elapsed_time(ev1) / n,
                      host_ms_per_step=host_s * 1e3 / n,
-                     continuity_error=cont, courant=co, t_sim=float(flow.t),
-                     dt=float(flow.dt), kernel_launches=launched,
+                     continuity_error=cont, courant=co,
+                     t_sim=float(flow_w.t), dt=float(flow_w.dt),
+                     kernel_launches=launched,
                      momentum_sweep_loops=loops, v_cycles=cycles,
-                     sm_predict_calls=sm_calls, finite=finite)
+                     sm_predict_calls=sm_calls, finite=finite,
+                     mem_before_steps_bytes=mem0,
+                     max_memory_allocated_bytes=mem_peak,
+                     mem_of_steps_bytes=mem_peak - mem0)
+        del flow_w
         check(finite, f"{label}: non-finite field")
         check(cont < 1e-4, f"{label}: continuity error {cont:.3e} >= 1e-4")
         check(co <= 0.5 + 1e-3, f"{label}: Courant number {co:.4f} > 0.501")
-        check(launched[momentum] == n and loops == 0,
+        check(launched[momentum] == per_step * n and loops == 0,
               f"{label}: {momentum} launched {launched[momentum]} times "
               f"and the sweep loop ran {loops} times in {n} steps")
         check(sm_calls == (n if sm is not None else 0),
@@ -2526,63 +2553,138 @@ def main() -> int:
           + stats["kernel_launches"]["corr_smooth"] == 0,
           "the plain smoother launched a pressure kernel")
 
-    # ---- the main path through the sharded step, 2 x 2 blocks of the card -
+    # ---- the main path through the decomposed step, 2 x 2 blocks of the
+    # card: every field resident per block, the stages on haloed windows,
+    # the momentum kernel and the pressure kernels once per block
     mesh_step = device_mesh(4, devices=[dev] * 4)
+    torch.cuda.synchronize()
+    mem_case0 = torch.cuda.memory_allocated()
     case_sh = shard_case(mesh_step, case)
+    torch.cuda.synchronize()
+    case_sh_bytes = torch.cuda.memory_allocated() - mem_case0
     step_sh = make_sharded_piso_step(mesh_step, cfg, backend,
-                                     sm_predict=predictor.bind(case))
+                                     sm_predict=predictor)
 
     def run_sharded(flow_, k):
         for _ in range(k):
             flow_ = step_sh(case_sh, flow_)
         return flow_
 
-    _, stats_sh = drive("step-sharded", shard_flow(mesh_step, flow0),
-                        N_STEPS, backend, predictor, warm=N_WARM,
-                        run=run_sharded,
-                        momentum="momentum_multisweep_sharded")
+    flow_sh, stats_sh = drive(
+        "step-sharded", shard_flow(mesh_step, flow0), N_SHARDED, backend,
+        predictor, warm=N_WARM, run=run_sharded, per_step=mesh_step.size,
+        whole=unshard_flow)
     k = stats_sh["kernel_launches"]
+    matvec_blocks = {f"{v_} {p_} {sh_[0]}x{sh_[1]}": n_ / N_SHARDED
+                     for (v_, p_, sh_), n_ in sorted(
+                         st.stencil_matvec.by_shape.items(),
+                         key=lambda kv: (kv[0][1], -kv[0][2][0]))}
+    whole_case_bytes = sum(getattr(case, f_.name).numel() * 4
+                           for f_ in dataclasses.fields(case)
+                           if isinstance(getattr(case, f_.name),
+                                         torch.Tensor))
     say("step-sharded", mesh=mesh_step.shape,
-        step_ms_per_step=stats["ms_per_step"], **stats_sh)
-    check(k["momentum_multisweep"] == 0,
-          f"step-sharded: {k['momentum_multisweep']} single-device "
-          "momentum launches")
-    sharded_routes = dict(sh.momentum_multisweep_sharded.by_route)
-    check(sharded_routes == {"window": N_STEPS},
-          f"step-sharded: momentum launches by route {sharded_routes}")
+        step_ms_per_step=stats["ms_per_step"],
+        step_max_memory_allocated_bytes=stats["max_memory_allocated_bytes"],
+        step_mem_of_steps_bytes=stats["mem_of_steps_bytes"],
+        step_launches_per_step={n_: v_ / N_STEPS for n_, v_ in
+                                stats["kernel_launches"].items()},
+        launches_per_step={n_: v_ / N_SHARDED for n_, v_ in k.items()},
+        launches_by_route_per_step={
+            "momentum_multisweep (block)":
+                k["momentum_multisweep"] / N_SHARDED,
+            "momentum_multisweep_sharded (window)":
+                sh.momentum_multisweep_sharded.by_route["window"]
+                / N_SHARDED,
+            "momentum_multisweep_sharded (exchange)":
+                sh.momentum_multisweep_sharded.by_route["exchange"]
+                / N_SHARDED},
+        matvec_launches_per_step_by_block_shape=matvec_blocks,
+        case_bytes_whole=whole_case_bytes,
+        case_bytes_sharded=sum(
+            b_.numel() * b_.element_size()
+            for f_ in dataclasses.fields(case_sh)
+            if isinstance(getattr(case_sh, f_.name), pblocks.BlockField)
+            for b_ in getattr(case_sh, f_.name).blocks),
+        case_allocated_sharded=case_sh_bytes, **stats_sh)
+    check(k["momentum_multisweep_sharded"] == 0
+          and k["jacobi_multisweep_sharded"] == 0,
+          f"step-sharded: whole-field sharded kernels launched {k}")
+    # every level but the coarsest (agglomerated) stays on the blocks
+    block_levels = set(kernel_bounds.level_shapes(NY, NX)[:-1])
+    check(not block_levels & {sh_ for (_v, _p, sh_)
+                              in st.stencil_matvec.by_shape},
+          f"step-sharded: a matvec launch on a whole level "
+          f"{matvec_blocks}")
     sharded_step_launches = k
 
-    # ---- one sharded step against one piso_step, same state -------------
-    with torch.no_grad():
-        f_single = piso_step(case, flow, cfg, backend, predictor.bind(case))
-        f_sh = step_sh(case_sh, flow)
+    # the residency at full size: during one decomposed step no op makes
+    # a whole-field tensor but the surrogate's gather and the
+    # agglomerated coarse levels
+    from torch.utils._python_dispatch import TorchDispatchMode
+    whole_shapes = {(NY, NX), (NY, NX + 1), (NY + 1, NX)}
+
+    class Shapes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            where = pblocks.current_whole_stage()
+            for t_ in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t_, torch.Tensor) \
+                        and tuple(t_.shape) in whole_shapes:
+                    self.seen[where or "blocks"] += 1
+            return out
+
+    rec = Shapes()
+    with torch.no_grad(), rec:
+        flow_sh = step_sh(case_sh, flow_sh)
         torch.cuda.synchronize()
-    diffs = {name: compare((getattr(f_sh, name),),
-                           (getattr(f_single, name),))[0]
-             for name in ("u", "v", "p", "phi_x", "phi_y", "dt")}
-    # the backend passes through the sharded step: with the multigrid's
-    # kernel smoother the pressure kernel runs on the lead device
-    kern_be = MGBackend(cycles=2, precision="bf16", smoother="kernel")
-    step_shk = make_sharded_piso_step(mesh_step, cfg, kern_be,
-                                      sm_predict=predictor.bind(case))
-    with torch.no_grad():
-        f_single_k = piso_step(case, flow, cfg, kern_be, predictor.bind(case))
-        reset_counts()
-        f_sh_k = step_shk(case_sh, flow)
-        torch.cuda.synchronize()
-        k_shk = counts()
-    diffs_k = {name: compare((getattr(f_sh_k, name),),
-                             (getattr(f_single_k, name),))[0]
-               for name in ("u", "v", "p", "phi_x", "phi_y", "dt")}
-    say("parity-sharded", max_abs_diff=diffs,
-        kernel_smoother_max_abs_diff=diffs_k,
-        kernel_smoother_launches=k_shk)
-    for name, d in [*diffs.items(), *diffs_k.items()]:
-        check(d == 0.0, f"sharded step parity {name}: max |diff| {d:.3e}")
-    check(k_shk["jacobi_multisweep"] > 0
-          and k_shk["momentum_multisweep_sharded"] == 1,
-          f"sharded step with the kernel smoother launched {k_shk}")
-    del f_single, f_sh, f_single_k, f_sh_k
+    say("step-sharded", part="residency", grid=[NY, NX],
+        whole_field_outputs_by_stage=dict(rec.seen))
+    check(rec.seen["blocks"] == 0 and rec.seen["surrogate"] > 0,
+          f"step-sharded: whole-field outputs outside the whole-field "
+          f"stages: {dict(rec.seen)}")
+    del flow_sh
+
+    # ---- one decomposed step against one piso_step, same state ----------
+    # with the plain smoother and each kernel smoother: bit for bit
+    parity_sh, parity_launches = {}, {}
+    for label, be in (("plain", backend),
+                      ("kernel", MGBackend(cycles=2, precision="bf16",
+                                           smoother="kernel")),
+                      ("kernel-fused", MGBackend(cycles=2, precision="bf16",
+                                                 smoother="kernel-fused"))):
+        step_p = make_sharded_piso_step(mesh_step, cfg, be,
+                                        sm_predict=predictor)
+        with torch.no_grad():
+            f_single = piso_step(case, flow, cfg, be, predictor.bind(case))
+            torch.cuda.synchronize()
+            reset_counts()
+            f_sh = unshard_flow(step_p(case_sh, shard_flow(mesh_step,
+                                                           flow)))
+            torch.cuda.synchronize()
+            parity_launches[label] = counts()
+        parity_sh[label] = {name: compare((getattr(f_sh, name),),
+                                          (getattr(f_single, name),))[0]
+                            for name in ("u", "v", "p", "phi_x", "phi_y",
+                                         "dt")}
+        del f_single, f_sh
+    say("parity-sharded", max_abs_diff=parity_sh,
+        kernel_launches=parity_launches)
+    for label, diffs in parity_sh.items():
+        for name, d in diffs.items():
+            check(d == 0.0, f"decomposed step parity ({label}) {name}: "
+                  f"max |diff| {d:.3e}")
+    kl, kf = parity_launches["kernel"], parity_launches["kernel-fused"]
+    check(kl["jacobi_multisweep"] > 0 and kf["smooth_residual"] > 0
+          and kf["corr_smooth"] > 0
+          and kl["momentum_multisweep"] == mesh_step.size
+          and kl["momentum_multisweep_sharded"] == 0,
+          f"decomposed step with the kernel smoothers launched "
+          f"{parity_launches}")
 
     # ---- path 1: the fused V-cycle legs in bf16 --------------------------
     fused_be = MGBackend(cycles=2, precision="bf16", smoother="kernel-fused")
@@ -3268,8 +3370,9 @@ def main() -> int:
     check_mgcg_levels("step-turb-mgcg", stats_d, turb_shapes)
     dean_launches = stats_d["kernel_launches"]
 
-    # the turbulent step over a 2 x 2 mesh of the card, one step from
-    # step-turb's state, against piso_step_sst
+    # the decomposed turbulent step over a 2 x 2 mesh of the card (k,
+    # omega and nu_t resident per block), one step from step-turb's state,
+    # against piso_step_sst
     mesh_t = device_mesh(4, devices=[dev] * 4)
     bound_t = pred_t.bind(case_t)
     step_tsh = make_sharded_sst_step(mesh_t, cfg_t, backend,
@@ -3279,10 +3382,16 @@ def main() -> int:
                    shard_turbulence(mesh_t, turb_t))
         torch.cuda.synchronize()
         reset_counts()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
         f_tsh, t_tsh = step_tsh(*args_sh)
+        ev1.record()
         torch.cuda.synchronize()
+        tsh_ms = ev0.elapsed_time(ev1)
         tsh_launches, tsh_routes = counts(), dict(
             sh.momentum_multisweep_sharded.by_route)
+        f_tsh, t_tsh = unshard_flow(f_tsh), unshard_turbulence(t_tsh)
         f_t1, t_t1 = piso_step_sst(case_t, flow_t, turb_t, cfg_t, backend,
                                    bound_t)
         torch.cuda.synchronize()
@@ -3292,12 +3401,13 @@ def main() -> int:
                                 (getattr(t_t1, name),))[0]
                   for name in TURB_FIELDS})
     say("step-turb-sharded", mesh=mesh_t.shape, max_abs_diff=diffs,
-        kernel_launches=tsh_launches, routes=tsh_routes)
+        kernel_launches=tsh_launches, routes=tsh_routes, ms=tsh_ms,
+        step_turb_ms_per_step=stats_t["ms_per_step"])
     check(all(d == 0 for d in diffs.values()),
           f"step-turb-sharded: differs from piso_step_sst: {diffs}")
-    check(tsh_launches["momentum_multisweep_sharded"] == 1
-          and tsh_launches["momentum_multisweep"] == 0
-          and tsh_routes == {"window": 1},
+    check(tsh_launches["momentum_multisweep_sharded"] == 0
+          and tsh_launches["momentum_multisweep"] == mesh_t.size
+          and not tsh_routes,
           f"step-turb-sharded: launches {tsh_launches}, routes {tsh_routes}")
     del args_sh, f_tsh, t_tsh, f_t1, t_t1
 
@@ -3970,12 +4080,14 @@ def main() -> int:
         "bound_by": sweep_times["512x2048 f32"]["bound_by"],
         "library_ms": None,
     })
-    # no path of either package runs the sharded pressure kernel (the
-    # sharded step's pressure solve runs whole on the lead device): its
-    # count over every driven path, as jacobi_sweep's
+    # no driven path runs the sharded kernels of whole fields any more
+    # (the decomposed step launches rows 1-5 per block; kernel-sharded
+    # holds them): their counts over every driven path, as jacobi_sweep's
     jsh_launches = sum(k_["jacobi_multisweep_sharded"] for k_ in paths)
-    check(jsh_launches == 0,
-          f"a path launched jacobi_multisweep_sharded {jsh_launches} times")
+    msh_launches = sum(k_["momentum_multisweep_sharded"] for k_ in paths)
+    check(jsh_launches == 0 and msh_launches == 0,
+          f"a path launched the whole-field sharded kernels "
+          f"{jsh_launches} and {msh_launches} times")
     kernels.append({
         "name": "momentum_multisweep (batched launch)",
         "route": "cuda",
@@ -3994,7 +4106,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tpufoam_torch/ops/csrc/momentum_multisweep.cu",
         "replaces": "tpufoam/ops/stencil.py:850",
-        "launches": sharded_step_launches["momentum_multisweep_sharded"],
+        "launches": msh_launches,
         "max_abs_err": msh["max_abs_err"],
         "ms": t_msh["ms"],
         "plain_ms": t_msh["plain_ms"],
@@ -4025,7 +4137,8 @@ def main() -> int:
     # counts set to 0 just before each path's timed steps)
     # and on the fleet with AutoBackend (every momentum launch there is the
     # batched launch) and the bridge's served steps
-    new_paths = {"step-turb": turb_launches, "step-turb-mgcg": dean_launches,
+    new_paths = {"step-sharded": sharded_step_launches,
+                 "step-turb": turb_launches, "step-turb-mgcg": dean_launches,
                  "step-turb-sharded": tsh_launches,
                  "step-poisson": poisson_launches, **train_launches,
                  "bridge": bridge_launches, **cli_launches}

@@ -1355,3 +1355,116 @@ def test_piso_main_on_the_card_launches_the_momentum_kernel(cuda, tmp_path,
     d = np.load(out)
     assert all(np.isfinite(d[k]).all() for k in ("u", "v", "p"))
     assert "step 2/2" in capsys.readouterr().out
+
+
+# ---- the domain-decomposed step ---------------------------------------------
+
+
+def _small_channel(device):
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.fv.case import build_channel_case
+    return build_channel_case(channel_case_geometry(
+        "cylinder", length=4.0, height=1.0, obstacle_size=0.3),
+        delta=1.0 / 128, device=device)
+
+
+@pytest.mark.parametrize("smoother", ["plain", "kernel", "kernel-fused"])
+def test_decomposed_step_on_the_card(cuda, smoother):
+    """Two decomposed steps on a 2 x 2 mesh of the card (128 x 512, MG
+    bf16, the momentum kernel) equal two piso_step steps bit for bit, the
+    momentum kernel launched once per block a step and every matvec on a
+    block's window."""
+    from tpufoam_torch.fv.case import initial_flow
+    from tpufoam_torch.parallel.mesh import (make_sharded_piso_step,
+                                             shard_case, shard_flow,
+                                             unshard_flow)
+    from tpufoam_torch.piso.engine import PisoConfig, piso_step
+    from tpufoam_torch.solvers.backends import MGBackend
+
+    case = _small_channel(cuda)
+    cfg = PisoConfig(momentum_smoother="kernel")
+    be = MGBackend(cycles=2, precision="bf16", smoother=smoother)
+    mesh = _card_mesh((2, 2), [cuda] * 4)
+    step = make_sharded_piso_step(mesh, cfg, be)
+    ref = flow = initial_flow(case, 2e-3)
+    sc, sf = shard_case(mesh, case), shard_flow(mesh, flow)
+    with torch.no_grad():
+        for _ in range(2):
+            ref = piso_step(case, ref, cfg, be)
+        before = tmom.momentum_multisweep.launches
+        ts.stencil_matvec.by_shape.clear()
+        for _ in range(2):
+            sf = step(sc, sf)
+        torch.cuda.synchronize()
+    assert tmom.momentum_multisweep.launches - before == 8
+    assert all(shape[0] < 128 and shape[1] < 512
+               for _, _, shape in ts.stencil_matvec.by_shape)
+    got = unshard_flow(sf)
+    for name in ("u", "v", "p", "phi_x", "phi_y", "dt", "t"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+_WORLD = """
+import sys
+sys.path.insert(0, {root!r})
+import torch
+import torch.distributed as dist
+from tpufoam_torch.parallel import distributed as d
+from tpufoam_torch.parallel import mesh as tmesh
+from tpufoam_torch.core.geometry import channel_case_geometry
+from tpufoam_torch.fv.case import build_channel_case, initial_flow
+from tpufoam_torch.piso.engine import PisoConfig
+from tpufoam_torch.solvers.backends import MGBackend
+rank = int(__import__("os").environ["RANK"])
+torch.cuda.set_device(rank)
+assert d.init_distributed(device="cuda") and dist.get_backend() == "nccl"
+mesh = d.global_device_mesh(shape=(2, 1), devices=[f"cuda:{{rank}}"])
+case = build_channel_case(channel_case_geometry(
+    "cylinder", length=4.0, height=1.0, obstacle_size=0.3),
+    delta=1.0 / 128, device=f"cuda:{{rank}}")
+cfg = PisoConfig(momentum_smoother="kernel")
+be = MGBackend(cycles=2, precision="bf16", smoother="kernel")
+outs = []
+for m in (mesh, tmesh.device_mesh(2, shape=(2, 1),
+                                  devices=[f"cuda:{{rank}}"] * 2)):
+    sc = tmesh.shard_case(m, case)
+    sf = tmesh.shard_flow(m, initial_flow(case, 2e-3))
+    step = tmesh.make_sharded_piso_step(m, cfg, be)
+    with torch.no_grad():
+        for _ in range(2):
+            sf = step(sc, sf)
+    outs.append(tmesh.unshard_flow(sf))
+for name in ("u", "v", "p", "phi_x", "phi_y", "dt", "t"):
+    assert torch.equal(getattr(outs[0], name), getattr(outs[1], name)), name
+print("rank", rank, "equal")
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def test_decomposed_world_across_two_cards(cuda):
+    """Two processes, one card each (NCCL refuses two ranks on one card),
+    each owning one block of a 2 x 1 mesh: two decomposed steps equal the
+    same steps on a 2 x 1 mesh of one card bit for bit (the strips cross
+    by NCCL point-to-point copies)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _WORLD.format(root=root)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "MASTER_ADDR": "localhost",
+             "MASTER_PORT": str(port), "WORLD_SIZE": "2",
+             "RANK": str(rank)}) for rank in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out + err
+        assert f"rank {rank} equal" in out, out + err

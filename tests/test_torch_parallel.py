@@ -48,6 +48,7 @@ from tpufoam_torch.fv import momentum as tfvm
 from tpufoam_torch.fv.pressure import PressureCoeffs
 from tpufoam_torch.ops import sharded as tsh
 from tpufoam_torch.ops.momentum import momentum_multisweep_plain
+from tpufoam_torch.ops import stencil as tst
 from tpufoam_torch.ops.stencil import jacobi_multisweep_plain
 from tpufoam_torch.parallel import distributed as tdist
 from tpufoam_torch.parallel import mesh as tmesh
@@ -399,8 +400,13 @@ def test_shard_case_and_flow_check_divisibility(channel):
     flow = tcase.initial_flow(tc, 2e-3)
     mesh = cpu_mesh((4, 2))
     placed = tmesh.shard_case(mesh, tc)
-    assert placed.fluid.device == mesh.lead
-    tmesh.shard_flow(mesh, flow)
+    # resident per block, each block on its device, with its stored halo
+    assert [b.device for b in placed.fluid.blocks] == list(mesh.device_list)
+    assert placed.fluid.blocks[0].shape == (8 + 8, 256 + 8)
+    assert torch.equal(tmesh.unshard_case(placed).fluid, tc.fluid)
+    sf = tmesh.shard_flow(mesh, flow)
+    assert sf.phi_x.blocks[1].shape == (8, 257)      # the outlet's face
+    assert torch.equal(tmesh.unshard_flow(sf).phi_x, flow.phi_x)
     for shape in ((3, 1), (1, 3)):      # 32 rows, 512 columns
         with pytest.raises(ValueError):
             tmesh.shard_case(cpu_mesh(shape), tc)
@@ -435,14 +441,18 @@ def test_sharded_step_matches_jax_and_the_unsharded_step(channel,
 
     mesh = cpu_mesh((2, 2))
     calls = []
-    impl = tfvm.momentum_multisweep_sharded
-    monkeypatch.setattr(tfvm, "momentum_multisweep_sharded",
-                        lambda *a, **kw: calls.append(1) or impl(*a, **kw))
+    for name in ("momentum_multisweep_sharded", "momentum_multisweep"):
+        impl = getattr(tfvm, name)
+        monkeypatch.setattr(tfvm, name, lambda *a, _n=name, _f=impl, **kw:
+                            calls.append((_n, tuple(a[0].shape)))
+                            or _f(*a, **kw))
     cfg = teng.PisoConfig(n_correctors=2, momentum_smoother="kernel")
     step = tmesh.make_sharded_piso_step(mesh, cfg, TMG(cycles=2))
     flow0 = tcase.initial_flow(tc, 2e-3)
-    got = step(tmesh.shard_case(mesh, tc), tmesh.shard_flow(mesh, flow0))
-    assert calls == [1]
+    got = tmesh.unshard_flow(step(tmesh.shard_case(mesh, tc),
+                                  tmesh.shard_flow(mesh, flow0)))
+    # the momentum kernel once per block, on its window of 8 cells
+    assert calls == [("momentum_multisweep", (24, 264))] * 4
     for name in FIELDS:
         r = np.asarray(getattr(ref, name))
         err = float(np.abs(getattr(got, name).numpy() - r).max())
@@ -456,23 +466,28 @@ def test_sharded_step_matches_jax_and_the_unsharded_step(channel,
 @pytest.mark.parametrize("smoother", ["kernel", "kernel-fused"])
 def test_sharded_step_keeps_the_kernel_smoother(channel, smoother,
                                                 monkeypatch):
-    """The pressure solve runs whole on the lead device, so the backend's
-    kernel smoother passes through unchanged (the JAX package downgrades
-    its 'pallas' smoother here) and the step equals `piso_step` with the
-    same backend bit for bit."""
+    """The pressure solve runs on the blocks with the backend's kernel
+    smoother, per block (the JAX package downgrades its 'pallas' smoother
+    here), and the step equals `piso_step` with the same backend bit for
+    bit."""
     _, tc = channel
     mesh = cpu_mesh((2, 2))
     cfg = teng.PisoConfig(n_correctors=1, momentum_smoother="kernel")
     seen = []
-    impl = tmesh.piso_step
-    monkeypatch.setattr(tmesh, "piso_step", lambda *a, **kw:
-                        seen.append(kw["backend"]) or impl(*a, **kw))
+    names = ("jacobi_multisweep",) if smoother == "kernel" \
+        else ("smooth_residual", "corr_smooth")
+    for name in names:
+        impl = getattr(tst, name)
+        monkeypatch.setattr(tst, name, lambda c, x, *a, _f=impl, **kw:
+                            seen.append(tuple(x.shape)) or _f(c, x, *a, **kw))
     backend = TMG(cycles=1, smoother=smoother)
     step = tmesh.make_sharded_piso_step(mesh, cfg, backend)
     flow0 = tcase.initial_flow(tc, 2e-3)
-    got = step(tc, flow0)
-    assert seen == [backend]
-    ref = impl(tc, flow0, cfg, backend)
+    got = tmesh.unshard_flow(step(tmesh.shard_case(mesh, tc),
+                                  tmesh.shard_flow(mesh, flow0)))
+    # every kernel launch on a block's window, none on a whole level
+    assert seen and (32, 512) not in seen and (16, 256) not in seen
+    ref = teng.piso_step(tc, flow0, cfg, backend)
     for name in FIELDS:
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
 
@@ -561,10 +576,10 @@ if dist.get_world_size() == 1:
     print("mesh", mesh.shape)
 else:
     assert d.is_multihost()
-    try:
-        d.global_device_mesh(devices=["cpu"])
-    except NotImplementedError:
-        print("refused")
+    mesh = d.global_device_mesh(devices=["cpu"] * 2)
+    assert mesh.owners == (0, 0, 1, 1)
+    assert mesh.local_blocks == ((0, 1) if dist.get_rank() == 0 else (2, 3))
+    print("mesh", mesh.shape)
 dist.barrier()
 dist.destroy_process_group()
 """
@@ -588,5 +603,4 @@ def test_world_of_processes_with_gloo(world):
     outs = [p.communicate(timeout=120) for p in procs]
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, out + err
-        assert ("mesh {'data': 2, 'model': 2}" if world == 1
-                else "refused") in out
+        assert "mesh {'data': 2, 'model': 2}" in out

@@ -424,6 +424,8 @@ def test_sharded_sst_step_equals_piso_step_sst(cases, smoother):
     st_ = tmesh.shard_turbulence(mesh, t1)
     with torch.no_grad():
         got_f, got_t = step(sc, sf, st_)
+        got_f = tmesh.unshard_flow(got_f)
+        got_t = tmesh.unshard_turbulence(got_t)
         ref_f, ref_t = teng.piso_step_sst(tc, f1, t1, cfg=cfg, backend=be)
     for f in FIELDS:
         assert torch.equal(getattr(got_f, f), getattr(ref_f, f)), f

@@ -324,7 +324,8 @@ def test_fleet_and_mesh_take_the_options(cases, hybrid, alg):
     mesh = tmesh.device_mesh(4, shape=(2, 2), devices=["cpu"] * 4)
     step = tmesh.make_sharded_piso_step(
         mesh, cfg, be, sm_predict=None if sm is None else sm.bind(tc))
-    got = step(tmesh.shard_case(mesh, tc), tmesh.shard_flow(mesh, flows[0]))
+    got = tmesh.unshard_flow(step(tmesh.shard_case(mesh, tc),
+                                  tmesh.shard_flow(mesh, flows[0])))
     ref = teng.piso_step(tc, flows[0], cfg, be,
                          None if sm is None else sm.bind(tc))
     for f in FIELDS + ("t", "dt"):

@@ -48,6 +48,12 @@ hand-written kernels:
 Each launch is counted (`launches`) and counted by route (`by_route`).
 A failed launch raises; neither route stands in for the other.
 
+These wrappers take whole fields, as the JAX functions do. The
+domain-decomposed step (parallel.blocks, piso.decomposed) keeps its
+fields per block and launches the single-device kernels once per block
+on haloed windows; `exchange_halos` serves both, with clipped windows,
+staggered face fields and the blocks of other processes for the latter.
+
 The pressure wrappers fill the haloed diag as the JAX wrapper does when
 the mesh splits an axis: every zero becomes 1 (the halo's zeros beyond
 the domain would divide by zero in the sweeps; a solid cell's zero diag
@@ -113,40 +119,104 @@ def sharded_available_for(shape, mesh, dtype=torch.float32,
                                 "jacobi")
 
 
-def exchange_halos(blocks, mesh, hy: int, hx: int):
-    """blocks: the (dy, dx) grid (a list of rows) of stacked local
-    operands (n_ops, nyl, nxl), each on its mesh device. Returns the grid
-    of haloed blocks (n_ops, nyl + 2 hy, nxl + 2 hx) along the split
-    axes. Per direction one copy moves every operand's edge strip to its
+def exchange_halos(blocks, mesh, hy: int, hx: int, clip: bool = False,
+                   extra: tuple = (0, 0)):
+    """blocks: the (dy, dx) grid (a list of rows) of local operands
+    (..., rows, cols), each on its mesh device; None where another
+    process of the world owns the block (`Mesh.owners`). Returns the grid
+    of haloed blocks along the split axes (None where not owned). Per
+    direction one copy moves every operand's edge strip to its
     neighbour's device, as the JAX package's one stacked `ppermute` does:
     first the N/S strips, then the E/W strips of the N/S-extended blocks,
-    so that the corners come right. Beyond the domain the halo is zero."""
+    so that the corners come right. Between processes the strips go by
+    point-to-point copies (parallel.distributed.p2p).
+
+    Beyond the domain the halo is zero, or with `clip` absent: a block at
+    the domain's edge then ends there, as the whole field does, so that
+    a boundary condition applied at an array's edge lands on the domain's
+    (the domain-decomposed step's windows). `extra` (rows, columns) is a
+    face field's stagger: phi_x has one column more than its cells and
+    phi_y one row more, owned by the last block along that axis, so a
+    block's strip from its upper neighbour is one face deeper than the
+    halo: the window of cells [y0 - h, y1 + h) has the faces
+    [y0 - h, y1 + h]."""
     dy, dx = _dims(mesh)
-    zeros = {}
+    grid = [list(row) for row in blocks]
+    if dy > 1 and hy:
+        grid = _extend(grid, mesh, -2, hy, extra[0], clip)
+    if dx > 1 and hx:
+        grid = _extend(grid, mesh, -1, hx, extra[1], clip)
+    return grid
 
-    def zero(like, shape):
-        key = (like.device, like.dtype, shape)
-        if key not in zeros:
-            zeros[key] = like.new_zeros(shape)
-        return zeros[key]
 
-    if dy > 1:
-        blocks = [[torch.cat([
-            blocks[i - 1][j][:, -hy:].to(b.device) if i > 0
-            else zero(b, (b.shape[0], hy, b.shape[2])),
-            b,
-            blocks[i + 1][j][:, :hy].to(b.device) if i < dy - 1
-            else zero(b, (b.shape[0], hy, b.shape[2]))], dim=1)
-            for j, b in enumerate(row)] for i, row in enumerate(blocks)]
-    if dx > 1:
-        blocks = [[torch.cat([
-            row[j - 1][:, :, -hx:].to(b.device) if j > 0
-            else zero(b, (b.shape[0], b.shape[1], hx)),
-            b,
-            row[j + 1][:, :, :hx].to(b.device) if j < dx - 1
-            else zero(b, (b.shape[0], b.shape[1], hx))], dim=2)
-            for j, b in enumerate(row)] for row in blocks]
-    return blocks
+def _extend(grid, mesh, axis: int, h: int, e: int, clip: bool):
+    """Each block of `grid` with its neighbours' strips along `axis` (-2:
+    the rows i, -1: the columns j): h cells from below, h + e from
+    above, zeros beyond the domain unless `clip`."""
+    dy, dx = len(grid), len(grid[0])
+    n = dy if axis == -2 else dx
+
+    def at(i, j, d):
+        return (i + d, j) if axis == -2 else (i, j + d)
+
+    def strip(t, d):
+        # the strip of neighbour t that the block at its -d side takes
+        return t.narrow(axis, t.shape[axis] - h, h) if d < 0 \
+            else t.narrow(axis, 0, h + e)
+
+    local = [(i, j) for i in range(dy) for j in range(dx)
+             if grid[i][j] is not None]
+    remote = {} if len(local) == dy * dx else _remote_strips(
+        grid, mesh, axis, h, e, at, strip)
+    out = [[None] * dx for _ in range(dy)]
+    for i, j in local:
+        b = grid[i][j]
+        q = i if axis == -2 else j
+        side = {}
+        for d in (-1, 1):
+            if not 0 <= q + d < n:
+                if not clip:
+                    shape = list(b.shape)
+                    shape[axis] = h
+                    side[d] = b.new_zeros(shape)
+                continue
+            ni, nj = at(i, j, d)
+            nb = grid[ni][nj]
+            side[d] = strip(nb, d).to(b.device) if nb is not None \
+                else remote[i, j, d]
+        parts = [t for t in (side.get(-1), b, side.get(1)) if t is not None]
+        out[i][j] = torch.cat(parts, dim=axis)
+    return out
+
+
+def _remote_strips(grid, mesh, axis, h, e, at, strip) -> dict:
+    """The strips that cross processes, exchanged in one round of
+    point-to-point copies: {(i, j, d): strip} for the local blocks whose
+    neighbour at d lies on another process."""
+    from ..parallel.distributed import p2p
+    dy, dx = len(grid), len(grid[0])
+    like = next(b for row in grid for b in row if b is not None)
+    sends, recvs, keys = [], [], []
+    for i in range(dy):
+        for j in range(dx):
+            for d in (-1, 1):
+                ni, nj = at(i, j, d)
+                if not (0 <= ni < dy and 0 <= nj < dx):
+                    continue
+                mine, theirs = grid[i][j], grid[ni][nj]
+                if (mine is None) == (theirs is None):
+                    continue
+                tag = ((i * dx + j) * 2 + (d > 0)) * 2 + (axis == -1)
+                if theirs is not None:       # a neighbour of ours: send
+                    sends.append((strip(theirs, d),
+                                  mesh.owners[i * dx + j], tag))
+                else:                        # our block: receive
+                    shape = list(mine.shape)
+                    shape[axis] = h if d < 0 else h + e
+                    recvs.append((shape, like.dtype, mine.device,
+                                  mesh.owners[ni * dx + nj], tag))
+                    keys.append((i, j, d))
+    return dict(zip(keys, p2p(sends, recvs)))
 
 
 def _layout(mesh, ops, steps: int, name: str):

@@ -14,9 +14,13 @@ Nothing on a GPU host announces a cluster, so the world is given in full
 or not at all: the JAX module's `_on_tpu_pod`, which lets jax detect a
 TPU pod's world from its metadata, has no counterpart.
 
-The mesh of parallel.mesh has no exchange between processes yet (the
-halo exchange is a copy between the blocks of one process), so
-`global_device_mesh` raises in a world of more than one process.
+In a world of several processes `global_device_mesh` builds one mesh of
+every process's devices, in the order JAX's global mesh takes them
+(process by process, each its devices in order), and each process owns
+the blocks on its own devices. The blocks of the domain-decomposed step
+(parallel.blocks) then move their halo strips between processes with
+`p2p` (point-to-point copies: NCCL between cards, gloo on the CPU) and
+join their reductions with `all_gather_blocks`.
 """
 
 from __future__ import annotations
@@ -95,12 +99,60 @@ def is_multihost() -> bool:
 
 def global_device_mesh(shape=None, axis_names=("data", "model"),
                        devices=None):
-    """`device_mesh` over this process's devices. In a world of one
-    process that is every device of the run; in a larger world it
-    raises, since the mesh has no exchange between processes."""
-    from .mesh import device_mesh
-    if is_multihost():
-        raise NotImplementedError(
-            "global_device_mesh: a mesh across processes needs an exchange "
-            "between processes, which is not ported yet")
-    return device_mesh(shape=shape, axis_names=axis_names, devices=devices)
+    """`device_mesh` over every process's devices: this process's
+    `devices` (every visible card when None; ["cpu"] * n names n blocks
+    of the CPU) after those of the lower ranks, as JAX's global mesh
+    orders them. In a world of one process that is `device_mesh`'s mesh;
+    in a larger one each process must give the same number of devices,
+    and each owns the blocks on its own (`Mesh.owners`)."""
+    from .mesh import Mesh, _device, device_mesh
+    if not is_multihost():
+        return device_mesh(shape=shape, axis_names=axis_names,
+                           devices=devices)
+    import torch.distributed as dist
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    mine = [str(_device(d)) for d in devices]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if len({len(d) for d in every}) != 1:
+        raise ValueError(f"global_device_mesh: the processes give "
+                         f"{[len(d) for d in every]} devices")
+    # another process's devices stand in its blocks' places; only this
+    # process's are ever used here
+    whole = device_mesh(shape=shape, axis_names=axis_names,
+                        devices=[d for rank in every for d in rank])
+    per = len(mine)
+    return Mesh(whole.devices, whole.axis_names,
+                owners=tuple(k // per for k in range(whole.size)),
+                rank=dist.get_rank())
+
+
+def p2p(sends, recvs) -> list:
+    """Point-to-point copies between the processes of the world, posted
+    together and waited for: `sends` [(tensor, peer, tag)], `recvs`
+    [(shape, dtype, device, peer, tag)]; returns the received tensors in
+    the order of `recvs`. Every process posts its part of one exchange in
+    the same global order, so the copies between two processes pair up
+    in order (and by tag)."""
+    import torch.distributed as dist
+    out = [torch.empty(shape, dtype=dtype, device=device)
+           for shape, dtype, device, _, _ in recvs]
+    ops = [dist.P2POp(dist.isend, t.contiguous(), peer, tag=tag)
+           for t, peer, tag in sends]
+    ops += [dist.P2POp(dist.irecv, t, peer, tag=tag)
+            for t, (_, _, _, peer, tag) in zip(out, recvs)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+def all_gather_blocks(local: torch.Tensor) -> list:
+    """Every process's `local` (one shape and dtype on every process), in
+    rank order."""
+    import torch.distributed as dist
+    out = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, local.contiguous())
+    return out

@@ -1,40 +1,44 @@
-"""Meshes of devices, the spatially sharded PISO step and the
+"""Meshes of devices, the domain-decomposed PISO step and the
 case-parallel fleet: the counterpart of tpufoam/parallel/mesh.py.
 
 A mesh is a (dy, dx) grid of `torch.device`s with the JAX package's axis
 names ('data' over y, 'model' over x). One process drives every device of
-the mesh, as JAX's single controller does, and a device may repeat: on
+its blocks, as JAX's single controller does, and a device may repeat: on
 one card `device_mesh(4, devices=["cuda:0"] * 4)` is a 2 x 2 mesh of four
 blocks on that card; on a host with four cards `device_mesh(4)` puts one
-block on each.
+block on each. In a world of processes (`parallel.distributed.
+global_device_mesh`) each process owns the blocks on its own devices
+(`Mesh.owners`).
 
 What is sharded. The JAX step keeps every field sharded end to end:
 GSPMD partitions every stencil and reduction and inserts the halo
-exchanges. PyTorch has no such partitioner, so here the fields stay whole
-on the mesh's lead device (`shard_case` and `shard_flow` check the
-divisibility the JAX specs demand and place them there), and the one
-per-block kernel of the JAX step, the momentum multisweep, runs
-decomposed on the mesh (ops.sharded). The numbers equal the single-device
-step's; the memory per device does not shrink with the mesh. A
-domain-decomposed engine, with fields resident per card and an exchange
-between processes, is a later piece of work.
+exchanges. Here `shard_case`, `shard_flow` and `shard_turbulence` make
+every field resident per block (parallel.blocks.BlockField): the cells
+split over (y, x), the face fluxes over both axes too (the last block
+along an axis owns its extra face: the outlet's column of phi_x, the top
+wall's row of phi_y), the inlet profile over y, dt, t, k_in and w_in
+replicated, the case's blocks with a stored halo of `CASE_HALO` cells.
+The decomposed step (`make_sharded_piso_step`, `make_sharded_sst_step`;
+piso.decomposed) runs every stage per block after a halo exchange as
+deep as its reach, the momentum kernel once per block, and the pressure
+solve on the blocks (solvers.decomposed) with its kernels per block, the
+coarsest multigrid levels agglomerated whole on the lead device; only
+the surrogate's stage gathers whole fields, for its call. The memory per
+device shrinks with the mesh; with a fixed-cycle multigrid the result
+equals the single-device step's bit for bit. `unshard_case`,
+`unshard_flow` and `unshard_turbulence` are the way back to whole
+fields. A mesh whose blocks cannot hold a stage's halo raises.
 
 The fleet is the other layout: its case axis is split over the mesh and
 each device steps its own sub-stack of whole cases, with no exchange at
 all.
-
-The turbulent step over a mesh (`shard_turbulence`,
-`make_sharded_sst_step`) is the sharded PISO step with the SST model: the
-fields, the SST state and its transport solves stay whole on the lead
-device, and the momentum kernel runs per block.
 
 The train step over a mesh (`make_sharded_train_step`) is data
 parallel: the batch is split into slices along the mesh's 'data' axis,
 each slice's loss gradient is taken on its device, and the gradients are
 summed on the lead device in a fixed order, where Adam updates the whole
 weights. `mlp_partition_specs` returns the JAX package's tensor-parallel
-spec tree; the weights are not split over 'model' (that belongs to the
-domain-decomposed engine, with the fields).
+spec tree; the weights are not split over 'model'.
 """
 
 from __future__ import annotations
@@ -45,17 +49,24 @@ import math
 import torch
 
 from ..fv.case import Case, Flow
-from ..piso.engine import PisoConfig, piso_step, piso_step_sst
+from ..piso import decomposed
+from ..piso.engine import PisoConfig, piso_step
 from ..solvers.backends import CGBackend
+from .blocks import BlockField, shard_tree, unshard_tree
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A (dy, dx) grid of devices; hashable, so that a frozen PisoConfig
     can hold it. `devices[i][j]` holds block (i, j): rows i*ny/dy.. of y
-    and columns j*nx/dx.. of x."""
+    and columns j*nx/dx.. of x. `owners` (a world of processes,
+    parallel.distributed.global_device_mesh) gives the rank that owns
+    each block, row-major, and `rank` this process's; None: one process
+    owns every block."""
     devices: tuple
     axis_names: tuple = ("data", "model")
+    owners: tuple | None = None
+    rank: int = 0
 
     def __post_init__(self):
         rows = tuple(tuple(_device(d) for d in row) for row in self.devices)
@@ -84,8 +95,19 @@ class Mesh:
 
     @property
     def lead(self) -> torch.device:
-        """The device that holds the global fields."""
-        return self.devices[0][0]
+        """The device that holds whole fields: this process's first
+        device (the mesh's first in a world of one process)."""
+        return self.device_list[self.local_blocks[0]]
+
+    @property
+    def local_blocks(self) -> tuple:
+        """The row-major indices of the blocks this process owns."""
+        if self.owners is None:
+            return tuple(range(self.size))
+        return tuple(k for k, r in enumerate(self.owners) if r == self.rank)
+
+    def is_local(self, k: int) -> bool:
+        return self.owners is None or self.owners[k] == self.rank
 
 
 def _device(d) -> torch.device:
@@ -130,94 +152,109 @@ def device_mesh(n_devices: int | None = None,
 # spatially sharded PISO
 # ---------------------------------------------------------------------------
 
-# the axes each field is split along, by the JAX package's specs
-# (`_case_specs`, `_flow_specs`): cells over (y, x); the inlet profile
-# over y; the face fluxes only along their cell-aligned axis (phi_x has
-# nx + 1 columns, phi_y ny + 1 rows); dt and t replicated
-_CELL = ("data", "model")
-_CASE_SPLIT = {"inlet_u": ("data",)}
-_FLOW_SPLIT = {"phi_x": ("data", None), "phi_y": (None, "model"),
-               "dt": (), "t": ()}
-_TURB_SPLIT = {"k_in": (), "w_in": ()}
-
-
-def _place(mesh: Mesh, tree, split: dict):
-    """Check that every tensor field of `tree` divides along the mesh axes
-    of its spec, and place it on the lead device."""
-    moved = {}
-    for f in dataclasses.fields(tree):
-        t = getattr(tree, f.name)
-        if not isinstance(t, torch.Tensor):
-            continue
-        spec = split.get(f.name, _CELL)
-        for axis, name in zip(range(-len(spec), 0), spec):
-            if name is not None and t.shape[axis] % mesh.shape[name]:
-                raise ValueError(
-                    f"{f.name} {tuple(t.shape)}: axis {axis} does not divide "
-                    f"over the mesh's {name!r} axis of {mesh.shape[name]}")
-        moved[f.name] = t.to(mesh.lead)
-    return dataclasses.replace(tree, **moved)
+# the JAX package's specs (`_case_specs`, `_flow_specs`, `_turb_specs`)
+# split every cell field over (y, x), the inlet profile over y and
+# replicate dt, t, k_in and w_in; here the face fluxes split over both
+# axes too (parallel.blocks): no block holds a whole row of faces
+_FACES = {"phi_x": (0, 1), "phi_y": (1, 0)}
+# the halo each block of the case stores: the deepest stage of the step
+# (the momentum kernel's sweeps; the SST transport's 6)
+CASE_HALO = 8
 
 
 def shard_flow(mesh: Mesh, flow: Flow) -> Flow:
-    """`flow` on the mesh's lead device, after checking that each field
-    divides as the JAX package's `_flow_specs` demand."""
-    return _place(mesh, flow, _FLOW_SPLIT)
+    """`flow` resident per block of `mesh`: every field a
+    parallel.blocks.BlockField, its blocks on their mesh devices (phi_x's
+    last column and phi_y's last row owned by the last block along that
+    axis; dt and t replicated). Raises where a field does not divide."""
+    return shard_tree(mesh, flow, _FACES)
 
 
-def shard_case(mesh: Mesh, case: Case) -> Case:
-    """`case` on the mesh's lead device, after checking that each field
-    divides as the JAX package's `_case_specs` demand."""
-    return _place(mesh, case, _CASE_SPLIT)
+def shard_case(mesh: Mesh, case: Case, halo: int = CASE_HALO) -> Case:
+    """`case` resident per block of `mesh`: every tensor field a
+    BlockField whose blocks store a halo of `halo` cells (their windows,
+    clipped at the domain's edges), from which each stage of the
+    decomposed step cuts its window as a view. Raises where the grid does
+    not divide or a block cannot hold the halo."""
+    dy, dx = len(mesh.devices), len(mesh.devices[0])
+    return shard_tree(mesh, case, {}, (halo if dy > 1 else 0,
+                                       halo if dx > 1 else 0))
+
+
+def shard_turbulence(mesh: Mesh, turb):
+    """The SST state (fv.turbulence.TurbState) resident per block of
+    `mesh`: k, omega and nu_t split as cell fields, k_in and w_in
+    replicated."""
+    return shard_tree(mesh, turb, {})
+
+
+def unshard_flow(flow: Flow) -> Flow:
+    """The whole fields of a sharded Flow on the mesh's lead device: the
+    way back from the blocks."""
+    return unshard_tree(flow)
+
+
+def unshard_case(case: Case) -> Case:
+    """The whole fields of a sharded Case on the mesh's lead device."""
+    return unshard_tree(case)
+
+
+def unshard_turbulence(turb):
+    """The whole fields of a sharded TurbState on the mesh's lead
+    device."""
+    return unshard_tree(turb)
 
 
 def make_sharded_piso_step(mesh: Mesh, cfg: PisoConfig = PisoConfig(),
                            backend=None, sm_predict=None):
-    """The PISO step over `mesh`: step(case, flow) -> flow, with the case
-    and flow of `shard_case` and `shard_flow`. With
-    momentum_smoother='kernel' the momentum kernel runs per block of the
-    mesh on halo-extended blocks (`cfg.shard_mesh`,
-    ops.sharded.momentum_multisweep_sharded); everything else, the
-    pressure solve with its kernel smoothers included, runs on the lead
-    device as in `piso_step`, and the result equals `piso_step`'s. The
-    JAX package downgrades a 'pallas' pressure smoother to 'xla' here,
-    because GSPMD cannot partition its kernel; the fields are whole on the
-    lead device here, so the backend passes through unchanged."""
+    """The domain-decomposed PISO step over `mesh`: step(case, flow) ->
+    flow, with the case and flow of `shard_case` and `shard_flow`, every
+    field resident per block on its mesh device (piso.decomposed). Each
+    stencil stage runs per block after a halo exchange as deep as its
+    reach, the momentum kernel once per block, and the pressure solve on
+    the blocks with its kernels (solvers.decomposed: MGBackend,
+    MGCGBackend, CGBackend or AutoBackend), gathering only its coarsest
+    levels; `sm_predict` predicts on fields gathered for the call. With a
+    fixed-cycle multigrid the result equals `piso_step`'s bit for bit.
+    The JAX package downgrades a 'pallas' pressure smoother to 'xla'
+    here, because GSPMD cannot partition its kernel; the port keeps its
+    kernels, per block. `cfg.shard_mesh` plays no part: the fields are
+    already blocks."""
     backend = backend or CGBackend(rtol=1e-5, maxiter=200)
-    if cfg.momentum_smoother == "kernel" and cfg.shard_mesh is None:
-        cfg = dataclasses.replace(cfg, shard_mesh=mesh)
+    cfg = dataclasses.replace(cfg, shard_mesh=None)
+    predict = None if sm_predict is None else decomposed.SurrogateStage(
+        sm_predict)
 
     def step(case: Case, flow: Flow) -> Flow:
-        return piso_step(case, flow, cfg=cfg, backend=backend,
-                         sm_predict=sm_predict)
+        _check_mesh(mesh, case)
+        return decomposed.piso_step(case, flow, cfg=cfg, backend=backend,
+                                    sm_predict=predict)
 
     return step
 
 
-def shard_turbulence(mesh: Mesh, turb):
-    """The SST state (fv.turbulence.TurbState) on the mesh's lead device,
-    after checking that k, omega and nu_t divide over the mesh as the JAX
-    package's `_turb_specs` demand (k_in, w_in replicated)."""
-    return _place(mesh, turb, _TURB_SPLIT)
+def _check_mesh(mesh: Mesh, case: Case):
+    if not isinstance(case.fluid, BlockField) or case.fluid.mesh != mesh:
+        raise ValueError("the sharded step takes the case of "
+                         "shard_case(mesh, case) on its own mesh")
 
 
 def make_sharded_sst_step(mesh: Mesh, cfg: PisoConfig = PisoConfig(),
                           backend=None, sm_predict=None):
-    """The turbulent step over `mesh`: step(case, flow, turb) -> (flow,
-    turb), with the case, flow and SST state of `shard_case`, `shard_flow`
-    and `shard_turbulence`. As `make_sharded_piso_step`: with
-    momentum_smoother='kernel' the momentum kernel runs per block of the
-    mesh (`cfg.shard_mesh`), and everything else, the SST transport solves
-    included, runs on the lead device as in `piso_step_sst`, whose result
-    it equals. (The JAX package lets GSPMD partition the SST stencils; the
-    fields are whole on the lead device here, so they need no exchange.)"""
+    """The domain-decomposed turbulent step over `mesh`: step(case, flow,
+    turb) -> (flow, turb), with the case, flow and SST state of
+    `shard_case`, `shard_flow` and `shard_turbulence`: the decomposed
+    PISO step of `make_sharded_piso_step`, then the SST transport per
+    block; k, omega and nu_t stay resident per block."""
     backend = backend or CGBackend(rtol=1e-5, maxiter=200)
-    if cfg.momentum_smoother == "kernel" and cfg.shard_mesh is None:
-        cfg = dataclasses.replace(cfg, shard_mesh=mesh)
+    cfg = dataclasses.replace(cfg, shard_mesh=None)
+    predict = None if sm_predict is None else decomposed.SurrogateStage(
+        sm_predict)
 
     def step(case: Case, flow: Flow, turb):
-        return piso_step_sst(case, flow, turb, cfg=cfg, backend=backend,
-                             sm_predict=sm_predict)
+        _check_mesh(mesh, case)
+        return decomposed.piso_step_sst(case, flow, turb, cfg=cfg,
+                                        backend=backend, sm_predict=predict)
 
     return step
 

@@ -106,8 +106,10 @@ class PisoConfig:
     shard_mesh: object = None         # parallel.mesh.Mesh (hashable): the
                                       # momentum kernel then runs per block
                                       # of the mesh on halo-extended blocks
-                                      # (ops.sharded; set by parallel.mesh.
-                                      # make_sharded_piso_step)
+                                      # of the whole fields (ops.sharded;
+                                      # the decomposed step of parallel.
+                                      # mesh keeps its fields per block and
+                                      # needs none)
 
 
 def courant_number(case: Case, flow: Flow) -> torch.Tensor:
@@ -140,10 +142,15 @@ def continuity_error(case: Case, flow: Flow) -> torch.Tensor:
 
 def _next_dt(case: Case, flow: Flow, cfg: PisoConfig) -> torch.Tensor:
     """setDeltaT.H: damped growth toward maxCo, hard caps."""
-    co = courant_number(case, flow) / torch.clamp(flow.dt, min=1e-12)
+    return _dt_from_courant(courant_number(case, flow), flow.dt, cfg)
+
+
+def _dt_from_courant(co, dt, cfg: PisoConfig) -> torch.Tensor:
+    """_next_dt from the Courant number `co` of the step of size `dt`."""
+    co = co / torch.clamp(dt, min=1e-12)
     dt_co = cfg.max_co / torch.clamp(co, min=1e-12)
-    new_dt = torch.clamp(torch.minimum(dt_co, 1.2 * flow.dt), max=cfg.max_dt)
-    return new_dt.to(flow.dt.dtype)
+    new_dt = torch.clamp(torch.minimum(dt_co, 1.2 * dt), max=cfg.max_dt)
+    return new_dt.to(dt.dtype)
 
 
 def _gate_sm_prediction(p_sm: torch.Tensor, p_prev: torch.Tensor,
@@ -182,14 +189,20 @@ def _rescue_if_unconverged(case: Case, pcoef, rhs, p_cand, p_fallback,
     bad = ~ok(p_cand)
     if not bool(bad.any()):
         return p_cand
+    _rescue_if_unconverged.solves += 1
     pc = backend(case, pcoef, rhs, p_fallback * case.fluid, aux)
     for _ in range(cfg.sm_safeguard_extra - 1):
         todo = bad & ~ok(pc)
         if not bool(todo.any()):
             break
+        _rescue_if_unconverged.solves += 1
         pc = torch.where(per_case(todo), backend(case, pcoef, rhs, pc, aux),
                          pc)
     return torch.where(per_case(bad), pc, p_cand)
+
+
+# the safeguard's rescue solves (its decisions), counted
+_rescue_if_unconverged.solves = 0
 
 
 def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),

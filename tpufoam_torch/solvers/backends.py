@@ -68,25 +68,29 @@ class MGBackend:
                              # loop exits once the relative residual
                              # clears rtol (mg_solve)
 
-    def __call__(self, case, coef, rhs, p_prev, aux):
+    def solve_kwargs(self) -> dict:
+        """mg_solve's keyword arguments (with the warnings below); the
+        decomposed solve (solvers.decomposed) takes the same."""
         dtype = torch.bfloat16 if self.precision == "bf16" else None
         pre, post = self.pre, self.post
         if pre < 1 or post < 1 or pre + post < 3:
             warnings.warn(
                 f"MGBackend(pre={self.pre}, post={self.post}) is not a "
-                "contraction standalone; clamping to V(2,2).", stacklevel=2)
+                "contraction standalone; clamping to V(2,2).", stacklevel=3)
             pre, post = 2, 2
         if dtype is not None and 0.0 < self.rtol < 0.15:
             warnings.warn(
                 f"MGBackend(precision='bf16', rtol={self.rtol:g}) is below "
                 "the ~0.10 bf16 correction-form residual noise floor; every "
                 "step will run the full cycle cap. Use rtol >= 0.15 with "
-                "bf16, or precision='f32'.", stacklevel=2)
-        return mg_solve(coef, rhs, p_prev, cycles=self.cycles,
-                        pre=pre, post=post, dtype=dtype,
-                        smoother=self.smoother, max_levels=self.max_levels,
-                        coarse_iters=self.coarse_iters,
-                        rtol=self.rtol) * case.fluid
+                "bf16, or precision='f32'.", stacklevel=3)
+        return dict(cycles=self.cycles, pre=pre, post=post, dtype=dtype,
+                    smoother=self.smoother, max_levels=self.max_levels,
+                    coarse_iters=self.coarse_iters, rtol=self.rtol)
+
+    def __call__(self, case, coef, rhs, p_prev, aux):
+        return mg_solve(coef, rhs, p_prev,
+                        **self.solve_kwargs()) * case.fluid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +108,9 @@ class MGCGBackend:
     pre: int | None = None
     post: int | None = None
 
-    def __call__(self, case, coef, rhs, p_prev, aux):
+    def solve_kwargs(self) -> dict:
+        """mgcg_pressure's keyword arguments; the decomposed solve
+        (solvers.decomposed) takes the same."""
         dtype = torch.bfloat16 if self.precision == "bf16" else None
         default = 2 if self.cycle_type == "w" else 1
         pre = default if self.pre is None else self.pre
@@ -115,10 +121,13 @@ class MGCGBackend:
                 f"preconditioner (pre={self.pre}, post={self.post}, "
                 f"cycle default {default}); plain CG requires pre == post "
                 f"— set both explicitly")
-        return mgcg_pressure(coef, rhs, x0=p_prev, rtol=self.rtol,
-                             maxiter=self.maxiter, dtype=dtype,
-                             pre=pre, post=post, smoother=self.smoother,
-                             cycle_type=self.cycle_type).x * case.fluid
+        return dict(rtol=self.rtol, maxiter=self.maxiter, dtype=dtype,
+                    pre=pre, post=post, smoother=self.smoother,
+                    cycle_type=self.cycle_type)
+
+    def __call__(self, case, coef, rhs, p_prev, aux):
+        return mgcg_pressure(coef, rhs, x0=p_prev,
+                             **self.solve_kwargs()).x * case.fluid
 
 
 @dataclasses.dataclass(frozen=True)

@@ -172,34 +172,84 @@ def build_hierarchy(coef: PressureCoeffs, min_size: int = 8,
 
 
 def _smooth(coef: PressureCoeffs, x: torch.Tensor, b: torch.Tensor,
-            iters: int, smoother: str = "plain",
-            omega: float = 0.8) -> torch.Tensor:
+            iters: int, smoother: str = "plain", omega: float = 0.8,
+            shape=None) -> torch.Tensor:
     """One level's smoother. smoother="kernel" takes the multisweep kernel
     where the JAX package takes its Pallas kernel: when the kernel fits the
     level (`kernel_available_for`) and iters <= `_halo_for(dtype)`; other
     levels, and other smoothers, take `jacobi_smooth`. This is the same
     deterministic choice the JAX package makes, not a fallback on failure:
-    on a CUDA tensor the kernel launches or raises."""
+    on a CUDA tensor the kernel launches or raises. `shape` is the level's
+    whole shape where x is one block's window of it (the decomposed
+    solve: the block takes the whole level's choice)."""
+    shape = tuple(x.shape) if shape is None else tuple(shape)
     if (smoother == "kernel"
-            and stencil.kernel_available_for(tuple(x.shape), x.dtype,
-                                             "jacobi")
+            and stencil.kernel_available_for(shape, x.dtype, "jacobi")
             and iters <= stencil._halo_for(x.dtype)):
         return stencil.jacobi_multisweep(coef, x, b, iters=iters,
                                          omega=omega)
     return jacobi_smooth(coef, x, b, iters, omega)
 
 
-def _fused_ok(coef: PressureCoeffs, pre: int, smoother: str) -> bool:
+def _fused_ok(coef: PressureCoeffs, pre: int, smoother: str,
+              shape=None) -> bool:
     """Whether a level takes the fused legs (smoother="kernel-fused"): both
     kernels fit the level and the down leg's extra residual ring stays
     inside the halo. Otherwise the level takes `_smooth` and a plain
-    residual, as in the JAX package."""
+    residual, as in the JAX package. `shape` as in `_smooth`."""
     if smoother != "kernel-fused":
         return False
-    shape, dt = tuple(coef.diag.shape), coef.diag.dtype
+    shape = tuple(coef.diag.shape) if shape is None else tuple(shape)
+    dt = coef.diag.dtype
     return (pre <= stencil._halo_for(dt) - 1
             and stencil.kernel_available_for(shape, dt, "smooth_residual")
             and stencil.kernel_available_for(shape, dt, "corr_smooth"))
+
+
+def fluid_mask(coef: PressureCoeffs, dtype) -> torch.Tensor:
+    """1 where a level's cell has an open face, else 0: the prolonged
+    correction is masked with it."""
+    return ((coef.c_e + coef.c_w + coef.c_n + coef.c_s + coef.c_out)
+            > 0).to(dtype)
+
+
+def _cycle(levels: list[PressureCoeffs], lvl: int, b: torch.Tensor,
+           x: torch.Tensor, pre: int, post: int, coarse_iters: int,
+           smoother: str, cycle_type: str) -> torch.Tensor:
+    """The cycle from level `lvl` down (see v_cycle)."""
+    coef = levels[lvl]
+    if lvl == len(levels) - 1:
+        return jacobi_smooth(coef, x, b, coarse_iters)
+    fused = _fused_ok(coef, pre, smoother)
+    if fused:
+        x, r = stencil.smooth_residual(coef, x, b, iters=pre)
+    else:
+        x = _smooth(coef, x, b, pre, smoother)
+        r = b - pressure_matvec(coef, x)
+    rc = restrict(r)
+    args = (pre, post, coarse_iters, smoother, cycle_type)
+    ec = _cycle(levels, lvl + 1, rc, torch.zeros_like(rc), *args)
+    if cycle_type == "w" and lvl + 1 < len(levels) - 1:
+        ec = _cycle(levels, lvl + 1, rc, ec, *args)
+    # mask the interpolated correction so it cannot leak into solid
+    # cells; crop it back to the (possibly odd) fine shape; make it
+    # contiguous for the kernels (prolong's movedim leaves it strided)
+    ny, nx = coef.diag.shape[-2:]
+    corr = (prolong(ec)[..., :ny, :nx]
+            * fluid_mask(coef, b.dtype)).contiguous()
+    if fused:
+        return stencil.corr_smooth(coef, x, corr, b, iters=post)
+    return _smooth(coef, x + corr, b, post, smoother)
+
+
+def _check_smoother(smoother: str, ndim: int):
+    if smoother not in SMOOTHERS:
+        raise ValueError(f"smoother {smoother!r} not in {SMOOTHERS}")
+    if smoother != "plain" and ndim != 2:
+        raise ValueError(
+            f"smoother {smoother!r} takes (ny, nx) operands, got "
+            f"{ndim}-D ones: the batched launch of the pressure kernels "
+            "is not ported; use smoother='plain' for a fleet")
 
 
 def v_cycle(levels: list[PressureCoeffs], b: torch.Tensor, x: torch.Tensor,
@@ -209,43 +259,10 @@ def v_cycle(levels: list[PressureCoeffs], b: torch.Tensor, x: torch.Tensor,
     cycle_type="w" (each coarse level visited twice per visit of the level
     above; with pre == post it stays a symmetric preconditioner).
     `v_cycle.cycles` counts the cycles run."""
-    if smoother not in SMOOTHERS:
-        raise ValueError(f"smoother {smoother!r} not in {SMOOTHERS}")
-    if smoother != "plain" and b.dim() != 2:
-        raise ValueError(
-            f"smoother {smoother!r} takes (ny, nx) operands, got "
-            f"{tuple(b.shape)}: the batched launch of the pressure kernels "
-            "is not ported; use smoother='plain' for a fleet")
+    _check_smoother(smoother, b.dim())
     v_cycle.cycles += 1
-
-    def fluid_mask(coef: PressureCoeffs) -> torch.Tensor:
-        return ((coef.c_e + coef.c_w + coef.c_n + coef.c_s + coef.c_out)
-                > 0).to(b.dtype)
-
-    def cycle(lvl: int, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        coef = levels[lvl]
-        if lvl == len(levels) - 1:
-            return jacobi_smooth(coef, x, b, coarse_iters)
-        fused = _fused_ok(coef, pre, smoother)
-        if fused:
-            x, r = stencil.smooth_residual(coef, x, b, iters=pre)
-        else:
-            x = _smooth(coef, x, b, pre, smoother)
-            r = b - pressure_matvec(coef, x)
-        rc = restrict(r)
-        ec = cycle(lvl + 1, rc, torch.zeros_like(rc))
-        if cycle_type == "w" and lvl + 1 < len(levels) - 1:
-            ec = cycle(lvl + 1, rc, ec)
-        # mask the interpolated correction so it cannot leak into solid
-        # cells; crop it back to the (possibly odd) fine shape; make it
-        # contiguous for the kernels (prolong's movedim leaves it strided)
-        ny, nx = coef.diag.shape[-2:]
-        corr = (prolong(ec)[..., :ny, :nx] * fluid_mask(coef)).contiguous()
-        if fused:
-            return stencil.corr_smooth(coef, x, corr, b, iters=post)
-        return _smooth(coef, x + corr, b, post, smoother)
-
-    return cycle(0, b, x)
+    return _cycle(levels, 0, b, x, pre, post, coarse_iters, smoother,
+                  cycle_type)
 
 
 v_cycle.cycles = 0

@@ -19,10 +19,11 @@ artifacts/validation/st_2d2_hybrid_d62_auto.json instead: 256 x 1375,
 BDF2, AutoBackend(cycles=2, tau=0.05), sm_st128 (lstsq stitch),
 sm_trust 1.0, maxCo 0.4, two warm-up steps from initial_flow(dt0=2e-4);
 `--backend` and `--smoother` do not apply. `--mesh DYxDX` profiles
-the single-case path a second time in the same call, through
-parallel.mesh.make_sharded_piso_step on a DY x DX mesh of the one card
-(the momentum kernel per block, the pressure solve whole on the card),
-from the same state. Then
+the single-case path a second time in the same call, through the
+domain-decomposed parallel.mesh.make_sharded_piso_step on a DY x DX mesh
+of the one card (every field resident per block, the kernels launched
+per block), from the same state (its pressure solves: the correctors'
+and the safeguard's rescues). Then
 `--steps` steps are traced with torch.profiler. Prints one JSON line: wall ms per step (host clock around
 synchronised steps), device busy ms per step (the sum of kernel times),
 the device's idle share, the kernel launches, pressure solves (two
@@ -80,6 +81,8 @@ def main() -> None:
     from ..parallel.mesh import device_mesh, make_sharded_piso_step
     from ..piso.batched import (run_piso_batched_eager, stack_cases,
                                 stack_flows)
+    from ..parallel.mesh import shard_case, shard_flow
+    from ..piso import engine
     from ..piso.engine import PisoConfig, run_piso_eager
     from ..solvers import multigrid
     from ..solvers.backends import AutoBackend, MGBackend, MGCGBackend
@@ -143,6 +146,7 @@ def main() -> None:
     def profiled(run, flow, label, mesh=None):
         """Trace `args.steps` steps of `run` from `flow`; print a line."""
         solves[0] = 0
+        engine._rescue_if_unconverged.solves = 0
         multigrid.v_cycle.cycles = 0
         fv_momentum.jacobi_momentum.sweep_loops = 0
         for fn in kernels_fn.values():
@@ -154,6 +158,9 @@ def main() -> None:
                        sm_predict=pred)
             torch.cuda.synchronize()
             wall_ms = (time.time() - t) * 1e3 / args.steps
+        if mesh is not None:
+            solves[0] = cfg.n_correctors * args.steps \
+                + engine._rescue_if_unconverged.solves
         avgs = prof.key_averages()
         kernels = [e for e in avgs
                    if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -196,15 +203,17 @@ def main() -> None:
         dy, dx = (int(k) for k in args.mesh.split("x"))
         mesh = device_mesh(dy * dx, shape=(dy, dx),
                            devices=[case.device] * (dy * dx))
-        step = make_sharded_piso_step(mesh, cfg, backend, sm_predict=pred)
+        step = make_sharded_piso_step(mesh, cfg, solver, sm_predict=pred)
+        case_sh = shard_case(mesh, case)
 
         def run_sharded(case_, flow_, n, **_):
             with torch.no_grad():
                 for _ in range(n):
-                    flow_ = step(case_, flow_)
+                    flow_ = step(case_sh, flow_)
             return flow_
 
-        profiled(run_sharded, start, f"{name}_mesh{dy}x{dx}", [dy, dx])
+        profiled(run_sharded, shard_flow(mesh, start),
+                 f"{name}_mesh{dy}x{dx}", [dy, dx])
 
 if __name__ == "__main__":
     main()
