@@ -107,11 +107,30 @@ Phases, each printing one JSON line with its elapsed seconds:
           against four single-case launches (bit for bit); its time
   fleet-case  the four cases of scripts/bench_fleet_ab.py (cylinder,
           rectangle, triangle, ellipse at 512 x 2048), stacked
+  kernel-fleet-pressure  jacobi_multisweep, smooth_residual and
+          corr_smooth on the (4, ny, nx) stack, one launch for the four
+          cases, at every level of the main path's hierarchy (512 x 2048
+          .. 8 x 32), float32 and bfloat16, iters 1, 2 and the most each
+          takes, on the four cases' first-corrector operators and on
+          random operands: each launch counted under the variant of a
+          case's plane, bit for bit against its plain version and against
+          four single-case launches; their device time at 4 x 512 x 2048
+          (the paths' dtype and sweeps) beside the four single launches
+          and tools/kernel_bounds.py's bound of four planes
   step-fleet  the fleet path (run_piso_batched_eager, MG bf16, sm_ref512,
           the momentum kernel) for a few locksteps, and the same four
           cases stepped one after another through run_piso_eager
   parity-fleet  one lockstep against four single-case steps from the
           same state
+  step-fleet-kernel-fused, step-fleet-kernel  the four cases of
+          step-fleet with MGBackend(cycles=2, precision="bf16") and the
+          kernel smoothers ("kernel-fused", then "kernel": one launch a
+          level for the four cases), 3 + 5 locksteps: ms a lockstep
+          beside step-fleet's (the plain smoother) in the same call,
+          launches per lockstep by kernel and level, health; one lockstep
+          against the four cases stepped alone with the same smoother
+          (bit for bit expected, FLEET_PARITY_TOL at worst), the
+          lockstep's multisweep launches equal to its slowest case's alone
   step-fleet-sharded  the same four cases through
           parallel.mesh.make_sharded_fleet_step on a mesh of four blocks of
           the one card (one case each), 3 + 5 locksteps: bit for bit
@@ -205,8 +224,16 @@ Phases, each printing one JSON line with its elapsed seconds:
           variance ratios)
   train-step  one make_sharded_train_step step (MLP_small, bf16 compute,
           batch 1024, Adam lr 2e-4) on a (1, 1) mesh of the card against
-          the same step on the CPU, and on a (2, 2) mesh of the card
-          against the (1, 1) one: the loss and the parameters
+          the same step on the CPU, and on a (2, 2) mesh of the card (data
+          and tensor parallel) against the (1, 1) one: the loss and the
+          parameters
+  train-step-tp  sm_ref512's MLP (13 -> 512 x 3 -> 512, bf16) through
+          the data- and tensor-parallel step on the card's 1 x 1, 1 x 2
+          and 2 x 2 meshes (dense weights and Adam's moments cut over
+          'model'), batch 1024, 3 steps from the same parameters and
+          batches: 1 x 2 and 2 x 2 against 1 x 1 (TRAIN_STEP_TOL), each
+          block's shard shapes, ms a step (CUDA events), collectives a
+          step
   train   train_surrogate from the PCA stage's codes (loss weighting
           'variance', batch 1024, lr 2e-4), with a checkpoint: epochs,
           epochs/s, krows/s, the best validation loss and epoch; the train
@@ -485,6 +512,13 @@ TRAIN_PCA_TOL = {"evr_exact": 1e-3, "angle_top8": 1e-2, "evr_cpu": 1e-4}
 # whatever its gradient's size, so a sign flip of a gradient near 0 moves
 # its element by 2 lr: no per-leaf bound holds.
 TRAIN_STEP_TOL = {"loss": 1e-3, "params_l2": 1e-2}
+# train-step-tp: sm_ref512's MLP through the data- and tensor-parallel
+# step on the one card's meshes TP_MESHES, TP_STEPS steps from the same
+# parameters and batches (made from TP_SEED), each mesh against the 1 x 1
+# one at TRAIN_STEP_TOL (the bf16 products of a split layer round in
+# another order)
+TP_MESHES = ((1, 1), (1, 2), (2, 2))
+TP_STEPS, TP_SEED = 3, 19
 # the bridge: 3 steps of each model on the last frames of train-data's
 # rollout; the first step against the port's compute on the CPU from the
 # same cells: sm (sm_ref512's bf16 MLP), the raw output's relative L2,
@@ -604,6 +638,33 @@ def bound(n_bytes, n_ops):
     t_mem, t_ops = n_bytes / MEM_RATE, n_ops / F32_RATE
     return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops \
         else "operations"
+
+
+def stencil_call(name, coef_, x, b, corr, iters, plain=False):
+    """One call of the pressure kernel `name` (or its plain version) on
+    the operands of `level_operands`; its outputs as a tuple."""
+    from tpufoam_torch.ops import stencil as st
+    fn = getattr(st, f"{name}_plain" if plain else name)
+    if name == "corr_smooth":
+        out_ = fn(coef_, x, corr, b, iters)
+    else:
+        out_ = fn(coef_, x, b, iters)
+    return out_ if isinstance(out_, tuple) else (out_,)
+
+
+def cast(coef_, dt):
+    from tpufoam_torch.fv.pressure import PressureCoeffs
+    return PressureCoeffs(*(getattr(coef_, f.name).to(dt).contiguous()
+                            for f in dataclasses.fields(coef_)))
+
+
+def level_operands(coef_, b, dt):
+    """A level's real operator and right-hand side ((ny, nx), or a
+    fleet's (B, ny, nx)) in `dt`, x from one Jacobi step of them, and a
+    correction field."""
+    x = b / coef_.diag
+    return (cast(coef_, dt), x.to(dt), b.to(dt),
+            (0.1 * x.roll(1, -1)).to(dt))
 
 
 def fleet_backend_phases(torch, card, case_b, flow_b0, fcases, cfg,
@@ -792,6 +853,311 @@ def fleet_backend_phases(torch, card, case_b, flow_b0, fcases, cfg,
     return launches
 
 
+def fleet_pressure_phase(torch, card, dev, case_b, flow_b0, cfg, backend,
+                         predictor, flush, reset_counts):
+    """kernel-fleet-pressure: rows 3-5 (jacobi_multisweep, smooth_residual,
+    corr_smooth) in one launch on a (4, ny, nx) stack, at every level of
+    the main path's hierarchy (512 x 2048 .. 8 x 32), float32 and
+    bfloat16, iters 1, 2 and the most each takes, on the four fleet
+    cases' first-corrector operators and on random operands: each call
+    one launch (counted under the variant a case's plane takes), equal to
+    its plain version and to four single-case launches bit for bit. Their
+    device time at 4 x 512 x 2048, at the paths' dtype and sweeps, beside
+    the four single launches and tools/kernel_bounds's bound of 4 planes.
+    Returns {kernel: its row of the kernels line}."""
+    from tpufoam_torch.fv.pressure import PressureCoeffs
+    from tpufoam_torch.ops import stencil as st
+    from tpufoam_torch.piso.engine import piso_step
+    from tpufoam_torch.solvers import multigrid as mg
+    from tpufoam_torch.tools import kernel_bounds
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    first = []
+
+    def capture(case_, pcoef_, rhs_, p_prev_, aux_):
+        if not first:
+            first.append((pcoef_, rhs_))
+        return backend(case_, pcoef_, rhs_, p_prev_, aux_)
+
+    with torch.no_grad():
+        piso_step(case_b, flow_b0, cfg, capture, predictor.bind(case_b))
+    pcoef, rhs = first[0]
+    levels = mg.build_hierarchy(pcoef)
+    rhs_levels = [rhs]
+    while len(rhs_levels) < len(levels):
+        rhs_levels.append(mg.restrict(rhs_levels[-1]))
+    n = rhs.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def random_operands(shape, dt):
+        def f(lo, hi):
+            return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                               device=dev)
+
+        c = [f(0.0, 1.0) for _ in range(4)]
+        diag = c[0] + c[1] + c[2] + c[3] + f(0.1, 1.0)
+        return (cast(PressureCoeffs(*c, torch.zeros_like(diag), diag), dt),
+                f(-1, 1).to(dt), f(-1, 1).to(dt), f(-0.1, 0.1).to(dt))
+
+    def case_of(ops, k):
+        coef_, x, b, corr = ops
+        return (PressureCoeffs(*(getattr(coef_, f.name)[k]
+                                 for f in dataclasses.fields(coef_))),
+                x[k], b[k], corr[k])
+
+    def held(name, prec, ops, iters, where):
+        """One launch on the stack (counted under the variant of a case's
+        plane), bit for bit against the plain version and against the four
+        cases launched alone; the max |diff| (0)."""
+        fn, dt = getattr(st, name), dtypes[prec]
+        plane = tuple(ops[1].shape[-2:])
+        key = (st.multisweep_geometry(plane, dt, iters, kernel=name).variant,
+               prec, plane)
+        n0, by0 = fn.launches, fn.by_shape[key]
+        got = stencil_call(name, *ops, iters)
+        torch.cuda.synchronize()
+        check(fn.launches == n0 + 1 and fn.by_shape[key] == by0 + 1,
+              f"kernel-fleet-pressure {name} {prec} {where} iters {iters}: "
+              f"not one launch of the {key[0]} kernel")
+        err = compare(got, stencil_call(name, *ops, iters, True))[0]
+        for k in range(n):
+            one = stencil_call(name, *case_of(ops, k), iters)
+            err = max(err, compare(tuple(g[k] for g in got), one)[0])
+        check(err == 0.0, f"kernel-fleet-pressure {name} {prec} {where} "
+              f"iters {iters}: max |diff| {err:.3e}, not 0")
+        return err
+
+    rows, checked = {}, 0
+    for name in STENCIL:
+        row = {"max_abs_err": 0.0}
+        for prec, dt in dtypes.items():
+            iters_ = sorted({1, 2, st._max_iters(dt, name)})
+            for coef_l, b_l in zip(levels, rhs_levels):
+                where = f"level {tuple(b_l.shape[-2:])}"
+                for ops in (level_operands(coef_l, b_l, dt),
+                            random_operands(tuple(b_l.shape), dt)):
+                    for k in iters_:
+                        row["max_abs_err"] = max(row["max_abs_err"],
+                                                 held(name, prec, ops, k,
+                                                      where))
+                        checked += 1
+        # time at 4 x 512 x 2048, the path's dtype and sweeps
+        prec = PATH_DTYPE[name]
+        dt, iters = dtypes[prec], PATH_SWEEPS[name][prec]
+        ops = level_operands(levels[0], rhs_levels[0], dt)
+        singles = [case_of(ops, k) for k in range(n)]
+        t_k = timings(lambda: stencil_call(name, *ops, iters),
+                      lambda: stencil_call(name, *ops, iters, True), 100,
+                      10, torch, flush)
+        singles_ms, singles_call_ms = time_ms(
+            lambda: [stencil_call(name, *s_, iters) for s_ in singles], 100,
+            torch, flush)
+        b = kernel_bounds.bound(name, (NY, NX), prec, planes=n)
+        row.update(dtype=prec, iters=iters, shape=[n, NY, NX], **t_k,
+                   singles_ms=singles_ms, singles_call_ms=singles_call_ms,
+                   bound_ms=b["bound_us"] / 1e3, bound_by=b["bound_by"],
+                   variant=st.multisweep_geometry(
+                       (NY, NX), dt, iters, kernel=name).variant)
+        rows[name] = row
+    reset_counts()
+    say("kernel-fleet-pressure", card=card, cases=n,
+        levels=[list(b_.shape[-2:]) for b_ in rhs_levels], checks=checked,
+        kernels={name: {k: v for k, v in r.items()}
+                 for name, r in rows.items()})
+    return rows
+
+
+def fleet_kernel_phase(torch, card, case_b, flow_b0, fcases, cfg,
+                       predictor, reset_counts, counts, fleet_health,
+                       check_fleet_health, plain_ms):
+    """step-fleet-kernel: step-fleet's four cases (the sm_ref512 warm
+    start, the batched momentum launch) with MGBackend(cycles=2,
+    precision="bf16") and the kernel smoothers, "kernel-fused" then
+    "kernel": 3 + 5 locksteps, ms a lockstep beside step-fleet's
+    (`plain_ms`, the plain smoother, this call), launches per lockstep by
+    kernel and level; one lockstep against the four cases stepped alone
+    with the same smoother (bit for bit expected; FLEET_PARITY_TOL at
+    worst), the lockstep's multisweep launches against the cases' alone.
+    Returns {path: launch counts of its timed locksteps}."""
+    from tpufoam_torch.fv.case import fleet_member
+    from tpufoam_torch.ops import stencil as st
+    from tpufoam_torch.piso.batched import run_piso_batched_eager
+    from tpufoam_torch.piso.engine import piso_step
+    from tpufoam_torch.solvers import multigrid as mg
+    from tpufoam_torch.solvers.backends import MGBackend
+
+    names = ("jacobi_multisweep", "smooth_residual", "corr_smooth")
+    out = {}
+    for smoother, used in (("kernel-fused", names[1:]),
+                           ("kernel", names[:1])):
+        be = MGBackend(cycles=2, precision="bf16", smoother=smoother)
+        label = f"step-fleet-{smoother}"
+        with torch.no_grad():
+            flow_warm = run_piso_batched_eager(
+                case_b, flow_b0, N_FLEET_WARM, cfg=cfg, backend=be,
+                sm_predict=predictor)
+            torch.cuda.synchronize()
+            reset_counts(predictor)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            t = time.time()
+            ev0.record()
+            flow = run_piso_batched_eager(case_b, flow_warm, N_FLEET_STEPS,
+                                          cfg=cfg, backend=be,
+                                          sm_predict=predictor)
+            ev1.record()
+            torch.cuda.synchronize()
+            host_s = time.time() - t
+            launches, cycles = counts(), mg.v_cycle.cycles
+            calls = predictor.calls
+            by_level = {name: sorted(
+                ([v_, p_, list(sh_), n_ / N_FLEET_STEPS] for (v_, p_, sh_), n_
+                 in getattr(st, name).by_shape.items()),
+                key=lambda r: -r[2][0]) for name in used}
+            # one lockstep against the four cases alone, from one state
+            reset_counts()
+            got = piso_step(case_b, flow_warm, cfg, be,
+                            predictor.bind(case_b))
+            torch.cuda.synchronize()
+            lock = counts()
+            singles, alone = [], []
+            for k, c in enumerate(fcases):
+                reset_counts()
+                singles.append(piso_step(c, fleet_member(flow_warm, k), cfg,
+                                         be, predictor.bind(c)))
+                torch.cuda.synchronize()
+                alone.append(counts())
+        finite, cont, co = fleet_health(case_b, flow)
+        diffs = [{name: compare((getattr(got, name)[k],),
+                                (getattr(s_, name),))[1]
+                  for name in ("u", "v", "p", "dt")}
+                 for k, s_ in enumerate(singles)]
+        ms = ev0.elapsed_time(ev1) / N_FLEET_STEPS
+        say(label, card=card, cases=len(fcases), locksteps=N_FLEET_STEPS,
+            backend=f"MGBackend(cycles=2, precision='bf16', "
+                    f"smoother='{smoother}')",
+            ms_per_lockstep=ms, step_fleet_plain_ms_per_lockstep=plain_ms,
+            host_ms_per_lockstep=host_s * 1e3 / N_FLEET_STEPS,
+            launches_per_lockstep={k_: v / N_FLEET_STEPS
+                                   for k_, v in launches.items() if v},
+            by_level=by_level, v_cycles_per_lockstep=cycles / N_FLEET_STEPS,
+            sm_predict_calls=calls,
+            parity_rel_diff=diffs, parity_tol=FLEET_PARITY_TOL,
+            lockstep_launches={k_: lock[k_] for k_ in used},
+            alone_launches={k_: [a[k_] for a in alone] for k_ in used},
+            continuity_error=cont, courant=co, finite=finite)
+        check_fleet_health(label, finite, cont, co)
+        check(launches["momentum_multisweep"] == N_FLEET_STEPS
+              and calls == N_FLEET_STEPS,
+              f"{label}: {launches['momentum_multisweep']} momentum "
+              f"launches, {calls} predictions in {N_FLEET_STEPS} locksteps")
+        for name in used:
+            check(launches[name] > 0, f"{label}: {name} never launched")
+            # one launch a level for all the cases: the lockstep launches
+            # what its slowest case (the most rescue solves) does alone
+            check(lock[name] == max(a[name] for a in alone),
+                  f"{label}: {lock[name]} {name} launches in a lockstep, "
+                  f"{[a[name] for a in alone]} by the cases alone")
+        for name in [n_ for n_ in names if n_ not in used]:
+            check(launches[name] == 0, f"{label}: {name} launched")
+        for k, d in enumerate(diffs):
+            for name, v in d.items():
+                check(v <= FLEET_PARITY_TOL[name],
+                      f"{label} parity case {k} {name}: rel diff {v:.3e}")
+        out[label] = launches
+        del flow_warm, flow, got, singles
+    return out
+
+
+def train_tp_phase(torch, dev, card):
+    """train-step-tp: sm_ref512's MLP (its manifest's mdef: 13 -> 512 x 3
+    -> 512, bf16 compute) through make_sharded_train_step on the one
+    card's 1 x 1, 1 x 2 and 2 x 2 meshes (the dense weights and Adam's
+    moments cut over 'model', the batch over 'data'), batch 1024, Adam at
+    TRAIN_CFG's lr, TP_STEPS steps from the same seeded parameters and
+    batches after one warm-up step; 1 x 2 and 2 x 2 against 1 x 1 at
+    TRAIN_STEP_TOL; each block's shard shapes, ms a step (CUDA events)
+    and the collectives a step."""
+    import numpy as np
+
+    from tpufoam_torch.models.mlp import ModelDef, init_model, tree_leaves
+    from tpufoam_torch.parallel.mesh import (device_mesh,
+                                             make_sharded_train_step,
+                                             unshard_params)
+    from tpufoam_torch.train.trainer import Adam
+
+    with open(os.path.join(ROOT, "artifacts", "sm_ref512",
+                           "manifest.json")) as f:
+        spec = json.load(f)["mdef"]
+    mdef = ModelDef(**{**spec, "widths": tuple(spec["widths"])})
+    rng = np.random.default_rng(TP_SEED)
+    bs = TRAIN_CFG["batch_size"]
+    batches = [(torch.as_tensor(rng.standard_normal(
+        (bs, mdef.in_dim)).astype(np.float32)),
+        torch.as_tensor(rng.standard_normal(
+            (bs, mdef.out_dim)).astype(np.float32)))
+        for _ in range(TP_STEPS + 1)]
+    p0 = init_model(TP_SEED, mdef, device="cpu")
+    runs = {}
+    for shape in TP_MESHES:
+        n = shape[0] * shape[1]
+        mesh = device_mesh(n, shape=shape, devices=[dev] * n)
+        opt = Adam(TRAIN_CFG["lr"])
+        step, shard = make_sharded_train_step(mesh, mdef, opt)
+        # a warm-up step on the last batch, its result dropped
+        step(*shard(p0, opt.init(p0), *batches[-1]))
+        torch.cuda.synchronize()
+        step.collectives.clear()
+        p, s, losses, ms = p0, opt.init(p0), [], []
+        for xb, yb in batches[:TP_STEPS]:
+            p, s, xs, ys = shard(p, s, xb, yb)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            p, s, loss = step(p, s, xs, ys)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            losses.append(float(loss))
+        names = [f"layers.{i}.{k}" for i in range(len(mdef.widths))
+                 for k in ("b", "w")]
+        leaves = [*(p["layers"][i][k] for i in range(len(mdef.widths))
+                    for k in ("b", "w")), p["head"]["b"], p["head"]["w"]]
+        runs[f"{shape[0]}x{shape[1]}"] = dict(
+            losses=losses, ms_per_step=ms,
+            mean_ms_per_step=sum(ms) / len(ms),
+            collectives_per_step={k: v / TP_STEPS
+                                  for k, v in step.collectives.items()},
+            shard_shapes={nm: [list(b.shape) for b in a.blocks]
+                          for nm, a in zip(names + ["head.b", "head.w"],
+                                           leaves)},
+            params=[a.cpu() for a in tree_leaves(unshard_params(p))])
+
+    def diff(a, b):
+        num = sum(float(((x.double() - y.double()) ** 2).sum())
+                  for x, y in zip(a["params"], b["params"]))
+        den = sum(float((y.double() ** 2).sum()) for y in b["params"])
+        return {"loss": max(abs(x - y) / abs(y) for x, y in
+                            zip(a["losses"], b["losses"])),
+                "params_l2": (num / den) ** 0.5}
+
+    ref = runs["1x1"]
+    chk = {k: diff(r, ref) for k, r in runs.items() if k != "1x1"}
+    say("train-step-tp", card=card, mdef=spec, batch=bs, steps=TP_STEPS,
+        meshes={k: {n_: v for n_, v in r.items() if n_ != "params"}
+                for k, r in runs.items()},
+        vs_1x1=chk, tol=TRAIN_STEP_TOL)
+    check(runs["1x2"]["shard_shapes"]["layers.0.w"] == [[mdef.in_dim, 256]]
+          * 2, f"train-step-tp: 1 x 2 shards of layer 0's w "
+          f"{runs['1x2']['shard_shapes']['layers.0.w']}")
+    for k, d_ in chk.items():
+        check(d_["loss"] <= TRAIN_STEP_TOL["loss"]
+              and d_["params_l2"] <= TRAIN_STEP_TOL["params_l2"],
+              f"train-step-tp {k} vs 1x1: {d_}")
+    for k, r in runs.items():
+        check(all(np.isfinite(r["losses"])), f"train-step-tp {k}: loss")
+
+
 def train_phases(torch, dev, card, reset_counts, counts):
     """The training path's five phases (train-data, train-pca,
     train-step, train, train-serve). Returns the kernel launches of the
@@ -806,7 +1172,8 @@ def train_phases(torch, dev, card, reset_counts, counts):
     from tpufoam_torch.models.mlp import (ModelDef, init_model,
                                          tree_leaves)
     from tpufoam_torch.parallel.mesh import (device_mesh,
-                                             make_sharded_train_step)
+                                             make_sharded_train_step,
+                                             unshard_params)
     from tpufoam_torch.piso.engine import (PisoConfig, continuity_error,
                                            courant_number, run_piso_eager)
     from tpufoam_torch.solvers.backends import MGBackend, MGCGBackend
@@ -944,7 +1311,8 @@ def train_phases(torch, dev, card, reset_counts, counts):
         t0 = time.time()
         p, _, loss = step(p, s_, xs, ys)
         loss = float(loss)
-        return [a.cpu() for a in tree_leaves(p)], loss, time.time() - t0
+        return [a.cpu() for a in tree_leaves(unshard_params(p))], loss, \
+            time.time() - t0
 
     def diff(a, b):
         (pa, la, _), (pb, lb, _) = a, b
@@ -1856,25 +2224,6 @@ def main() -> int:
     for _ in range(KERNEL_LEVELS - 1):
         rhs_levels.append(mg.restrict(rhs_levels[-1]))
     fine = list(zip(levels[:-1], rhs_levels))
-
-    def stencil_call(name, coef_, x, b, corr, iters, plain=False):
-        fn = getattr(st, f"{name}_plain" if plain else name)
-        if name == "corr_smooth":
-            out_ = fn(coef_, x, corr, b, iters)
-        else:
-            out_ = fn(coef_, x, b, iters)
-        return out_ if isinstance(out_, tuple) else (out_,)
-
-    def cast(coef_, dt):
-        return PressureCoeffs(*(getattr(coef_, f.name).to(dt)
-                                for f in dataclasses.fields(coef_)))
-
-    def level_operands(coef_, b, dt):
-        """A level's real operator and right-hand side in `dt`, x from one
-        Jacobi step of them, and a correction field."""
-        x = b / coef_.diag
-        return (cast(coef_, dt), x.to(dt), b.to(dt),
-                (0.1 * torch.roll(x, 1, 1)).to(dt))
 
     def random_operands(dt):
         """Conductances in [0, 1), nonzero on the domain's edges too, diag
@@ -3827,6 +4176,11 @@ def main() -> int:
         shape=list(case_b.fluid.shape), seconds=round(time.time() - t, 3),
         fluid_cells=case_b.fluid.sum(dim=(-2, -1)).tolist())
 
+    # ---- rows 3-5 on the fleet's stack, one launch for the four cases ----
+    fleet_pressure_rows = fleet_pressure_phase(
+        torch, card, dev, case_b, flow_b0, cfg, backend, predictor, flush,
+        reset_counts)
+
     # ---- the fleet path: lockstep, and the same cases one after another --
     with torch.no_grad():
         flow_b = run_piso_batched_eager(case_b, flow_b0, N_FLEET_WARM,
@@ -3907,6 +4261,11 @@ def main() -> int:
             check(v <= FLEET_PARITY_TOL[name],
                   f"fleet parity case {k} {name}: rel diff {v:.3e}")
     del flow_warm, seq, singles, got
+
+    # ---- the fleet with the kernel smoothers (one launch a level) --------
+    fleet_kernel_launches = fleet_kernel_phase(
+        torch, card, case_b, flow_b0, fcases, cfg, predictor, reset_counts,
+        counts, fleet_health, check_fleet_health, fleet_ms)
 
     # ---- the fleet over a mesh of four blocks of the card, one case each -
     mesh_fleet = device_mesh(n_fleet, devices=[dev] * n_fleet)
@@ -4001,6 +4360,7 @@ def main() -> int:
     # ---- the training path -------------------------------------------------
     train_launches, train_case, train_frames = train_phases(
         torch, dev, card, reset_counts, counts)
+    train_tp_phase(torch, dev, card)
 
     # ---- the bridge server on the training rollout's cells ----------------
     bridge_launches = bridge_phase(torch, dev, card, train_case,
@@ -4063,7 +4423,7 @@ def main() -> int:
              sharded_step_launches, fused_launches,
              mgcg_launches, st_launches, fleet_launches, fsh_launches,
              k_mgcg, auto_launches, bridge_launches,
-             *cli_launches.values())
+             *cli_launches.values(), *fleet_kernel_launches.values())
     sweep_launches = sum(k_["jacobi_sweep"] for k_ in paths)
     check(sweep_launches == 0,
           f"a path launched jacobi_sweep {sweep_launches} times")
@@ -4101,6 +4461,27 @@ def main() -> int:
         "bound_by": bound_by_fleet,
         "library_ms": None,
     })
+    # rows 3-5's launch on a fleet's stack: the four cases of
+    # kernel-fleet-pressure at 512 x 2048, launched on step-fleet-kernel's
+    # paths (one launch a level for the four cases)
+    batched_paths = {"jacobi_multisweep": "step-fleet-kernel",
+                     "smooth_residual": "step-fleet-kernel-fused",
+                     "corr_smooth": "step-fleet-kernel-fused"}
+    for name, row in fleet_pressure_rows.items():
+        kernels.append({
+            "name": f"{name} (batched launch)",
+            "route": "cuda",
+            "source": "tpufoam_torch/ops/csrc/pressure_stencil.cu",
+            "replaces": STENCIL[name][4],
+            "launches": fleet_kernel_launches[batched_paths[name]][name],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "singles_ms": row["singles_ms"],
+            "library_ms": None,
+        })
     kernels.append({
         "name": "momentum_multisweep_sharded",
         "route": "cuda",
@@ -4142,7 +4523,9 @@ def main() -> int:
                  "step-turb-sharded": tsh_launches,
                  "step-poisson": poisson_launches, **train_launches,
                  "bridge": bridge_launches, **cli_launches}
-    fleet_paths = {"step-fleet-auto": auto_launches}
+    # and on the fleet with the kernel smoothers (every launch there of
+    # rows 1 and 3-5 is a batched launch)
+    fleet_paths = {"step-fleet-auto": auto_launches, **fleet_kernel_launches}
     for row in kernels:
         name = row["name"].split(" ")[0]
         if row["name"].endswith("(batched launch)"):
@@ -4150,7 +4533,9 @@ def main() -> int:
                                        for path, k_ in fleet_paths.items()}
             continue
         by_path = dict(new_paths)
-        if name != "momentum_multisweep":
+        if name in STENCIL:
+            by_path["step-fleet-auto"] = auto_launches
+        elif name != "momentum_multisweep":
             by_path.update(fleet_paths)
         row["launches_by_path"] = {path: k_.get(name, 0)
                                    for path, k_ in by_path.items()}

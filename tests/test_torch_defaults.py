@@ -78,14 +78,10 @@ PAIRS = list(_pairs())
 
 # Parameters and fields of the JAX package's functions and dataclasses
 # that the port does not take yet, each with the ROADMAP.md section A
-# item that ports it. A call that passes one raises TypeError.
-UNPORTED = {
-    # jax.sharding.Mesh's sharding axis types: the port's mesh is a grid
-    # of devices driven by one process, with no compiler to annotate;
-    # they belong to the domain-decomposed engine
-    "parallel.mesh.Mesh": {"axis_types": "A.7"},
-}
-ROADMAP_A_ITEMS = {"A.7"}
+# item that ports it. A call that passes one raises TypeError. None is
+# left: the last, jax.sharding.Mesh's axis_types, is Mesh.axis_types.
+UNPORTED: dict = {}
+ROADMAP_A_ITEMS: set = set()
 # Differences by design: the port's DistributedConfig takes torchrun's
 # names (master_addr, master_port, world_size, rank) for what JAX's
 # distributed initialisation calls these.

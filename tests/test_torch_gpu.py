@@ -1053,14 +1053,15 @@ def test_streaming_pca_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
 def test_train_step_on_the_card_matches_the_cpu(cuda, cdt):
-    """One data-parallel Adam step on a (1, 1) and a (2, 2) mesh of the
-    card against the CPU's (1, 1) step: float32 compute within 1e-5 of
-    the loss and of each leaf's largest parameter; bf16 compute within
+    """One Adam step on a (1, 1) and a (2, 2) mesh of the card (data
+    and tensor parallel) against the CPU's (1, 1) step: float32 compute
+    within 1e-5 of the loss and of each leaf's largest parameter; bf16 compute within
     1e-3 of the loss and 1e-2 in the parameters' relative L2 norm
     (tests/test_torch_train.py)."""
     from tpufoam_torch.models.mlp import ModelDef, init_model, tree_leaves
     from tpufoam_torch.parallel.mesh import (device_mesh,
-                                             make_sharded_train_step)
+                                             make_sharded_train_step,
+                                             unshard_params)
     from tpufoam_torch.train.trainer import Adam
 
     mdef = ModelDef.from_arch("MLP_small", in_dim=13, out_dim=64,
@@ -1075,7 +1076,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, cdt):
         step, shard = make_sharded_train_step(
             device_mesh(len(devices), devices=devices), mdef, opt)
         p, s, loss = step(*shard(p0, opt.init(p0), xb, yb))
-        return [a.cpu() for a in tree_leaves(p)], float(loss)
+        return [a.cpu() for a in tree_leaves(unshard_params(p))], \
+            float(loss)
 
     ref, l_ref = run(["cpu"])
     for devices in ([cuda], [cuda] * 4):
@@ -1237,6 +1239,75 @@ def test_batched_backends_on_the_card_match_single_cases(cuda, kind):
         for k in range(len(cases)):
             if not need[k]:
                 assert torch.equal(got[k], p1[k])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 512, 2048), (3, 37, 70),
+                                   (2, 272, 1040), (4, 8, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kernel", ["jacobi_multisweep", "smooth_residual",
+                                    "corr_smooth"])
+def test_multisweep_kernels_take_a_stack(cuda, kernel, shape, dtype):
+    """Rows 3-5 on a (B, ny, nx) stack, each case its own operands: one
+    launch (counted under the variant of a case's plane), equal to the
+    plain version and to B single-case launches bit for bit, at iters 1,
+    2 and the most the kernel takes (the run kernel at 512 x 2048 and 272
+    x 1040, the region kernel at 37 x 70, one sweep the single-pass
+    kernels)."""
+    b_, ny, nx = shape
+    cases = [_pressure_operands(ny, nx, dtype, seed=k, device=cuda)
+             for k in range(b_)]
+    coef = PressureCoeffs(*(torch.stack([getattr(c[0], f) for c in cases])
+                            for f in ("c_e", "c_w", "c_n", "c_s", "c_out",
+                                      "diag")))
+    x, b, corr = (torch.stack([c[i] for c in cases]) for i in (1, 2, 3))
+    counter = getattr(ts, kernel)
+    top = ts._halo_for(dtype) - (kernel == "smooth_residual")
+    for iters in (1, 2, top):
+        key = (ts.multisweep_geometry((ny, nx), dtype, iters,
+                                      kernel=kernel).variant,
+               ts._DTYPES[dtype], (ny, nx))
+        n0, by0 = counter.launches, counter.by_shape[key]
+        got, ref = _stencil_pair(kernel, coef, x, b, corr, iters)
+        torch.cuda.synchronize()
+        assert counter.launches == n0 + 1 and counter.by_shape[key] == by0 + 1
+        for g, r in zip(got, ref):
+            assert g.shape == (b_, ny, nx) and torch.equal(g, r), iters
+        for k, c in enumerate(cases):
+            one, _ = _stencil_pair(kernel, *c, iters)
+            for g, o in zip(got, one):
+                assert torch.equal(g[k], o), (iters, k)
+
+
+@pytest.mark.parametrize("smoother", ["kernel", "kernel-fused"])
+def test_kernel_smoother_fleet_on_the_card_matches_single_cases(cuda,
+                                                                smoother):
+    """MGBackend with a kernel smoother on the card's stacked fleet (one
+    launch a level for the three cases) against each case alone on the
+    card: bit for bit, in float32 and in the bf16 correction form; the
+    fleet launches each multisweep kernel as often as one case does."""
+    from tpufoam_torch.fv.pressure import pressure_coeffs
+    from tpufoam_torch.solvers import backends as tb
+
+    bc, cases, rau, b, x0 = _fleet_pressure_problem(cuda)
+    bco = pressure_coeffs(bc, rau)
+    kernels = ("smooth_residual", "corr_smooth") \
+        if smoother == "kernel-fused" else ("jacobi_multisweep",)
+    for precision in ("f32", "bf16"):
+        backend = tb.MGBackend(cycles=2, precision=precision,
+                               smoother=smoother)
+        n0 = {k: getattr(ts, k).launches for k in kernels}
+        got = backend(bc, bco, b, x0, {})
+        torch.cuda.synchronize()
+        fleet = {k: getattr(ts, k).launches - n0[k] for k in kernels}
+        assert all(v > 0 for v in fleet.values()), fleet
+        for k, c in enumerate(cases):
+            n0 = {k_: getattr(ts, k_).launches for k_ in kernels}
+            one = backend(c, pressure_coeffs(c, rau[k]), b[k], x0[k], {})
+            assert torch.equal(got[k], one), (precision, k)
+            assert {k_: getattr(ts, k_).launches - n0[k_]
+                    for k_ in kernels} == fleet
 
 
 def test_resample_and_unstructured_case_on_the_card_equal_the_cpu(cuda):

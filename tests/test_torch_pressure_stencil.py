@@ -340,14 +340,20 @@ def test_fit_gate_takes_every_2d_shape():
             for kernel in ("jacobi", "smooth_residual", "corr_smooth"):
                 assert ts.kernel_available_for(shape, dt, kernel)
     assert not ts.kernel_available_for((4, 4), torch.float64)
-    assert not ts.kernel_available_for((2, 4, 4))
     assert not ts.kernel_available_for((0, 4))
     assert not ts.kernel_available_for((2**22, 4))
-    # the single-pass kernels also take a leading case axis
-    for kernel in ("matvec", "jacobi_sweep"):
+    assert not ts.kernel_available_for((2, 2, 4, 4))
+    # every kernel also takes a leading case axis, up to CUDA's 65,535
+    # blocks along z
+    for kernel in ("jacobi", "smooth_residual", "corr_smooth", "matvec",
+                   "jacobi_sweep"):
         assert ts.kernel_available_for((50, 130), kernel=kernel)
         assert ts.kernel_available_for((3, 50, 130), torch.bfloat16, kernel)
+        assert ts.kernel_available_for((2, 4, 4), kernel=kernel)
+        assert ts.kernel_available_for((65535, 1, 70), kernel=kernel)
+        assert not ts.kernel_available_for((65536, 1, 70), kernel=kernel)
         assert not ts.kernel_available_for((2**22, 4), kernel=kernel)
+        assert not ts.kernel_available_for((2, 2**22, 4), kernel=kernel)
     with pytest.raises(ValueError):
         ts.kernel_available_for((4, 4), kernel="momentum")
     assert ts._halo_for(torch.float32) == jst._halo_for(jnp.float32)
@@ -829,7 +835,7 @@ def _run_hits(geom, ny, nx):
     and run (region column c = l*cells) where hy <= r < height - hy and
     hx <= c < width - hx, inside the plane
     (csrc/pressure_stencil.cu `multisweep_run_kernel`)."""
-    (hy, hx), (ty, tx), (gx, gy) = geom.halo, geom.tile, geom.grid
+    (hy, hx), (ty, tx), (gx, gy, _) = geom.halo, geom.tile, geom.grid
     height, width = geom.region
     r = np.arange(geom.warps * ts._RUN_ROWS)
     c = np.arange(ts._RUN_LANES)[:, None] * geom.cells \
@@ -1174,8 +1180,10 @@ def test_window_geometry_sizes_the_launch_by_its_cells():
         for iters in (2, ts._halo_for(dt)):
             g = ts.window_geometry(4, (256, 1024), dt, iters)
             whole = ts.multisweep_geometry((1024, 1024), dt, iters)
-            assert g == ts._run_geometry((256, 1024), dt, iters, whole.rows)
-            assert g.grid == (-(-1024 // g.tile[1]), -(-256 // g.tile[0]))
+            assert g == ts._run_geometry((4, 256, 1024), dt, iters,
+                                         whole.rows)
+            assert g.grid == (-(-1024 // g.tile[1]), -(-256 // g.tile[0]),
+                              4)
         assert ts.window_geometry(4, (256, 1030), dt, 2) is None
         assert ts.window_geometry(4, (256, 1024), dt, 2,
                                   aligned=False) is None

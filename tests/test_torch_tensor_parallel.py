@@ -1,0 +1,316 @@
+"""The tensor-parallel train step of the port (parallel.mesh
+`make_sharded_train_step` over 'model', `Shards`, `unshard_params`) and
+`Mesh.axis_types`, against the JAX package on the CPU.
+
+The JAX package's step runs on a JAX mesh of the same shape from the 8
+host devices that tests/conftest.py forces, its parameters placed by
+`mlp_partition_specs` (GSPMD inserts the 'model' all-reduces); the
+port's on a mesh of CPU blocks. Inputs are seeded with numpy; the
+parameters are JAX's, handed to the port. Tolerances, as
+tests/test_torch_train.py's train step: three Adam steps with float32
+compute 1e-5 relative on the loss and on each parameter leaf (max |diff|
+/ max |JAX|: the partial products are summed in another order); bf16
+compute 1e-3 on the loss and 1e-2 on the parameters' relative L2 norm
+over the tree (bf16 products rounded in two libraries' orders, Adam's
+sign flips near 0; see there). The float32 loss is held to JAX's mesh of
+the same shape, the float32 parameters to JAX's unsharded step, which
+every mesh computes up to the order of its sums: JAX's own 2 x 2 step
+differs from its 1 x 1 step by 2.5e-2 of layer 1's largest w here (one
+element whose first gradient lies within float32 noise of 0, which Adam
+moves by lr on its sign, so by 2 lr when the sign flips), while the
+port's 1 x 2 and 2 x 2 steps stay within 3.4e-6 of JAX's 1 x 1 (and its
+1 x 2 within 3.2e-6 of JAX's 1 x 2). A world of processes against one
+process: bit for bit (the collectives gather and sum in mesh order).
+"""
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from tpufoam.models import mlp as jmlp
+from tpufoam.parallel import mesh as jmesh
+from tpufoam_torch.models import mlp as tmlp
+from tpufoam_torch.parallel import mesh as tmesh
+from tpufoam_torch.train import trainer as ttr
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+F32_TOL = {"loss": 1e-5, "params": 1e-5}
+BF16_TOL = {"loss": 1e-3, "params_l2": 1e-2}
+MESHES = [(1, 2), (2, 2)]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _problem(cdt, seed=0, arch="MLP_small"):
+    """MLP_small's widths (512, 512, 512: the stack ends column-split) at
+    in 32, out 16; three batches of 64."""
+    jdef = jmlp.ModelDef.from_arch(arch, in_dim=32, out_dim=16,
+                                   compute_dtype=cdt)
+    tdef = tmlp.ModelDef.from_arch(arch, in_dim=32, out_dim=16,
+                                   compute_dtype=cdt)
+    params = jmlp.init_model(jax.random.PRNGKey(seed), jdef)
+    rng = np.random.default_rng(seed)
+    batches = [(rng.standard_normal((64, 32)).astype(np.float32),
+                rng.standard_normal((64, 16)).astype(np.float32))
+               for _ in range(3)]
+    return jdef, tdef, params, batches
+
+
+def _jax_steps(shape, jdef, params, batches):
+    opt = optax.adam(1e-3)
+    jm = jmesh.device_mesh(shape[0] * shape[1], shape=shape)
+    jstep, jshard = jmesh.make_sharded_train_step(jm, jdef, opt)
+    p, s, losses = params, opt.init(params), []
+    with jm:
+        for xb, yb in batches:
+            p, s, xs, ys = jshard(p, s, jnp.asarray(xb), jnp.asarray(yb))
+            p, s, loss = jstep(p, s, xs, ys)
+            losses.append(float(loss))
+    return [np.asarray(a) for a in jax.tree.leaves(p)], losses
+
+
+def _port_steps(shape, tdef, params, batches, devices=None):
+    opt = ttr.Adam(1e-3)
+    n = shape[0] * shape[1]
+    mesh = tmesh.device_mesh(n, shape=shape, devices=devices or ["cpu"] * n)
+    step, shard = tmesh.make_sharded_train_step(mesh, tdef, opt)
+    p = tmlp.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    s, losses = opt.init(p), []
+    for xb, yb in batches:
+        p, s, xs, ys = shard(p, s, torch.as_tensor(xb), torch.as_tensor(yb))
+        p, s, loss = step(p, s, xs, ys)
+        losses.append(float(loss))
+    return p, s, losses, step
+
+
+def _rel(g, r):
+    return float(np.abs(g - r).max()) / max(float(np.abs(r).max()), 1e-30)
+
+
+def _rel_l2(got, ref):
+    num = sum(float(((np.float64(g) - r) ** 2).sum())
+              for g, r in zip(got, ref))
+    den = sum(float((np.float64(r) ** 2).sum()) for r in ref)
+    return (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_tensor_parallel_step_matches_jax(shape, cdt):
+    jdef, tdef, params, batches = _problem(cdt)
+    ref, jlosses = _jax_steps(shape, jdef, params, batches)
+    p, s, losses, step = _port_steps(shape, tdef, params, batches)
+    got = [a.numpy() for a in tmlp.tree_leaves(tmesh.unshard_params(p))]
+    assert s["count"] == 3
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, jlosses))
+    if cdt == "float32":
+        assert loss_err <= F32_TOL["loss"]
+        whole, _ = _jax_steps((1, 1), jdef, params, batches)
+        assert max(_rel(g, r) for g, r in zip(got, whole)) \
+            <= F32_TOL["params"]
+    else:
+        assert loss_err <= BF16_TOL["loss"]
+        assert _rel_l2(got, ref) <= BF16_TOL["params_l2"]
+    # the 'model' collectives a step: a sum (layer 1), the sum of the
+    # gradients of layer 2's input, the gather before the head, a row each
+    rows = shape[0]
+    assert step.collectives["row_sum"] == 3 * rows
+    assert step.collectives["row_grad_sum"] == 3 * rows
+    assert step.collectives["row_gather"] == 3 * rows
+    assert step.collectives["data_sum"] == (3 * (shape[1] + 1)
+                                            if rows > 1 else 0)
+
+
+def test_shard_shapes_follow_the_partition_specs():
+    """Each leaf of the parameters and of Adam's mu and nu is cut along
+    the dim its spec names 'model', piece c on every device of column c;
+    the head and the odd layers' b whole on every device; count kept.
+    A dim 'model' does not divide raises, as jax.device_put does."""
+    _, tdef, params, batches = _problem("bfloat16")
+    p0 = tmlp.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    opt = ttr.Adam(1e-3)
+    mesh = tmesh.device_mesh(4, shape=(2, 2), devices=["cpu"] * 4)
+    _, shard = tmesh.make_sharded_train_step(mesh, tdef, opt)
+    p, s, xs, ys = shard(p0, opt.init(p0), torch.as_tensor(batches[0][0]),
+                         torch.as_tensor(batches[0][1]))
+    specs = tmesh.mlp_partition_specs(p0)
+
+    def leaves(tree):
+        return [(tree["layers"][i][key], specs["layers"][i][key],
+                 p0["layers"][i][key])
+                for i in range(len(tree["layers"])) for key in ("w", "b")] \
+            + [(tree["head"][key], specs["head"][key], p0["head"][key])
+               for key in ("w", "b")]
+
+    for tree in (p, s["mu"], s["nu"]):
+        for leaf, spec, whole in leaves(tree):
+            assert isinstance(leaf, tmesh.Shards) and leaf.spec == spec
+            d = spec.index("model") if "model" in spec else None
+            for k, b in enumerate(leaf.blocks):
+                n = whole.shape[d] // 2 if d is not None else None
+                ref = whole if d is None else whole.narrow(d, (k % 2) * n, n)
+                if tree is not p:
+                    ref = torch.zeros_like(ref)
+                assert torch.equal(b, ref), (spec, k)
+    assert s["count"] == 0
+    assert list(p["layers"][0]["w"].blocks[1].shape) == [32, 256]
+    assert list(p["layers"][1]["w"].blocks[1].shape) == [256, 512]
+    assert list(p["head"]["w"].blocks[3].shape) == [512, 16]
+    assert [tuple(x.shape) for x in xs] == [(32, 32), (32, 32)]
+    for a, b in zip(tmlp.tree_leaves(tmesh.unshard_params(p)),
+                    tmlp.tree_leaves(p0)):
+        assert torch.equal(a, b)
+    # an already placed tree passes through
+    again = shard(p, s, torch.as_tensor(batches[0][0]),
+                  torch.as_tensor(batches[0][1]))[0]
+    assert again["layers"][0]["w"] is p["layers"][0]["w"]
+
+    odd = tmlp.ModelDef(kind="dense", widths=(6, 6), in_dim=4, out_dim=2)
+    po = tmlp.init_model(0, odd, device="cpu")
+    mesh4 = tmesh.device_mesh(4, shape=(1, 4), devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="divide"):
+        tmesh.make_sharded_train_step(mesh4, odd, opt)[1](
+            po, opt.init(po), torch.zeros(4, 4), torch.zeros(4, 2))
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    jm = jmesh.device_mesh(4, shape=(1, 4))
+    with pytest.raises(ValueError, match="divisible"):
+        jax.device_put(jnp.zeros((4, 6)), NamedSharding(jm, P(None, "model")))
+
+
+@pytest.mark.parametrize("arch", ["MLP_attention", "conv1D"])
+def test_other_kinds_take_a_model_axis_of_one(arch):
+    """The attention and conv1d kinds have no tensor-parallel placement in
+    the port: a 'model' axis above 1 raises, naming the kind; a mesh of
+    one column is the data-parallel step, whole weights on each row."""
+    _, tdef, params, batches = _problem("float32", arch=arch)
+    with pytest.raises(ValueError, match=tdef.kind):
+        tmesh.make_sharded_train_step(
+            tmesh.device_mesh(2, shape=(1, 2), devices=["cpu"] * 2), tdef,
+            ttr.Adam(1e-3))
+    p1, _, l1, _ = _port_steps((1, 1), tdef, params, batches)
+    p2, _, l2, _ = _port_steps((2, 1), tdef, params, batches)
+    assert max(abs(a - b) / abs(b) for a, b in zip(l1, l2)) <= 1e-5
+    for a, b in zip(tmlp.tree_leaves(tmesh.unshard_params(p2)),
+                    tmlp.tree_leaves(tmesh.unshard_params(p1))):
+        assert _rel(a.numpy(), b.numpy()) <= 1e-5
+
+
+def test_axis_types_as_jax_takes_them():
+    """Mesh.axis_types: JAX's signature and default (None: every axis
+    Auto), one AxisType an axis name, a lone one a tuple of one, validated
+    with JAX's errors; kept on the mesh; no result changes."""
+    from jax.sharding import AxisType as JT
+    devs = ((torch.device("cpu"),) * 2,)
+    jdevs = np.asarray(jax.devices()[:2]).reshape(1, 2)
+    names = ("data", "model")
+    assert tmesh.Mesh(devs).axis_types == (tmesh.AxisType.Auto,) * 2
+    assert [t.name for t in jax.sharding.Mesh(jdevs, names).axis_types] \
+        == ["Auto", "Auto"]
+    m = tmesh.Mesh(devs, names, (tmesh.AxisType.Explicit,
+                                 tmesh.AxisType.Auto))
+    assert m.axis_types[0] is tmesh.AxisType.Explicit
+    assert [t.name for t in tmesh.AxisType] == [t.name for t in JT]
+    for port, ref, err in [
+            (tmesh.AxisType.Explicit, JT.Explicit, ValueError),
+            (("Auto", "Auto"), ("Auto", "Auto"), TypeError),
+            ((tmesh.AxisType.Auto,) * 3, (JT.Auto,) * 3, ValueError)]:
+        with pytest.raises(err):
+            tmesh.Mesh(devs, names, port)
+        with pytest.raises(err):
+            jax.sharding.Mesh(jdevs, names, ref)
+    # device_mesh passes none, as JAX's; a world's mesh keeps the types
+    assert tmesh.device_mesh(2, devices=["cpu"] * 2).axis_types \
+        == (tmesh.AxisType.Auto,) * 2
+    assert m != tmesh.Mesh(devs, names)
+
+
+WORLD = """
+import pickle, sys
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+from tpufoam_torch.parallel import distributed as d
+from tpufoam_torch.parallel import mesh as tmesh
+from tpufoam_torch.train import trainer as ttr
+with open({inputs!r}, "rb") as f:
+    tdef, p0, batches, shape, per = pickle.load(f)
+assert d.init_distributed(device="cpu")
+mesh = d.global_device_mesh(shape=shape, devices=["cpu"] * per)
+opt = ttr.Adam(1e-3)
+step, shard = tmesh.make_sharded_train_step(mesh, tdef, opt)
+p, s, losses = p0, opt.init(p0), []
+for xb, yb in batches:
+    p, s, xs, ys = shard(p, s, torch.as_tensor(xb), torch.as_tensor(yb))
+    p, s, loss = step(p, s, xs, ys)
+    losses.append(float(loss))
+from tpufoam_torch.models.mlp import tree_leaves
+blocks = {{k: [a.blocks[k] for a in tree_leaves(p)] + [a.blocks[k] for a in
+          tree_leaves(s["mu"])] for k in mesh.local_blocks}}
+with open({out!r} + str(dist.get_rank()), "wb") as f:
+    pickle.dump((losses, blocks, dict(step.collectives)), f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("shape,per", [((1, 2), 1), ((2, 2), 2)],
+                         ids=["1x2-a-column-each", "2x2-a-row-each"])
+def test_a_world_equals_one_process(tmp_path, shape, per):
+    """A gloo world of two processes: on a 1 x 2 mesh each owns one
+    'model' column (the row's sums and gathers go between them); on a
+    2 x 2 mesh each owns a row (the gradients' sums over 'data' do).
+    Each process's blocks equal the one-process mesh's bit for bit."""
+    _, tdef, params, batches = _problem("bfloat16")
+    p0 = tmlp.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    inputs = tmp_path / "inputs.pkl"
+    with open(inputs, "wb") as f:
+        pickle.dump((tdef, p0, batches, shape, per), f)
+    out = str(tmp_path / "out")
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", WORLD.format(root=ROOT, inputs=str(inputs),
+                                            out=out)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "MASTER_ADDR": "localhost",
+             "MASTER_PORT": str(port), "WORLD_SIZE": "2",
+             "RANK": str(rank)}) for rank in range(2)]
+    results = [p.communicate(timeout=180) for p in procs]
+    for p, (o, e) in zip(procs, results):
+        assert p.returncode == 0, o + e
+    p, s, losses, step = _port_steps(shape, tdef, params, batches)
+    ref = {k: [a.blocks[k] for a in tmlp.tree_leaves(p)]
+           + [a.blocks[k] for a in tmlp.tree_leaves(s["mu"])]
+           for k in range(4 if shape == (2, 2) else 2)}
+    seen = set()
+    for rank in range(2):
+        with open(out + str(rank), "rb") as f:
+            w_losses, blocks, collectives = pickle.load(f)
+        assert w_losses == losses
+        # a process runs the collectives of its own rows
+        assert collectives["row_sum"] == 3 * (per if shape == (1, 2)
+                                              else 1)
+        for k, leaves in blocks.items():
+            seen.add(k)
+            for a, b in zip(leaves, ref[k]):
+                assert torch.equal(a, b), (rank, k)
+    assert seen == set(ref)

@@ -344,6 +344,8 @@ def _params_within(got, ref, tol):
 
 
 def _port_steps(mesh, tdef, params, batches, lr=1e-3):
+    """Three steps; the parameters and Adam's state come back whole
+    (the step keeps them placed on the mesh)."""
     opt = ttr.Adam(lr)
     step, shard = tmesh.make_sharded_train_step(mesh, tdef, opt)
     p = tmlp.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
@@ -353,7 +355,7 @@ def _port_steps(mesh, tdef, params, batches, lr=1e-3):
         p, s, xs, ys = shard(p, s, T(xb), T(yb))
         p, s, loss = step(p, s, xs, ys)
         losses.append(float(loss))
-    return p, s, losses
+    return tmesh.unshard_params(p), tmesh.unshard_params(s), losses
 
 
 @pytest.mark.parametrize("cdt,tol", [("float32", TRAIN_STEP_F32_TOL),
@@ -361,7 +363,8 @@ def _port_steps(mesh, tdef, params, batches, lr=1e-3):
 def test_train_step_matches_jax(cdt, tol):
     """Three Adam steps on a one-device mesh in both packages, from the
     same parameters and batches; then the port's 2 x 2 mesh (two batch
-    slices) against its 1 x 1 step."""
+    slices, the dense weights cut over 'model') against its 1 x 1 step
+    (tests/test_torch_tensor_parallel.py holds the meshes to JAX's)."""
     jdef, tdef, params, batches = _step_problem(cdt)
     opt = optax.adam(1e-3)
     jm = jmesh.device_mesh(1)

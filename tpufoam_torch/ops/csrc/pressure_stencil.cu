@@ -1,8 +1,10 @@
 // Pressure-stencil kernels of the multigrid: damped-Jacobi sweeps
 //     x <- x + omega * (b - A x) / diag,
 //     A x = diag*x - c_e*E(x) - c_w*W(x) - c_n*N(x) - c_s*S(x),
-// several per launch, on (ny, nx) float32 or bfloat16 fields. A neighbour
-// beyond the domain reads as 0.
+// several per launch, on (ny, nx) float32 or bfloat16 fields, or on B
+// cases stacked as (B, ny, nx) (blockIdx.z is the case, each computed as
+// if alone: a fleet's levels, in one launch for all its cases). A
+// neighbour beyond the domain reads as 0.
 //
 //   jacobi_multisweep  iters <= halo sweeps            -> x
 //     replaces tpufoam/ops/stencil.py `jacobi_multisweep_pallas` (l.520,
@@ -81,6 +83,7 @@ constexpr int REGION = 64;
 constexpr int CELLS = REGION * REGION;
 constexpr int THREADS = 256;
 constexpr int MAX_GRID_Y = 65535;
+constexpr int MAX_GRID_Z = 65535;   // the cases of one stacked launch
 
 enum Mode { kMultisweep = 0, kSmoothResidual = 1, kCorrSmooth = 2 };
 
@@ -207,6 +210,7 @@ pressure_stencil_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
   const int tile = REGION - 2 * halo;
   const int gy0 = blockIdx.y * tile - halo;
   const int gx0 = blockIdx.x * tile - halo;
+  const long plane = (long)blockIdx.z * ny * nx;   // the case of a stack
 
   // load x (x + corr for the up leg) into both buffers: the frozen ring
   // and the cells beyond the domain then hold their value in either
@@ -215,7 +219,7 @@ pressure_stencil_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
     const int gx = gx0 + idx % REGION;
     float v = 0.f;
     if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
-      const long g = (long)gy * nx + gx;
+      const long g = plane + (long)gy * nx + gx;
       v = N::load(x0, g);
       if (MODE == kCorrSmooth) v = N::rnd(__fadd_rn(v, N::load(corr, g)));
     }
@@ -236,7 +240,7 @@ pressure_stencil_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
       const int gx = gx0 + c;
       const bool inside = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
       const Coef k = load_coef<T>(b, ce, cw, cn, cs, dg, inside,
-                                  (long)gy * nx + gx);
+                                  plane + (long)gy * nx + gx);
       const float xc = src[idx];
       const float ax = apply_a<T>(k, xc, src[idx + 1], src[idx - 1],
                                   src[idx + REGION], src[idx - REGION]);
@@ -256,7 +260,7 @@ pressure_stencil_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
     const int gy = gy0 + r;
     const int gx = gx0 + c;
     if (gy >= ny || gx >= nx) continue;
-    const long g = (long)gy * nx + gx;
+    const long g = plane + (long)gy * nx + gx;
     const int i = r * REGION + c;
     N::store(x_out, g, xf[i]);
     if (MODE == kSmoothResidual) {
@@ -864,7 +868,8 @@ constexpr size_t run_smem_bytes(int warps) {
 }
 
 // WINDOW: blockIdx.z is a block of `win` (jacobi_multisweep only), and
-// the tiles count from its origin; else the grid covers the plane.
+// the tiles count from its origin; else the grid covers the plane, and
+// blockIdx.z is the case of a (B, ny, nx) stack.
 template <typename T, int MODE, int ROWS, bool WINDOW = false>
 __global__ void __launch_bounds__(32 * MS_MAX_WARPS, 1)
 multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
@@ -889,6 +894,8 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
   const int height = warps * ROWS;
   const int r0 = warp * ROWS;                   // region row of the first row
   const Bounds bd = bounds_of<WINDOW>(win, blockIdx.z, ny, nx);
+  // without a window blockIdx.z is the case of a (B, ny, nx) stack
+  const long plane = WINDOW ? 0 : (long)blockIdx.z * ny * nx;
   const int gy0 = bd.oy + blockIdx.y * tile_y - hy + r0;
   const int gx = bd.ox + blockIdx.x * tile_x - hx + lane * RUN;
   // the whole run, or none (nx and a window's edges are whole runs)
@@ -904,7 +911,7 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
   for (int i = 0; i < ROWS; ++i) {
     const int gy = gy0 + i;
     const bool in = col_in && gy >= bd.y_lo && gy < bd.y_hi;
-    const long g = (long)gy * nx + gx;
+    const long g = plane + (long)gy * nx + gx;
     xr[i] = load_run<T>(x0 + g, in);
     const Pack kb = load_run<T>(b + g, in);
     ke[i] = load_run<T>(ce + g, in);
@@ -974,7 +981,7 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
         const int gy = gy0 + i;
         if (col_out && r0 + i >= hy && r0 + i < height - hy && gy >= 0
             && gy < bd.y_end) {
-          const long g = (long)gy * nx + gx;
+          const long g = plane + (long)gy * nx + gx;
           *reinterpret_cast<uint4*>(out + g) = as_uint4(xr[i]);
           *reinterpret_cast<uint4*>(r_out + g) = as_uint4(r);
         }
@@ -1007,7 +1014,8 @@ multisweep_run_kernel(const T* __restrict__ x0, const T* __restrict__ corr,
     const int gy = gy0 + i;
     if (col_out && r0 + i >= hy && r0 + i < height - hy && gy >= 0
         && gy < bd.y_end) {
-      *reinterpret_cast<uint4*>(out + (long)gy * nx + gx) = as_uint4(xr[i]);
+      *reinterpret_cast<uint4*>(out + plane + (long)gy * nx + gx) =
+          as_uint4(xr[i]);
     }
   }
 }
@@ -1023,11 +1031,12 @@ struct MultisweepGeometry {
 };
 
 template <typename T, int MODE>
-bool multisweep_ok(const MultisweepGeometry& g, int ny, int nx, int iters,
-                   const void* const* ptrs, int n_ptrs) {
+bool multisweep_ok(const MultisweepGeometry& g, int planes, int ny, int nx,
+                   int iters, const void* const* ptrs, int n_ptrs) {
   constexpr int RUN = Cell<T>::kRun;
   const int hy = iters + (MODE == kSmoothResidual);
-  if (ny <= 0 || nx <= 0 || iters < 0 || hy > Num<T>::kHalo
+  if (planes <= 0 || planes > MAX_GRID_Z || ny <= 0 || nx <= 0 || iters < 0
+      || hy > Num<T>::kHalo
       || g.tile_y <= 0 || g.tile_x <= 0
       || g.gy != (ny + g.tile_y - 1) / g.tile_y
       || g.gx != (nx + g.tile_x - 1) / g.tile_x || g.gy > MAX_GRID_Y) {
@@ -1049,6 +1058,7 @@ bool multisweep_ok(const MultisweepGeometry& g, int ny, int nx, int iters,
   return true;
 }
 
+// `count` along z: the window's blocks, or the cases of a stack
 template <typename T, int MODE, int ROWS, bool WINDOW = false>
 cudaError_t launch_run(const T* x0, const T* corr, const T* b, const T* ce,
                        const T* cw, const T* cn, const T* cs, const T* dg,
@@ -1069,31 +1079,35 @@ cudaError_t launch_run(const T* x0, const T* corr, const T* b, const T* ce,
   return cudaGetLastError();
 }
 
+// `planes` cases of (ny, nx) stacked: blockIdx.z is the case, each case's
+// operands and outputs at (long)z * ny * nx, each computed as if alone
 template <typename T, int MODE>
 int launch_multisweep(const T* x0, const T* corr, const T* b, const T* ce,
                       const T* cw, const T* cn, const T* cs, const T* dg,
-                      T* x_out, T* r_out, int ny, int nx, int iters,
-                      MultisweepGeometry g, float omega, void* stream) {
+                      T* x_out, T* r_out, int planes, int ny, int nx,
+                      int iters, MultisweepGeometry g, float omega,
+                      void* stream) {
   const void* ptrs[] = {x0, b, ce, cw, cn, cs, dg, x_out,
                         MODE == kCorrSmooth ? (const void*)corr
                                             : (const void*)x0,
                         MODE == kSmoothResidual ? (const void*)r_out
                                                 : (const void*)x0};
-  if (!multisweep_ok<T, MODE>(g, ny, nx, iters, ptrs, 10)) {
+  if (!multisweep_ok<T, MODE>(g, planes, ny, nx, iters, ptrs, 10)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
   if (!g.run) {
-    pressure_stencil_kernel<T, MODE><<<dim3(g.gx, g.gy), THREADS, 0, s>>>(
-        x0, corr, b, ce, cw, cn, cs, dg, x_out, r_out, ny, nx, iters, g.hx,
-        omega);
+    pressure_stencil_kernel<T, MODE>
+        <<<dim3(g.gx, g.gy, planes), THREADS, 0, s>>>(
+            x0, corr, b, ce, cw, cn, cs, dg, x_out, r_out, ny, nx, iters,
+            g.hx, omega);
     return (int)cudaGetLastError();
   }
   return (int)(g.rows == 1
       ? launch_run<T, MODE, 1>(x0, corr, b, ce, cw, cn, cs, dg, x_out, r_out,
-                               ny, nx, iters, g, omega, s)
+                               ny, nx, iters, g, omega, s, {}, planes)
       : launch_run<T, MODE, 3>(x0, corr, b, ce, cw, cn, cs, dg, x_out, r_out,
-                               ny, nx, iters, g, omega, s));
+                               ny, nx, iters, g, omega, s, {}, planes));
 }
 
 // Two or more sweeps of jacobi_multisweep over a window: the run kernel's
@@ -1112,7 +1126,7 @@ int launch_multisweep_window(const T* x0, const T* b, const T* ce,
   if (!g.run || nx % Cell<T>::kRun != 0
       || !window_ok(win, ny, nx, nyl, nxl, hy, hx, count, origins, iters,
                     Num<T>::kHalo)
-      || !multisweep_ok<T, kMultisweep>(g, nyl, nxl, iters, ptrs, 8)) {
+      || !multisweep_ok<T, kMultisweep>(g, 1, nyl, nxl, iters, ptrs, 8)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
@@ -1131,30 +1145,33 @@ int launch_multisweep_window(const T* x0, const T* b, const T* ce,
 #define PRESSURE_STENCIL_ENTRIES(SUFFIX, T)                                  \
   extern "C" int jacobi_multisweep_##SUFFIX(                                 \
       const T* x, const T* b, const T* ce, const T* cw, const T* cn,         \
-      const T* cs, const T* dg, T* x_out, int ny, int nx, int iters,         \
-      int run, int rows, int warps, int hx, int tile_y, int tile_x, int gx,  \
-      int gy, float omega, void* stream) {                                   \
+      const T* cs, const T* dg, T* x_out, int planes, int ny, int nx,        \
+      int iters, int run, int rows, int warps, int hx, int tile_y,           \
+      int tile_x, int gx, int gy, float omega, void* stream) {               \
     return launch_multisweep<T, kMultisweep>(                                \
-        x, nullptr, b, ce, cw, cn, cs, dg, x_out, nullptr, ny, nx, iters,    \
-        {run, rows, warps, hx, tile_y, tile_x, gx, gy}, omega, stream);      \
+        x, nullptr, b, ce, cw, cn, cs, dg, x_out, nullptr, planes, ny, nx,   \
+        iters, {run, rows, warps, hx, tile_y, tile_x, gx, gy}, omega,        \
+        stream);                                                             \
   }                                                                          \
   extern "C" int smooth_residual_##SUFFIX(                                   \
       const T* x, const T* b, const T* ce, const T* cw, const T* cn,         \
-      const T* cs, const T* dg, T* x_out, T* r_out, int ny, int nx,          \
-      int iters, int run, int rows, int warps, int hx, int tile_y,           \
+      const T* cs, const T* dg, T* x_out, T* r_out, int planes, int ny,      \
+      int nx, int iters, int run, int rows, int warps, int hx, int tile_y,   \
       int tile_x, int gx, int gy, float omega, void* stream) {               \
     return launch_multisweep<T, kSmoothResidual>(                            \
-        x, nullptr, b, ce, cw, cn, cs, dg, x_out, r_out, ny, nx, iters,      \
-        {run, rows, warps, hx, tile_y, tile_x, gx, gy}, omega, stream);      \
+        x, nullptr, b, ce, cw, cn, cs, dg, x_out, r_out, planes, ny, nx,     \
+        iters, {run, rows, warps, hx, tile_y, tile_x, gx, gy}, omega,        \
+        stream);                                                             \
   }                                                                          \
   extern "C" int corr_smooth_##SUFFIX(                                       \
       const T* x, const T* corr, const T* b, const T* ce, const T* cw,       \
-      const T* cn, const T* cs, const T* dg, T* x_out, int ny, int nx,       \
-      int iters, int run, int rows, int warps, int hx, int tile_y,           \
+      const T* cn, const T* cs, const T* dg, T* x_out, int planes, int ny,   \
+      int nx, int iters, int run, int rows, int warps, int hx, int tile_y,   \
       int tile_x, int gx, int gy, float omega, void* stream) {               \
     return launch_multisweep<T, kCorrSmooth>(                                \
-        x, corr, b, ce, cw, cn, cs, dg, x_out, nullptr, ny, nx, iters,       \
-        {run, rows, warps, hx, tile_y, tile_x, gx, gy}, omega, stream);      \
+        x, corr, b, ce, cw, cn, cs, dg, x_out, nullptr, planes, ny, nx,      \
+        iters, {run, rows, warps, hx, tile_y, tile_x, gx, gy}, omega,        \
+        stream);                                                             \
   }                                                                          \
   extern "C" int stencil_matvec_##SUFFIX(                                    \
       const T* x, const T* ce, const T* cw, const T* cn, const T* cs,        \

@@ -15,19 +15,20 @@ csrc/pressure_stencil.cu:
   smooth_residual    `iters` sweeps, then r = b - A x  (V-cycle down leg)
   corr_smooth        x + corr, then `iters` sweeps     (V-cycle up leg)
 
-The two single-pass kernels take (ny, nx) operands or a fleet's
-(B, ny, nx), in the launch geometry of `pass_geometry` (a strip of rows
-per thread, and a 16-byte run of cells on large aligned planes, one cell
-elsewhere); the multisweep kernels take (ny, nx) and launch in the
-geometry of `multisweep_geometry`: the run kernel (16-byte runs over a few
-rows a thread, every operand read once and kept on chip for all the
-sweeps, smooth_residual's residual in one more pass over a halo one ring
-deeper; in bfloat16 too the division skips a zero dividend's slow path)
-on aligned planes whose width is a whole number of runs, the region
-kernel elsewhere, and for one sweep of jacobi_multisweep one pass of
-jacobi_sweep's kernels. The sharded multisweep (ops/sharded.py) launches
-jacobi_multisweep's window form over a card's mesh blocks of global
-operands, in the geometry of `window_geometry`.
+Every kernel takes (ny, nx) operands or a fleet's (B, ny, nx), each case
+computed as if alone, in one launch for the stack (blockIdx.z the case).
+The two single-pass kernels launch in the geometry of `pass_geometry` (a
+strip of rows per thread, and a 16-byte run of cells on large aligned
+planes, one cell elsewhere); the multisweep kernels in the geometry of
+`multisweep_geometry`, chosen by a case's plane: the run kernel (16-byte
+runs over a few rows a thread, every operand read once and kept on chip
+for all the sweeps, smooth_residual's residual in one more pass over a
+halo one ring deeper; in bfloat16 too the division skips a zero dividend's
+slow path) on aligned planes whose width is a whole number of runs, the
+region kernel elsewhere, and for one sweep of jacobi_multisweep one pass
+of jacobi_sweep's kernels. The sharded multisweep (ops/sharded.py)
+launches jacobi_multisweep's window form over a card's mesh blocks of
+global operands, in the geometry of `window_geometry`.
 
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU
 tensors it runs the `*_plain` version beside it. The plain versions repeat
@@ -56,6 +57,7 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # REGION x REGION cells and the grid's y extent is capped by CUDA.
 REGION = 64
 _MAX_GRID_Y = 65535
+_MAX_GRID_Z = 65535          # the cases of one stacked launch
 
 
 def _halo_for(dtype) -> int:
@@ -70,7 +72,7 @@ def _max_iters(dtype, kernel: str) -> int:
     return _halo_for(dtype) - (kernel == "smooth_residual")
 
 
-# the kernels that take one pass per launch and a leading case axis
+# the kernels that take one pass per launch
 _PASS_KERNELS = ("matvec", "jacobi_sweep")
 _PASS_THREADS = 256          # the most threads of a block
 _PASS_MAX_ROWS = 16          # the most rows of a thread's strip
@@ -170,8 +172,9 @@ def _run_rows(shape, halo: int) -> int:
     3.1 us up to a halo of 2, and at 3 lost 0.1-0.2 us in bfloat16
     (smooth_residual on the fused path; it won 1.0-1.3 in float32), where
     a 16-row block keeps 10 rows of tile against 18 of 24
-    (tools/kernel_times.py --variants on the H100)."""
-    big = shape[0] * shape[1] >= _ONE_ROW_BELOW_CELLS
+    (tools/kernel_times.py --variants on the H100). `shape` is a case's
+    (ny, nx), or a stack's (B, ny, nx): the rows follow the plane."""
+    big = shape[-2] * shape[-1] >= _ONE_ROW_BELOW_CELLS
     return 1 if halo <= _ONE_ROW_MAX_HALO - big else _RUN_ROWS
 
 
@@ -198,7 +201,8 @@ class MultisweepGeometry:
     region kernel (`pressure_stencil_kernel`, square regions of `REGION`
     cells, one cell a thread at a time, `cells` and `rows` 1). `halo` is
     (rows, columns) on each side of the output `tile` (rows, columns);
-    `grid` (blocks along x, blocks along y)."""
+    `grid` (blocks along x, blocks along y, planes: the cases of a stack,
+    1 for one case)."""
     variant: str
     cells: int
     rows: int
@@ -217,31 +221,36 @@ def _run_geometry(shape, dtype, halo: int,
                   rows: int = _RUN_ROWS) -> MultisweepGeometry:
     """The run kernel's geometry: a halo of `halo` rows and of the
     smallest whole number of runs >= halo columns; `rows` rows a thread,
-    in blocks of `_run_warps(halo, rows)` warps."""
-    ny, nx = shape
+    in blocks of `_run_warps(halo, rows)` warps; a plane a case of a
+    (B, ny, nx) `shape`."""
+    *lead, ny, nx = shape
     run = 16 // dtype.itemsize
     warps = _run_warps(halo, rows)
     hx = -(-halo // run) * run
     tile = (warps * rows - 2 * halo, _RUN_LANES * run - 2 * hx)
     return MultisweepGeometry("run", run, rows, warps, (halo, hx), tile,
-                              (-(-nx // tile[1]), -(-ny // tile[0])))
+                              (-(-nx // tile[1]), -(-ny // tile[0]),
+                               lead[0] if lead else 1))
 
 
 def _region_geometry(shape, halo: int) -> MultisweepGeometry:
-    ny, nx = shape
+    *lead, ny, nx = shape
     t = REGION - 2 * halo
     return MultisweepGeometry("region", 1, 1, _REGION_THREADS // 32,
                               (halo, halo), (t, t),
-                              (-(-nx // t), -(-ny // t)))
+                              (-(-nx // t), -(-ny // t),
+                               lead[0] if lead else 1))
 
 
 def multisweep_geometry(shape, dtype, iters: int, aligned: bool = True,
                         kernel: str = "jacobi_multisweep"):
     """The launch geometry of `kernel` ("jacobi_multisweep",
-    "smooth_residual" or "corr_smooth") for (ny, nx) operands of `dtype`
-    and `iters` sweeps. `aligned`: every operand's base address is a
-    multiple of 16 bytes. The halo is `iters` rows, and `iters` + 1 for
-    smooth_residual (its residual reads one more ring).
+    "smooth_residual" or "corr_smooth") for (ny, nx) or (B, ny, nx)
+    operands of `dtype` and `iters` sweeps. `aligned`: every operand's
+    base address is a multiple of 16 bytes. The choice below follows a
+    case's plane, and a stack's grid takes its cases along z. The halo
+    is `iters` rows, and `iters` + 1 for smooth_residual (its residual
+    reads one more ring).
     - One sweep of jacobi_multisweep is one pass of the single-pass
       kernels (jacobi_sweep's, bit for bit the same arithmetic): the
       `PassGeometry` of `pass_geometry`, vector or cell variant. It
@@ -253,7 +262,7 @@ def multisweep_geometry(shape, dtype, iters: int, aligned: bool = True,
     - the region kernel on the rest (odd widths such as the
       Schaefer-Turek levels, offset views) and on planes of fewer than
       `_REGION_BELOW_CELLS` cells."""
-    ny, nx = shape
+    ny, nx = shape[-2:]
     halo = iters + (kernel == "smooth_residual")
     if ny * nx < _REGION_BELOW_CELLS:
         return _region_geometry(shape, halo)
@@ -281,7 +290,7 @@ def window_geometry(blocks: int, shape, dtype, iters: int,
       all);
     - two or more: the run kernel over one block (`_run_geometry`, its
       rows a thread by `_run_rows` of the launch's cells), the blocks
-      along z.
+      along z (its grid's third entry).
     None (the exchange route) where the region kernel would take that
     plane (`_REGION_BELOW_CELLS`), where a block's width is no whole
     number of 16-byte runs or an operand is off 16 bytes (a window's
@@ -296,7 +305,7 @@ def window_geometry(blocks: int, shape, dtype, iters: int,
                              cells=blocks * nyl * nxl)
     if whole.variant != "run":
         return None
-    return _run_geometry(shape, dtype, iters, whole.rows)
+    return _run_geometry((blocks, nyl, nxl), dtype, iters, whole.rows)
 
 
 def kernel_available_for(shape, dtype=torch.float32,
@@ -305,25 +314,24 @@ def kernel_available_for(shape, dtype=torch.float32,
     The counterpart of the TPU package's `pallas_available_for` (its
     scoped-VMEM fit of row bands): the CUDA kernels tile in 2-D with
     bounds-checked reads, so every (ny, nx) fits, up to CUDA's grid limit
-    on the number of tiles in y (and on the cases of a (B, ny, nx) shape,
-    which only "matvec" and "jacobi_sweep" take). `kernel` is "jacobi"
+    on the number of tiles in y and on the cases of a (B, ny, nx) shape
+    (every kernel takes a stack, its cases along z). `kernel` is "jacobi"
     (the multisweep), "smooth_residual", "corr_smooth", "matvec" or
     "jacobi_sweep"."""
     if kernel not in ("jacobi", "smooth_residual", "corr_smooth",
                       *_PASS_KERNELS):
         raise ValueError(f"unknown kernel {kernel!r}")
-    rank = (2, 3) if kernel in _PASS_KERNELS else (2,)
-    if len(shape) not in rank or min(shape) < 1 or dtype not in _DTYPES:
+    if len(shape) not in (2, 3) or min(shape) < 1 or dtype not in _DTYPES \
+            or (len(shape) == 3 and shape[0] > _MAX_GRID_Z):
         return False
     if kernel in _PASS_KERNELS:
         # both variants: the operands' alignment picks one at launch
         return all(pass_geometry(shape, dtype, aligned).grid[1]
-                   <= _MAX_GRID_Y for aligned in (True, False)) \
-            and (len(shape) == 2 or shape[0] <= _MAX_GRID_Y)
+                   <= _MAX_GRID_Y for aligned in (True, False))
     # every tile has a row at least, and one pass of jacobi_multisweep a
     # block row per row of cells at most; taller planes: every geometry
     # the wrapper can launch (each iters, either alignment) must fit
-    if shape[0] <= _MAX_GRID_Y:
+    if shape[-2] <= _MAX_GRID_Y:
         return True
     name = "jacobi_multisweep" if kernel == "jacobi" else kernel
     return all(multisweep_geometry(shape, dtype, iters, aligned,
@@ -426,23 +434,24 @@ def _check(name, coef, fields, iters, kernel):
 
 
 def _launch_multisweep(name, entry, coef, fields, outs, iters, omega):
-    """One launch of the multisweep kernel `entry` in the geometry of
+    """One launch of the multisweep kernel `entry` over every case of the
+    operands ((ny, nx) or (B, ny, nx)) in the geometry of
     `multisweep_geometry`, into `outs` (x, and r for smooth_residual);
     returns that geometry."""
     x = fields[0]
-    ny, nx = x.shape
+    ny, nx = x.shape[-2:]
     ptrs = [t.data_ptr() for t in (*fields, coef.c_e, coef.c_w, coef.c_n,
                                    coef.c_s, coef.diag, *outs)]
-    geom = multisweep_geometry((ny, nx), x.dtype, iters,
+    geom = multisweep_geometry(tuple(x.shape), x.dtype, iters,
                                aligned=all(p % 16 == 0 for p in ptrs),
                                kernel=entry)
     if isinstance(geom, PassGeometry):    # one sweep: a single pass
         return _launch_pass(name, "jacobi_sweep", coef, fields, outs[0],
                             omega, geom)
     lib, fn = _fn(f"{entry}_{_DTYPES[x.dtype]}", len(ptrs),
-                  (ctypes.c_int,) * 11 + (ctypes.c_float,))
-    args = (ny, nx, iters, int(geom.variant == "run"), geom.rows,
-            geom.warps, geom.halo[1], *geom.tile, *geom.grid,
+                  (ctypes.c_int,) * 12 + (ctypes.c_float,))
+    args = (geom.grid[2], ny, nx, iters, int(geom.variant == "run"),
+            geom.rows, geom.warps, geom.halo[1], *geom.tile, *geom.grid[:2],
             _omega(omega, x.dtype))
     with torch.cuda.device(x.device):   # launch on the operands' card
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -499,7 +508,7 @@ def _launch_window(coef, x, b, out, iters, omega, block, origins, halo,
                       (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
                       + (ctypes.c_int,) * 9 + (ctypes.c_float,))
         args = (iters, 1, geom.rows, geom.warps, geom.halo[1], *geom.tile,
-                *geom.grid)
+                *geom.grid[:2])
     with torch.cuda.device(x.device):   # launch on the operands' card
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*(t.data_ptr() for t in ops), *window, *args,
@@ -552,10 +561,10 @@ def jacobi_sweep(coef, x, b, iters: int = 2, omega: float = 0.8):
 
 def jacobi_multisweep(coef, x, b, iters: int = 2, omega: float = 0.8):
     """`iters` <= halo damped-Jacobi sweeps in one launch of
-    csrc/pressure_stencil.cu, in the geometry of `multisweep_geometry`
-    (replaces the TPU kernel `jacobi_multisweep_pallas`,
-    tpufoam/ops/stencil.py:520). On CPU tensors:
-    `jacobi_multisweep_plain`."""
+    csrc/pressure_stencil.cu on (ny, nx) or (B, ny, nx) operands, in the
+    geometry of `multisweep_geometry` (replaces the TPU kernel
+    `jacobi_multisweep_pallas`, tpufoam/ops/stencil.py:520, and its
+    vmapped form). On CPU tensors: `jacobi_multisweep_plain`."""
     if _check("jacobi_multisweep", coef, (x, b), iters, "jacobi"):
         return jacobi_multisweep_plain(coef, x, b, iters, omega)
     out = torch.empty_like(x)
@@ -567,9 +576,10 @@ def jacobi_multisweep(coef, x, b, iters: int = 2, omega: float = 0.8):
 
 def smooth_residual(coef, x, b, iters: int = 2, omega: float = 0.8):
     """The V-cycle down leg, `iters` <= halo - 1 sweeps then the residual,
-    in one launch in the geometry of `multisweep_geometry`; returns (x, r).
-    Replaces the TPU kernel `smooth_residual_pallas`,
-    tpufoam/ops/stencil.py:629. On CPU tensors: `smooth_residual_plain`."""
+    in one launch on (ny, nx) or (B, ny, nx) operands in the geometry of
+    `multisweep_geometry`; returns (x, r). Replaces the TPU kernel
+    `smooth_residual_pallas`, tpufoam/ops/stencil.py:629, and its vmapped
+    form. On CPU tensors: `smooth_residual_plain`."""
     if _check("smooth_residual", coef, (x, b), iters, "smooth_residual"):
         return smooth_residual_plain(coef, x, b, iters, omega)
     outs = (torch.empty_like(x), torch.empty_like(x))
@@ -581,9 +591,10 @@ def smooth_residual(coef, x, b, iters: int = 2, omega: float = 0.8):
 
 def corr_smooth(coef, x, corr, b, iters: int = 2, omega: float = 0.8):
     """The V-cycle up leg, x + corr then `iters` <= halo sweeps, in one
-    launch in the geometry of `multisweep_geometry`. Replaces the TPU
-    kernel `corr_smooth_pallas`, tpufoam/ops/stencil.py:722. On CPU
-    tensors: `corr_smooth_plain`."""
+    launch on (ny, nx) or (B, ny, nx) operands in the geometry of
+    `multisweep_geometry`. Replaces the TPU kernel `corr_smooth_pallas`,
+    tpufoam/ops/stencil.py:722, and its vmapped form. On CPU tensors:
+    `corr_smooth_plain`."""
     if _check("corr_smooth", coef, (x, corr, b), iters, "corr_smooth"):
         return corr_smooth_plain(coef, x, corr, b, iters, omega)
     out = torch.empty_like(x)

@@ -124,7 +124,7 @@ def global_device_mesh(shape=None, axis_names=("data", "model"),
     whole = device_mesh(shape=shape, axis_names=axis_names,
                         devices=[d for rank in every for d in rank])
     per = len(mine)
-    return Mesh(whole.devices, whole.axis_names,
+    return Mesh(whole.devices, whole.axis_names, whole.axis_types,
                 owners=tuple(k // per for k in range(whole.size)),
                 rank=dist.get_rank())
 
@@ -149,10 +149,42 @@ def p2p(sends, recvs) -> list:
     return out
 
 
-def all_gather_blocks(local: torch.Tensor) -> list:
+def all_gather_blocks(local: torch.Tensor, group=None) -> list:
     """Every process's `local` (one shape and dtype on every process), in
-    rank order."""
+    rank order; over `group`'s processes (a torch.distributed group) when
+    given, else over the world."""
     import torch.distributed as dist
-    out = [torch.empty_like(local) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, local.contiguous())
+    out = [torch.empty_like(local)
+           for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, local.contiguous(), group=group)
     return out
+
+
+def mesh_groups(mesh) -> tuple:
+    """The process groups of a world's mesh: (rows, columns), entry i of
+    rows the group of the processes that own a block of mesh row i, entry
+    j of columns that of mesh column j; None where this process is not in
+    the group or is alone in it (nothing to exchange). gloo on the CPU,
+    NCCL between cards. Every process of the world calls it at the same
+    point (torch.distributed.new_group's contract). The processes own
+    their blocks row-major, the same number each, so every process of a
+    row's (a column's) group owns as many of its blocks as every other,
+    and their ranks run in mesh order; a mesh cut otherwise raises."""
+    import torch.distributed as dist
+    dy, dx = len(mesh.devices), len(mesh.devices[0])
+    per = mesh.owners.count(mesh.rank)
+    if dx % per and per % dx:
+        raise ValueError(f"mesh_groups: {per} blocks a process do not cut "
+                         f"rows of {dx} blocks evenly")
+    backend = "nccl" if mesh.lead.type == "cuda" else "gloo"
+
+    def groups(lines):
+        out = []
+        for line in lines:
+            ranks = sorted({mesh.owners[k] for k in line})
+            g = dist.new_group(ranks, backend=backend)
+            out.append(g if mesh.rank in ranks and len(ranks) > 1 else None)
+        return out
+
+    return (groups([[i * dx + j for j in range(dx)] for i in range(dy)]),
+            groups([[i * dx + j for i in range(dy)] for j in range(dx)]))

@@ -16,8 +16,11 @@ down- and up-leg kernels); see `multigrid`.
 
 Every backend also takes a fleet's (B, ny, nx) operands (piso.batched),
 where the JAX package vmaps it: each case is solved as if alone (per-case
-norms, exits and escalation). The kernel smoothers take one case and
-raise on a case axis (multigrid.v_cycle).
+norms, exits and escalation). MGBackend and MGCGBackend take the kernel
+smoothers on a fleet too: one launch of a kernel a level for the whole
+stack, each case on the route it would take alone (multigrid._smooth).
+AutoBackend, HybridBackend and SurrogateBackend take no smoother, as in
+the JAX package: their multigrid smooths with the plain smoother.
 """
 
 from __future__ import annotations

@@ -260,7 +260,7 @@ def v_cycle(h: Hierarchy, b: BlockField, x: BlockField, pre: int = 2,
             cycle_type: str = "v", low: bool = False) -> BlockField:
     """One cycle (multigrid.v_cycle, counted there) on `h`'s levels, or on
     its reduced-precision levels with `low`."""
-    mg._check_smoother(smoother, 2)
+    mg._check_smoother(smoother)
     mg.v_cycle.cycles += 1
     levels, tail = (h.lp, h.tail_lp) if low else (h.levels, h.tail)
     return _cycle(levels, tail, 0, b, x, pre, post, coarse_iters, smoother,

@@ -22,11 +22,13 @@ Used standalone (`mg_solve`) or as the preconditioner of CG
 (`mgcg_pressure`).
 
 Every function takes ([B,] ny, nx) operands: a leading case axis (the
-batched fleet) or none. The kernel smoothers take only (ny, nx) operands
-and raise on a case axis. The loops that stop on a residual (`mg_solve`
-with rtol, `mgcg_pressure`) stop per case: a finished case is frozen
-while any other still runs, as a batched lax.while_loop freezes it, so
-each case takes the iterations it would take alone.
+batched fleet) or none. The kernel smoothers take a fleet's stack in one
+launch a level (the kernels' case axis), each level choosing its kernel on
+a case's (ny, nx), as the JAX package's vmapped cycle sees it: each case
+takes the route it would take alone. The loops that stop on a residual
+(`mg_solve` with rtol, `mgcg_pressure`) stop per case: a finished case is
+frozen while any other still runs, as a batched lax.while_loop freezes it,
+so each case takes the iterations it would take alone.
 """
 
 from __future__ import annotations
@@ -176,13 +178,14 @@ def _smooth(coef: PressureCoeffs, x: torch.Tensor, b: torch.Tensor,
             shape=None) -> torch.Tensor:
     """One level's smoother. smoother="kernel" takes the multisweep kernel
     where the JAX package takes its Pallas kernel: when the kernel fits the
-    level (`kernel_available_for`) and iters <= `_halo_for(dtype)`; other
-    levels, and other smoothers, take `jacobi_smooth`. This is the same
-    deterministic choice the JAX package makes, not a fallback on failure:
-    on a CUDA tensor the kernel launches or raises. `shape` is the level's
-    whole shape where x is one block's window of it (the decomposed
-    solve: the block takes the whole level's choice)."""
-    shape = tuple(x.shape) if shape is None else tuple(shape)
+    level (`kernel_available_for` of a case's (ny, nx)) and iters <=
+    `_halo_for(dtype)`; other levels, and other smoothers, take
+    `jacobi_smooth`. This is the same deterministic choice the JAX package
+    makes, not a fallback on failure: on a CUDA tensor the kernel launches
+    (once for a fleet's stack) or raises. `shape` is the level's whole
+    shape where x is one block's window of it (the decomposed solve: the
+    block takes the whole level's choice)."""
+    shape = tuple(x.shape[-2:]) if shape is None else tuple(shape)
     if (smoother == "kernel"
             and stencil.kernel_available_for(shape, x.dtype, "jacobi")
             and iters <= stencil._halo_for(x.dtype)):
@@ -196,10 +199,11 @@ def _fused_ok(coef: PressureCoeffs, pre: int, smoother: str,
     """Whether a level takes the fused legs (smoother="kernel-fused"): both
     kernels fit the level and the down leg's extra residual ring stays
     inside the halo. Otherwise the level takes `_smooth` and a plain
-    residual, as in the JAX package. `shape` as in `_smooth`."""
+    residual, as in the JAX package. `shape` as in `_smooth`; by default
+    a case's (ny, nx)."""
     if smoother != "kernel-fused":
         return False
-    shape = tuple(coef.diag.shape) if shape is None else tuple(shape)
+    shape = tuple(coef.diag.shape[-2:]) if shape is None else tuple(shape)
     dt = coef.diag.dtype
     return (pre <= stencil._halo_for(dt) - 1
             and stencil.kernel_available_for(shape, dt, "smooth_residual")
@@ -242,14 +246,9 @@ def _cycle(levels: list[PressureCoeffs], lvl: int, b: torch.Tensor,
     return _smooth(coef, x + corr, b, post, smoother)
 
 
-def _check_smoother(smoother: str, ndim: int):
+def _check_smoother(smoother: str):
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother {smoother!r} not in {SMOOTHERS}")
-    if smoother != "plain" and ndim != 2:
-        raise ValueError(
-            f"smoother {smoother!r} takes (ny, nx) operands, got "
-            f"{ndim}-D ones: the batched launch of the pressure kernels "
-            "is not ported; use smoother='plain' for a fleet")
 
 
 def v_cycle(levels: list[PressureCoeffs], b: torch.Tensor, x: torch.Tensor,
@@ -259,7 +258,7 @@ def v_cycle(levels: list[PressureCoeffs], b: torch.Tensor, x: torch.Tensor,
     cycle_type="w" (each coarse level visited twice per visit of the level
     above; with pre == post it stays a symmetric preconditioner).
     `v_cycle.cycles` counts the cycles run."""
-    _check_smoother(smoother, b.dim())
+    _check_smoother(smoother)
     v_cycle.cycles += 1
     return _cycle(levels, 0, b, x, pre, post, coarse_iters, smoother,
                   cycle_type)

@@ -7,22 +7,24 @@ path's 512 x 2048 and the Schaefer-Turek path's 256 x 1375 (D/delta 62.5).
 
 Each (ny, nx) operand is read once and each output written once, at the
 H100 SXM's published 3.35 TB/s; the operations (counted per cell and
-sweep, at the sweeps each kernel runs on its path) go at the f32 rate,
-67 TFLOP/s, which the kernels use in both dtypes since they compute in
+sweep, at the sweeps each kernel runs on its path) go at the f32 rate, 67
+TFLOP/s, which the kernels use in both dtypes since they compute in
 float32 registers. The bound is the larger of the two times. The
 multisweep pressure kernels are listed at each level of `build_hierarchy`
 that is not the coarsest (the coarsest level takes plain sweeps); the
 matvec and the single sweep at every level (the coarsest level's plain
-sweeps are matvecs); the momentum kernel runs at the finest level only,
-and its batched launch over a fleet of `--fleet` cases (piso.batched)
-moves that many planes in one launch. The sharded kernels (ops.sharded)
-over a `--mesh DYxDX` mesh (default 2x2) have the single kernel's bound,
-and beside it the bound of their haloed blocks, each (ny/dy + 2h) x
-(nx/dx + 2h) along the split axes with the kernel's halo h (8 in
-float32, 16 in bfloat16), read with their operations on every haloed
-cell and written cropped: the extra cost of the exchange route (the
-window route reads the global operands in place). Prints one
-JSON line, keyed by grid. Runs anywhere; it measures nothing.
+sweeps are matvecs); the momentum kernel runs at the finest level only.
+The batched launches over a fleet of `--fleet` cases (piso.batched): the
+momentum kernel's, and each multisweep pressure kernel's at the finest
+level in both dtypes (the kernel smoothers on a fleet), move that many
+planes in one launch: `--fleet` times one plane's bound. The sharded
+kernels (ops.sharded) over a `--mesh DYxDX` mesh (default 2x2) have the
+single kernel's bound, and beside it the bound of their haloed blocks,
+each (ny/dy + 2h) x (nx/dx + 2h) along the split axes with the kernel's
+halo h (8 in float32, 16 in bfloat16), read with their operations on every
+haloed cell and written cropped: the extra cost of the exchange route (the
+window route reads the global operands in place). Prints one JSON line,
+keyed by grid. Runs anywhere; it measures nothing.
 """
 
 from __future__ import annotations
@@ -118,7 +120,11 @@ def bounds(ny: int, nx: int, fleet: int = 4, mesh=(2, 2)) -> dict:
         out[name] = {dt: [bound(name, s, dt) for s in on] for dt in spec[4]}
     return {"levels": [list(s) for s in shapes], "kernels": out,
             "fleet": {"cases": fleet, "momentum_multisweep": bound(
-                "momentum_multisweep", (ny, nx), "f32", planes=fleet)},
+                "momentum_multisweep", (ny, nx), "f32", planes=fleet),
+                **{name: {dt: bound(name, (ny, nx), dt, planes=fleet)
+                          for dt in KERNELS[name][4]}
+                   for name in ("jacobi_multisweep", "smooth_residual",
+                                "corr_smooth")}},
             "sharded": {
                 "momentum_multisweep": sharded_bound(
                     "momentum_multisweep", (ny, nx), mesh, "f32"),

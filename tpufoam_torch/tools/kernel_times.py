@@ -3,7 +3,7 @@ cache flushed before each call: the momentum multisweep, stencil_matvec
 and the three multisweep pressure kernels.
 
     python tpufoam_torch/tools/kernel_times.py [--root DIR] [--reps N]
-        [--flush dirty|clean|none] [--variants]
+        [--flush dirty|clean|none] [--variants] [--fleet N]
         [--only momentum,matvec,multisweep,sharded]
 
 `--root` imports `tpufoam_torch` from another checkout (default: the one
@@ -24,9 +24,12 @@ flush's kernel, a bitwise-not, left out):
             64), float32 and bfloat16, at the paths' sweeps (float32 1 for
             jacobi_multisweep, 2 elsewhere), 2, 4 and the halo, each beside
             its bound (seven operands read, corr_smooth eight, one written,
-            smooth_residual two) and the launch's variant; and jacobi_sweep
+            smooth_residual two) and the launch's variant; jacobi_sweep
             with one sweep, the single-pass kernel that computes
-            jacobi_multisweep(iters=1)
+            jacobi_multisweep(iters=1); and the three kernels' launch on a
+            fleet's stack, (--fleet, 512, 2048) (default 4), float32 and
+            bfloat16 at the paths' sweeps, beside --fleet single-case
+            launches and --fleet times one plane's bound
   sharded   the two sharded functions (ops.sharded), each whole call, on
             a 2 x 2 mesh of the card at 512 x 2048:
             momentum_multisweep_sharded at 8 sweeps (the sharded step's),
@@ -165,6 +168,45 @@ def multisweep_levels(torch, st, operands, least):
     return times
 
 
+def multisweep_fleet(torch, st, operands, least, n):
+    """{"<kernel> <dtype>": {shape, iters, variant, ms, singles_ms,
+    bound_ms}}: each multisweep kernel's one launch on n stacked cases of
+    512 x 2048 (each case its own operands), beside the n cases launched
+    one by one, at the paths' sweeps."""
+    import dataclasses
+
+    from tpufoam_torch.fv.pressure import PressureCoeffs
+    times = {}
+    for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cases = [operands(GRIDS[0], dt) for _ in range(n)]
+        coef = PressureCoeffs(*(
+            torch.stack([getattr(c[0], f.name) for c in cases])
+            for f in dataclasses.fields(PressureCoeffs)))
+        x, b, corr = (torch.stack([c[i] for c in cases]) for i in (1, 2, 3))
+        calls = {
+            "jacobi_multisweep": lambda cf, x_, b_, c_, k:
+                st.jacobi_multisweep(cf, x_, b_, k),
+            "smooth_residual": lambda cf, x_, b_, c_, k:
+                st.smooth_residual(cf, x_, b_, k),
+            "corr_smooth": lambda cf, x_, b_, c_, k:
+                st.corr_smooth(cf, x_, c_, b_, k)}
+        for name, (n_in, n_out, per_sweep, once) in MULTISWEEP.items():
+            k, call = PATH_SWEEPS[name][prec], calls[name]
+            cells, size = x.numel(), x.element_size()
+            times[f"{name} {prec}"] = {
+                "shape": list(x.shape), "iters": k,
+                "variant": variant(getattr(st, name),
+                                   lambda: call(coef, x, b, corr, k)),
+                "ms": least(lambda: call(coef, x, b, corr, k)),
+                "singles_ms": least(lambda: [call(c[0], c[1], c[2], c[3], k)
+                                             for c in cases]),
+                "bound_ms": max((n_in + n_out) * cells * size / MEM_RATE,
+                                (per_sweep * k + once) * cells / F32_RATE)
+                * 1e3}
+        del cases, coef, x, b, corr
+    return times
+
+
 def multisweep_variants(torch, st, operands, least):
     """The three multisweep kernels at every kernel level, at the paths'
     sweeps and 2: the launch the tree picks, the region kernel forced,
@@ -233,6 +275,8 @@ def main() -> None:
     ap.add_argument("--variants", action="store_true",
                     help="also time the matvec with each variant forced "
                     "wherever it can run")
+    ap.add_argument("--fleet", type=int, default=4,
+                    help="cases of the multisweep kernels' stacked launch")
     ap.add_argument("--only", default="momentum,matvec,multisweep,sharded",
                     help="comma-separated sections to time")
     args = ap.parse_args()
@@ -359,6 +403,10 @@ def main() -> None:
     if "multisweep" in sections:
         out["multisweep"] = multisweep_levels(torch, st, pressure_operands,
                                               least)
+        if st.kernel_available_for((2, 8, 32), kernel="jacobi"):
+            # a tree whose multisweep kernels take a stack
+            out[f"multisweep fleet {args.fleet}"] = multisweep_fleet(
+                torch, st, pressure_operands, least, args.fleet)
     if args.variants and "multisweep" in sections:
         out["multisweep variants"] = multisweep_variants(
             torch, st, pressure_operands, least)
