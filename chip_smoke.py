@@ -44,6 +44,13 @@ Phases, each printing one JSON line with its elapsed seconds:
           second line joins those with the launches per step of each
           level on the main path, by variant (the finest level vector,
           the coarser ones cell)
+  kernel-matvec-grad  the matvec's backward kernel (stencil_matvec_grad,
+          csrc/stencil_grad.cu) against stencil_matvec_grad_plain, bit
+          for bit, with all six gradients and with dx alone, at every
+          level of both hierarchies, on a (4, ny, nx) stack of each and
+          on the odd shapes, float32 and bfloat16; its device time and
+          bound at both finest levels beside its plain version's and, for
+          dx, the library's sparse product with the transposed operator
   kernel-sweep  the jacobi_sweep kernel (one sweep a launch) against its
           plain version and against the jacobi_multisweep kernel, iters 1,
           2 and 8, float32 and bfloat16, at the same levels: bit for bit;
@@ -69,6 +76,16 @@ Phases, each printing one JSON line with its elapsed seconds:
           rest (assembly) and the launches of a call
   step    the hybrid PISO main path (run_piso_eager, MG bf16 backend with
           the plain smoother, sm_ref512 warm start) for a few steps
+  grad-step  reverse mode through bench.py's main path in the
+          configuration JAX differentiates (the plain momentum smoother,
+          MGBackend(cycles=2, precision="bf16"), no surrogate): 2 steps
+          of run_piso under autograd, the gradient of the downstream
+          kinetic energy w.r.t. the inlet profile: finite, centre row
+          positive, each taped matvec's backward one launch of
+          stencil_matvec_grad, bit for bit equal to the same run with a
+          Function of the plain forward and backward in the matvec's
+          place; a central difference on a small case within GRAD_TOL;
+          forward and backward ms, device memory
   step-sharded  the same path through the domain-decomposed step
           (parallel.mesh.make_sharded_piso_step) on a 2 x 2 mesh of the
           one card, 2 + 4 steps: every field resident per block, each
@@ -107,6 +124,10 @@ Phases, each printing one JSON line with its elapsed seconds:
           against four single-case launches (bit for bit); its time
   fleet-case  the four cases of scripts/bench_fleet_ab.py (cylinder,
           rectangle, triangle, ellipse at 512 x 2048), stacked
+  grad-fleet  run_piso_batched on those four cases, one lockstep of
+          grad-step's configuration under autograd, the loss summed over
+          the cases: each case's gradient equal to it stepped alone, bit
+          for bit; one backward launch for each taped batched matvec
   kernel-fleet-pressure  jacobi_multisweep, smooth_residual and
           corr_smooth on the (4, ny, nx) stack, one launch for the four
           cases, at every level of the main path's hierarchy (512 x 2048
@@ -227,13 +248,13 @@ Phases, each printing one JSON line with its elapsed seconds:
           the same step on the CPU, and on a (2, 2) mesh of the card (data
           and tensor parallel) against the (1, 1) one: the loss and the
           parameters
-  train-step-tp  sm_ref512's MLP (13 -> 512 x 3 -> 512, bf16) through
-          the data- and tensor-parallel step on the card's 1 x 1, 1 x 2
-          and 2 x 2 meshes (dense weights and Adam's moments cut over
-          'model'), batch 1024, 3 steps from the same parameters and
-          batches: 1 x 2 and 2 x 2 against 1 x 1 (TRAIN_STEP_TOL), each
-          block's shard shapes, ms a step (CUDA events), collectives a
-          step
+  train-step-tp  sm_ref512's MLP (13 -> 512 x 3 -> 512, bf16) and
+          MLP_attention at the same dims through the data- and tensor-
+          parallel step on the card's 1 x 1, 1 x 2 and 2 x 2 meshes
+          (dense weights and Adam's moments cut over 'model'), batch
+          1024, 3 steps from the same parameters and batches: 1 x 2 and
+          2 x 2 against 1 x 1 (TRAIN_STEP_TOL), each block's shard
+          shapes, ms a step (CUDA events), collectives a step
   train   train_surrogate from the PCA stage's codes (loss weighting
           'variance', batch 1024, lr 2e-4), with a checkpoint: epochs,
           epochs/s, krows/s, the best validation loss and epoch; the train
@@ -519,6 +540,36 @@ TRAIN_STEP_TOL = {"loss": 1e-3, "params_l2": 1e-2}
 # another order)
 TP_MESHES = ((1, 1), (1, 2), (2, 2))
 TP_STEPS, TP_SEED = 3, 19
+# and MLP_attention at sm_ref512's in and out dims (13, 512), bf16: its
+# dense layers placed as the dense kind's, the attention, LayerNorms and
+# head replicated
+TP_ATTENTION = "MLP_attention"
+# Reverse mode. grad-step: bench.py's main path (l.217-258) in the
+# configuration that JAX differentiates: the 512 x 2048 cylinder,
+# PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3) with the plain
+# momentum smoother (JAX's "xla"), MGBackend(cycles=2, precision="bf16")
+# with the plain pressure smoother, no surrogate warm start (JAX's reverse
+# mode refuses its safeguard's while_loop); GRAD_STEPS steps under
+# autograd, then the gradient of tests/test_differentiable.py's loss (the
+# sum of u^2 over the downstream half) w.r.t. inlet_u. Its central
+# difference: tests/test_torch_wall_options.py's small case (a 2 x 1
+# channel at delta 1/16, one corrector, fixed dt, two momentum sweeps,
+# upwind, MGBackend(cycles=2) in float32, 3 steps), GRAD_EPS along a
+# seeded direction, within GRAD_TOL of the card's gradient, relative.
+# grad-fleet: run_piso_batched on the fleet's four cases at 512 x 2048,
+# GRAD_FLEET_STEPS steps, the same configuration, the loss summed over
+# the cases.
+GRAD_STEPS, GRAD_FLEET_STEPS = 2, 1
+GRAD_TOL, GRAD_EPS = 1e-3, 1e-2
+GRAD_CFG = dict(n_correctors=2, max_co=0.5, max_dt=2e-3)
+GRAD_SMALL = dict(length=2.0, height=1.0, shape=None, nu=0.05)
+GRAD_SMALL_CFG = dict(n_correctors=1, adjust_dt=False, momentum_sweeps=2,
+                      convection="upwind")
+# the backward's gradients asked for: all six (the path's: the iterate
+# and the operator both carry a gradient), and dx alone; for each, the
+# fields it reads, those it writes and its operations per cell
+GRAD_NEEDS = {"all": ((True,) * 6, 7, 6, 18),
+              "dx": ((True,) + (False,) * 5, 6, 1, 9)}
 # the bridge: 3 steps of each model on the last frames of train-data's
 # rollout; the first step against the port's compute on the CPU from the
 # same cells: sm (sm_ref512's bf16 MLP), the raw output's relative L2,
@@ -593,9 +644,16 @@ def time_ms(fn, n, torch, flush):
     b.record()
     torch.cuda.synchronize()
 
-    times = cold_kernels(fn, n, torch, flush)
-    dev_us = sum(t for t, _ in times.values())
-    check(dev_us > 0, "torch.profiler recorded no device time")
+    # a profile that holds no kernel of fn is taken again, up to three in
+    # all: on the card's machine one profile lost every device event once,
+    # in a phase whose kernels other calls had timed
+    for _ in range(3):
+        times = cold_kernels(fn, n, torch, flush)
+        dev_us = sum(t for t, _ in times.values())
+        if dev_us > 0:
+            break
+    check(dev_us > 0, "torch.profiler recorded no device time in three "
+          "profiles")
     return dev_us / 1e3 / n, a.elapsed_time(b) / n
 
 
@@ -1071,13 +1129,14 @@ def fleet_kernel_phase(torch, card, case_b, flow_b0, fcases, cfg,
 
 def train_tp_phase(torch, dev, card):
     """train-step-tp: sm_ref512's MLP (its manifest's mdef: 13 -> 512 x 3
-    -> 512, bf16 compute) through make_sharded_train_step on the one
-    card's 1 x 1, 1 x 2 and 2 x 2 meshes (the dense weights and Adam's
-    moments cut over 'model', the batch over 'data'), batch 1024, Adam at
-    TRAIN_CFG's lr, TP_STEPS steps from the same seeded parameters and
-    batches after one warm-up step; 1 x 2 and 2 x 2 against 1 x 1 at
-    TRAIN_STEP_TOL; each block's shard shapes, ms a step (CUDA events)
-    and the collectives a step."""
+    -> 512, bf16 compute) and MLP_attention at the same in and out dims
+    through make_sharded_train_step on the one card's 1 x 1, 1 x 2 and
+    2 x 2 meshes (the dense weights and Adam's moments cut over 'model',
+    the batch over 'data'), batch 1024, Adam at TRAIN_CFG's lr, TP_STEPS
+    steps from the same seeded parameters and batches after one warm-up
+    step; 1 x 2 and 2 x 2 against 1 x 1 at TRAIN_STEP_TOL; each block's
+    shard shapes, ms a step (CUDA events) and the collectives a step, a
+    line a model."""
     import numpy as np
 
     from tpufoam_torch.models.mlp import ModelDef, init_model, tree_leaves
@@ -1089,73 +1148,379 @@ def train_tp_phase(torch, dev, card):
     with open(os.path.join(ROOT, "artifacts", "sm_ref512",
                            "manifest.json")) as f:
         spec = json.load(f)["mdef"]
-    mdef = ModelDef(**{**spec, "widths": tuple(spec["widths"])})
-    rng = np.random.default_rng(TP_SEED)
-    bs = TRAIN_CFG["batch_size"]
-    batches = [(torch.as_tensor(rng.standard_normal(
-        (bs, mdef.in_dim)).astype(np.float32)),
-        torch.as_tensor(rng.standard_normal(
-            (bs, mdef.out_dim)).astype(np.float32)))
-        for _ in range(TP_STEPS + 1)]
-    p0 = init_model(TP_SEED, mdef, device="cpu")
-    runs = {}
-    for shape in TP_MESHES:
-        n = shape[0] * shape[1]
-        mesh = device_mesh(n, shape=shape, devices=[dev] * n)
-        opt = Adam(TRAIN_CFG["lr"])
-        step, shard = make_sharded_train_step(mesh, mdef, opt)
-        # a warm-up step on the last batch, its result dropped
-        step(*shard(p0, opt.init(p0), *batches[-1]))
-        torch.cuda.synchronize()
-        step.collectives.clear()
-        p, s, losses, ms = p0, opt.init(p0), [], []
-        for xb, yb in batches[:TP_STEPS]:
-            p, s, xs, ys = shard(p, s, xb, yb)
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            p, s, loss = step(p, s, xs, ys)
-            e1.record()
+    models = {"sm_ref512": ModelDef(**{**spec,
+                                       "widths": tuple(spec["widths"])}),
+              TP_ATTENTION: ModelDef.from_arch(
+                  TP_ATTENTION, in_dim=spec["in_dim"],
+                  out_dim=spec["out_dim"],
+                  compute_dtype=spec["compute_dtype"])}
+    for label, mdef in models.items():
+        rng = np.random.default_rng(TP_SEED)
+        bs = TRAIN_CFG["batch_size"]
+        batches = [(torch.as_tensor(rng.standard_normal(
+            (bs, mdef.in_dim)).astype(np.float32)),
+            torch.as_tensor(rng.standard_normal(
+                (bs, mdef.out_dim)).astype(np.float32)))
+            for _ in range(TP_STEPS + 1)]
+        p0 = init_model(TP_SEED, mdef, device="cpu")
+        runs = {}
+        for shape in TP_MESHES:
+            n = shape[0] * shape[1]
+            mesh = device_mesh(n, shape=shape, devices=[dev] * n)
+            opt = Adam(TRAIN_CFG["lr"])
+            step, shard = make_sharded_train_step(mesh, mdef, opt)
+            # a warm-up step on the last batch, its result dropped
+            step(*shard(p0, opt.init(p0), *batches[-1]))
             torch.cuda.synchronize()
-            ms.append(e0.elapsed_time(e1))
-            losses.append(float(loss))
-        names = [f"layers.{i}.{k}" for i in range(len(mdef.widths))
-                 for k in ("b", "w")]
-        leaves = [*(p["layers"][i][k] for i in range(len(mdef.widths))
-                    for k in ("b", "w")), p["head"]["b"], p["head"]["w"]]
-        runs[f"{shape[0]}x{shape[1]}"] = dict(
-            losses=losses, ms_per_step=ms,
-            mean_ms_per_step=sum(ms) / len(ms),
-            collectives_per_step={k: v / TP_STEPS
-                                  for k, v in step.collectives.items()},
-            shard_shapes={nm: [list(b.shape) for b in a.blocks]
-                          for nm, a in zip(names + ["head.b", "head.w"],
-                                           leaves)},
-            params=[a.cpu() for a in tree_leaves(unshard_params(p))])
+            step.collectives.clear()
+            p, s, losses, ms = p0, opt.init(p0), [], []
+            for xb, yb in batches[:TP_STEPS]:
+                p, s, xs, ys = shard(p, s, xb, yb)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                p, s, loss = step(p, s, xs, ys)
+                e1.record()
+                torch.cuda.synchronize()
+                ms.append(e0.elapsed_time(e1))
+                losses.append(float(loss))
+            names = [f"layers.{i}.{k}" for i in range(len(mdef.widths))
+                     for k in ("b", "w")]
+            leaves = [*(p["layers"][i][k] for i in range(len(mdef.widths))
+                        for k in ("b", "w")), p["head"]["b"], p["head"]["w"]]
+            runs[f"{shape[0]}x{shape[1]}"] = dict(
+                losses=losses, ms_per_step=ms,
+                mean_ms_per_step=sum(ms) / len(ms),
+                collectives_per_step={k: v / TP_STEPS
+                                      for k, v in step.collectives.items()},
+                shard_shapes={nm: [list(b.shape) for b in a.blocks]
+                              for nm, a in zip(names + ["head.b", "head.w"],
+                                               leaves)},
+                params=[a.cpu() for a in tree_leaves(unshard_params(p))])
 
-    def diff(a, b):
-        num = sum(float(((x.double() - y.double()) ** 2).sum())
-                  for x, y in zip(a["params"], b["params"]))
-        den = sum(float((y.double() ** 2).sum()) for y in b["params"])
-        return {"loss": max(abs(x - y) / abs(y) for x, y in
-                            zip(a["losses"], b["losses"])),
-                "params_l2": (num / den) ** 0.5}
+        def diff(a, b):
+            num = sum(float(((x.double() - y.double()) ** 2).sum())
+                      for x, y in zip(a["params"], b["params"]))
+            den = sum(float((y.double() ** 2).sum()) for y in b["params"])
+            return {"loss": max(abs(x - y) / abs(y) for x, y in
+                                zip(a["losses"], b["losses"])),
+                    "params_l2": (num / den) ** 0.5}
 
-    ref = runs["1x1"]
-    chk = {k: diff(r, ref) for k, r in runs.items() if k != "1x1"}
-    say("train-step-tp", card=card, mdef=spec, batch=bs, steps=TP_STEPS,
-        meshes={k: {n_: v for n_, v in r.items() if n_ != "params"}
-                for k, r in runs.items()},
-        vs_1x1=chk, tol=TRAIN_STEP_TOL)
-    check(runs["1x2"]["shard_shapes"]["layers.0.w"] == [[mdef.in_dim, 256]]
-          * 2, f"train-step-tp: 1 x 2 shards of layer 0's w "
-          f"{runs['1x2']['shard_shapes']['layers.0.w']}")
-    for k, d_ in chk.items():
-        check(d_["loss"] <= TRAIN_STEP_TOL["loss"]
-              and d_["params_l2"] <= TRAIN_STEP_TOL["params_l2"],
-              f"train-step-tp {k} vs 1x1: {d_}")
-    for k, r in runs.items():
-        check(all(np.isfinite(r["losses"])), f"train-step-tp {k}: loss")
+        ref = runs["1x1"]
+        chk = {k: diff(r, ref) for k, r in runs.items() if k != "1x1"}
+        say("train-step-tp", card=card, model=label, kind=mdef.kind,
+            widths=list(mdef.widths), in_dim=mdef.in_dim,
+            out_dim=mdef.out_dim, compute_dtype=mdef.compute_dtype,
+            batch=bs, steps=TP_STEPS,
+            meshes={k: {n_: v for n_, v in r.items() if n_ != "params"}
+                    for k, r in runs.items()},
+            vs_1x1=chk, tol=TRAIN_STEP_TOL)
+        half = mdef.widths[0] // 2
+        check(runs["1x2"]["shard_shapes"]["layers.0.w"]
+              == [[mdef.in_dim, half]] * 2,
+              f"train-step-tp {label}: 1 x 2 shards of layer 0's w "
+              f"{runs['1x2']['shard_shapes']['layers.0.w']}")
+        for k, d_ in chk.items():
+            check(d_["loss"] <= TRAIN_STEP_TOL["loss"]
+                  and d_["params_l2"] <= TRAIN_STEP_TOL["params_l2"],
+                  f"train-step-tp {label} {k} vs 1x1: {d_}")
+        for k, r in runs.items():
+            check(all(np.isfinite(r["losses"])),
+                  f"train-step-tp {label} {k}: loss")
+
+
+def _downstream_ke(u):
+    """tests/test_differentiable.py's loss: the sum of u^2 over the
+    downstream half (over every case of a stack)."""
+    return (u[..., u.shape[-1] // 2:] ** 2).sum()
+
+
+def rollout_grad(torch, case, flow, n, cfg, backend, reset_counts, counts,
+                 run=None):
+    """n steps of `run` (piso.engine.run_piso by default) under autograd
+    from `flow`, then torch.autograd.grad of `_downstream_ke` w.r.t.
+    case.inlet_u, every launch count set to 0 just before: a dict of the
+    gradient, the loss, the forward's and the backward's ms (CUDA
+    events), each kernel's launches in the forward and in the backward,
+    the matvecs recorded on the tape (those with an operand that needs a
+    gradient; the others launch the forward alone), and the device
+    memory (allocated before; the peak during both)."""
+    from tpufoam_torch.ops import stencil as st
+    from tpufoam_torch.piso.engine import run_piso
+
+    run = run or run_piso
+    torch.cuda.synchronize()
+    reset_counts()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    x = case.inlet_u.clone().requires_grad_(True)
+    ev[0].record()
+    f = run(dataclasses.replace(case, inlet_u=x), flow, n, cfg=cfg,
+            backend=backend)
+    loss = _downstream_ke(f.u)
+    ev[1].record()
+    fwd, taped = counts(), st.StencilMatvec.taped
+    g, = torch.autograd.grad(loss, x)
+    ev[2].record()
+    torch.cuda.synchronize()
+    total = counts()
+    return dict(grad=g, loss=float(loss.detach()),
+                fwd_ms=ev[0].elapsed_time(ev[1]),
+                bwd_ms=ev[1].elapsed_time(ev[2]), fwd_launches=fwd,
+                taped_matvecs=taped,
+                bwd_launches={k: total[k] - fwd[k] for k in total},
+                mem_before_bytes=mem0,
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+
+
+@contextlib.contextmanager
+def plain_matvec(torch):
+    """ops.stencil.stencil_matvec replaced, inside the block, by a
+    Function of its plain forward and plain backward
+    (stencil_matvec_plain, stencil_matvec_grad_plain) on the card's
+    tensors, which PyTorch's own kernels compute: the reference that a
+    gradient through the two hand-written kernels equals bit for bit.
+    The substitution lives in this script, not in the package."""
+    from tpufoam_torch.ops import stencil as st
+
+    class PlainMatvec(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, *coef):
+            ctx.save_for_backward(x, *coef)
+            return st.stencil_matvec_plain(st._Operator(*coef), x)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, *coef = ctx.saved_tensors
+            return st.stencil_matvec_grad_plain(
+                st._Operator(*coef), x, g.contiguous(), ctx.needs_input_grad)
+
+    kernel = st.stencil_matvec
+    st.stencil_matvec = lambda coef, x: PlainMatvec.apply(
+        x, coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.diag)
+    try:
+        yield
+    finally:
+        st.stencil_matvec = kernel
+
+
+def _grad_summary(r):
+    """A rollout_grad result as printed: no tensors."""
+    return {k: v for k, v in r.items() if k != "grad"}
+
+
+def matvec_grad_phase(torch, card, all_levels, stacked, random_edge_operands,
+                      flush, csr_of):
+    """kernel-matvec-grad: the matvec's backward kernel (stencil_matvec_grad,
+    csrc/stencil_grad.cu) against stencil_matvec_grad_plain on the card,
+    bit for bit, with all six gradients and with dx alone: at every level
+    of both hierarchies (kernel-matvec's operands, g the level's
+    right-hand side), on a (4, ny, nx) stack of each, and on random
+    operands of the odd shapes, float32 and bfloat16, each call one
+    launch. Its device time (L2 flushed), its plain version's and its
+    bound at 512 x 2048 and 256 x 1375, beside the library's time for dx:
+    the CSR product with the transpose of the same operator (`csr_of(coef,
+    transpose=True)`). Returns (max |diff|, times, launches counted)."""
+    from tpufoam_torch.ops import stencil as st
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    err, checked = 0.0, 0
+    n0 = st.stencil_matvec_grad.launches
+
+    def exact(where, coef_, x_, g_):
+        nonlocal err, checked
+        for label, (need, *_) in GRAD_NEEDS.items():
+            before = st.stencil_matvec_grad.launches
+            got = st.stencil_matvec_grad(coef_, x_, g_, need)
+            torch.cuda.synchronize()
+            check(st.stencil_matvec_grad.launches == before + 1,
+                  f"stencil_matvec_grad {where} {label}: not one launch")
+            ref = st.stencil_matvec_grad_plain(coef_, x_, g_, need)
+            check(all((a is None) == (not n_) for a, n_ in zip(got, need)),
+                  f"stencil_matvec_grad {where} {label}: outputs")
+            pairs = [(a, r) for a, r in zip(got, ref) if a is not None]
+            e_ = compare([a for a, _ in pairs], [r for _, r in pairs])[0]
+            check(e_ == 0.0, f"stencil_matvec_grad {where} {label}: max "
+                  f"|diff| {e_:.3e}, not 0")
+            err, checked = max(err, e_), checked + 1
+
+    for prec, dt in dtypes.items():
+        for lv in all_levels.values():
+            for coef_l, b_l in lv:
+                c_, x_, g_, _ = level_operands(coef_l, b_l, dt)
+                where = f"{prec} {tuple(b_l.shape)}"
+                exact(where, c_, x_, g_)
+                cb, xb = stacked(c_, x_)
+                exact(where + " x4", cb, xb, stacked(c_, g_)[1])
+        for shape in ODD_SHAPES:
+            c_, x_, g_ = random_edge_operands(shape, dt)
+            exact(f"{prec} random {shape}", c_, x_, g_)
+    launches = st.stencil_matvec_grad.launches - n0
+
+    times = {}
+    for grid_name, lv in all_levels.items():
+        for prec, dt in dtypes.items():
+            c_, x_, g_, _ = level_operands(*lv[0], dt)
+            size = torch.tensor([], dtype=dt).element_size()
+            cells = x_.numel()
+            row = {}
+            for label, (need, n_read, n_write, n_ops) in GRAD_NEEDS.items():
+                b_ms, b_by = bound((n_read + n_write) * cells * size,
+                                   n_ops * cells)
+                t_g = timings(
+                    lambda: st.stencil_matvec_grad(c_, x_, g_, need),
+                    lambda: st.stencil_matvec_grad_plain(c_, x_, g_, need),
+                    200, 50, torch, flush)
+                row[label] = dict(**t_g, bound_ms=b_ms, bound_by=b_by,
+                                  share_of_bound=b_ms / t_g["ms"])
+            try:
+                a_t, g_col = csr_of(c_, transpose=True), g_.reshape(-1, 1)
+                dx_lib = (a_t @ g_col).reshape(g_.shape)
+            except RuntimeError as exc:    # no such product in this dtype
+                row["dx"].update(library_ms=None,
+                                 library_error=str(exc)[:200])
+            else:
+                # float32: the same function, summed in its own order;
+                # bfloat16 rounds once where the kernel rounds after
+                # every operation, so its distance is only recorded
+                lib_rel = compare((dx_lib,), (st.stencil_matvec_grad_plain(
+                    c_, x_, g_, GRAD_NEEDS["dx"][0])[0],))[1]
+                check(prec != "f32" or lib_rel <= KERNEL_REL_TOL,
+                      f"transposed sparse product vs dx: {lib_rel:.3e}")
+                row["dx"].update(library_ms=time_ms(
+                    lambda: a_t @ g_col, 200, torch, flush)[0],
+                    library_rel_err=lib_rel)
+            times[f"{grid_name} {prec}"] = row
+    say("kernel-matvec-grad", card=card, checked=checked, max_abs_err=err,
+        launches=launches, times=times)
+    return err, times, launches
+
+
+def grad_step_phase(torch, dev, card, case, flow0, reset_counts, counts):
+    """grad-step: GRAD_STEPS steps of bench.py's main path in the
+    configuration JAX differentiates (GRAD_CFG, the plain momentum
+    smoother, MGBackend(cycles=2, precision="bf16")) under autograd
+    through run_piso, then the gradient of `_downstream_ke` w.r.t.
+    inlet_u: finite, nonzero, positive at the centre row (JAX's test);
+    every taped matvec one launch of stencil_matvec and its backward one
+    launch of stencil_matvec_grad (no other kernel launches); bit for bit
+    equal to the same run with `plain_matvec` in the matvec's place; a
+    directional central difference on the small case within GRAD_TOL.
+    Its forward and backward ms and the device memory. Returns the launch
+    counts of the run (forward and backward)."""
+    import numpy as np
+
+    from tpufoam_torch.core.geometry import ChannelCase
+    from tpufoam_torch.fv.case import build_channel_case, initial_flow
+    from tpufoam_torch.piso.engine import PisoConfig, run_piso
+    from tpufoam_torch.solvers.backends import MGBackend
+
+    cfg = PisoConfig(**GRAD_CFG)
+    backend = MGBackend(cycles=2, precision="bf16")
+    res = rollout_grad(torch, case, flow0, GRAD_STEPS, cfg, backend,
+                       reset_counts, counts)
+    with plain_matvec(torch):
+        ref = rollout_grad(torch, case, flow0, GRAD_STEPS, cfg, backend,
+                           reset_counts, counts)
+    g, ny = res["grad"], case.grid.ny
+    fwd, bwd = res["fwd_launches"], res["bwd_launches"]
+    path = {k: fwd[k] + bwd[k] for k in fwd}
+
+    # the central difference on the small case, float32 multigrid
+    small = build_channel_case(ChannelCase(**GRAD_SMALL), delta=1.0 / 16,
+                               device=dev)
+    f_small = initial_flow(small, dt0=5e-3)
+    cfg_s, be_s = PisoConfig(**GRAD_SMALL_CFG), MGBackend(cycles=2)
+    g_s = rollout_grad(torch, small, f_small, 3, cfg_s, be_s, reset_counts,
+                       counts)["grad"]
+    d = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        tuple(small.inlet_u.shape)).astype(np.float32), device=dev)
+
+    def loss_at(inlet):
+        f = run_piso(dataclasses.replace(small, inlet_u=inlet), f_small, 3,
+                     cfg=cfg_s, backend=be_s)
+        return float(_downstream_ke(f.u).double())
+
+    with torch.no_grad():
+        fd = (loss_at(small.inlet_u + GRAD_EPS * d)
+              - loss_at(small.inlet_u - GRAD_EPS * d)) / (2 * GRAD_EPS)
+    ad = float((g_s.double() * d.double()).sum())
+    fd_rel = abs(fd - ad) / abs(ad)
+    say("grad-step", card=card, grid=[ny, case.grid.nx], steps=GRAD_STEPS,
+        config=GRAD_CFG, backend="MGBackend(cycles=2, precision='bf16')",
+        **_grad_summary(res),
+        grad_centre=float(g[ny // 2]), grad_abs_max=float(g.abs().max()),
+        plain_fwd_ms=ref["fwd_ms"], plain_bwd_ms=ref["bwd_ms"],
+        plain_launches=ref["fwd_launches"]["stencil_matvec"]
+        + ref["bwd_launches"]["stencil_matvec_grad"],
+        max_abs_diff_vs_plain=float((g - ref["grad"]).abs().max()),
+        central_difference=dict(case=GRAD_SMALL, delta=1.0 / 16,
+                                config=GRAD_SMALL_CFG, steps=3,
+                                eps=GRAD_EPS, fd=fd, ad=ad, rel=fd_rel,
+                                tol=GRAD_TOL))
+    check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+          "grad-step: the gradient is not finite and nonzero")
+    check(float(g[ny // 2]) > 0.0, "grad-step: centre-row gradient "
+          f"{float(g[ny // 2]):.3e} not positive")
+    check(res["taped_matvecs"] > 0
+          and bwd["stencil_matvec_grad"] == res["taped_matvecs"]
+          and sum(fwd.values()) == fwd["stencil_matvec"]
+          and sum(bwd.values()) == bwd["stencil_matvec_grad"],
+          f"grad-step: forward launches {fwd} ({res['taped_matvecs']} "
+          f"taped), backward {bwd}")
+    check(ref["fwd_launches"]["stencil_matvec"] == 0
+          and ref["bwd_launches"]["stencil_matvec_grad"] == 0,
+          "grad-step: the plain run launched a kernel")
+    check(torch.equal(g, ref["grad"]), "grad-step: the gradient differs "
+          "from the plain Function's")
+    check(fd_rel <= GRAD_TOL, f"grad-step: central difference {fd} against "
+          f"{ad} (rel {fd_rel:.3e} > {GRAD_TOL})")
+    return path
+
+
+def grad_fleet_phase(torch, card, fcases, case_b, flow_b0, reset_counts,
+                     counts):
+    """grad-fleet: run_piso_batched on the fleet's four cases, GRAD_FLEET_STEPS
+    steps of grad-step's configuration under autograd, the loss summed
+    over the cases: each case's gradient equal to that case's stepped
+    alone (run_piso) bit for bit; one backward launch for each batched
+    forward launch of the matvec. ms and device memory of the fleet and
+    of the four cases alone. Returns the launch counts of the fleet's run
+    (forward and backward)."""
+    from tpufoam_torch.fv.case import fleet_member
+    from tpufoam_torch.piso.batched import run_piso_batched
+    from tpufoam_torch.piso.engine import PisoConfig
+    from tpufoam_torch.solvers.backends import MGBackend
+
+    cfg = PisoConfig(**GRAD_CFG)
+    backend = MGBackend(cycles=2, precision="bf16")
+    res = rollout_grad(torch, case_b, flow_b0, GRAD_FLEET_STEPS, cfg,
+                       backend, reset_counts, counts, run=run_piso_batched)
+    fwd, bwd = res["fwd_launches"], res["bwd_launches"]
+    alone = [rollout_grad(torch, c, fleet_member(flow_b0, k),
+                          GRAD_FLEET_STEPS, cfg, backend, reset_counts,
+                          counts) for k, c in enumerate(fcases)]
+    diffs = [float((res["grad"][k] - a["grad"]).abs().max())
+             for k, a in enumerate(alone)]
+    say("grad-fleet", card=card, cases=len(fcases),
+        shape=list(case_b.fluid.shape), steps=GRAD_FLEET_STEPS,
+        **_grad_summary(res),
+        alone_fwd_ms=[a["fwd_ms"] for a in alone],
+        alone_bwd_ms=[a["bwd_ms"] for a in alone],
+        alone_matvec_launches=[a["fwd_launches"]["stencil_matvec"]
+                               for a in alone],
+        alone_max_memory_allocated_bytes=[a["max_memory_allocated_bytes"]
+                                          for a in alone],
+        max_abs_diff_vs_alone=diffs)
+    check(all(torch.equal(res["grad"][k], a["grad"])
+              for k, a in enumerate(alone)),
+          f"grad-fleet: a case's gradient differs from it alone: {diffs}")
+    check(res["taped_matvecs"] > 0
+          and bwd["stencil_matvec_grad"] == res["taped_matvecs"],
+          f"grad-fleet: forward launches {fwd} ({res['taped_matvecs']} "
+          f"taped), backward {bwd}")
+    return {k: fwd[k] + bwd[k] for k in fwd}
 
 
 def train_phases(torch, dev, card, reset_counts, counts):
@@ -2043,6 +2408,7 @@ def main() -> int:
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     counters = {"momentum_multisweep": momentum_multisweep,
                 "stencil_matvec": st.stencil_matvec,
+                "stencil_matvec_grad": st.stencil_matvec_grad,
                 "jacobi_sweep": st.jacobi_sweep,
                 "jacobi_multisweep": st.jacobi_multisweep,
                 "smooth_residual": st.smooth_residual,
@@ -2053,12 +2419,14 @@ def main() -> int:
     def reset_counts(predictor=None):
         for fn in counters.values():
             fn.launches = 0
+        st.StencilMatvec.taped = 0
         for fn in (sh.momentum_multisweep_sharded,
                    sh.jacobi_multisweep_sharded):
             fn.by_route.clear()
-        for fn in (st.stencil_matvec, st.jacobi_sweep, st.jacobi_multisweep,
-                   st.smooth_residual, st.corr_smooth):
-            fn.by_shape.clear()
+        # the counters' own objects: grad-step swaps st.stencil_matvec
+        for name in ("stencil_matvec", "stencil_matvec_grad", "jacobi_sweep",
+                     "jacobi_multisweep", "smooth_residual", "corr_smooth"):
+            counters[name].by_shape.clear()
         mg.v_cycle.cycles = 0
         fvm.jacobi_momentum.sweep_loops = 0
         if predictor is not None:
@@ -2090,7 +2458,7 @@ def main() -> int:
 
     # ---- build ----------------------------------------------------------
     t = time.time()
-    sources = ("momentum_multisweep", "pressure_stencil")
+    sources = ("momentum_multisweep", "pressure_stencil", "stencil_grad")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(lambda n: build.build(n)[1],
                                           sources)))
@@ -2472,9 +2840,10 @@ def main() -> int:
             (st.stencil_matvec_plain(c_, x_),)))
         matvec["checked"] += 1
 
-    def csr_operator(coef_):
-        """A as a (ny nx)^2 CSR matrix: the library's sparse product is
-        the yardstick of the matvec (it rounds in its own order)."""
+    def csr_operator(coef_, transpose=False):
+        """A (A^T with `transpose`) as a (ny nx)^2 CSR matrix: the
+        library's sparse product is the yardstick of the matvec and of
+        its backward's dx (it rounds in its own order)."""
         ny_, nx_ = coef_.diag.shape
         idx = torch.arange(ny_ * nx_, device=dev).reshape(ny_, nx_)
         parts = [(idx, idx, coef_.diag),
@@ -2484,6 +2853,8 @@ def main() -> int:
                  (idx[1:], idx[:-1], -coef_.c_s[1:])]
         rows, cols, vals = (torch.cat([p[k].reshape(-1) for p in parts])
                             for k in range(3))
+        if transpose:
+            rows, cols = cols, rows
         return torch.sparse_coo_tensor(
             torch.stack([rows, cols]), vals,
             (ny_ * nx_,) * 2).coalesce().to_sparse_csr()
@@ -2544,6 +2915,11 @@ def main() -> int:
         copy_7x512x2048_f32_ms=copy_ms,
         main_path_levels=[{"dtype": p_, "shape": list(sh_), **v_}
                           for (p_, sh_), v_ in matvec_levels.items()])
+
+    # ---- the matvec's backward against its plain version, bit for bit ----
+    mgrad_err, mgrad_times, _ = matvec_grad_phase(
+        torch, card, all_levels, stacked, random_edge_operands, flush,
+        csr_operator)
 
     # ---- B.6: jacobi_sweep against its plain version and the multisweep ---
     sweep_err = 0.0
@@ -2901,6 +3277,10 @@ def main() -> int:
           + stats["kernel_launches"]["smooth_residual"]
           + stats["kernel_launches"]["corr_smooth"] == 0,
           "the plain smoother launched a pressure kernel")
+
+    # ---- reverse mode through the main path (grad-step) ----------------
+    grad_step_launches = grad_step_phase(torch, dev, card, case, flow0,
+                                         reset_counts, counts)
 
     # ---- the main path through the decomposed step, 2 x 2 blocks of the
     # card: every field resident per block, the stages on haloed windows,
@@ -4176,6 +4556,10 @@ def main() -> int:
         shape=list(case_b.fluid.shape), seconds=round(time.time() - t, 3),
         fluid_cells=case_b.fluid.sum(dim=(-2, -1)).tolist())
 
+    # ---- reverse mode through the fleet's lockstep (grad-fleet) ---------
+    grad_fleet_launches = grad_fleet_phase(torch, card, fcases, case_b,
+                                           flow_b0, reset_counts, counts)
+
     # ---- rows 3-5 on the fleet's stack, one launch for the four cases ----
     fleet_pressure_rows = fleet_pressure_phase(
         torch, card, dev, case_b, flow_b0, cfg, backend, predictor, flush,
@@ -4417,9 +4801,32 @@ def main() -> int:
         "bound_by": matvec_times["256x1375 f32"]["bound_by"],
         "library_ms": matvec_times["256x1375 f32"]["library_ms"],
     })
+    # the matvec's backward: the path's all six gradients at the finest
+    # level in float32 (the bf16 polish's levels are in
+    # kernel-matvec-grad), beside the library's transposed sparse product,
+    # which computes dx alone (its kernel time and bound beside it)
+    grad_row = mgrad_times["512x2048 f32"]
+    kernels.append({
+        "name": "stencil_matvec_grad",
+        "route": "cuda",
+        "source": "tpufoam_torch/ops/csrc/stencil_grad.cu",
+        "replaces": "none: the reverse of tpufoam/ops/stencil.py:221, "
+                    "which XLA takes of tpufoam/fv/pressure.py:65",
+        "launches": grad_step_launches["stencil_matvec_grad"],
+        "max_abs_err": mgrad_err,
+        "ms": grad_row["all"]["ms"],
+        "plain_ms": grad_row["all"]["plain_ms"],
+        "bound_ms": grad_row["all"]["bound_ms"],
+        "bound_by": grad_row["all"]["bound_by"],
+        "library_ms": grad_row["dx"].get("library_ms"),
+        "library_computes": "dx alone",
+        "dx_ms": grad_row["dx"]["ms"],
+        "dx_bound_ms": grad_row["dx"]["bound_ms"],
+    })
     # no path of either package calls jacobi_sweep: its count over every
     # driven path, each path's counts set to 0 just before its steps
     paths = (*train_launches.values(), step_launches,
+             grad_step_launches, grad_fleet_launches,
              sharded_step_launches, fused_launches,
              mgcg_launches, st_launches, fleet_launches, fsh_launches,
              k_mgcg, auto_launches, bridge_launches,
@@ -4519,6 +4926,8 @@ def main() -> int:
     # and on the fleet with AutoBackend (every momentum launch there is the
     # batched launch) and the bridge's served steps
     new_paths = {"step-sharded": sharded_step_launches,
+                 "grad-step": grad_step_launches,
+                 "grad-fleet": grad_fleet_launches,
                  "step-turb": turb_launches, "step-turb-mgcg": dean_launches,
                  "step-turb-sharded": tsh_launches,
                  "step-poisson": poisson_launches, **train_launches,

@@ -404,10 +404,47 @@ def test_single_pass_kernels_reject_what_they_cannot_take(cuda):
         ts.jacobi_sweep(coef, x, b.to(torch.bfloat16), 1)
     with pytest.raises(ValueError):     # a coefficient broadcast on a fleet
         ts.stencil_matvec(coef, torch.stack([x, x]))
-    with pytest.raises(ValueError):     # the kernels have no backward
-        ts.stencil_matvec(coef, x.clone().requires_grad_())
+    with pytest.raises(ValueError, match="no backward"):  # no reverse mode
+        ts.jacobi_sweep(coef, x.clone().requires_grad_(), b, 1)
     with torch.no_grad():
-        ts.stencil_matvec(coef, x.clone().requires_grad_())
+        ts.jacobi_sweep(coef, x.clone().requires_grad_(), b, 1)
+    # the matvec has one: its backward is stencil_matvec_grad
+    y = ts.stencil_matvec(coef, x.clone().requires_grad_())
+    assert type(y.grad_fn).__name__ == "StencilMatvecBackward"
+    with torch.no_grad():
+        assert ts.stencil_matvec(coef, x.clone().requires_grad_()).grad_fn \
+            is None
+
+
+GRAD_NEEDS = [(True,) * 6, (True,) + (False,) * 5, (False,) * 5 + (True,),
+              (False, True, False, True, False, False)]
+
+
+@pytest.mark.parametrize("shape", [(512, 2048), (256, 1375), (37, 70),
+                                   (1, 70), (43, 8), (4, 64, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matvec_grad_kernel_matches_plain(cuda, shape, dtype):
+    """The matvec's backward kernel (csrc/stencil_grad.cu) against
+    `stencil_matvec_grad_plain` on the card, bit for bit (the same
+    roundings in the same order), for several subsets of the gradients
+    asked for: one launch a call, none of an output not asked for."""
+    *lead, ny, nx = shape
+    coef, x, g, _ = _pressure_operands(ny, nx, dtype, sum(shape), cuda)
+    if lead:
+        coef, x, g = _planes(coef, x, g, lead[0])
+    for need in GRAD_NEEDS:
+        before = ts.stencil_matvec_grad.by_shape["cell", ts._DTYPES[dtype],
+                                                 (ny, nx)]
+        got = ts.stencil_matvec_grad(coef, x, g, need)
+        torch.cuda.synchronize()
+        assert ts.stencil_matvec_grad.by_shape[
+            "cell", ts._DTYPES[dtype], (ny, nx)] == before + 1
+        ref = ts.stencil_matvec_grad_plain(coef, x, g, need)
+        for n, a, r in zip(need, got, ref):
+            assert (a is None) == (not n)
+            if n:
+                assert torch.equal(a, r), (need, shape)
 
 
 def test_pressure_matvec_launches_the_kernel(cuda):
@@ -911,11 +948,16 @@ def test_kernels_on_the_graded_hierarchy(cuda, dtype):
 
 
 def test_run_piso_refuses_autograd_through_the_kernels(cuda):
-    """run_piso keeps autograd on. On the card the momentum kernel's and
-    the pressure matvec's wrappers refuse an operand that requires a
-    gradient (they have no backward), and nothing switches to a plain
-    version: a differentiated rollout runs on the CPU. Without a
-    gradient, run_piso runs on the card and equals run_piso_eager."""
+    """run_piso keeps autograd on. On the card the momentum kernel and the
+    multisweep kernels (JAX's Pallas kernels have no reverse mode either)
+    refuse an operand that requires a gradient, naming the kernel, and
+    nothing switches to a plain version. With the plain smoothers (JAX's
+    "xla") the rollout differentiates on the card: every taped matvec is
+    a launch of the stencil_matvec kernel and its backward one launch of
+    stencil_matvec_grad, and the gradient equals the same run with a
+    Function of the plain forward and backward put in the matvec's place,
+    bit for bit. Without a gradient, run_piso runs on the card and equals
+    run_piso_eager."""
     import dataclasses
 
     from tpufoam_torch.core.geometry import ChannelCase
@@ -932,10 +974,52 @@ def test_run_piso_refuses_autograd_through_the_kernels(cuda):
         case, inlet_u=case.inlet_u.clone().requires_grad_(True))
     with pytest.raises(ValueError, match="momentum kernel has no backward"):
         run_piso(grad_case, flow0, 1, cfg=cfg, backend=MGBackend(cycles=2))
-    with pytest.raises(ValueError, match="stencil_matvec kernel has no "
-                       "backward"):
-        run_piso(grad_case, flow0, 1, cfg=PisoConfig(),
-                 backend=MGBackend(cycles=2))
+    for smoother, kernel in (("kernel", "jacobi_multisweep"),
+                             ("kernel-fused", "smooth_residual")):
+        with pytest.raises(ValueError, match=f"{kernel} kernel has no "
+                           "backward"):
+            run_piso(grad_case, flow0, 1, cfg=PisoConfig(),
+                     backend=MGBackend(cycles=2, smoother=smoother))
+
+    class PlainMatvec(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, *coef):
+            ctx.save_for_backward(x, *coef)
+            return ts.stencil_matvec_plain(ts._Operator(*coef), x)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, *coef = ctx.saved_tensors
+            return ts.stencil_matvec_grad_plain(
+                ts._Operator(*coef), x, g.contiguous(), ctx.needs_input_grad)
+
+    def grad(backend):
+        x = case.inlet_u.clone().requires_grad_(True)
+        f = run_piso(dataclasses.replace(case, inlet_u=x), flow0, 3,
+                     cfg=PisoConfig(), backend=backend)
+        g, = torch.autograd.grad((f.u[:, case.grid.nx // 2:] ** 2).sum(), x)
+        return g
+
+    for backend in (MGBackend(cycles=2), MGBackend(cycles=2,
+                                                   precision="bf16")):
+        ts.stencil_matvec.launches = ts.stencil_matvec_grad.launches = 0
+        ts.StencilMatvec.taped = 0
+        got = grad(backend)
+        torch.cuda.synchronize()
+        # a matvec none of whose operands needs a gradient (a zero start)
+        # launches its forward alone
+        assert 0 < ts.StencilMatvec.taped <= ts.stencil_matvec.launches
+        assert ts.stencil_matvec_grad.launches == ts.StencilMatvec.taped
+        assert bool(torch.isfinite(got).all())
+        assert float(got[case.grid.ny // 2]) > 0.0
+        kernel = ts.stencil_matvec
+        ts.stencil_matvec = lambda coef, x: PlainMatvec.apply(
+            x, coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.diag)
+        try:
+            ref = grad(backend)
+        finally:
+            ts.stencil_matvec = kernel
+        assert torch.equal(got, ref), backend
     got = run_piso(case, flow0, 2, cfg=cfg, backend=MGBackend(cycles=2))
     ref = run_piso_eager(case, flow0, 2, cfg=cfg, backend=MGBackend(cycles=2))
     for name in ("u", "v", "p", "phi_x", "phi_y", "dt", "t"):

@@ -2,7 +2,10 @@
 `make_sharded_train_step` over 'model', `Shards`, `unshard_params`) and
 `Mesh.axis_types`, against the JAX package on the CPU.
 
-The JAX package's step runs on a JAX mesh of the same shape from the 8
+MLP_small (the dense kind) and MLP_attention (the attention kind, its
+dense layers placed as the dense kind's, attention, LayerNorms and head
+replicated). The JAX package's step runs on a JAX mesh of the same shape
+from the 8
 host devices that tests/conftest.py forces, its parameters placed by
 `mlp_partition_specs` (GSPMD inserts the 'model' all-reduces); the
 port's on a mesh of CPU blocks. Inputs are seeded with numpy; the
@@ -45,6 +48,14 @@ from tpufoam_torch.train import trainer as ttr
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32_TOL = {"loss": 1e-5, "params": 1e-5}
 BF16_TOL = {"loss": 1e-3, "params_l2": 1e-2}
+# MLP_attention in bf16 at this size: the loss to 1e-2. Its bf16
+# attention products round apart in the two frameworks (the port's 1 x 1
+# step is 1.6e-3 from JAX's on the loss), and JAX's own 1 x 2 step is
+# 3.2e-3 from its 1 x 1 (a batch of 64: a few rounding flips move the
+# mean); the port measured 5.6e-3 (1 x 2) and 6.6e-3 (2 x 2) against JAX's
+# mesh of the same shape. At sm_ref512's dims and a batch of 1024 its
+# 1 x 2 and 2 x 2 steps are 1.5e-5 from its 1 x 1.
+BF16_ATTENTION_LOSS_TOL = 1e-2
 MESHES = [(1, 2), (2, 2)]
 
 
@@ -54,8 +65,9 @@ def _one_thread():
 
 
 def _problem(cdt, seed=0, arch="MLP_small"):
-    """MLP_small's widths (512, 512, 512: the stack ends column-split) at
-    in 32, out 16; three batches of 64."""
+    """`arch` at in 32, out 16 (MLP_small's and MLP_attention's widths
+    512, 512, 512: the dense stack ends column-split); three batches of
+    64."""
     jdef = jmlp.ModelDef.from_arch(arch, in_dim=32, out_dim=16,
                                    compute_dtype=cdt)
     tdef = tmlp.ModelDef.from_arch(arch, in_dim=32, out_dim=16,
@@ -106,10 +118,22 @@ def _rel_l2(got, ref):
     return (num / den) ** 0.5
 
 
+# the 'model' collectives a step and row: MLP_small's dense stack (a sum
+# for layer 1, the sum of the gradients of layer 2's input, the gather
+# before the head); MLP_attention's (layer 0's gather before the
+# attention, the gradient sums of layers 1 and 2's replicated input,
+# layer 1's sum, layer 2's gather before its residual)
+ROW_COLLECTIVES = {"MLP_small": {"row_sum": 1, "row_grad_sum": 1,
+                                 "row_gather": 1},
+                   "MLP_attention": {"row_sum": 1, "row_grad_sum": 2,
+                                     "row_gather": 2}}
+
+
+@pytest.mark.parametrize("arch", list(ROW_COLLECTIVES))
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
-def test_tensor_parallel_step_matches_jax(shape, cdt):
-    jdef, tdef, params, batches = _problem(cdt)
+def test_tensor_parallel_step_matches_jax(shape, cdt, arch):
+    jdef, tdef, params, batches = _problem(cdt, arch=arch)
     ref, jlosses = _jax_steps(shape, jdef, params, batches)
     p, s, losses, step = _port_steps(shape, tdef, params, batches)
     got = [a.numpy() for a in tmlp.tree_leaves(tmesh.unshard_params(p))]
@@ -121,14 +145,12 @@ def test_tensor_parallel_step_matches_jax(shape, cdt):
         assert max(_rel(g, r) for g, r in zip(got, whole)) \
             <= F32_TOL["params"]
     else:
-        assert loss_err <= BF16_TOL["loss"]
+        assert loss_err <= (BF16_ATTENTION_LOSS_TOL if arch == "MLP_attention"
+                            else BF16_TOL["loss"])
         assert _rel_l2(got, ref) <= BF16_TOL["params_l2"]
-    # the 'model' collectives a step: a sum (layer 1), the sum of the
-    # gradients of layer 2's input, the gather before the head, a row each
     rows = shape[0]
-    assert step.collectives["row_sum"] == 3 * rows
-    assert step.collectives["row_grad_sum"] == 3 * rows
-    assert step.collectives["row_gather"] == 3 * rows
+    for name, n in ROW_COLLECTIVES[arch].items():
+        assert step.collectives[name] == 3 * n * rows, name
     assert step.collectives["data_sum"] == (3 * (shape[1] + 1)
                                             if rows > 1 else 0)
 
@@ -191,14 +213,18 @@ def test_shard_shapes_follow_the_partition_specs():
 
 @pytest.mark.parametrize("arch", ["MLP_attention", "conv1D"])
 def test_other_kinds_take_a_model_axis_of_one(arch):
-    """The attention and conv1d kinds have no tensor-parallel placement in
-    the port: a 'model' axis above 1 raises, naming the kind; a mesh of
-    one column is the data-parallel step, whole weights on each row."""
+    """A mesh of one column is the data-parallel step for the attention
+    and conv1d kinds, whole weights on each row. The conv1d kind has no
+    tensor-parallel placement (jax.device_put refuses its specs): a
+    'model' axis above 1 raises, naming the kind; the attention kind
+    takes one (test_tensor_parallel_step_matches_jax holds it to JAX)."""
     _, tdef, params, batches = _problem("float32", arch=arch)
-    with pytest.raises(ValueError, match=tdef.kind):
-        tmesh.make_sharded_train_step(
-            tmesh.device_mesh(2, shape=(1, 2), devices=["cpu"] * 2), tdef,
-            ttr.Adam(1e-3))
+    mesh = tmesh.device_mesh(2, shape=(1, 2), devices=["cpu"] * 2)
+    if arch == "conv1D":
+        with pytest.raises(ValueError, match=tdef.kind):
+            tmesh.make_sharded_train_step(mesh, tdef, ttr.Adam(1e-3))
+    else:
+        tmesh.make_sharded_train_step(mesh, tdef, ttr.Adam(1e-3))
     p1, _, l1, _ = _port_steps((1, 1), tdef, params, batches)
     p2, _, l2, _ = _port_steps((2, 1), tdef, params, batches)
     assert max(abs(a - b) / abs(b) for a, b in zip(l1, l2)) <= 1e-5

@@ -25,7 +25,7 @@ import torch
 from ..ops.momentum import MAX_SWEEPS, momentum_multisweep
 from ..ops.sharded import momentum_multisweep_sharded, sharded_available_for
 from .case import Case, domain_row_masks, grid_metrics, per_case
-from .operators import nb_e, nb_n, nb_s, nb_w, rdiv
+from .operators import clip, maximum, nb_e, nb_n, nb_s, nb_w, rdiv
 
 
 @dataclasses.dataclass
@@ -93,8 +93,8 @@ def _limited_linear_corrections(case: Case, f_e, f_w, f_n, f_s,
     def psi_face(F, L, R, LL, RR, mLL, mRR):
         r_p = _safe_ratio(L - LL, R - L)
         r_m = _safe_ratio(R - RR, L - R)
-        psi_p = torch.clamp(2.0 * r_p / k, 0.0, 1.0) * mLL
-        psi_m = torch.clamp(2.0 * r_m / k, 0.0, 1.0) * mRR
+        psi_p = clip(2.0 * r_p / k, 0.0, 1.0) * mLL
+        psi_m = clip(2.0 * r_m / k, 0.0, 1.0) * mRR
         return torch.where(F > 0, psi_p, psi_m)
 
     def face_corr(F, L, R, psi, open_mask, w_left):
@@ -312,13 +312,13 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
     # fluxes already carry the aperture, so the upwind coefficients only
     # need the open/closed gate
     a_e = case.open_e * d_e + torch.where(case.open_e > 0,
-                                          torch.clamp(-f_e, min=0.0), 0.0)
+                                          maximum(-f_e, 0.0), 0.0)
     a_w = case.open_w * d_w + torch.where(case.open_w > 0,
-                                          torch.clamp(f_w, min=0.0), 0.0)
+                                          maximum(f_w, 0.0), 0.0)
     a_n = case.open_n * d_n + torch.where(case.open_n > 0,
-                                          torch.clamp(-f_n, min=0.0), 0.0)
+                                          maximum(-f_n, 0.0), 0.0)
     a_s = case.open_s * d_s + torch.where(case.open_s > 0,
-                                          torch.clamp(f_s, min=0.0), 0.0)
+                                          maximum(f_s, 0.0), 0.0)
 
     dom_n, dom_s = domain_row_masks(case)
     if k_turb is not None:
@@ -333,12 +333,12 @@ def momentum_coeffs(case: Case, phi_x: torch.Tensor, phi_y: torch.Tensor,
         a_wall = nu_w * case.wall_len / case.wall_dist
 
     # inlet (fixed U): diffusion at half distance + upwinded inflow
-    a_in = case.inlet_w * (2.0 * d_cx + torch.clamp(f_w, min=0.0))
+    a_in = case.inlet_w * (2.0 * d_cx + maximum(f_w, 0.0))
 
     volc = case.alpha * vol
     div_f = f_e - f_w + f_n - f_s
     if ddt == "backward":
-        r = dt / torch.clamp(per_case(dt_prev), min=1e-30)
+        r = dt / maximum(per_case(dt_prev), 1e-30)
         c1 = (1.0 + 2.0 * r) / (1.0 + r)
         ddt_u = (volc / dt) * ((1.0 + r) * u_old
                                - (r * r / (1.0 + r)) * u_nm1)

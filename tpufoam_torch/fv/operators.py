@@ -19,6 +19,29 @@ def rdiv(c, t: torch.Tensor) -> torch.Tensor:
     return torch.div(torch.full_like(t, c), t)
 
 
+def _bound(c, t: torch.Tensor) -> torch.Tensor:
+    # a 0-dim CPU tensor in t's dtype: a scalar operand on any device
+    return torch.tensor(c, dtype=t.dtype)
+
+
+def maximum(t: torch.Tensor, c) -> torch.Tensor:
+    """jnp.maximum(t, c) for a Python number c. The value is
+    torch.clamp(t, min=c)'s; the gradient is JAX's: where t equals c it
+    is split evenly between the two (torch.clamp passes all of it to t)."""
+    return torch.maximum(t, _bound(c, t))
+
+
+def minimum(t: torch.Tensor, c) -> torch.Tensor:
+    """jnp.minimum(t, c) for a Python number c (see `maximum`)."""
+    return torch.minimum(t, _bound(c, t))
+
+
+def clip(t: torch.Tensor, lo, hi) -> torch.Tensor:
+    """jnp.clip(t, lo, hi): maximum with lo, then minimum with hi, so
+    that a value at a bound takes JAX's gradient (see `maximum`)."""
+    return minimum(maximum(t, lo), hi)
+
+
 def nb_e(f: torch.Tensor) -> torch.Tensor:
     """East-neighbour values (j+1); zero beyond the domain."""
     return F.pad(f[..., 1:], (0, 1))

@@ -246,6 +246,25 @@ def _conv_same(h: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
         return F.conv1d(x, k).transpose(1, 2)            # (B, W, C_out)
 
 
+def attention_res(params: dict, mdef: ModelDef,
+                  h: torch.Tensor) -> torch.Tensor:
+    """The attention kind's block after its first dense layer: the
+    one-token multi-head attention of h (its activations, rounded to the
+    compute dtype), its output dense, then the first LayerNorm."""
+    cdt = _DTYPES[mdef.compute_dtype]
+    h = h.to(cdt)
+    a = params["attn"]
+    q = torch.einsum("bd,dhk->bhk", h, a["wq"].to(cdt))
+    k_ = torch.einsum("bd,dhk->bhk", h, a["wk"].to(cdt))
+    v = torch.einsum("bd,dhk->bhk", h, a["wv"].to(cdt))
+    # a sequence of length 1: the softmax over its one key is 1
+    scale = torch.tensor(float(mdef.key_dim)).sqrt().to(cdt)
+    scores = torch.sum(q * k_, dim=-1, keepdim=True) / scale
+    attn = v * torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhk,hkd->bd", attn, a["wo"].to(cdt)).float() + a["bo"]
+    return _layernorm(o, params["ln"][0]["g"], params["ln"][0]["b"])
+
+
 def apply_model(params: dict, mdef: ModelDef, x: torch.Tensor,
                 dropout_key=None) -> torch.Tensor:
     """Forward pass, (batch, PC_in) -> (batch, PC_out). Pass
@@ -276,18 +295,8 @@ def apply_model(params: dict, mdef: ModelDef, x: torch.Tensor,
         return dense(params["head"], h)
 
     if mdef.kind == "attention":
-        h = maybe_dropout(torch.relu(dense(params["layers"][0], x))).to(cdt)
-        a = params["attn"]
-        q = torch.einsum("bd,dhk->bhk", h, a["wq"].to(cdt))
-        k_ = torch.einsum("bd,dhk->bhk", h, a["wk"].to(cdt))
-        v = torch.einsum("bd,dhk->bhk", h, a["wv"].to(cdt))
-        # a sequence of length 1: the softmax over its one key is 1
-        scale = torch.tensor(float(mdef.key_dim)).sqrt().to(cdt)
-        scores = torch.sum(q * k_, dim=-1, keepdim=True) / scale
-        attn = v * torch.softmax(scores, dim=-1)
-        o = torch.einsum("bhk,hkd->bd", attn,
-                         a["wo"].to(cdt)).float() + a["bo"]
-        res = _layernorm(o, params["ln"][0]["g"], params["ln"][0]["b"])
+        h = maybe_dropout(torch.relu(dense(params["layers"][0], x)))
+        res = attention_res(params, mdef, h)
         for i, p in enumerate(params["layers"][1:], start=1):
             hh = maybe_dropout(torch.relu(dense(p, res)))
             res = _layernorm(hh + res, params["ln"][i]["g"],

@@ -73,8 +73,11 @@ def _check(ops, sweeps: int) -> bool:
     if u0.device.type != "cuda":
         raise ValueError(f"no momentum kernel for device {u0.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
-        raise ValueError("the momentum kernel has no backward; call it "
-                         "under torch.no_grad()")
+        raise ValueError(
+            "the momentum kernel has no backward (nor has the JAX "
+            "package's Pallas kernel: it has no reverse mode); call it "
+            "under torch.no_grad(), or differentiate through "
+            "momentum_smoother='plain'")
     return False
 
 

@@ -36,8 +36,16 @@ the kernels' arithmetic operation by operation: the division by diag (not
 a multiply by 1/diag), omega rounded to the operand dtype, and a rounding
 to the operand dtype after every operation, as the TPU kernels do
 ("arithmetic stays in the operand dtype"). Operands are float32 or
-bfloat16, all of one dtype, contiguous. The kernels have no backward, so
-on CUDA they refuse operands that require a gradient.
+bfloat16, all of one dtype, contiguous.
+
+Reverse mode: `stencil_matvec` is differentiable. Under autograd it runs
+as `StencilMatvec`, whose forward is the same launch and whose backward
+is the kernel of csrc/stencil_grad.cu (`stencil_matvec_grad`: the
+transposed stencil for x and the products for the coefficients; on CPU
+tensors `stencil_matvec_grad_plain`). The JAX package differentiates its
+plain matvec through XLA; its Pallas kernels have no reverse mode, and
+here the multisweep and sweep kernels have none either: on CUDA they
+refuse operands that require a gradient.
 """
 
 from __future__ import annotations
@@ -47,11 +55,13 @@ import ctypes
 import dataclasses
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..fv.operators import nb_e, nb_n, nb_s, nb_w
 from . import build
 
 _NAME = "pressure_stencil"
+_GRAD_NAME = "stencil_grad"
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # The kernels' output tile depends on the halo; its region is at most
 # REGION x REGION cells and the grid's y extent is capped by CUDA.
@@ -355,6 +365,26 @@ def stencil_matvec_plain(coef, x):
             - coef.c_n * nb_n(x) - coef.c_s * nb_s(x))
 
 
+def stencil_matvec_grad_plain(coef, x, g, need=(True,) * 6):
+    """The reverse of `stencil_matvec_plain` at x for the upstream
+    gradient g: (dx, dc_e, dc_w, dc_n, dc_s, ddiag), each None where
+    `need` (a StencilMatvec's needs_input_grad: x, c_e, c_w, c_n, c_s,
+    diag) says False. A need not be symmetric: dx = A^T g, the transposed
+    stencil, zero beyond the domain and across the planes of a stack;
+    each coefficient's gradient is g times the x it multiplies. Evaluated
+    left to right in the operand dtype, rounded after every operation, as
+    the kernel of csrc/stencil_grad.cu computes it."""
+    want_x, want_e, want_w, want_n, want_s, want_d = need
+    dx = (coef.diag * g - nb_w(coef.c_e * g) - nb_e(coef.c_w * g)
+          - nb_s(coef.c_n * g) - nb_n(coef.c_s * g)) if want_x else None
+    return (dx,
+            -(g * nb_e(x)) if want_e else None,
+            -(g * nb_w(x)) if want_w else None,
+            -(g * nb_n(x)) if want_n else None,
+            -(g * nb_s(x)) if want_s else None,
+            g * x if want_d else None)
+
+
 def _sweeps(coef, x, b, iters, om):
     for _ in range(iters):
         x = x + om * (b - stencil_matvec_plain(coef, x)) / coef.diag
@@ -400,7 +430,8 @@ def _check(name, coef, fields, iters, kernel):
     """Returns True for CPU operands (take the plain version), False for
     CUDA operands the kernel takes; raises on anything else: another
     dtype, mixed dtypes, shapes or devices, a strided operand, too many
-    iterations, and on CUDA an operand that requires a gradient."""
+    iterations, and on CUDA an operand that requires a gradient, but for
+    the matvec (its backward is `stencil_matvec_grad`)."""
     x = fields[0]
     if x.dtype not in _DTYPES:
         raise ValueError(f"{name} takes float32 or bfloat16, got {x.dtype}")
@@ -427,9 +458,12 @@ def _check(name, coef, fields, iters, kernel):
         return True
     if x.device.type != "cuda":
         raise ValueError(f"no {name} kernel for device {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
-        raise ValueError(f"the {name} kernel has no backward; call it "
-                         "under torch.no_grad()")
+    if kernel != "matvec" and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in ops):
+        raise ValueError(
+            f"the {name} kernel has no backward (nor has the JAX package's "
+            "Pallas kernel: it has no reverse mode); call it under "
+            "torch.no_grad(), or differentiate through the plain smoother")
     return False
 
 
@@ -529,16 +563,93 @@ def _raise_on(lib, name, err):
         raise RuntimeError(f"{name} launch failed: {msg}")
 
 
-def stencil_matvec(coef, x):
-    """A x in one launch of csrc/pressure_stencil.cu on (ny, nx) or
-    (B, ny, nx) operands (replaces the TPU kernel `stencil_matvec_pallas`,
-    tpufoam/ops/stencil.py:221). On CPU tensors: `stencil_matvec_plain`."""
+# the five operands of the matvec, as StencilMatvec takes them apart
+_Operator = collections.namedtuple("_Operator", "c_e c_w c_n c_s diag")
+
+
+def _matvec(coef, x):
     if _check("stencil_matvec", coef, (x,), 0, "matvec"):
         return stencil_matvec_plain(coef, x)
     out = torch.empty_like(x)
     geom = _launch_pass("stencil_matvec", "stencil_matvec", coef, (x,), out)
     _count(stencil_matvec, geom.variant, x)
     return out
+
+
+class StencilMatvec(torch.autograd.Function):
+    """A x with a reverse mode: apply(x, c_e, c_w, c_n, c_s, diag). The
+    forward is `stencil_matvec`'s launch (its plain version on CPU
+    tensors), the backward `stencil_matvec_grad` for the inputs that need
+    a gradient (its kernel on CUDA tensors, its plain version on CPU
+    tensors). Once differentiable: no second derivative is taken.
+    `taped` counts the forwards (on either device): a backward launches
+    stencil_matvec_grad once for each that reaches the differentiated
+    output, and a matvec with no operand that needs a gradient is not
+    taped."""
+
+    taped = 0
+
+    @staticmethod
+    def forward(ctx, x, c_e, c_w, c_n, c_s, diag):
+        ctx.save_for_backward(x, c_e, c_w, c_n, c_s, diag)
+        StencilMatvec.taped += 1
+        return _matvec(_Operator(c_e, c_w, c_n, c_s, diag), x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, *coef = ctx.saved_tensors
+        return stencil_matvec_grad(_Operator(*coef), x, g.contiguous(),
+                                   ctx.needs_input_grad)
+
+
+def stencil_matvec(coef, x):
+    """A x in one launch of csrc/pressure_stencil.cu on (ny, nx) or
+    (B, ny, nx) operands (replaces the TPU kernel `stencil_matvec_pallas`,
+    tpufoam/ops/stencil.py:221). On CPU tensors: `stencil_matvec_plain`.
+    Where autograd records (an operand requires a gradient) the same
+    launch runs as `StencilMatvec`, whose backward launches
+    `stencil_matvec_grad`."""
+    ops = (x, coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.diag)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        return StencilMatvec.apply(*ops)
+    return _matvec(coef, x)
+
+
+def stencil_matvec_grad(coef, x, g, need=(True,) * 6):
+    """The reverse of `stencil_matvec` at x for the upstream gradient g
+    (as `stencil_matvec_grad_plain`: (dx, dc_e, dc_w, dc_n, dc_s, ddiag),
+    None where `need` says False) in one launch of csrc/stencil_grad.cu
+    on (ny, nx) or (B, ny, nx) operands; a gradient not asked for is not
+    computed. It replaces no TPU kernel: the JAX package differentiates
+    its plain matvec through XLA. On CPU tensors:
+    `stencil_matvec_grad_plain`."""
+    need = tuple(bool(n) for n in need)
+    if _check("stencil_matvec_grad", coef, (x, g), 0, "matvec"):
+        return stencil_matvec_grad_plain(coef, x, g, need)
+    outs = tuple(torch.empty_like(x) if n else None for n in need)
+    if not any(need):
+        return outs
+    lib = build.load(_GRAD_NAME)
+    fn = getattr(lib, f"stencil_matvec_grad_{_DTYPES[x.dtype]}")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.stencil_grad_error_string.argtypes = [ctypes.c_int]
+        lib.stencil_grad_error_string.restype = ctypes.c_char_p
+    *lead, ny, nx = x.shape
+    ptrs = [t.data_ptr() for t in (g, x, coef.c_e, coef.c_w, coef.c_n,
+                                   coef.c_s, coef.diag)] \
+        + [None if t is None else t.data_ptr() for t in outs]
+    with torch.cuda.device(x.device):   # launch on the operands' card
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*ptrs, lead[0] if lead else 1, ny, nx, stream)
+    if err != 0:
+        msg = lib.stencil_grad_error_string(err).decode()
+        raise RuntimeError(f"stencil_matvec_grad launch failed: {msg}")
+    _count(stencil_matvec_grad, "cell", x)
+    return outs
 
 
 def jacobi_sweep(coef, x, b, iters: int = 2, omega: float = 0.8):
@@ -606,9 +717,10 @@ def corr_smooth(coef, x, corr, b, iters: int = 2, omega: float = 0.8):
 
 # launches, and launches by (variant, dtype, (ny, nx)): "vector" or "cell"
 # for the single-pass kernels (and one sweep of jacobi_multisweep), "run"
-# or "region" for the multisweep kernels (all three)
-for _fn_ in (stencil_matvec, jacobi_sweep, jacobi_multisweep,
-             smooth_residual, corr_smooth):
+# or "region" for the multisweep kernels (all three), "cell" for the
+# matvec's backward
+for _fn_ in (stencil_matvec, stencil_matvec_grad, jacobi_sweep,
+             jacobi_multisweep, smooth_residual, corr_smooth):
     _fn_.launches = 0
     _fn_.by_shape = collections.Counter()
 del _fn_

@@ -60,7 +60,8 @@ import math
 import torch
 
 from ..fv.case import Case, Flow
-from ..models.mlp import (_DTYPES, apply_model, tree_leaves, tree_map,
+from ..models.mlp import (_DTYPES, _layernorm, apply_model,
+                          attention_res, tree_leaves, tree_map,
                           tree_unflatten, treedef_str)
 from ..piso import decomposed
 from ..piso.engine import PisoConfig, piso_step
@@ -582,6 +583,51 @@ def _tp_forward(mdef, ps: list, xs: list, group, first: int, dx: int,
     return [mm(p["head"], h) + p["head"]["b"] for p, h in zip(ps, hs)]
 
 
+def _tp_attention(mdef, ps: list, xs: list, group, first: int,
+                  counts) -> list:
+    """apply_model's attention form over the local blocks of one mesh row
+    (as `_tp_forward`), with the placement of `mlp_partition_specs`:
+    layer 0 column-parallel, its columns gathered (`_RowGather`) before
+    the replicated attention and first LayerNorm; then each layer of the
+    residual stack on the replicated `res`, which enters it through
+    `_RowCopy` (the layer reads only the block's part of its input, so
+    the row's gradients of that input are summed, and every replicated
+    parameter's gradient comes out whole on every block): an odd layer
+    row-parallel (the block's columns of res times its rows of w, the
+    ordered sum over the row, + b, relu), an even one column-parallel
+    (its columns, + b, relu, gathered); then hh + res and the layer's
+    LayerNorm; the head replicated."""
+    cdt = _DTYPES[mdef.compute_dtype]
+
+    def mm(p, h):
+        return (h.to(cdt) @ p["w"].to(cdt)).float()
+
+    def gather(hs):
+        counts["row_gather"] += 1
+        return list(_RowGather.apply(group, first, *hs))
+
+    lay = [p["layers"][0] for p in ps]
+    hs = gather([torch.relu(mm(q, x) + q["b"]) for q, x in zip(lay, xs)])
+    res = [attention_res(p, mdef, h) for p, h in zip(ps, hs)]
+    for i in range(1, len(ps[0]["layers"])):
+        lay = [p["layers"][i] for p in ps]
+        ins = _RowCopy.apply(group, *res)
+        counts["row_grad_sum"] += 1
+        if i % 2:
+            n = lay[0]["w"].shape[0]
+            partial = _RowSum.apply(group, *(
+                mm(q, h[:, (first + j) * n:(first + j + 1) * n])
+                for j, (q, h) in enumerate(zip(lay, ins))))
+            counts["row_sum"] += 1
+            hh = [torch.relu(t + q["b"]) for q, t in zip(lay, partial)]
+        else:
+            hh = gather([torch.relu(mm(q, h) + q["b"])
+                         for q, h in zip(lay, ins)])
+        res = [_layernorm(a + r, p["ln"][i]["g"], p["ln"][i]["b"])
+               for p, a, r in zip(ps, hh, res)]
+    return [mm(p["head"], r) + p["head"]["b"] for p, r in zip(ps, res)]
+
+
 def make_sharded_train_step(mesh: Mesh, mdef, opt, loss_scale: float = 1e6):
     """A data- and tensor-parallel train step over `mesh`: returns (step,
     shard), as the JAX package's, with the parameters placed by
@@ -611,8 +657,10 @@ def make_sharded_train_step(mesh: Mesh, mdef, opt, loss_scale: float = 1e6):
     lives, every copy alike. The loss is the rows' shares summed in row
     order, on the lead device. With one 'model' column this is the
     data-parallel step (the whole model on each row, apply_model's
-    arithmetic); the attention and conv1d kinds take only such meshes
-    (ValueError otherwise). A tensor in place of xs, ys is one slice.
+    arithmetic). The attention kind takes any 'model' axis, its dense
+    layers placed as the dense kind's (`_tp_attention`); the conv1d kind
+    only an axis of one (ValueError otherwise, as jax.device_put refuses
+    its placement). A tensor in place of xs, ys is one slice.
     `step.collectives` counts the collectives the steps ran: "row_sum",
     "row_gather" and "row_grad_sum" (the 'model' ones, a row each; the
     last in the backward) and "data_sum" (a column's gradients, and the
@@ -626,7 +674,7 @@ def make_sharded_train_step(mesh: Mesh, mdef, opt, loss_scale: float = 1e6):
     world equals one process bit for bit."""
     from ..train.trainer import apply_updates
     dy, dx = len(mesh.devices), len(mesh.devices[0])
-    if dx > 1 and mdef.kind != "dense":
+    if dx > 1 and mdef.kind == "conv1d":
         raise ValueError(f"make_sharded_train_step: the {mdef.kind!r} model "
                          f"has no tensor-parallel placement; its mesh's "
                          f"'model' axis must be 1, not {dx}")
@@ -688,6 +736,9 @@ def make_sharded_train_step(mesh: Mesh, mdef, opt, loss_scale: float = 1e6):
                 if mdef.kind == "dense":
                     preds = _tp_forward(mdef, ps, x, row_group[i],
                                         ks[0] % dx, dx, counts)
+                elif dx > 1:
+                    preds = _tp_attention(mdef, ps, x, row_group[i],
+                                          ks[0] % dx, counts)
                 else:
                     preds = [apply_model(ps[0], mdef, x[0])]
                 for k, pred in zip(ks, preds):

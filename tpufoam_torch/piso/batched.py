@@ -54,7 +54,10 @@ def run_piso_batched(cases: Case, flows: Flow, n_steps: int,
     """Advance every case n_steps in lockstep. The JAX package scans a
     vmapped step; PyTorch has no scan, so this is the same loop as
     `run_piso_batched_eager` without a surrogate, and it keeps autograd
-    on."""
+    on: a loss of the fleet differentiates on the card as `run_piso`'s
+    does (the plain momentum smoother, a fixed-cycle MGBackend with the
+    plain smoother: one stencil_matvec_grad launch for the whole stack
+    per taped matvec), each case's gradient that case's alone."""
     for _ in range(n_steps):
         flows = piso_step(cases, flows, cfg=cfg, backend=backend)
     return flows

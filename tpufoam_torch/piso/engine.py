@@ -29,7 +29,7 @@ import torch
 from ..fv.case import (Case, Flow, fluxes_from_velocity, grid_metrics,
                        per_case)
 from ..fv.momentum import h_operator, jacobi_momentum, momentum_coeffs
-from ..fv.operators import divergence
+from ..fv.operators import divergence, maximum, minimum
 from ..fv.pressure import (correct_fluxes, face_fluxes_hbya, pressure_coeffs,
                            pressure_gradient, pressure_matvec, pressure_rhs)
 from ..solvers.backends import CGBackend
@@ -147,9 +147,9 @@ def _next_dt(case: Case, flow: Flow, cfg: PisoConfig) -> torch.Tensor:
 
 def _dt_from_courant(co, dt, cfg: PisoConfig) -> torch.Tensor:
     """_next_dt from the Courant number `co` of the step of size `dt`."""
-    co = co / torch.clamp(dt, min=1e-12)
-    dt_co = cfg.max_co / torch.clamp(co, min=1e-12)
-    new_dt = torch.clamp(torch.minimum(dt_co, 1.2 * dt), max=cfg.max_dt)
+    co = co / maximum(dt, 1e-12)
+    dt_co = cfg.max_co / maximum(co, 1e-12)
+    new_dt = minimum(torch.minimum(dt_co, 1.2 * dt), cfg.max_dt)
     return new_dt.to(dt.dtype)
 
 
@@ -233,7 +233,7 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
     dt = _next_dt(case, flow, cfg) if cfg.adjust_dt else flow.dt
     if cfg.t_stop and cfg.t_stop > 0:
         # land exactly on t_stop, whether or not dt adapts
-        dt = torch.minimum(dt, torch.clamp(cfg.t_stop - flow.t, min=1e-6)
+        dt = torch.minimum(dt, maximum(cfg.t_stop - flow.t, 1e-6)
                            ).to(flow.dt.dtype)
     if cfg.inlet_scale_fn is not None:
         # the inlet at the new time level, so the implicit momentum solve
@@ -326,7 +326,7 @@ def _ddt_corr(case: Case, flow: Flow, cfg: PisoConfig, dt, rau, phi_hx,
     are constrained."""
     dt = per_case(dt)
     if cfg.ddt == "backward":
-        rr = dt / torch.clamp(per_case(flow.dt), min=1e-30)
+        rr = dt / maximum(per_case(flow.dt), 1e-30)
         cddt = (1.0 + 2.0 * rr) / (1.0 + rr)
     else:
         cddt = 1.0
@@ -334,10 +334,8 @@ def _ddt_corr(case: Case, flow: Flow, cfg: PisoConfig, dt, rau, phi_hx,
     old_x, old_y = flow.phi_x[..., 1:-1], flow.phi_y[..., 1:-1, :]
     dpx = old_x - phi_ux[..., 1:-1]
     dpy = old_y - phi_uy[..., 1:-1, :]
-    lim_x = 1.0 - torch.clamp(torch.abs(dpx) / (torch.abs(old_x) + 1e-30),
-                              max=1.0)
-    lim_y = 1.0 - torch.clamp(torch.abs(dpy) / (torch.abs(old_y) + 1e-30),
-                              max=1.0)
+    lim_x = 1.0 - minimum(torch.abs(dpx) / (torch.abs(old_x) + 1e-30), 1.0)
+    lim_y = 1.0 - minimum(torch.abs(dpy) / (torch.abs(old_y) + 1e-30), 1.0)
     rau_fx = 0.5 * (rau[..., :-1] + rau[..., 1:])
     rau_fy = 0.5 * (rau[..., :-1, :] + rau[..., 1:, :])
     phi_hx = torch.cat([phi_hx[..., :1],
@@ -420,11 +418,16 @@ def run_piso(case: Case, flow: Flow, n_steps: int,
     differentiate through (torch.autograd.grad of a loss of the result).
     The JAX package scans a jitted step; PyTorch has no scan, so this is
     the loop of run_piso_eager without torch.no_grad() and equals it bit
-    for bit. The kernels have no backward: on the card their wrappers
-    (the momentum kernel's and every pressure matvec's) raise on a tensor
-    that requires grad, and nothing switches to a plain version quietly,
-    so a differentiated rollout runs on the CPU, where the wrappers take
-    their plain versions."""
+    for bit. On the card it differentiates what JAX differentiates: the
+    plain momentum smoother (JAX's "xla") and a fixed-cycle MGBackend
+    (f32 or the bf16 correction form) with the plain pressure smoother,
+    every pressure matvec a launch of the stencil_matvec kernel and its
+    backward a launch of stencil_matvec_grad. The momentum kernel and the
+    multisweep kernels (JAX's Pallas kernels, which have no reverse mode)
+    raise on a tensor that requires grad, naming the kernel; nothing
+    switches to a plain version quietly. A surrogate warm start has no
+    reference gradient: JAX's reverse mode refuses its safeguard's
+    while_loop."""
     _warn_stiff_max_dt(case, cfg)
     return _rollout(case, flow, (n_steps,), cfg, backend, sm_predict,
                     grad=True)
