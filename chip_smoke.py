@@ -48,9 +48,13 @@ Phases, each printing one JSON line with its elapsed seconds:
           csrc/stencil_grad.cu) against stencil_matvec_grad_plain, bit
           for bit, with all six gradients and with dx alone, at every
           level of both hierarchies, on a (4, ny, nx) stack of each and
-          on the odd shapes, float32 and bfloat16; its device time and
-          bound at both finest levels beside its plain version's and, for
-          dx, the library's sparse product with the transposed operator
+          on the odd shapes, float32 and bfloat16, and on every window
+          grad-sharded tapes (each block of the 2 x 2 mesh at every block
+          level of 512 x 2048, haloes 1, 2 and 3: odd and haloed widths)
+          and on (1, ny, nx) stacks (grad-fleet-sharded's); its device
+          time and bound at both finest levels beside its plain
+          version's and, for dx, the library's sparse product with the
+          transposed operator
   kernel-sweep  the jacobi_sweep kernel (one sweep a launch) against its
           plain version and against the jacobi_multisweep kernel, iters 1,
           2 and 8, float32 and bfloat16, at the same levels: bit for bit;
@@ -99,6 +103,18 @@ Phases, each printing one JSON line with its elapsed seconds:
           then one step under a TorchDispatchMode: no op output of a
           whole-field shape but in the surrogate's gather and the
           agglomerated levels
+  grad-sharded  grad-step's configuration and steps through the
+          decomposed step on step-sharded's 2 x 2 mesh, the gradient
+          w.r.t. the whole inlet profile (split into blocks on the tape):
+          its loss grad-step's bit for bit, finite, centre row positive,
+          the forward launching only stencil_matvec and the backward only
+          stencil_matvec_grad, one launch for each taped matvec, every
+          backward window shape one kernel-matvec-grad checked; bit for
+          bit equal to the same run with the plain Function in the
+          matvec's place; within GRAD_SHARDED_TOL of grad-step's gradient;
+          the kernel pressure smoothers refuse a gradient, naming the
+          kernel; forward and backward ms, the backward's launches by
+          window shape, device memory beside grad-step's
   parity-sharded  one decomposed step against one piso_step from the
           same state, with the plain, the kernel and the kernel-fused
           pressure smoothers (each launched per block): bit for bit
@@ -128,6 +144,10 @@ Phases, each printing one JSON line with its elapsed seconds:
           grad-step's configuration under autograd, the loss summed over
           the cases: each case's gradient equal to it stepped alone, bit
           for bit; one backward launch for each taped batched matvec
+  grad-fleet-sharded  the same through make_sharded_fleet_step over a
+          mesh of 4 of the card (one case a block): each case's gradient
+          equal to grad-fleet's, bit for bit; one backward launch for each
+          taped matvec; ms and memory beside grad-fleet's
   kernel-fleet-pressure  jacobi_multisweep, smooth_residual and
           corr_smooth on the (4, ny, nx) stack, one launch for the four
           cases, at every level of the main path's hierarchy (512 x 2048
@@ -559,7 +579,20 @@ TP_ATTENTION = "MLP_attention"
 # grad-fleet: run_piso_batched on the fleet's four cases at 512 x 2048,
 # GRAD_FLEET_STEPS steps, the same configuration, the loss summed over
 # the cases.
+# grad-sharded: grad-step's configuration through the decomposed step on
+# step-sharded's 2 x 2 mesh; its gradient within GRAD_SHARDED_TOL of
+# grad-step's, relative L2: tests/test_torch_grad_rollout.py's bf16 bound
+# (a halo cell's gradient is summed per window, then over the blocks, in
+# another order than the whole step's, each partial sum rounded to
+# bfloat16; on the CPU at 64 x 256 it lay 7.6e-3 on 2 x 2, 1.2e-2 on
+# 2 x 1, 3.7e-3 on 1 x 2; at 128 x 512 4.5e-3 on 2 x 2). The windows the
+# block levels tape: halo 1 (the finest level's residual), 2 (the
+# post-smoother's sweeps) and 3 (the down leg's sweeps and residual).
+# grad-fleet-sharded: grad-fleet through make_sharded_fleet_step over a
+# mesh of 4 of the card.
 GRAD_STEPS, GRAD_FLEET_STEPS = 2, 1
+GRAD_SHARDED_TOL = 2e-2
+GRAD_SHARDED_HALOS = (1, 2, 3)
 GRAD_TOL, GRAD_EPS = 1e-3, 1e-2
 GRAD_CFG = dict(n_correctors=2, max_co=0.5, max_dt=2e-3)
 GRAD_SMALL = dict(length=2.0, height=1.0, shape=None, nu=0.05)
@@ -1321,15 +1354,23 @@ def matvec_grad_phase(torch, card, all_levels, stacked, random_edge_operands,
     launch. Its device time (L2 flushed), its plain version's and its
     bound at 512 x 2048 and 256 x 1375, beside the library's time for dx:
     the CSR product with the transpose of the same operator (`csr_of(coef,
-    transpose=True)`). Returns (max |diff|, times, launches counted)."""
+    transpose=True)`). Also every window grad-sharded tapes: each block
+    of a 2 x 2 mesh at every block level of 512 x 2048 (all but the
+    coarsest, agglomerated whole), each halo of GRAD_SHARDED_HALOS, cut
+    from the level's operands; and (1, ny, nx) stacks of each level
+    (grad-fleet-sharded's one case a block). Returns (max |diff|, times,
+    launches counted, the (dtype, plane shape) pairs checked)."""
     from tpufoam_torch.ops import stencil as st
+    from tpufoam_torch.parallel.blocks import _span
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     err, checked = 0.0, 0
+    shapes = set()
     n0 = st.stencil_matvec_grad.launches
 
     def exact(where, coef_, x_, g_):
         nonlocal err, checked
+        shapes.add((st._DTYPES[x_.dtype], tuple(x_.shape[-2:])))
         for label, (need, *_) in GRAD_NEEDS.items():
             before = st.stencil_matvec_grad.launches
             got = st.stencil_matvec_grad(coef_, x_, g_, need)
@@ -1356,6 +1397,24 @@ def matvec_grad_phase(torch, card, all_levels, stacked, random_edge_operands,
         for shape in ODD_SHAPES:
             c_, x_, g_ = random_edge_operands(shape, dt)
             exact(f"{prec} random {shape}", c_, x_, g_)
+        for coef_l, b_l in all_levels["512x2048"]:
+            c_, x_, g_, _ = level_operands(coef_l, b_l, dt)
+            cb, xb = stacked(c_, x_, k=1)
+            exact(f"{prec} {tuple(b_l.shape)} x1", cb, xb,
+                  stacked(c_, g_, k=1)[1])
+        for coef_l, b_l in all_levels["512x2048"][:-1]:
+            c_, x_, g_, _ = level_operands(coef_l, b_l, dt)
+            ny_, nx_ = b_l.shape
+            for h in GRAD_SHARDED_HALOS:
+                for i in range(2):
+                    for j in range(2):
+                        sl = (slice(*_span(ny_, 2, i, 0, h)),
+                              slice(*_span(nx_, 2, j, 0, h)))
+                        exact(f"{prec} {tuple(b_l.shape)} block {i},{j} "
+                              f"halo {h}",
+                              type(c_)(*(getattr(c_, f.name)[sl].contiguous()
+                                         for f in dataclasses.fields(c_))),
+                              x_[sl].contiguous(), g_[sl].contiguous())
     launches = st.stencil_matvec_grad.launches - n0
 
     times = {}
@@ -1393,8 +1452,8 @@ def matvec_grad_phase(torch, card, all_levels, stacked, random_edge_operands,
                     library_rel_err=lib_rel)
             times[f"{grid_name} {prec}"] = row
     say("kernel-matvec-grad", card=card, checked=checked, max_abs_err=err,
-        launches=launches, times=times)
-    return err, times, launches
+        launches=launches, shapes=len(shapes), times=times)
+    return err, times, launches, shapes
 
 
 def grad_step_phase(torch, dev, card, case, flow0, reset_counts, counts):
@@ -1408,7 +1467,8 @@ def grad_step_phase(torch, dev, card, case, flow0, reset_counts, counts):
     equal to the same run with `plain_matvec` in the matvec's place; a
     directional central difference on the small case within GRAD_TOL.
     Its forward and backward ms and the device memory. Returns the launch
-    counts of the run (forward and backward)."""
+    counts of the run (forward and backward) and its rollout_grad
+    result."""
     import numpy as np
 
     from tpufoam_torch.core.geometry import ChannelCase
@@ -1463,12 +1523,7 @@ def grad_step_phase(torch, dev, card, case, flow0, reset_counts, counts):
           "grad-step: the gradient is not finite and nonzero")
     check(float(g[ny // 2]) > 0.0, "grad-step: centre-row gradient "
           f"{float(g[ny // 2]):.3e} not positive")
-    check(res["taped_matvecs"] > 0
-          and bwd["stencil_matvec_grad"] == res["taped_matvecs"]
-          and sum(fwd.values()) == fwd["stencil_matvec"]
-          and sum(bwd.values()) == bwd["stencil_matvec_grad"],
-          f"grad-step: forward launches {fwd} ({res['taped_matvecs']} "
-          f"taped), backward {bwd}")
+    _launch_gates("grad-step", res)
     check(ref["fwd_launches"]["stencil_matvec"] == 0
           and ref["bwd_launches"]["stencil_matvec_grad"] == 0,
           "grad-step: the plain run launched a kernel")
@@ -1476,7 +1531,7 @@ def grad_step_phase(torch, dev, card, case, flow0, reset_counts, counts):
           "from the plain Function's")
     check(fd_rel <= GRAD_TOL, f"grad-step: central difference {fd} against "
           f"{ad} (rel {fd_rel:.3e} > {GRAD_TOL})")
-    return path
+    return path, res
 
 
 def grad_fleet_phase(torch, card, fcases, case_b, flow_b0, reset_counts,
@@ -1487,7 +1542,7 @@ def grad_fleet_phase(torch, card, fcases, case_b, flow_b0, reset_counts,
     alone (run_piso) bit for bit; one backward launch for each batched
     forward launch of the matvec. ms and device memory of the fleet and
     of the four cases alone. Returns the launch counts of the fleet's run
-    (forward and backward)."""
+    (forward and backward) and its rollout_grad result."""
     from tpufoam_torch.fv.case import fleet_member
     from tpufoam_torch.piso.batched import run_piso_batched
     from tpufoam_torch.piso.engine import PisoConfig
@@ -1516,10 +1571,178 @@ def grad_fleet_phase(torch, card, fcases, case_b, flow_b0, reset_counts,
     check(all(torch.equal(res["grad"][k], a["grad"])
               for k, a in enumerate(alone)),
           f"grad-fleet: a case's gradient differs from it alone: {diffs}")
+    _launch_gates("grad-fleet", res)
+    return {k: fwd[k] + bwd[k] for k in fwd}, res
+
+
+def _launch_gates(label, res):
+    """The forward launches stencil_matvec alone, the backward
+    stencil_matvec_grad alone, once for each taped matvec."""
+    fwd, bwd = res["fwd_launches"], res["bwd_launches"]
     check(res["taped_matvecs"] > 0
-          and bwd["stencil_matvec_grad"] == res["taped_matvecs"],
-          f"grad-fleet: forward launches {fwd} ({res['taped_matvecs']} "
+          and bwd["stencil_matvec_grad"] == res["taped_matvecs"]
+          and sum(fwd.values()) == fwd["stencil_matvec"]
+          and sum(bwd.values()) == bwd["stencil_matvec_grad"],
+          f"{label}: forward launches {fwd} ({res['taped_matvecs']} "
           f"taped), backward {bwd}")
+
+
+def _rel_l2(torch, got, ref):
+    got, ref = got.double(), ref.double()
+    return float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+
+
+def grad_sharded_phase(torch, card, case, flow0, mesh, step_res, checked,
+                       reset_counts, counts):
+    """grad-sharded: grad-step's configuration and GRAD_STEPS steps
+    through the decomposed step (make_sharded_piso_step) on `mesh`, the
+    gradient of `_downstream_ke` of the gathered u w.r.t. the whole
+    inlet_u (shard_case splits it on the tape). Gates: the loss equals
+    grad-step's (`step_res`) bit for bit; finite, centre row positive;
+    the forward launches stencil_matvec alone and the backward
+    stencil_matvec_grad alone, once for each taped matvec, each at a
+    (dtype, window shape) kernel-matvec-grad checked (`checked`); bit for
+    bit equal to the same run with `plain_matvec`; within
+    GRAD_SHARDED_TOL of grad-step's gradient; the momentum kernel and
+    the kernel pressure smoothers refuse a gradient, naming the kernel.
+    Returns the launch counts of the run (forward and backward)."""
+    from tpufoam_torch.ops import stencil as st
+    from tpufoam_torch.parallel.mesh import (make_sharded_piso_step,
+                                             shard_case, shard_flow,
+                                             unshard_flow)
+    from tpufoam_torch.piso.engine import PisoConfig
+    from tpufoam_torch.solvers.backends import MGBackend
+
+    def sharded_run(cfg_, backend_):
+        step = make_sharded_piso_step(mesh, cfg_, backend_)
+
+        def run(case_, flow_, n, cfg=None, backend=None):
+            sc, sf = shard_case(mesh, case_), shard_flow(mesh, flow_)
+            for _ in range(n):
+                sf = step(sc, sf)
+            return unshard_flow(sf)
+
+        return run
+
+    cfg = PisoConfig(**GRAD_CFG)
+    backend = MGBackend(cycles=2, precision="bf16")
+    res = rollout_grad(torch, case, flow0, GRAD_STEPS, cfg, backend,
+                       reset_counts, counts, run=sharded_run(cfg, backend))
+    by_window = dict(st.stencil_matvec_grad.by_shape)
+    with plain_matvec(torch):
+        ref = rollout_grad(torch, case, flow0, GRAD_STEPS, cfg, backend,
+                           reset_counts, counts,
+                           run=sharded_run(cfg, backend))
+    refused = {}
+    for label, cfg_k, be_k in (
+            ("momentum kernel", PisoConfig(**GRAD_CFG,
+                                           momentum_smoother="kernel"),
+             backend),
+            ("jacobi_multisweep kernel", cfg,
+             MGBackend(cycles=2, precision="bf16", smoother="kernel")),
+            ("smooth_residual kernel", cfg,
+             MGBackend(cycles=2, precision="bf16",
+                       smoother="kernel-fused"))):
+        x = case.inlet_u.clone().requires_grad_(True)
+        try:
+            sharded_run(cfg_k, be_k)(dataclasses.replace(case, inlet_u=x),
+                                     flow0, 1)
+        except ValueError as exc:
+            refused[label] = str(exc)
+        else:
+            refused[label] = None
+    torch.cuda.synchronize()
+    g, ny = res["grad"], case.grid.ny
+    fwd, bwd = res["fwd_launches"], res["bwd_launches"]
+    rel = _rel_l2(torch, g, step_res["grad"])
+    say("grad-sharded", card=card, mesh=mesh.shape, grid=[ny, case.grid.nx],
+        steps=GRAD_STEPS, config=GRAD_CFG,
+        backend="MGBackend(cycles=2, precision='bf16')",
+        **_grad_summary(res),
+        bwd_launches_by_window={f"{v_} {p_} {sh_[0]}x{sh_[1]}": n_
+                                for (v_, p_, sh_), n_ in sorted(
+                                    by_window.items(),
+                                    key=lambda kv: (kv[0][1], -kv[0][2][0],
+                                                    kv[0][2][1]))},
+        grad_step_loss=step_res["loss"],
+        grad_step_fwd_ms=step_res["fwd_ms"],
+        grad_step_bwd_ms=step_res["bwd_ms"],
+        grad_step_taped_matvecs=step_res["taped_matvecs"],
+        grad_step_max_memory_allocated_bytes=step_res[
+            "max_memory_allocated_bytes"],
+        grad_centre=float(g[ny // 2]), grad_abs_max=float(g.abs().max()),
+        rel_l2_vs_grad_step=rel, tol=GRAD_SHARDED_TOL,
+        plain_fwd_ms=ref["fwd_ms"], plain_bwd_ms=ref["bwd_ms"],
+        max_abs_diff_vs_plain=float((g - ref["grad"]).abs().max()),
+        refused={k_: v_ and v_[:160] for k_, v_ in refused.items()})
+    check(res["loss"] == step_res["loss"], f"grad-sharded: loss "
+          f"{res['loss']!r} is not grad-step's {step_res['loss']!r}")
+    check(bool(torch.isfinite(g).all()), "grad-sharded: non-finite gradient")
+    check(float(g[ny // 2]) > 0.0, "grad-sharded: centre-row gradient "
+          f"{float(g[ny // 2]):.3e} not positive")
+    _launch_gates("grad-sharded", res)
+    check(all((p_, sh_) in checked for _v, p_, sh_ in by_window),
+          f"grad-sharded: a backward window kernel-matvec-grad did not "
+          f"check: {sorted(by_window)}")
+    check(ref["fwd_launches"]["stencil_matvec"] == 0
+          and ref["bwd_launches"]["stencil_matvec_grad"] == 0,
+          "grad-sharded: the plain run launched a kernel")
+    check(torch.equal(g, ref["grad"]), "grad-sharded: the gradient differs "
+          "from the plain Function's")
+    check(rel <= GRAD_SHARDED_TOL, f"grad-sharded: {rel:.3e} from "
+          f"grad-step's gradient > {GRAD_SHARDED_TOL}")
+    for label, msg in refused.items():
+        check(msg is not None and label in msg and "no backward" in msg,
+              f"grad-sharded: the {label} under autograd: {msg}")
+    return {k: fwd[k] + bwd[k] for k in fwd}
+
+
+def grad_fleet_sharded_phase(torch, card, dev, case_b, flow_b0, fleet_res,
+                             reset_counts, counts):
+    """grad-fleet-sharded: grad-fleet through make_sharded_fleet_step over
+    a mesh of 4 of the card, one case a block (shard_fleet and
+    unshard_fleet on the tape): the loss and each case's gradient equal
+    grad-fleet's (`fleet_res`) bit for bit; the forward launches
+    stencil_matvec alone and the backward stencil_matvec_grad alone, once
+    for each taped matvec. Returns the launch counts of the run."""
+    from tpufoam_torch.parallel.mesh import (device_mesh,
+                                             make_sharded_fleet_step,
+                                             shard_fleet, unshard_fleet)
+    from tpufoam_torch.piso.engine import PisoConfig
+    from tpufoam_torch.solvers.backends import MGBackend
+
+    cfg = PisoConfig(**GRAD_CFG)
+    backend = MGBackend(cycles=2, precision="bf16")
+    mesh = device_mesh(4, devices=[dev] * 4)
+    step = make_sharded_fleet_step(mesh, cfg, backend)
+
+    def run(case_, flow_, n, cfg=None, backend=None):
+        parts_c, parts_f = shard_fleet(mesh, case_), shard_fleet(mesh, flow_)
+        for _ in range(n):
+            parts_f = step(parts_c, parts_f)
+        return unshard_fleet(mesh, parts_f)
+
+    res = rollout_grad(torch, case_b, flow_b0, GRAD_FLEET_STEPS, cfg,
+                       backend, reset_counts, counts, run=run)
+    fwd, bwd = res["fwd_launches"], res["bwd_launches"]
+    diffs = [float((res["grad"][k] - fleet_res["grad"][k]).abs().max())
+             for k in range(len(res["grad"]))]
+    say("grad-fleet-sharded", card=card, mesh=mesh.shape,
+        shape=list(case_b.fluid.shape), steps=GRAD_FLEET_STEPS,
+        **_grad_summary(res), grad_fleet_loss=fleet_res["loss"],
+        grad_fleet_fwd_ms=fleet_res["fwd_ms"],
+        grad_fleet_bwd_ms=fleet_res["bwd_ms"],
+        grad_fleet_taped_matvecs=fleet_res["taped_matvecs"],
+        grad_fleet_max_memory_allocated_bytes=fleet_res[
+            "max_memory_allocated_bytes"],
+        max_abs_diff_vs_grad_fleet=diffs)
+    check(res["loss"] == fleet_res["loss"], f"grad-fleet-sharded: loss "
+          f"{res['loss']!r} is not grad-fleet's {fleet_res['loss']!r}")
+    check(all(torch.equal(res["grad"][k], fleet_res["grad"][k])
+              for k in range(len(diffs))),
+          f"grad-fleet-sharded: a case's gradient differs from "
+          f"grad-fleet's: {diffs}")
+    _launch_gates("grad-fleet-sharded", res)
     return {k: fwd[k] + bwd[k] for k in fwd}
 
 
@@ -2917,7 +3140,7 @@ def main() -> int:
                           for (p_, sh_), v_ in matvec_levels.items()])
 
     # ---- the matvec's backward against its plain version, bit for bit ----
-    mgrad_err, mgrad_times, _ = matvec_grad_phase(
+    mgrad_err, mgrad_times, _, mgrad_shapes = matvec_grad_phase(
         torch, card, all_levels, stacked, random_edge_operands, flush,
         csr_operator)
 
@@ -3279,8 +3502,8 @@ def main() -> int:
           "the plain smoother launched a pressure kernel")
 
     # ---- reverse mode through the main path (grad-step) ----------------
-    grad_step_launches = grad_step_phase(torch, dev, card, case, flow0,
-                                         reset_counts, counts)
+    grad_step_launches, grad_step_res = grad_step_phase(
+        torch, dev, card, case, flow0, reset_counts, counts)
 
     # ---- the main path through the decomposed step, 2 x 2 blocks of the
     # card: every field resident per block, the stages on haloed windows,
@@ -3377,6 +3600,11 @@ def main() -> int:
           f"step-sharded: whole-field outputs outside the whole-field "
           f"stages: {dict(rec.seen)}")
     del flow_sh
+
+    # ---- reverse mode through the decomposed step (grad-sharded) --------
+    grad_sharded_launches = grad_sharded_phase(
+        torch, card, case, flow0, mesh_step, grad_step_res, mgrad_shapes,
+        reset_counts, counts)
 
     # ---- one decomposed step against one piso_step, same state ----------
     # with the plain smoother and each kernel smoother: bit for bit
@@ -4557,8 +4785,12 @@ def main() -> int:
         fluid_cells=case_b.fluid.sum(dim=(-2, -1)).tolist())
 
     # ---- reverse mode through the fleet's lockstep (grad-fleet) ---------
-    grad_fleet_launches = grad_fleet_phase(torch, card, fcases, case_b,
-                                           flow_b0, reset_counts, counts)
+    grad_fleet_launches, grad_fleet_res = grad_fleet_phase(
+        torch, card, fcases, case_b, flow_b0, reset_counts, counts)
+    # ---- the same through the case-parallel fleet step ------------------
+    grad_fleet_sharded_launches = grad_fleet_sharded_phase(
+        torch, card, dev, case_b, flow_b0, grad_fleet_res, reset_counts,
+        counts)
 
     # ---- rows 3-5 on the fleet's stack, one launch for the four cases ----
     fleet_pressure_rows = fleet_pressure_phase(
@@ -4827,6 +5059,7 @@ def main() -> int:
     # driven path, each path's counts set to 0 just before its steps
     paths = (*train_launches.values(), step_launches,
              grad_step_launches, grad_fleet_launches,
+             grad_sharded_launches, grad_fleet_sharded_launches,
              sharded_step_launches, fused_launches,
              mgcg_launches, st_launches, fleet_launches, fsh_launches,
              k_mgcg, auto_launches, bridge_launches,
@@ -4928,6 +5161,8 @@ def main() -> int:
     new_paths = {"step-sharded": sharded_step_launches,
                  "grad-step": grad_step_launches,
                  "grad-fleet": grad_fleet_launches,
+                 "grad-sharded": grad_sharded_launches,
+                 "grad-fleet-sharded": grad_fleet_sharded_launches,
                  "step-turb": turb_launches, "step-turb-mgcg": dean_launches,
                  "step-turb-sharded": tsh_launches,
                  "step-poisson": poisson_launches, **train_launches,

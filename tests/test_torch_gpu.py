@@ -8,6 +8,8 @@ JAX test configuration out):
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -947,6 +949,34 @@ def test_kernels_on_the_graded_hierarchy(cuda, dtype):
         b = mg.restrict(b)
 
 
+class _PlainMatvec(torch.autograd.Function):
+    """The matvec with its plain forward and backward: the reference the
+    kernels' gradients are held to, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, *coef):
+        ctx.save_for_backward(x, *coef)
+        return ts.stencil_matvec_plain(ts._Operator(*coef), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *coef = ctx.saved_tensors
+        return ts.stencil_matvec_grad_plain(
+            ts._Operator(*coef), x, g.contiguous(), ctx.needs_input_grad)
+
+
+@contextlib.contextmanager
+def _plain_matvec():
+    """ts.stencil_matvec replaced by _PlainMatvec inside the block."""
+    kernel = ts.stencil_matvec
+    ts.stencil_matvec = lambda coef, x: _PlainMatvec.apply(
+        x, coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.diag)
+    try:
+        yield
+    finally:
+        ts.stencil_matvec = kernel
+
+
 def test_run_piso_refuses_autograd_through_the_kernels(cuda):
     """run_piso keeps autograd on. On the card the momentum kernel and the
     multisweep kernels (JAX's Pallas kernels have no reverse mode either)
@@ -981,18 +1011,6 @@ def test_run_piso_refuses_autograd_through_the_kernels(cuda):
             run_piso(grad_case, flow0, 1, cfg=PisoConfig(),
                      backend=MGBackend(cycles=2, smoother=smoother))
 
-    class PlainMatvec(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x, *coef):
-            ctx.save_for_backward(x, *coef)
-            return ts.stencil_matvec_plain(ts._Operator(*coef), x)
-
-        @staticmethod
-        def backward(ctx, g):
-            x, *coef = ctx.saved_tensors
-            return ts.stencil_matvec_grad_plain(
-                ts._Operator(*coef), x, g.contiguous(), ctx.needs_input_grad)
-
     def grad(backend):
         x = case.inlet_u.clone().requires_grad_(True)
         f = run_piso(dataclasses.replace(case, inlet_u=x), flow0, 3,
@@ -1012,18 +1030,96 @@ def test_run_piso_refuses_autograd_through_the_kernels(cuda):
         assert ts.stencil_matvec_grad.launches == ts.StencilMatvec.taped
         assert bool(torch.isfinite(got).all())
         assert float(got[case.grid.ny // 2]) > 0.0
-        kernel = ts.stencil_matvec
-        ts.stencil_matvec = lambda coef, x: PlainMatvec.apply(
-            x, coef.c_e, coef.c_w, coef.c_n, coef.c_s, coef.diag)
-        try:
+        with _plain_matvec():
             ref = grad(backend)
-        finally:
-            ts.stencil_matvec = kernel
         assert torch.equal(got, ref), backend
     got = run_piso(case, flow0, 2, cfg=cfg, backend=MGBackend(cycles=2))
     ref = run_piso_eager(case, flow0, 2, cfg=cfg, backend=MGBackend(cycles=2))
     for name in ("u", "v", "p", "phi_x", "phi_y", "dt", "t"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+# the decomposed gradient against the whole step's, relative L2:
+# tests/test_torch_grad_rollout.py's bf16 bound (chip_smoke.py's
+# GRAD_SHARDED_TOL; the CPU measured 7.6e-3 at this size on 2 x 2)
+SHARDED_GRAD_TOL = 2e-2
+
+
+def test_decomposed_step_gradient_on_the_card(cuda):
+    """chip_smoke.py's grad-sharded gates at 64 x 256: bench.py's
+    configuration (plain smoothers, MGBackend(cycles=2, precision="bf16"))
+    through the decomposed step on a 2 x 2 mesh of the card, 2 steps, the
+    gradient w.r.t. the whole inlet profile: the loss equals run_piso's
+    bit for bit; finite, centre row positive; the forward launches the
+    matvec kernel alone and the backward stencil_matvec_grad alone, once
+    for each taped matvec; bit for bit equal to the same run with a
+    Function of the plain forward and backward in the matvec's place;
+    within SHARDED_GRAD_TOL of run_piso's gradient; the kernel smoothers
+    refuse a gradient, naming the kernel."""
+    import dataclasses
+
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.fv.case import build_channel_case, initial_flow
+    from tpufoam_torch.parallel.mesh import (device_mesh,
+                                             make_sharded_piso_step,
+                                             shard_case, shard_flow,
+                                             unshard_flow)
+    from tpufoam_torch.piso.engine import PisoConfig, run_piso
+    from tpufoam_torch.solvers.backends import MGBackend
+
+    ny = 64
+    case = build_channel_case(channel_case_geometry(
+        "cylinder", length=8.0, height=2.0, obstacle_size=0.5, nu=8e-3),
+        delta=2.0 / ny, device=cuda)
+    flow0 = initial_flow(case, dt0=5e-4)
+    cfg = PisoConfig(n_correctors=2, max_co=0.5, max_dt=2e-3)
+    mesh = device_mesh(4, devices=[cuda] * 4)
+
+    def grad(backend, cfg_=cfg, mesh_=mesh):
+        x = case.inlet_u.clone().requires_grad_(True)
+        c = dataclasses.replace(case, inlet_u=x)
+        if mesh_ is None:
+            u = run_piso(c, flow0, 2, cfg=cfg_, backend=backend).u
+        else:
+            step = make_sharded_piso_step(mesh_, cfg_, backend)
+            sc, sf = shard_case(mesh_, c), shard_flow(mesh_, flow0)
+            for _ in range(2):
+                sf = step(sc, sf)
+            u = unshard_flow(sf).u
+        loss = (u[:, case.grid.nx // 2:] ** 2).sum()
+        g, = torch.autograd.grad(loss, x)
+        return g, float(loss.detach())
+
+    backend = MGBackend(cycles=2, precision="bf16")
+    whole, whole_loss = grad(backend, mesh_=None)
+    for fn in (ts.stencil_matvec, ts.stencil_matvec_grad, tmom.
+               momentum_multisweep, ts.jacobi_multisweep, ts.smooth_residual,
+               ts.corr_smooth):
+        fn.launches = 0
+    ts.StencilMatvec.taped = 0
+    got, loss = grad(backend)
+    torch.cuda.synchronize()
+    assert loss == whole_loss
+    assert bool(torch.isfinite(got).all())
+    assert float(got[ny // 2]) > 0.0
+    assert 0 < ts.StencilMatvec.taped <= ts.stencil_matvec.launches
+    assert ts.stencil_matvec_grad.launches == ts.StencilMatvec.taped
+    assert tmom.momentum_multisweep.launches == 0
+    assert ts.jacobi_multisweep.launches + ts.smooth_residual.launches \
+        + ts.corr_smooth.launches == 0
+    rel = float((got.double() - whole.double()).norm()
+                / whole.double().norm())
+    assert rel <= SHARDED_GRAD_TOL, rel
+    with _plain_matvec():
+        ref, _ = grad(backend)
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="momentum kernel has no backward"):
+        grad(backend, cfg_=PisoConfig(momentum_smoother="kernel"))
+    for smoother, name in (("kernel", "jacobi_multisweep"),
+                           ("kernel-fused", "smooth_residual")):
+        with pytest.raises(ValueError, match=f"{name} kernel has no "
+                           "backward"):
+            grad(MGBackend(cycles=2, precision="bf16", smoother=smoother))
 
 
 def test_gaussian_filter_on_the_card_equals_the_cpu(cuda):

@@ -129,7 +129,7 @@ def exchange_halos(blocks, mesh, hy: int, hx: int, clip: bool = False,
     neighbour's device, as the JAX package's one stacked `ppermute` does:
     first the N/S strips, then the E/W strips of the N/S-extended blocks,
     so that the corners come right. Between processes the strips go by
-    point-to-point copies (parallel.distributed.p2p).
+    point-to-point copies (parallel.distributed.exchange).
 
     Beyond the domain the halo is zero, or with `clip` absent: a block at
     the domain's edge then ends there, as the whole field does, so that
@@ -193,7 +193,7 @@ def _remote_strips(grid, mesh, axis, h, e, at, strip) -> dict:
     """The strips that cross processes, exchanged in one round of
     point-to-point copies: {(i, j, d): strip} for the local blocks whose
     neighbour at d lies on another process."""
-    from ..parallel.distributed import p2p
+    from ..parallel.distributed import exchange
     dy, dx = len(grid), len(grid[0])
     like = next(b for row in grid for b in row if b is not None)
     sends, recvs, keys = [], [], []
@@ -216,7 +216,7 @@ def _remote_strips(grid, mesh, axis, h, e, at, strip) -> dict:
                     recvs.append((shape, like.dtype, mine.device,
                                   mesh.owners[ni * dx + nj], tag))
                     keys.append((i, j, d))
-    return dict(zip(keys, p2p(sends, recvs)))
+    return dict(zip(keys, exchange(sends, recvs)))
 
 
 def _layout(mesh, ops, steps: int, name: str):

@@ -42,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 
 import torch
 
@@ -139,12 +140,12 @@ def _cut(field: BlockField, k: int, t: torch.Tensor, have, want):
 def _all_blocks(field: BlockField) -> list:
     """Every block of `field` (their own cells), on the device that holds
     it here: in a world the other processes' blocks arrive by
-    point-to-point copies."""
+    point-to-point copies (parallel.distributed.exchange)."""
     mesh = field.mesh
     own = {k: field.interior(k) for k in mesh.local_blocks}
     if len(own) == mesh.size:
         return [own[k] for k in range(mesh.size)]
-    from .distributed import p2p
+    from .distributed import exchange
     dy, dx = _dims(mesh)
     like = next(iter(own.values()))
     sends, recvs, keys = [], [], []
@@ -169,7 +170,7 @@ def _all_blocks(field: BlockField) -> list:
                 recvs.append((shape, like.dtype, mesh.lead,
                               mesh.owners[k], k))
                 keys.append(k)
-    own.update(zip(keys, p2p(sends, recvs)))
+    own.update(zip(keys, exchange(sends, recvs)))
     return [own[k] for k in range(mesh.size)]
 
 
@@ -336,24 +337,24 @@ def stage(mesh, h: int, fn, inputs, outputs):
 # ---- reductions ----------------------------------------------------------
 
 
-def _combine(mesh, values: dict, op) -> BlockField:
-    """One value per block ({k: () tensor}), combined in mesh order by
-    `op` on the lead device, and replicated to every block's device."""
+def _combine(mesh, values: dict, fold) -> BlockField:
+    """One value per block ({k: tensor}), combined by `fold` (the list of
+    the values in mesh order, on the lead device) and replicated to every
+    block's device. In a world the values arrive by an all-gather
+    (parallel.distributed.gather_blocks, differentiable in a world_tape),
+    so every process folds the same values in the same order."""
     if mesh.owners is not None:
-        from .distributed import all_gather_blocks
+        from .distributed import gather_blocks
         mine = torch.stack([values[k].to(mesh.lead)
                             for k in mesh.local_blocks])
         ranks = sorted(set(mesh.owners))
-        every = dict(zip(ranks, all_gather_blocks(mine)))
+        every = dict(zip(ranks, gather_blocks(mine)))
         seen = {r: 0 for r in ranks}
         values = {}
         for k, r in enumerate(mesh.owners):
             values[k] = every[r][seen[r]]
             seen[r] += 1
-    acc = None
-    for k in range(mesh.size):
-        v = values[k].to(mesh.lead)
-        acc = v if acc is None else op(acc, v)
+    acc = fold([values[k].to(mesh.lead) for k in range(mesh.size)])
     blocks = [None] * mesh.size
     copies = {}
     for k in mesh.local_blocks:
@@ -365,11 +366,16 @@ def _combine(mesh, values: dict, op) -> BlockField:
 
 
 def block_sum(mesh, values: dict) -> BlockField:
-    return _combine(mesh, values, torch.add)
+    """The blocks' values summed in mesh order."""
+    return _combine(mesh, values, lambda vs: functools.reduce(torch.add, vs))
 
 
 def block_max(mesh, values: dict) -> BlockField:
-    return _combine(mesh, values, torch.maximum)
+    """The blocks' max, one amax of the stacked values: a tie splits the
+    gradient evenly over the tied blocks, as jnp.max does (a fold of
+    pairwise maxima would halve it at every tie)."""
+    return _combine(mesh, values,
+                    lambda vs: torch.amax(torch.stack(vs), dim=0))
 
 
 def block_all(mesh, values: dict) -> BlockField:
@@ -377,7 +383,7 @@ def block_all(mesh, values: dict) -> BlockField:
     bools)."""
     return bmap(lambda t: t.bool(), _combine(
         mesh, {k: t.to(torch.uint8) for k, t in values.items()},
-        torch.minimum))
+        lambda vs: torch.amin(torch.stack(vs), dim=0)))
 
 
 def dot(a: BlockField, b: BlockField) -> BlockField:

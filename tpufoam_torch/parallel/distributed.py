@@ -18,17 +18,53 @@ In a world of several processes `global_device_mesh` builds one mesh of
 every process's devices, in the order JAX's global mesh takes them
 (process by process, each its devices in order), and each process owns
 the blocks on its own devices. The blocks of the domain-decomposed step
-(parallel.blocks) then move their halo strips between processes with
-`p2p` (point-to-point copies: NCCL between cards, gloo on the CPU) and
-join their reductions with `all_gather_blocks`.
+(parallel.blocks) then move their halo strips and gathered fields
+between processes with `exchange` (point-to-point copies, `p2p`: NCCL
+between cards, gloo on the CPU) and join their reductions with
+`gather_blocks` (an all-gather, `all_gather_blocks`).
+
+Reverse mode across processes. A copy from another process arrives in a
+fresh buffer, which autograd cannot follow back to the sender's block.
+Inside `world_tape()` (and where autograd records) `exchange` and
+`gather_blocks` run as autograd Functions: the backward of a copy sends
+each received tensor's gradient back to the process that sent it, which
+adds it into the gradient of what it sent; the backward of an
+all-gather gives each process the sum over every process of the
+gradients of its own entries (an all-reduce of the gradients, each
+process keeping its own rows). The forward's values are those of the
+plain copies, bit for bit.
+
+The loss convention: each process differentiates the sum of its own
+blocks' terms, and the world's gradient is the sum over the processes
+(`WorldTape.grad` sums it). A loss every process holds alike (a
+`block_sum`, a replicated scalar) is one term of the world, not one a
+process: pass it on one process and 0 on the others, as in
+`tape.grad(total if dist.get_rank() == 0 else 0, [x])`, so that it is
+counted once.
+
+Every process must post every backward exchange, in the same order, or
+the world deadlocks: a backward that autograd runs on one process and
+skips on another (its outputs reach no loss there, or no input asked
+for) would wait for ever. So the tape threads a token through its
+Functions in the order the forward called them, and `WorldTape.grad`
+takes the gradient of the last token too, with respect to the first:
+every Function of the tape then runs on every process, in the reverse
+of the forward's order (each waits for the token's gradient from the
+next). Outside a tape a world's copies are not differentiable, so a
+copy of a tensor that needs a gradient raises: a world's forward that
+records a gradient runs inside `world_tape()` (one under
+`torch.no_grad()` needs none).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import os
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import DEFAULT_DEVICE
 
@@ -158,6 +194,156 @@ def all_gather_blocks(local: torch.Tensor, group=None) -> list:
            for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, local.contiguous(), group=group)
     return out
+
+
+# ---- reverse mode across processes ------------------------------------------
+
+_TAPE = contextvars.ContextVar("world_tape", default=None)
+
+
+class WorldTape:
+    """The exchanges of one forward over `mesh` across processes,
+    chained by a token (see the module docstring): `root` is the chain's
+    first token (a leaf that needs a gradient, made at the first
+    exchange), `last` its newest. On a mesh of one process it takes a
+    plain gradient."""
+
+    def __init__(self, mesh):
+        self.world = mesh.owners is not None
+        self.root = self.last = None
+
+    def _token(self, device) -> torch.Tensor:
+        if self.root is None:
+            self.root = self.last = torch.zeros((), device=device,
+                                                requires_grad=True)
+        return self.last
+
+    def grad(self, loss, inputs) -> tuple:
+        """The world's gradient of `loss` (this process's term of the
+        world's loss, a tensor or 0) w.r.t. `inputs`, every Function of
+        the tape run on every process, summed over the processes (the
+        same on every process). Zeros for an input the loss does not
+        reach. Ends the chain: the next exchange starts a new one."""
+        import torch.distributed as dist
+        inputs = list(inputs)
+        if not isinstance(loss, torch.Tensor):    # no term of its own: 0
+            loss = torch.tensor(float(loss))
+        outs, seeds, wrt = [], [], list(inputs)
+        if loss.requires_grad:
+            outs.append(loss)
+            seeds.append(torch.ones_like(loss))
+        if self.root is not None:
+            outs.append(self.last)
+            seeds.append(torch.zeros_like(self.last))
+            wrt.append(self.root)
+        got = [None] * len(wrt)
+        if outs:
+            got = torch.autograd.grad(outs, wrt, seeds, allow_unused=True)
+        self.root = self.last = None
+        got = [torch.zeros_like(x) if g is None else g
+               for g, x in zip(got[:len(inputs)], inputs)]
+        if self.world:
+            for g in got:
+                dist.all_reduce(g)
+        return tuple(got)
+
+
+@contextlib.contextmanager
+def world_tape(mesh):
+    """Inside the block a world's exchanges are differentiable (see the
+    module docstring); yields the WorldTape of `mesh`, whose `grad`
+    takes the world's gradient. A mesh of one process needs none (its
+    copies are PyTorch's own), but may take its gradient alike."""
+    tape = WorldTape(mesh)
+    token = _TAPE.set(tape)
+    try:
+        yield tape
+    finally:
+        _TAPE.reset(token)
+
+
+def _taping(tensors) -> WorldTape | None:
+    """The active tape where autograd records, else None. Raises where
+    a tensor that needs a gradient crosses processes untaped: its
+    gradient from the other processes would be lost."""
+    if not torch.is_grad_enabled():
+        return None
+    tape = _TAPE.get()
+    if tape is None and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "a tensor that needs a gradient crosses processes outside "
+            "parallel.distributed.world_tape(): run a world's forward that "
+            "records a gradient inside the tape, or under torch.no_grad()")
+    return tape
+
+
+class _Exchange(torch.autograd.Function):
+    """p2p as a Function: apply(recvs, peers, token, *sent) -> (token,
+    *received); its backward sends each received tensor's gradient back
+    to its sender and returns the gradients of what this process sent."""
+
+    @staticmethod
+    def forward(ctx, recvs, peers, token, *sent):
+        ctx.recvs, ctx.peers = recvs, peers
+        ctx.sent = [(t.shape, t.dtype, t.device) for t in sent]
+        got = p2p([(t, peer, tag) for t, (peer, tag) in zip(sent, peers)],
+                  recvs)
+        return (torch.zeros_like(token), *got)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_token, *g_got):
+        back = p2p([(g, peer, tag) for g, (_, _, _, peer, tag)
+                    in zip(g_got, ctx.recvs)],
+                   [(shape, dtype, device, peer, tag)
+                    for (shape, dtype, device), (peer, tag)
+                    in zip(ctx.sent, ctx.peers)])
+        return (None, None, g_token, *back)
+
+
+class _Gather(torch.autograd.Function):
+    """all_gather_blocks as a Function: apply(token, local) -> (token,
+    *every process's local); its backward all-reduces the gradients of
+    every entry and keeps this process's."""
+
+    @staticmethod
+    def forward(ctx, token, local):
+        import torch.distributed as dist
+        ctx.rank = dist.get_rank()
+        return (torch.zeros_like(token), *all_gather_blocks(local))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_token, *g_every):
+        import torch.distributed as dist
+        total = torch.stack(g_every)
+        dist.all_reduce(total)
+        return g_token, total[ctx.rank]
+
+
+def exchange(sends, recvs) -> list:
+    """`p2p` for the decomposed step's copies between processes (halo
+    strips, gathered blocks): differentiable inside `world_tape()`."""
+    tape = _taping([t for t, _, _ in sends])
+    if tape is None or not (sends or recvs):
+        return p2p(sends, recvs)
+    device = sends[0][0].device if sends else recvs[0][2]
+    out = _Exchange.apply(list(recvs), [(peer, tag) for _, peer, tag
+                                        in sends], tape._token(device),
+                          *[t for t, _, _ in sends])
+    tape.last = out[0]
+    return list(out[1:])
+
+
+def gather_blocks(local: torch.Tensor) -> list:
+    """`all_gather_blocks` over the world for the decomposed step's
+    reductions: differentiable inside `world_tape()`."""
+    tape = _taping([local])
+    if tape is None:
+        return all_gather_blocks(local)
+    out = _Gather.apply(tape._token(local.device), local)
+    tape.last = out[0]
+    return list(out[1:])
 
 
 def mesh_groups(mesh) -> tuple:

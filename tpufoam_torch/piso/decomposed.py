@@ -12,7 +12,7 @@ functions on a block case (the window's masks, walls and inlet, its
 grid's local dims and, graded, its slice of the spacings), and keeps the
 block's own cells and faces:
   _next_dt                 phi, 1 cell: the Courant number's max over
-                           the blocks (a max is exact)
+                           the blocks' own cells (a max is exact)
   pressure_gradient +      p, u, v, phi (and nu_t, k): 2 cells
     momentum_coeffs
   jacobi_momentum          its `momentum_sweeps` cells: the momentum
@@ -54,6 +54,7 @@ import torch
 from ..fv.case import Case, Flow, grid_metrics
 from ..fv.momentum import (MomentumCoeffs, h_operator, jacobi_momentum,
                            momentum_coeffs)
+from ..fv.operators import maximum
 from ..fv.pressure import (PressureCoeffs, correct_fluxes,
                            face_fluxes_hbya, pressure_coeffs,
                            pressure_gradient, pressure_rhs)
@@ -111,13 +112,43 @@ def _volc(wc: Case):
 
 
 def courant_number(case: Case, flow: Flow) -> BlockField:
-    """engine.courant_number over the blocks: each block's max over its
-    window (every cell of which has its faces), the max over the
-    blocks."""
-    co, = run(case, 1, lambda wc, px, py, dt: (engine.courant_number(
-        wc, types.SimpleNamespace(phi_x=px, phi_y=py, dt=dt)),),
-        [flow.phi_x, flow.phi_y, flow.dt], [None])
-    return block_max(case.fluid.mesh, dict(co.local()))
+    """engine.courant_number over the blocks: each block's Courant field
+    on its window (every cell of which has its faces), kept on its own
+    cells, its max, the max over the blocks (parallel.blocks.block_max),
+    scaled as the whole step scales it. A max is exact, so the value is
+    the whole step's; where autograd records, `_split_ties` gives it its
+    gradient, the whole step's."""
+    mesh = case.fluid.mesh
+    field, = run(case, 1, lambda wc, px, py: (engine._courant_field(
+        wc, px, py),), [flow.phi_x, flow.phi_y], ["cell"])
+    fields = dict(field.local())
+    peak = block_max(mesh, {k: torch.amax(t.detach())
+                            for k, t in fields.items()})
+    if torch.is_grad_enabled():
+        peak = _split_ties(mesh, fields, peak)
+    return bmap(lambda m, dt: engine._courant_of_peak(case.grid, m, dt),
+                peak, flow.dt)
+
+
+def _split_ties(mesh, fields: dict, peak: BlockField) -> BlockField:
+    """`peak`, the max of the blocks' `fields` (no gradient of its own),
+    with a gradient split evenly over every cell of the domain that
+    equals it, as the whole step's amax and jnp.max split it (block_max
+    would split it over the tied blocks, then over each block's tied
+    cells). The tied cells' sum over the blocks, over their count,
+    carries the gradient; the value added is its difference from itself,
+    0, so the value is `peak`'s bit for bit."""
+    sums = {}
+    for k, t in fields.items():
+        tied = (t == peak.blocks[k]).to(t.dtype)
+        sums[k] = torch.stack([(t * tied).sum(), tied.sum()])
+    total = block_sum(mesh, sums)
+
+    def split(m, s):
+        mean = s[0] / s[1].detach()
+        return m + torch.where(torch.isfinite(m), mean - mean.detach(),
+                               0.0)
+    return bmap(split, peak, total)
 
 
 def continuity_error(case: Case, flow: Flow) -> BlockField:
@@ -215,8 +246,8 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
     else:
         dt = flow.dt
     if cfg.t_stop and cfg.t_stop > 0:
-        dt = bmap(lambda d, t: torch.minimum(d, torch.clamp(
-            cfg.t_stop - t, min=1e-6)).to(d.dtype), dt, flow.t)
+        dt = bmap(lambda d, t: torch.minimum(d, maximum(
+            cfg.t_stop - t, 1e-6)).to(d.dtype), dt, flow.t)
     if cfg.inlet_scale_fn is not None:
         scale = bmap(lambda t, d: cfg.inlet_scale_fn(t + d), flow.t, dt)
         inlet = case.inlet_u

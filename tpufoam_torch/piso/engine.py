@@ -112,24 +112,34 @@ class PisoConfig:
                                       # needs none)
 
 
-def courant_number(case: Case, flow: Flow) -> torch.Tensor:
-    """max Courant number from face fluxes (CourantNo.H semantics), per
-    case: () or (B,)."""
+def _courant_field(case: Case, phi_x: torch.Tensor,
+                   phi_y: torch.Tensor) -> torch.Tensor:
+    """Each cell's summed |face fluxes| over its fluid volume (over
+    alpha alone on a uniform grid, whose volume `_courant_of_peak`
+    divides by): the field whose max the Courant number scales."""
     grid = case.grid
-    sum_phi = (torch.abs(flow.phi_x[..., 1:])
-               + torch.abs(flow.phi_x[..., :-1])
-               + torch.abs(flow.phi_y[..., 1:, :])
-               + torch.abs(flow.phi_y[..., :-1, :]))
+    sum_phi = (torch.abs(phi_x[..., 1:]) + torch.abs(phi_x[..., :-1])
+               + torch.abs(phi_y[..., 1:, :]) + torch.abs(phi_y[..., :-1, :]))
     # cut cells: floor alpha at 0.5 so sliver cells don't collapse dt
     alpha_co = torch.clamp(case.alpha, min=0.5)
     if grid.stretched:
         m = grid_metrics(grid, case.device)
-        return 0.5 * torch.amax(sum_phi * case.fluid
-                                / (alpha_co * (m.dxc * m.dyc)),
-                                dim=(-2, -1)) * flow.dt
-    vol = grid.dx * grid.dy
-    return 0.5 * torch.amax(sum_phi * case.fluid / alpha_co,
-                            dim=(-2, -1)) / vol * flow.dt
+        return sum_phi * case.fluid / (alpha_co * (m.dxc * m.dyc))
+    return sum_phi * case.fluid / alpha_co
+
+
+def _courant_of_peak(grid, peak: torch.Tensor, dt: torch.Tensor):
+    """The Courant number from the max of `_courant_field`."""
+    if grid.stretched:
+        return 0.5 * peak * dt
+    return 0.5 * peak / (grid.dx * grid.dy) * dt
+
+
+def courant_number(case: Case, flow: Flow) -> torch.Tensor:
+    """max Courant number from face fluxes (CourantNo.H semantics), per
+    case: () or (B,)."""
+    return _courant_of_peak(case.grid, torch.amax(_courant_field(
+        case, flow.phi_x, flow.phi_y), dim=(-2, -1)), flow.dt)
 
 
 def continuity_error(case: Case, flow: Flow) -> torch.Tensor:
