@@ -1719,3 +1719,53 @@ def test_decomposed_world_across_two_cards(cuda):
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, out + err
         assert f"rank {rank} equal" in out, out + err
+
+
+def test_every_sync_of_a_hybrid_lockstep_is_a_counted_host_read(cuda):
+    """torch.cuda.set_sync_debug_mode("warn") over two locksteps of a
+    two-case hybrid fleet at 128 x 512 (the sm_ref512 warm start with the
+    lstsq stitch, the momentum kernel, the bf16 polish), after two
+    warm-up locksteps: every synchronising call it reports is one that
+    utils.profiling.host_read.count counts (a host read or upload)."""
+    import os
+    import warnings
+
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.fv.case import build_channel_case, initial_flow
+    from tpufoam_torch.piso.batched import (run_piso_batched_eager,
+                                            stack_cases, stack_flows)
+    from tpufoam_torch.piso.engine import PisoConfig
+    from tpufoam_torch.solvers.backends import MGBackend
+    from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
+                                                  make_predictor)
+    from tpufoam_torch.utils.profiling import host_read
+
+    ny, nx = 128, 512
+    cases = [build_channel_case(channel_case_geometry(
+        shape, length=nx * 2.0 / ny, height=2.0, obstacle_size=size,
+        nu=8e-3), delta=2.0 / ny, device=cuda)
+        for shape, size in (("cylinder", 0.5), ("triangle", 0.45))]
+    case = stack_cases(cases)
+    pred = make_predictor(SurrogateBundle.load(os.path.join(
+        os.path.dirname(__file__), "..", "artifacts", "sm_ref512"),
+        device=cuda), stitch="lstsq").bind(case)
+    kw = dict(cfg=PisoConfig(max_co=0.5, max_dt=2e-3,
+                             momentum_smoother="kernel"),
+              backend=MGBackend(cycles=2, precision="bf16"),
+              sm_predict=pred)
+    flow = run_piso_batched_eager(
+        case, stack_flows([initial_flow(c, 5e-4) for c in cases]), 2, **kw)
+    torch.cuda.synchronize()
+    n0 = host_read.count
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            run_piso_batched_eager(case, flow, 2, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [w for w in rec if "synchroniz" in str(w.message).lower()]
+    sites = sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
+                    for w in syncs})
+    assert len(syncs) == host_read.count - n0 > 0, sites

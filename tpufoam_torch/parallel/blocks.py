@@ -48,6 +48,7 @@ import torch
 
 from ..core.grid import Grid2D
 from ..ops.sharded import exchange_halos
+from ..utils.profiling import host_read
 
 
 def _dims(mesh) -> tuple[int, int]:
@@ -403,7 +404,7 @@ def norm(a: BlockField) -> BlockField:
 
 def value(s: BlockField):
     """A replicated scalar's value on the host (one read)."""
-    return s.blocks[s.mesh.local_blocks[0]].item()
+    return host_read(s.blocks[s.mesh.local_blocks[0]])
 
 
 # ---- the whole-field stages ----------------------------------------------

@@ -221,11 +221,13 @@ def _rescue(case: Case, op, rhs: BlockField, p_cand: BlockField,
         return p_cand
     rescue = engine._rescue_if_unconverged
     rescue.solves += 1
+    rescue.cases += 1
     pc = dsolve.solve(backend, case, op, rhs, masked(p_fallback))
     for _ in range(cfg.sm_safeguard_extra - 1):
         if ok(pc):
             break
         rescue.solves += 1
+        rescue.cases += 1
         pc = dsolve.solve(backend, case, op, rhs, pc)
     return pc
 

@@ -4,12 +4,13 @@ One step: Courant-limited adaptive dt, the optional surrogate pressure
 prediction before the momentum predictor (Algorithm 2 of the DLPoissonFoam
 coupling) or between it and the correctors (Algorithm 1), the implicit
 momentum predictor (UEqn), and nCorrectors PISO pressure corrections
-(pEqn). PyTorch runs it eagerly; the only host synchronisation per step is
-the residual safeguard's gate. The grid is uniform or stretched. The
-turbulent step (`piso_step_sst`) adds the k-omega SST model: the PISO step
-with nu_eff = nu + nu_t (and the log-law wall links with
-cfg.turb_wall_fn), then `turbulence->correct()` on the corrected
-velocity.
+(pEqn). PyTorch runs it eagerly; its host synchronisations (the residual
+safeguard's gate, the predictor's uploads) go through utils.profiling's
+host_read and host_upload, and each phase is one of its spans (off
+unless enabled). The grid is uniform or stretched. The turbulent step
+(`piso_step_sst`) adds the k-omega SST model: the PISO step with nu_eff
+= nu + nu_t (and the log-law wall links with cfg.turb_wall_fn), then
+`turbulence->correct()` on the corrected velocity.
 
 The step takes one case, or a stacked fleet of cases (piso.batched) with
 a leading case axis on every field and `dt`, `t` of shape (B,). Each case
@@ -34,6 +35,7 @@ from ..fv.pressure import (correct_fluxes, face_fluxes_hbya, pressure_coeffs,
                            pressure_gradient, pressure_matvec, pressure_rhs)
 from ..solvers.backends import CGBackend
 from ..solvers.cg import _norm
+from ..utils.profiling import host_read, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,6 +181,16 @@ def _gate_sm_prediction(p_sm: torch.Tensor, p_prev: torch.Tensor,
     return torch.where(per_case(ok), p_sm, p_prev) * fluid
 
 
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    """The True entries of a per-case verdict in one reduction, as its
+    `.any()` takes one: a bool tensor's sum casts it to int64 first (a
+    second kernel), so its bytes are summed as uint8 while the count
+    fits in one."""
+    if mask.numel() < 256:
+        return mask.view(torch.uint8).sum(dtype=torch.uint8)
+    return mask.sum()
+
+
 def _rescue_if_unconverged(case: Case, pcoef, rhs, p_cand, p_fallback,
                            backend, aux, cfg: PisoConfig) -> torch.Tensor:
     """Residual safeguard for the SM-warm-started capped solve. If the
@@ -195,24 +207,31 @@ def _rescue_if_unconverged(case: Case, pcoef, rhs, p_cand, p_fallback,
     def ok(p):                           # NaN compares unconverged
         return _norm((rhs - pressure_matvec(pcoef, p)) * case.fluid) <= gate
 
-    gate = cfg.sm_safeguard * (_norm(rhs * case.fluid) + 1e-30)
-    bad = ~ok(p_cand)
-    if not bool(bad.any()):
-        return p_cand
-    _rescue_if_unconverged.solves += 1
-    pc = backend(case, pcoef, rhs, p_fallback * case.fluid, aux)
-    for _ in range(cfg.sm_safeguard_extra - 1):
-        todo = bad & ~ok(pc)
-        if not bool(todo.any()):
-            break
+    with span("tpufoam_torch.piso.safeguard"):
+        gate = cfg.sm_safeguard * (_norm(rhs * case.fluid) + 1e-30)
+        bad = ~ok(p_cand)
+        n_bad = host_read(_count(bad))
+        if not n_bad:
+            return p_cand
         _rescue_if_unconverged.solves += 1
-        pc = torch.where(per_case(todo), backend(case, pcoef, rhs, pc, aux),
-                         pc)
-    return torch.where(per_case(bad), pc, p_cand)
+        _rescue_if_unconverged.cases += n_bad
+        pc = backend(case, pcoef, rhs, p_fallback * case.fluid, aux)
+        for _ in range(cfg.sm_safeguard_extra - 1):
+            todo = bad & ~ok(pc)
+            n_bad = host_read(_count(todo))
+            if not n_bad:
+                break
+            _rescue_if_unconverged.solves += 1
+            _rescue_if_unconverged.cases += n_bad
+            pc = torch.where(per_case(todo),
+                             backend(case, pcoef, rhs, pc, aux), pc)
+        return torch.where(per_case(bad), pc, p_cand)
 
 
-# the safeguard's rescue solves (its decisions), counted
+# the safeguard's rescue solves (its decisions), and the cases each solve
+# was for (bad or still unconverged), summed over the solves
 _rescue_if_unconverged.solves = 0
+_rescue_if_unconverged.cases = 0
 
 
 def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
@@ -233,94 +252,98 @@ def piso_step(case: Case, flow: Flow, cfg: PisoConfig = PisoConfig(),
     viscosity to the momentum predictor (fv.turbulence supplies it);
     `k_turb` switches its wall links to the log-law wall functions when
     cfg.turb_wall_fn is set."""
-    grid = case.grid
-    if grid.stretched:
-        m = grid_metrics(grid, case.device)
-        vol = m.dxc * m.dyc                   # (ny, nx) cell volumes
-    else:
-        vol = grid.dx * grid.dy
-    volc = case.alpha * vol                   # cut-cell fluid volumes
-    dt = _next_dt(case, flow, cfg) if cfg.adjust_dt else flow.dt
-    if cfg.t_stop and cfg.t_stop > 0:
-        # land exactly on t_stop, whether or not dt adapts
-        dt = torch.minimum(dt, maximum(cfg.t_stop - flow.t, 1e-6)
-                           ).to(flow.dt.dtype)
-    if cfg.inlet_scale_fn is not None:
-        # the inlet at the new time level, so the implicit momentum solve
-        # sees dU_in/dt
-        scale = cfg.inlet_scale_fn(flow.t + dt)
-        case = dataclasses.replace(
-            case, inlet_u=case.inlet_u * scale.unsqueeze(-1))
+    with span("tpufoam_torch.piso.step"):
+        grid = case.grid
+        if grid.stretched:
+            m = grid_metrics(grid, case.device)
+            vol = m.dxc * m.dyc                   # (ny, nx) cell volumes
+        else:
+            vol = grid.dx * grid.dy
+        volc = case.alpha * vol                   # cut-cell fluid volumes
+        with span("tpufoam_torch.piso.dt"):
+            dt = _next_dt(case, flow, cfg) if cfg.adjust_dt else flow.dt
+            if cfg.t_stop and cfg.t_stop > 0:
+                # land exactly on t_stop, whether or not dt adapts
+                dt = torch.minimum(dt, maximum(cfg.t_stop - flow.t, 1e-6)
+                                   ).to(flow.dt.dtype)
+            if cfg.inlet_scale_fn is not None:
+                # the inlet at the new time level, so the implicit
+                # momentum solve sees dU_in/dt
+                scale = cfg.inlet_scale_fn(flow.t + dt)
+                case = dataclasses.replace(
+                    case, inlet_u=case.inlet_u * scale.unsqueeze(-1))
 
-    u, v, p = flow.u, flow.v, flow.p
-    phi_x, phi_y = flow.phi_x, flow.phi_y
+        u, v, p = flow.u, flow.v, flow.p
+        phi_x, phi_y = flow.phi_x, flow.phi_y
 
-    # reads u, v and p when it is called: Algorithm 1's prediction sees
-    # the predicted U* and the old p
-    def _aux():
-        return dict(u=u, v=v, p=p, dt=dt, u_prev=flow.u_prev,
-                    v_prev=flow.v_prev, p_prev=flow.p_prev)
+        # reads u, v and p when it is called: Algorithm 1's prediction
+        # sees the predicted U* and the old p
+        def _aux():
+            return dict(u=u, v=v, p=p, dt=dt, u_prev=flow.u_prev,
+                        v_prev=flow.v_prev, p_prev=flow.p_prev)
 
-    def _predict(p_in):
-        p_sm = sm_predict(case, p_in, _aux())
-        return (_gate_sm_prediction(p_sm, p_in, case.fluid,
-                                    trust=cfg.sm_trust)
-                if cfg.sm_safeguard > 0.0 or cfg.sm_trust > 0.0
-                else p_sm * case.fluid)
+        def _predict(p_in):
+            with span("tpufoam_torch.surrogate.predict"):
+                p_sm = sm_predict(case, p_in, _aux())
+                return (_gate_sm_prediction(p_sm, p_in, case.fluid,
+                                            trust=cfg.sm_trust)
+                        if cfg.sm_safeguard > 0.0 or cfg.sm_trust > 0.0
+                        else p_sm * case.fluid)
 
-    # --- surrogate pressure prediction (Algorithm 2: before UEqn) ---
-    if sm_predict is not None and cfg.sm_before_predictor:
-        p = _predict(p)
+        # --- surrogate pressure prediction (Algorithm 2: before UEqn) ---
+        if sm_predict is not None and cfg.sm_before_predictor:
+            p = _predict(p)
 
-    # --- momentum predictor: solve(UEqn == -grad p) ---
-    gpx, gpy = pressure_gradient(case, p)
-    coef = momentum_coeffs(case, phi_x, phi_y, u, v, dt,
-                           convection_blend=cfg.convection_blend, nu_t=nu_t,
-                           convection=cfg.convection,
-                           k_turb=k_turb if cfg.turb_wall_fn else None,
-                           ddt=cfg.ddt,
-                           u_nm1=flow.u_prev, v_nm1=flow.v_prev,
-                           dt_prev=flow.dt,
-                           wall_grad_p=(gpx, gpy) if cfg.wall_order == 2
-                           else None,
-                           wall_link=cfg.wall_link)
-    u, v = jacobi_momentum(coef, case, u, v, -gpx * volc, -gpy * volc,
-                           sweeps=cfg.momentum_sweeps,
-                           smoother=cfg.momentum_smoother,
-                           mesh=cfg.shard_mesh)
+        # --- momentum predictor: solve(UEqn == -grad p) ---
+        with span("tpufoam_torch.fv.momentum_assembly"):
+            gpx, gpy = pressure_gradient(case, p)
+            coef = momentum_coeffs(
+                case, phi_x, phi_y, u, v, dt,
+                convection_blend=cfg.convection_blend, nu_t=nu_t,
+                convection=cfg.convection,
+                k_turb=k_turb if cfg.turb_wall_fn else None, ddt=cfg.ddt,
+                u_nm1=flow.u_prev, v_nm1=flow.v_prev, dt_prev=flow.dt,
+                wall_grad_p=(gpx, gpy) if cfg.wall_order == 2 else None,
+                wall_link=cfg.wall_link)
+        with span("tpufoam_torch.fv.momentum_solve"):
+            u, v = jacobi_momentum(coef, case, u, v, -gpx * volc,
+                                   -gpy * volc, sweeps=cfg.momentum_sweeps,
+                                   smoother=cfg.momentum_smoother,
+                                   mesh=cfg.shard_mesh)
 
-    # --- surrogate pressure prediction (Algorithm 1: after UEqn) ---
-    if sm_predict is not None and not cfg.sm_before_predictor:
-        p = _predict(p)
+        # --- surrogate pressure prediction (Algorithm 1: after UEqn) ---
+        if sm_predict is not None and not cfg.sm_before_predictor:
+            p = _predict(p)
 
-    # --- PISO corrector loop (pEqn, nCorrectors times) ---
-    for i_corr in range(cfg.n_correctors):
-        rau = volc * case.fluid / coef.a_p   # rAU = 1/A() = V/a_P  [s]
-        hu, hv = h_operator(coef, u, v)
-        hbya_u = hu * case.fluid / coef.a_p  # HbyA = H()/A() = h/a_P
-        hbya_v = hv * case.fluid / coef.a_p
-        phi_hx, phi_hy = face_fluxes_hbya(case, hbya_u, hbya_v)
-        if cfg.ddt_corr:
-            phi_hx, phi_hy = _ddt_corr(case, flow, cfg, dt, rau, phi_hx,
-                                       phi_hy)
+        # --- PISO corrector loop (pEqn, nCorrectors times) ---
+        for i_corr in range(cfg.n_correctors):
+            with span("tpufoam_torch.fv.pressure_assembly"):
+                rau = volc * case.fluid / coef.a_p  # rAU = 1/A() = V/a_P  [s]
+                hu, hv = h_operator(coef, u, v)
+                hbya_u = hu * case.fluid / coef.a_p  # HbyA = H()/A() = h/a_P
+                hbya_v = hv * case.fluid / coef.a_p
+                phi_hx, phi_hy = face_fluxes_hbya(case, hbya_u, hbya_v)
+                if cfg.ddt_corr:
+                    phi_hx, phi_hy = _ddt_corr(case, flow, cfg, dt, rau,
+                                               phi_hx, phi_hy)
+                pcoef = pressure_coeffs(case, rau)
+                rhs = pressure_rhs(case, phi_hx, phi_hy)
+            p = backend(case, pcoef, rhs, p, _aux())
+            if sm_predict is not None and cfg.sm_safeguard > 0.0 \
+                    and i_corr == 0:
+                # the SM init only enters the first corrector
+                p = _rescue_if_unconverged(case, pcoef, rhs, p, flow.p,
+                                           backend, _aux(), cfg)
 
-        pcoef = pressure_coeffs(case, rau)
-        rhs = pressure_rhs(case, phi_hx, phi_hy)
-        p = backend(case, pcoef, rhs, p, _aux())
-        if sm_predict is not None and cfg.sm_safeguard > 0.0 \
-                and i_corr == 0:
-            # the SM init only enters the first corrector
-            p = _rescue_if_unconverged(case, pcoef, rhs, p, flow.p,
-                                       backend, _aux(), cfg)
+            with span("tpufoam_torch.fv.correct"):
+                phi_x, phi_y = correct_fluxes(case, pcoef, p, phi_hx, phi_hy)
+                gpx, gpy = pressure_gradient(case, p)
+                u = (hbya_u - rau * gpx) * case.fluid
+                v = (hbya_v - rau * gpy) * case.fluid
 
-        phi_x, phi_y = correct_fluxes(case, pcoef, p, phi_hx, phi_hy)
-        gpx, gpy = pressure_gradient(case, p)
-        u = (hbya_u - rau * gpx) * case.fluid
-        v = (hbya_v - rau * gpy) * case.fluid
-
-    return Flow(u=u, v=v, p=p, phi_x=phi_x, phi_y=phi_y,
-                dt=dt, t=flow.t + dt,
-                u_prev=flow.u, v_prev=flow.v, p_prev=flow.p)
+        return Flow(u=u, v=v, p=p, phi_x=phi_x, phi_y=phi_y,
+                    dt=dt, t=flow.t + dt,
+                    u_prev=flow.u, v_prev=flow.v, p_prev=flow.p)
 
 
 def _ddt_corr(case: Case, flow: Flow, cfg: PisoConfig, dt, rau, phi_hx,

@@ -33,6 +33,7 @@ import torch
 
 from ..fv.case import Case
 from ..fv.pressure import PressureCoeffs, pressure_matvec
+from ..utils.profiling import host_read, span
 from .cg import _norm, pcg_fixed_iters, pcg_pressure
 from .multigrid import mg_solve, mgcg_pressure
 
@@ -48,8 +49,9 @@ class CGBackend:
     maxiter: int = 1000
 
     def __call__(self, case, coef, rhs, p_prev, aux):
-        return pcg_pressure(coef, rhs, x0=p_prev, rtol=self.rtol,
-                            maxiter=self.maxiter).x * case.fluid
+        with span("tpufoam_torch.solvers.pressure"):
+            return pcg_pressure(coef, rhs, x0=p_prev, rtol=self.rtol,
+                                maxiter=self.maxiter).x * case.fluid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,8 +94,9 @@ class MGBackend:
                     coarse_iters=self.coarse_iters, rtol=self.rtol)
 
     def __call__(self, case, coef, rhs, p_prev, aux):
-        return mg_solve(coef, rhs, p_prev,
-                        **self.solve_kwargs()) * case.fluid
+        with span("tpufoam_torch.solvers.pressure"):
+            return mg_solve(coef, rhs, p_prev,
+                            **self.solve_kwargs()) * case.fluid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,8 +132,9 @@ class MGCGBackend:
                     cycle_type=self.cycle_type)
 
     def __call__(self, case, coef, rhs, p_prev, aux):
-        return mgcg_pressure(coef, rhs, x0=p_prev,
-                             **self.solve_kwargs()).x * case.fluid
+        with span("tpufoam_torch.solvers.pressure"):
+            return mgcg_pressure(coef, rhs, x0=p_prev,
+                                 **self.solve_kwargs()).x * case.fluid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,18 +163,19 @@ class AutoBackend:
         return ~(r <= self.tau * b)
 
     def __call__(self, case, coef, rhs, p_prev, aux):
-        dtype = torch.bfloat16 if self.precision == "bf16" else None
-        p1 = mg_solve(coef, rhs, p_prev, cycles=self.cycles,
-                      dtype=dtype) * case.fluid
-        need = self.needs_escalation(case, coef, rhs, p1)
-        if not bool(need.any()):
-            return p1
-        edtype = torch.bfloat16 if self.escalate_precision == "bf16" \
-            else None
-        p_esc = mgcg_pressure(coef, rhs, x0=p1, rtol=self.rtol,
-                              maxiter=self.maxiter,
-                              dtype=edtype).x * case.fluid
-        return torch.where(need[..., None, None], p_esc, p1)
+        with span("tpufoam_torch.solvers.pressure"):
+            dtype = torch.bfloat16 if self.precision == "bf16" else None
+            p1 = mg_solve(coef, rhs, p_prev, cycles=self.cycles,
+                          dtype=dtype) * case.fluid
+            need = self.needs_escalation(case, coef, rhs, p1)
+            if not host_read(need.any()):
+                return p1
+            edtype = torch.bfloat16 if self.escalate_precision == "bf16" \
+                else None
+            p_esc = mgcg_pressure(coef, rhs, x0=p1, rtol=self.rtol,
+                                  maxiter=self.maxiter,
+                                  dtype=edtype).x * case.fluid
+            return torch.where(need[..., None, None], p_esc, p1)
 
 
 @dataclasses.dataclass(frozen=True)

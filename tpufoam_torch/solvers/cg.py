@@ -21,6 +21,7 @@ import torch
 
 from ..fv.case import per_case
 from ..fv.pressure import PressureCoeffs, pressure_matvec
+from ..utils.profiling import host_read, host_upload
 
 
 class CGResult(NamedTuple):
@@ -57,7 +58,7 @@ def _norm(a: torch.Tensor) -> torch.Tensor:
 def _running(more: torch.Tensor, k: np.ndarray, limit: int) -> np.ndarray:
     """Host copy of the per-case loop condition `more & (k < limit)`: the
     loop's one host read per iteration."""
-    return more.cpu().numpy() & (k < limit)
+    return np.asarray(host_read(more)) & (k < limit)
 
 
 def _keep(active: np.ndarray, new: tuple, old: tuple) -> tuple:
@@ -65,7 +66,7 @@ def _keep(active: np.ndarray, new: tuple, old: tuple) -> tuple:
     it has stopped (per-case scalars and fields alike)."""
     if active.all():
         return new
-    mask = torch.as_tensor(active, device=new[0].device)
+    mask = host_upload(active, new[0].device)
     return tuple(torch.where(mask.reshape(mask.shape + (1,) * (n.dim()
                                                              - mask.dim())),
                              n, o) for n, o in zip(new, old))

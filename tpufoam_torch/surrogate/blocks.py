@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import host_read, host_upload
+
 
 @dataclasses.dataclass(frozen=True)
 class BlockLayout:
@@ -172,7 +174,7 @@ def extract_blocks(layout: BlockLayout, field: torch.Tensor) -> torch.Tensor:
         v = v.reshape((my, gs, mx, gs) + trail)
         v = torch.movedim(v, 2, 1)[:, :, :s, :s]
         parts.append(v.reshape((my * mx, s, s) + trail))
-    return torch.cat(parts)[torch.as_tensor(inv, device=field.device)]
+    return torch.cat(parts)[host_upload(inv, field.device)]
 
 
 def extract_blocks_gather(layout: BlockLayout,
@@ -258,7 +260,7 @@ def stitch_offsets_scan(layout: BlockLayout, blocks: torch.Tensor,
     else:
         stats += [zero, zero, zero]
     x = dict(zip(names + ("bot_pi", "excl_pi", "up_frac"),
-                 torch.stack(stats).to(torch.float32).cpu()))
+                 host_read(torch.stack(stats).to(torch.float32))))
     zero = torch.zeros((), dtype=torch.float32)
 
     bc_ups = [zero] * (n_x + 1)   # upward overlap mean stored per column
@@ -289,7 +291,7 @@ def stitch_offsets_scan(layout: BlockLayout, blocks: torch.Tensor,
         old_left_o = g("left_o") - c
         old_left_izl = g("left_izl") - c
         corr.append(c)
-    return torch.stack(corr).to(device=blocks.device, dtype=blocks.dtype)
+    return host_upload(torch.stack(corr), blocks.device).to(blocks.dtype)
 
 
 def _place_blocks(layout: BlockLayout, blocks: torch.Tensor) -> torch.Tensor:
@@ -396,14 +398,14 @@ def _stitch_pair_system(layout: BlockLayout, blocks: torch.Tensor,
 
     mean_a_l, cnt_a_l, mean_b_l, cnt_b_l = [], [], [], []
     for sa, sb, ka, kb in groups:
-        ka_t = torch.as_tensor(ka, device=dev)
-        kb_t = torch.as_tensor(kb, device=dev)
+        ka_t = host_upload(ka, dev)
+        kb_t = host_upload(kb, dev)
         mean_a_l.append(sm[sa][0][ka_t])
         cnt_a_l.append(sm[sa][1][ka_t])
         mean_b_l.append(sm[sb][0][kb_t])
         cnt_b_l.append(sm[sb][1][kb_t])
-    ia = torch.as_tensor(ia_np, device=dev)
-    ib = torch.as_tensor(ib_np, device=dev)
+    ia = host_upload(ia_np, dev)
+    ib = host_upload(ib_np, dev)
     diffs = torch.cat(mean_a_l) - torch.cat(mean_b_l)
     ws = torch.minimum(torch.cat(cnt_a_l), torch.cat(cnt_b_l)) \
         / float(layout.size**2)
@@ -460,7 +462,7 @@ def stitch_offsets_lstsq(layout: BlockLayout, blocks: torch.Tensor,
     ia, ib, ws, diffs = _stitch_pair_system(layout, blocks, masks)
     wd = ws * diffs
     terms = torch.cat([wd, -wd, torch.zeros_like(wd[:1])])
-    g = terms[torch.as_tensor(_incidence(layout), device=blocks.device)]
+    g = terms[host_upload(_incidence(layout), blocks.device)]
     rhs = g[:, 0]
     for j in range(1, g.shape[1]):
         rhs = rhs + g[:, j]
@@ -487,8 +489,8 @@ def _blend_constants(layout: BlockLayout, device: torch.device):
     den = np.zeros((layout.ny, layout.nx), dtype=np.float32)
     for y0, x0 in zip(layout.y0s, layout.x0s):
         den[y0:y0 + s, x0:x0 + s] += w_np
-    return (torch.as_tensor(w_np, device=device),
-            torch.as_tensor(1.0 / np.maximum(den, 1e-8), device=device))
+    return (host_upload(w_np, device),
+            host_upload(1.0 / np.maximum(den, 1e-8), device))
 
 
 def assemble_lstsq(layout: BlockLayout, blocks: torch.Tensor,
@@ -506,7 +508,7 @@ def assemble_lstsq(layout: BlockLayout, blocks: torch.Tensor,
     # grouped space-to-depth placement: one pad/reshape/slice-add per
     # parity group; blocks inside a group do not overlap
     groups, order, _, gs = _fast_groups(layout)
-    weighted = (corrected * w)[torch.as_tensor(order, device=blocks.device)]
+    weighted = (corrected * w)[host_upload(order, blocks.device)]
     num = torch.zeros((layout.ny + gs, layout.nx + gs), dtype=blocks.dtype,
                       device=blocks.device)
     off = 0
@@ -564,8 +566,7 @@ def gaussian_filter2d(field: torch.Tensor, sigma: float,
 
     def conv1d(f, dim):
         f = f.movedim(dim, -1)
-        idx = torch.as_tensor(_symmetric_index(f.shape[-1], radius),
-                              device=f.device)
+        idx = host_upload(_symmetric_index(f.shape[-1], radius), f.device)
         fp = f.index_select(-1, idx)
         out = F.conv1d(fp.reshape(-1, 1, fp.shape[-1]), k)
         return out.reshape(f.shape).movedim(-1, dim)
