@@ -1769,3 +1769,146 @@ def test_every_sync_of_a_hybrid_lockstep_is_a_counted_host_read(cuda):
     sites = sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
                     for w in syncs})
     assert len(syncs) == host_read.count - n0 > 0, sites
+
+
+def _graph_problem(cuda, n_cases, seed):
+    """A predictor of sm_ref512 (lstsq stitch), `n_cases` cases at
+    128 x 512 (a 2-D case for 0, else a stack) and a maker of noisy
+    inputs for them."""
+    import os
+
+    from tpufoam_torch.core.geometry import channel_case_geometry
+    from tpufoam_torch.fv.case import build_channel_case
+    from tpufoam_torch.piso.batched import stack_cases
+    from tpufoam_torch.surrogate.pipeline import (SurrogateBundle,
+                                                  make_predictor)
+
+    ny, nx = 128, 512
+    shapes = [("cylinder", 0.5), ("triangle", 0.45), ("ellipse", 0.6),
+              ("rectangle", 0.5)]
+    cases = [build_channel_case(channel_case_geometry(
+        shape, length=nx * 2.0 / ny, height=2.0, obstacle_size=size,
+        nu=8e-3), delta=2.0 / ny, device=cuda)
+        for shape, size in shapes[:max(n_cases, 1)]]
+    case = stack_cases(cases) if n_cases else cases[0]
+    pred = make_predictor(SurrogateBundle.load(os.path.join(
+        os.path.dirname(__file__), "..", "artifacts", "sm_ref512"),
+        device=cuda), stitch="lstsq")
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def inputs():
+        def f(scale, offset=0.0):
+            return (offset + scale * torch.randn(
+                case.fluid.shape, generator=gen, device=cuda)) * case.fluid
+        p = f(1.0)
+        return p, dict(u=f(0.05, 1.0), v=f(0.05), p=p, u_prev=f(0.05, 1.0),
+                       v_prev=f(0.05), p_prev=f(1.0),
+                       dt=torch.full(case.fluid.shape[:-2], 5e-4,
+                                     device=cuda))
+
+    return pred, case, inputs
+
+
+@pytest.mark.parametrize("n_cases", [4, 0], ids=["fleet4", "single"])
+def test_graph_prediction_equals_eager_bit_for_bit(cuda, n_cases):
+    """The bound predictor's CUDA graphs give the eager prediction bit for
+    bit, on the first call and after the inputs change between replays
+    (non-contiguous inputs too); a replay makes no synchronising call and
+    returns a new tensor; one graph is captured per case."""
+    pred, case, inputs = _graph_problem(cuda, n_cases, seed=5)
+    bound = pred.bind(case)
+    n = max(n_cases, 1)
+    with torch.no_grad():
+        p, aux = inputs()
+        first = bound(case, p, aux)
+        assert torch.equal(first, pred(case, p, aux))
+        assert (pred.graph_captures, pred.graph_replays) == (n, n)
+        kept = first.clone()
+        p, aux = inputs()
+        aux["u"] = aux["u"].transpose(-2, -1).contiguous().transpose(-2, -1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = bound(case, p, aux)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(again, pred(case, p, aux))
+    assert again.data_ptr() != first.data_ptr()
+    assert torch.equal(first, kept)
+    assert not torch.equal(again, first)
+    assert (pred.graph_captures, pred.graph_replays) == (n, 2 * n)
+    assert pred.calls == 4
+
+
+def test_graph_prediction_steps_aside(cuda):
+    """A call with autograd on, or with another case, runs eagerly;
+    other inputs (here inference mode) recapture once, and after that the
+    case stays eager, in a new bind too."""
+    from tpufoam_torch.fv.case import Case
+
+    pred, case, inputs = _graph_problem(cuda, 2, seed=7)
+    bound = pred.bind(case)
+    p, aux = inputs()
+    with torch.no_grad():
+        ref = pred(case, p, aux)
+        assert torch.equal(bound(case, p, aux), ref)
+    assert (pred.graph_captures, pred.graph_replays) == (2, 2)
+    assert torch.equal(bound(case, p, aux), ref)          # autograd on
+    other = Case(**{k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                    for k, v in vars(case).items()})
+    with torch.no_grad():
+        assert torch.equal(bound(other, p, aux), ref)      # another case
+    assert (pred.graph_captures, pred.graph_replays) == (2, 2)
+    with torch.inference_mode():
+        assert torch.equal(bound(case, p, aux), ref)      # recaptured
+    assert (pred.graph_captures, pred.graph_replays) == (4, 4)
+    with torch.no_grad():
+        assert torch.equal(bound(case, p, aux), ref)      # eager for good
+        assert torch.equal(pred.bind(case)(case, p, aux), ref)
+    assert (pred.graph_captures, pred.graph_replays) == (4, 4)
+    assert pred.calls == 7
+
+
+def test_fleet_lockstep_with_graphs_equals_eager(cuda):
+    """Two hybrid locksteps of a two-case fleet at 128 x 512 with the
+    bound predictor's graphs equal, bit for bit, the same locksteps with
+    every prediction eager."""
+    from tpufoam_torch.fv.case import fleet_member, initial_flow
+    from tpufoam_torch.piso.batched import (run_piso_batched_eager,
+                                            stack_flows)
+    from tpufoam_torch.piso.engine import PisoConfig
+    from tpufoam_torch.solvers.backends import MGBackend
+
+    pred, case, _ = _graph_problem(cuda, 2, seed=0)
+    flow = stack_flows([initial_flow(fleet_member(case, k), 5e-4)
+                        for k in range(2)])
+    kw = dict(cfg=PisoConfig(max_co=0.5, max_dt=2e-3,
+                             momentum_smoother="kernel"),
+              backend=MGBackend(cycles=2, precision="bf16"))
+    graphed = run_piso_batched_eager(case, flow, 2, sm_predict=pred, **kw)
+    eager = run_piso_batched_eager(
+        case, flow, 2, sm_predict=lambda c, p, a: pred(c, p, a), **kw)
+    assert (pred.graph_captures, pred.graph_replays) == (2, 4)
+    for name in ("u", "v", "p", "phi_x", "phi_y", "dt"):
+        assert torch.equal(getattr(graphed, name), getattr(eager, name)), \
+            name
+
+
+def test_rollouts_of_one_case_share_its_graphs(cuda):
+    """Each rollout binds the predictor anew (run_force_series calls one
+    every sample); the binds of one case share its graph, so only the
+    first rollout captures and every prediction is a replay."""
+    from tpufoam_torch.fv.case import initial_flow
+    from tpufoam_torch.piso.engine import PisoConfig, run_piso_eager
+    from tpufoam_torch.solvers.backends import MGBackend
+
+    pred, case, _ = _graph_problem(cuda, 0, seed=0)
+    kw = dict(cfg=PisoConfig(max_co=0.5, max_dt=2e-3,
+                             momentum_smoother="kernel"),
+              backend=MGBackend(cycles=2, precision="bf16"))
+    flow = initial_flow(case, 5e-4)
+    for steps in (2, 1, 1):
+        flow = run_piso_eager(case, flow, steps, sm_predict=pred, **kw)
+        assert pred.graph_captures == 1
+    assert pred.graph_replays == pred.calls >= 4
+    assert bool(torch.isfinite(flow.p).all())

@@ -215,3 +215,75 @@ def test_predictor_with_sm_ref512_on_128x512(bundles, cdt, rtol):
     assert pred.calls == 1
     # compare the predicted change, the part the surrogate computes
     close(got - T(f["p"]), np.asarray(ref) - f["p"], rtol)
+
+
+@pytest.mark.parametrize("ny,nx,size", LAYOUTS)
+def test_cached_layout_indices_equal_the_host_arrays(ny, nx, size):
+    """The device copies `layout_indices` and `stitch_indices` keep equal,
+    element for element, the arrays the extraction, the placement and the
+    lstsq stitch uploaded on every call before."""
+    tl = tblk.build_block_layout(ny, nx, size, 0.25)
+    cpu = torch.device("cpu")
+    lidx, sidx = tblk.layout_indices(tl, cpu), tblk.stitch_indices(tl, cpu)
+    _, order, inv, _ = tblk._fast_groups(tl)
+    groups, ia, ib = tblk._pair_groups(tl)
+    got = {"inv": lidx[0], "order": lidx[1], "ia": sidx["ia"],
+           "ib": sidx["ib"], "incidence": sidx["incidence"]}
+    want = {"inv": inv, "order": order, "ia": ia, "ib": ib,
+            "incidence": tblk._incidence(tl)}
+    for name, a in want.items():
+        assert got[name].dtype == torch.int64, name
+        assert torch.equal(got[name], torch.as_tensor(a)), name
+    assert len(sidx["pairs"]) == len(groups)
+    for (sa, sb, ka, kb), (ta, tb, ka_t, kb_t) in zip(groups, sidx["pairs"]):
+        assert (sa, sb) == (ta, tb)
+        assert torch.equal(ka_t, torch.as_tensor(ka))
+        assert torch.equal(kb_t, torch.as_tensor(kb))
+    assert tblk.layout_indices(tl, cpu) is lidx
+    assert tblk.stitch_indices(tl, cpu) is sidx
+
+
+@pytest.mark.parametrize("stitch,reads", [("lstsq", 0), ("scan", 2)])
+def test_a_second_prediction_uploads_no_constant(bundles, stitch, reads):
+    """After the first prediction on a layout, a prediction makes no host
+    transfer but the scan stitch's own (its strip means read and its
+    offsets uploaded, per case) and adds no entry to the layout's caches,
+    whose index tensors stay the same objects; a CPU call captures no
+    CUDA graph."""
+    from tpufoam_torch.fv.case import initial_flow
+    from tpufoam_torch.piso.batched import stack_cases, stack_flows
+    from tpufoam_torch.utils import profiling
+
+    _, tb = bundles
+    ny, nx = 128, 512
+    cases = [build_channel_case(channel_case_geometry(
+        shape, length=nx * 2.0 / ny, height=2.0, obstacle_size=0.5,
+        nu=8e-3), delta=2.0 / ny, device="cpu")
+        for shape in ("cylinder", "triangle")]
+    case = stack_cases(cases)
+    flow = stack_flows([initial_flow(c, 5e-4) for c in cases])
+    aux = dict(u=flow.u, v=flow.v, p=flow.p, u_prev=flow.u_prev,
+               v_prev=flow.v_prev, p_prev=flow.p_prev)
+    pred = tpipe.make_predictor(tb, stitch=stitch)
+    bound = pred.bind(case)
+    layout, cpu = pred._layout(case), torch.device("cpu")
+    caches = [tblk.layout_indices, tblk._blend_constants]
+    if stitch == "lstsq":
+        caches.append(tblk.stitch_indices)
+
+    def cached():
+        return [(c.cache_info().currsize, c.cache_info().misses)
+                for c in caches]
+
+    with torch.no_grad():
+        first = bound(case, flow.p, aux)
+        before = cached()
+        idx = tblk.layout_indices(layout, cpu)
+        n0 = profiling.host_read.count
+        again = bound(case, flow.p, aux)
+    assert profiling.host_read.count - n0 == reads * len(cases)
+    assert cached() == before
+    assert tblk.layout_indices(layout, cpu) is idx
+    assert torch.equal(first, again)
+    assert pred.calls == 2
+    assert pred.graph_captures == 0 and pred.graph_replays == 0

@@ -31,6 +31,7 @@ from tpufoam_torch.fv.pressure import pressure_coeffs, pressure_matvec
 from tpufoam_torch.piso import batched as tbat
 from tpufoam_torch.piso import engine as teng
 from tpufoam_torch.solvers.backends import MGBackend
+from tpufoam_torch.surrogate import blocks as tblocks
 from tpufoam_torch.surrogate.pipeline import make_predictor
 from tpufoam_torch.utils import profiling
 
@@ -281,22 +282,35 @@ def test_every_host_read_of_a_forced_rescue_lockstep_is_counted(
 
 
 def test_the_predictors_host_transfers_are_counted(fleet, monkeypatch):
-    """The lstsq predictor's index uploads on a real bundle's blocks go
-    through host_upload too."""
+    """The lstsq predictor's uploads on a real bundle's blocks go through
+    host_upload too, and are the block layout's constants: on a fresh
+    layout the bind uploads its index arrays and the first lockstep the
+    blend window and weights, once; a second lockstep uploads nothing."""
     case, _ = fleet
+    for cache in (tblocks.layout_indices, tblocks.stitch_indices,
+                  tblocks._blend_constants):
+        cache.cache_clear()
+    rescue = teng._rescue_if_unconverged
+    n0 = profiling.host_read.count
     pred = make_predictor(bundle_to_torch(_tiny_bundle(block_size=16)),
                           stitch="lstsq").bind(case)
-    rescue = teng._rescue_if_unconverged
-    solves, n0 = rescue.solves, profiling.host_read.count
+    layout = tblocks.build_block_layout(*case.fluid.shape[-2:], 16)
+    idx = tblocks.stitch_indices(layout, case.device)
+    # inv, order, ka and kb of each pair group, ia, ib, incidence
+    assert profiling.host_read.count - n0 == 5 + 2 * len(idx["pairs"])
     outside = _count_raw_transfers(monkeypatch)
-    _lockstep(fleet, pred)
+    uploads = []
+    for _ in range(2):
+        solves, n0 = rescue.solves, profiling.host_read.count
+        _lockstep(fleet, pred)
+        n_rescue = (0 if rescue.solves == solves else
+                    min(rescue.solves - solves, CFG.sm_safeguard_extra - 1))
+        # less the gate's read and the rescue's
+        uploads.append(profiling.host_read.count - n0 - 1 - n_rescue)
     monkeypatch.undo()
     assert outside == []
-    n_rescue = (0 if rescue.solves == solves else
-                min(rescue.solves - solves, CFG.sm_safeguard_extra - 1))
-    # the gate's read and the rescue's, and each case's uploads
-    n_case = profiling.host_read.count - n0 - 1 - n_rescue
-    assert n_case > 0 and n_case % 2 == 0
+    assert uploads == [2, 0]
+    assert tblocks.stitch_indices(layout, case.device) is idx
 
 
 def test_the_scan_stitch_reads_and_uploads_through_the_counter(

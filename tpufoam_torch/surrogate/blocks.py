@@ -155,6 +155,15 @@ def _fast_groups(layout: BlockLayout):
     return groups, np.asarray(order), inv, g * step
 
 
+@functools.lru_cache(maxsize=16)
+def layout_indices(layout: BlockLayout, device: torch.device) -> tuple:
+    """(inv, order) of `_fast_groups` on `device`, each uploaded once
+    (through host_upload): later extractions and placements on the layout
+    copy nothing, so nothing waits for the stream."""
+    _, order, inv, _ = _fast_groups(layout)
+    return host_upload(inv, device), host_upload(order, device)
+
+
 def _pad_yx(field: torch.Tensor, py: int, px: int) -> torch.Tensor:
     """Zero-pad the high end of the two leading (y, x) axes."""
     pad = [0, 0] * (field.dim() - 2) + [0, px, 0, py]
@@ -164,7 +173,7 @@ def _pad_yx(field: torch.Tensor, py: int, px: int) -> torch.Tensor:
 def extract_blocks(layout: BlockLayout, field: torch.Tensor) -> torch.Tensor:
     """All blocks as (N, S, S[, C]), in raster order."""
     s = layout.size
-    groups, _, inv, gs = _fast_groups(layout)
+    groups, _, _, gs = _fast_groups(layout)
     fp = _pad_yx(field, gs, gs)
     trail = tuple(field.shape[2:])
     parts = []
@@ -174,7 +183,7 @@ def extract_blocks(layout: BlockLayout, field: torch.Tensor) -> torch.Tensor:
         v = v.reshape((my, gs, mx, gs) + trail)
         v = torch.movedim(v, 2, 1)[:, :, :s, :s]
         parts.append(v.reshape((my * mx, s, s) + trail))
-    return torch.cat(parts)[host_upload(inv, field.device)]
+    return torch.cat(parts)[layout_indices(layout, field.device)[0]]
 
 
 def extract_blocks_gather(layout: BlockLayout,
@@ -386,6 +395,20 @@ def _incidence(layout: BlockLayout) -> np.ndarray:
     return np.asarray([r + [2 * n_pairs] * (d - len(r)) for r in rows])
 
 
+@functools.lru_cache(maxsize=16)
+def stitch_indices(layout: BlockLayout, device: torch.device) -> dict:
+    """The lstsq stitch's constant index arrays on `device`, each uploaded
+    once (through host_upload): `pairs` [(strips, ka, kb)] of its pair
+    groups, the concatenated `ia`, `ib`, and its `incidence`. Later
+    calls on the layout copy nothing, so nothing waits for the stream."""
+    groups, ia, ib = _pair_groups(layout)
+    return {"pairs": [(sa, sb, host_upload(ka, device),
+                       host_upload(kb, device))
+                      for sa, sb, ka, kb in groups],
+            "ia": host_upload(ia, device), "ib": host_upload(ib, device),
+            "incidence": host_upload(_incidence(layout), device)}
+
+
 def _stitch_pair_system(layout: BlockLayout, blocks: torch.Tensor,
                         masks: torch.Tensor):
     """The pairwise overlap-mean constraint set (ia, ib, ws, diffs): block
@@ -393,19 +416,15 @@ def _stitch_pair_system(layout: BlockLayout, blocks: torch.Tensor,
     mismatches. ws depends only on `masks`; `blocks` enter only through
     `diffs`."""
     sm = _strip_means(layout, blocks, masks)
-    groups, ia_np, ib_np = _pair_groups(layout)
-    dev = blocks.device
+    idx = stitch_indices(layout, blocks.device)
 
     mean_a_l, cnt_a_l, mean_b_l, cnt_b_l = [], [], [], []
-    for sa, sb, ka, kb in groups:
-        ka_t = host_upload(ka, dev)
-        kb_t = host_upload(kb, dev)
+    for sa, sb, ka_t, kb_t in idx["pairs"]:
         mean_a_l.append(sm[sa][0][ka_t])
         cnt_a_l.append(sm[sa][1][ka_t])
         mean_b_l.append(sm[sb][0][kb_t])
         cnt_b_l.append(sm[sb][1][kb_t])
-    ia = host_upload(ia_np, dev)
-    ib = host_upload(ib_np, dev)
+    ia, ib = idx["ia"], idx["ib"]
     diffs = torch.cat(mean_a_l) - torch.cat(mean_b_l)
     ws = torch.minimum(torch.cat(cnt_a_l), torch.cat(cnt_b_l)) \
         / float(layout.size**2)
@@ -462,7 +481,7 @@ def stitch_offsets_lstsq(layout: BlockLayout, blocks: torch.Tensor,
     ia, ib, ws, diffs = _stitch_pair_system(layout, blocks, masks)
     wd = ws * diffs
     terms = torch.cat([wd, -wd, torch.zeros_like(wd[:1])])
-    g = terms[host_upload(_incidence(layout), blocks.device)]
+    g = terms[stitch_indices(layout, blocks.device)["incidence"]]
     rhs = g[:, 0]
     for j in range(1, g.shape[1]):
         rhs = rhs + g[:, j]
@@ -507,8 +526,9 @@ def assemble_lstsq(layout: BlockLayout, blocks: torch.Tensor,
 
     # grouped space-to-depth placement: one pad/reshape/slice-add per
     # parity group; blocks inside a group do not overlap
-    groups, order, _, gs = _fast_groups(layout)
-    weighted = (corrected * w)[host_upload(order, blocks.device)]
+    groups, _, _, gs = _fast_groups(layout)
+    _, order = layout_indices(layout, blocks.device)
+    weighted = (corrected * w)[order]
     num = torch.zeros((layout.ny + gs, layout.nx + gs), dtype=blocks.dtype,
                       device=blocks.device)
     off = 0

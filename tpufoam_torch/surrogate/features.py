@@ -97,6 +97,9 @@ class FamilyConfig:
     predicts_delta: bool          # p_new = p_prev + prediction
     build_inputs: Callable        # (case, fields) -> (ny, nx, n_in)
     build_targets: Callable       # (case, fields) -> (ny, nx, n_out)
+    # the fields of the step that build_inputs reads beside the case's:
+    # all a predictor hands it, and what a CUDA graph of it copies in
+    reads: tuple
 
 
 def _in_deltas(case, fields):
@@ -153,11 +156,16 @@ def _out_gradp(case, fields):
 
 FAMILIES = {
     "deltaU_deltaP": FamilyConfig("deltaU_deltaP", 3, 1, True, True,
-                                  _in_deltas, _out_deltas),
+                                  _in_deltas, _out_deltas,
+                                  ("u", "v", "u_prev", "v_prev")),
+    # a predictor's poisson inputs take the default length scale and
+    # smoothing: the two are per-simulation parameters of training data
     "poisson": FamilyConfig("poisson", 4, 1, True, True, _in_poisson,
-                            _out_deltas),
-    "M_u": FamilyConfig("M_u", 3, 1, True, False, _in_mu, _out_p),
-    "M_fU": FamilyConfig("M_fU", 2, 1, True, False, _in_mfu, _out_p),
+                            _out_deltas, ("u", "v", "u_prev", "v_prev")),
+    "M_u": FamilyConfig("M_u", 3, 1, True, False, _in_mu, _out_p,
+                        ("u", "v")),
+    "M_fU": FamilyConfig("M_fU", 2, 1, True, False, _in_mfu, _out_p,
+                         ("u", "v")),
     "U_gradP": FamilyConfig("U_gradP", 3, 2, False, False, _in_mu,
-                            _out_gradp),
+                            _out_gradp, ("u", "v")),
 }

@@ -26,9 +26,11 @@ from .. import DEFAULT_DEVICE
 from ..fv.case import Case, fleet_member
 from ..models.mlp import (ModelDef, apply_model, params_from_numpy,
                           tree_leaves, treedef_str, unflatten_params)
-from .blocks import (BlockLayout, assemble_lstsq, assemble_scan,
-                     block_zero_mean, build_block_layout, extract_blocks,
-                     gaussian_filter2d, stitch_solve_op)
+from ..utils.profiling import span
+from .blocks import (BlockLayout, _blend_constants, assemble_lstsq,
+                     assemble_scan, block_zero_mean, build_block_layout,
+                     extract_blocks, gaussian_filter2d, layout_indices,
+                     stitch_indices, stitch_solve_op)
 from .features import FAMILIES, FamilyConfig, u_max_norm
 from .pca import PCAModel
 
@@ -207,6 +209,15 @@ class Predictor:
     step, and B x N blocks through one matrix product (or one reduction)
     round differently from N. `calls` counts calls, one per lockstep.
 
+    On a CUDA device with autograd off, the closure `bind` returns replays
+    each case's prediction (lstsq stitch, no seam filter) as a CUDA graph
+    (`_CaseGraphs`): the same kernels on the same operands, so the same
+    bits, with no host work a kernel. The graphs are kept with the case's
+    stitch operators, so every bind of the same case replays the same
+    graphs. `graph_captures` counts the graphs captured and
+    `graph_replays` the cases they predicted; a call they cannot serve,
+    and every call of the predictor itself, runs eagerly.
+
     `near_wall_dist`: keep p_prev where the SDF is below it.
     `apply_filter`: the Gaussian seam filter (sigma 10) after the stitch.
     `precision` 'bf16': the PCA products on bf16 operands, float32 sums;
@@ -228,6 +239,8 @@ class Predictor:
         self.apply_filter = apply_filter
         self.near_wall_dist = near_wall_dist
         self.calls = 0
+        self.graph_captures = 0
+        self.graph_replays = 0
         self._ops: "OrderedDict[int, tuple]" = OrderedDict()
 
     def _layout(self, case: Case) -> BlockLayout:
@@ -250,8 +263,7 @@ class Predictor:
                       solve_op: torch.Tensor | None) -> torch.Tensor:
         bundle, family = self.bundle, self.family
         layout = self._layout(case)
-        fields = dict(aux)
-        fields.setdefault("p", p_prev)
+        fields = {n: aux[n] for n in family.reads}
         um = u_max_norm(fields["u"], fields["v"])
 
         x_grid = family.build_inputs(case, fields)
@@ -276,46 +288,187 @@ class Predictor:
         p_new = torch.where(guard, p_prev, p_new)
         return torch.where(torch.isfinite(p_new), p_new, p_prev)
 
-    def bind(self, case: Case):
-        """The predictor for this case, with its stitch operator resolved
-        (one per case of a stacked fleet); the same case gives the same
-        operators. JAX's vmapped predictor solves the offset system
-        in-graph instead: the same least-squares solution, up to
-        rounding. A stretched (graded) grid raises ValueError before any
-        block layout is built: the surrogate takes uniform blocks of a
-        uniform grid, and graded grids are a capability of the pure
-        solver, as in the JAX package."""
+    def _resolve(self, case: Case) -> tuple:
+        """(stitch operators, graphs) of the case: one operator per case
+        of a stacked fleet, and with the lstsq stitch and no seam filter
+        its `_CaseGraphs`, kept for the last 8 cases, so the same case
+        gives the same operators and graphs. A stretched (graded) grid
+        raises ValueError before any block layout is built."""
         if case.grid.stretched:
             raise ValueError(
                 "surrogate predictors require a uniform grid; this case "
                 "uses a stretched (graded) Grid2D — run the pure solver "
                 "backends there, or resample to a uniform grid")
         if self.stitch == "scan":
-            ops = [None] * (1 if case.sdf.dim() == 2 else case.sdf.shape[0])
-        else:
-            key = id(case.sdf)
-            hit = self._ops.get(key)
-            if hit is None or hit[0] is not case.sdf:
-                members = ([case] if case.sdf.dim() == 2 else
-                           [fleet_member(case, k)
-                            for k in range(case.sdf.shape[0])])
-                layout = self._layout(case)
-                hit = (case.sdf, [stitch_solve_op(
-                    layout, extract_blocks(layout, m.sdf)) for m in members])
-                self._ops[key] = hit
-                while len(self._ops) > 8:
-                    self._ops.popitem(last=False)
-            ops = hit[1]
+            return [None] * (1 if case.sdf.dim() == 2
+                             else case.sdf.shape[0]), None
+        key = id(case.sdf)
+        hit = self._ops.get(key)
+        if hit is None or hit[0] is not case.sdf:
+            members = ([case] if case.sdf.dim() == 2 else
+                       [fleet_member(case, k)
+                        for k in range(case.sdf.shape[0])])
+            layout = self._layout(case)
+            ops = [stitch_solve_op(layout, extract_blocks(layout, m.sdf))
+                   for m in members]
+            hit = (case.sdf, ops, None if self.apply_filter
+                   else _CaseGraphs(case, ops, self.family.reads))
+            self._ops[key] = hit
+            while len(self._ops) > 8:
+                self._ops.popitem(last=False)
+        return hit[1], hit[2]
+
+    def bind(self, case: Case):
+        """The predictor for a rollout of this case, with its stitch
+        operator resolved (one per case of a stacked fleet) and, with the
+        lstsq stitch and no seam filter, its CUDA graphs (`_CaseGraphs`),
+        both shared with every other bind of the case. JAX's vmapped
+        predictor solves the offset system in-graph instead: the same
+        least-squares solution, up to rounding. A stretched (graded) grid
+        raises ValueError before any block layout is built: the surrogate
+        takes uniform blocks of a uniform grid, and graded grids are a
+        capability of the pure solver, as in the JAX package."""
+        ops, graphs = self._resolve(case)
 
         def bound(case: Case, p_prev: torch.Tensor,
                   aux: dict) -> torch.Tensor:
-            return self._predict(case, p_prev, aux, ops)
+            p = None if graphs is None else graphs(self, case, p_prev, aux)
+            if p is None:
+                return self._predict(case, p_prev, aux, ops)
+            self.calls += 1
+            return p
 
         return bound
 
     def __call__(self, case: Case, p_prev: torch.Tensor,
                  aux: dict) -> torch.Tensor:
-        return self.bind(case)(case, p_prev, aux)
+        """One prediction, eagerly: the path the graphs are held to."""
+        return self._predict(case, p_prev, aux, self._resolve(case)[0])
+
+
+def _case_key(case: Case) -> tuple:
+    """Where the case's per-cell tensors live: what a graph reads in
+    place."""
+    return tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+                 for t in vars(case).values()
+                 if isinstance(t, torch.Tensor)
+                 and t.shape == case.fluid.shape)
+
+
+class _CaseGraphs:
+    """CUDA graphs of a bound prediction, one per case of the stack (one
+    for a 2-D case), captured on the first call they can serve and
+    replayed in capture order.
+
+    Graph k reads case k's tensors (its SDF, masks, stitch operator) in
+    place, and p_prev and the fields its family reads
+    (`FamilyConfig.reads`) from one set of per-case static buffers that
+    all graphs share: `copy_` fills them from case k's slices before
+    graph k replays. Each graph ends by writing one
+    shared output buffer, which is copied into row k of a result
+    allocated on every call (callers keep results across calls). The
+    graphs share one memory pool: they replay one at a time, in the order
+    they were captured. Capture follows PyTorch's recipe: an eager
+    warm-up call on a side stream, then `torch.cuda.graph` on it.
+
+    A call is served on a CUDA device with autograd off, no input that
+    requires grad, the bound case's per-cell tensors where they were
+    (`_case_key`), every read field a tensor, and the inputs' shapes and
+    dtypes those of the capture (their strides do not matter: the
+    buffers take copies). Other shapes or dtypes recapture once, and
+    after that the case stays eager. A call the graphs do not serve
+    returns None."""
+
+    def __init__(self, case: Case, ops: list, names: tuple):
+        # the case is held, so its tensors keep the addresses the graphs
+        # read
+        self.ops, self.case, self.names = ops, case, names
+        self.case_key = _case_key(case)
+        self.key = None            # the inputs the graphs were captured for
+        self.graphs: list = []
+        self.buffers: list = []    # p_prev's and the read fields'
+        self.out = None
+        self.captures_left = 2     # the first capture and one recapture
+
+    def __call__(self, pred: Predictor, case: Case, p_prev: torch.Tensor,
+                 aux: dict) -> torch.Tensor | None:
+        if not p_prev.is_cuda or torch.is_grad_enabled():
+            return None
+        inputs = [p_prev] + [aux[n] for n in self.names]
+        if (not all(isinstance(t, torch.Tensor) and not t.requires_grad
+                    and t.device == p_prev.device for t in inputs)
+                or _case_key(case) != self.case_key):
+            return None
+        key = (torch.is_inference_mode_enabled(),
+               tuple((t.shape, t.dtype) for t in inputs))
+        if key != self.key:
+            # drop the old graphs and their buffers first
+            self.graphs, self.buffers, self.out, self.key = [], [], None, None
+            if not self.captures_left:
+                return None
+            self.captures_left -= 1
+            with span("tpufoam_torch.surrogate.capture"):
+                self._capture(pred, case, inputs)
+            self.key = key
+        return self._replay(pred, inputs)
+
+    def _fill(self, inputs: list, k: int | None):
+        for buf, t in zip(self.buffers, inputs):
+            buf.copy_(t if k is None else t[k])
+
+    def _capture(self, pred: Predictor, case: Case, inputs: list):
+        p_prev = inputs[0]
+        dev = p_prev.device
+        single = p_prev.dim() == 2
+        members = ([case] if single else
+                   [fleet_member(case, k) for k in range(p_prev.shape[0])])
+        self.buffers = [torch.empty(t.shape if single else t.shape[1:],
+                                    dtype=t.dtype, device=dev)
+                        for t in inputs]
+        p_in, fields = self.buffers[0], dict(zip(self.names,
+                                                 self.buffers[1:]))
+
+        def predict(k):
+            return pred._predict_case(members[k], p_in, fields, self.ops[k])
+
+        self._fill(inputs, None if single else 0)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = predict(0)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.out = torch.empty_like(warm)
+        del warm
+        # the cached constants the graphs read, kept alive with them
+        layout = pred._layout(case)
+        self.constants = (layout_indices(layout, dev),
+                          stitch_indices(layout, dev),
+                          _blend_constants(layout, dev))
+        pool = torch.cuda.graph_pool_handle()
+        for k in range(len(members)):
+            g = torch.cuda.CUDAGraph()
+            # thread_local: another thread's CUDA calls (the bridge serves
+            # a connection a thread) do not break this capture
+            with torch.cuda.graph(g, pool=pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                self.out.copy_(predict(k))
+            self.graphs.append(g)
+            pred.graph_captures += 1
+
+    def _replay(self, pred: Predictor, inputs: list) -> torch.Tensor:
+        if inputs[0].dim() == 2:
+            self._fill(inputs, None)
+            self.graphs[0].replay()
+            result = self.out.clone()
+        else:
+            result = torch.empty((len(self.graphs),) + self.out.shape,
+                                 dtype=self.out.dtype, device=self.out.device)
+            for k, g in enumerate(self.graphs):
+                self._fill(inputs, k)
+                g.replay()
+                result[k].copy_(self.out)
+        pred.graph_replays += len(self.graphs)
+        return result
 
 
 def make_predictor(bundle: SurrogateBundle,
