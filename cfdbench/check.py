@@ -21,8 +21,10 @@ each class (drawn from the seed) of the first, the reference then
     correction; `dt_gap`: the dt control; the pressure after it is the
     last solve's, which `solve_gap` holds).
 The start is checked by itself: the case build (`case_gap`) and the
-first step, replayed from the reference's own initial flow. Nothing here
-imports the program.
+first step, replayed from the reference's own initial flow. The reference
+is the package that the configuration names (`spec.reference`; by default
+the frozen `cfdbench/reference`), built with the configuration's options
+as the program is. Nothing here imports the program.
 """
 
 from __future__ import annotations
@@ -158,34 +160,34 @@ def _continuity(phi_x, phi_y, fluid) -> float:
 
 
 class _Reference:
-    """The reference's case, step, predictor and backend for one case."""
+    """The reference's case, step, predictor and backend for one case,
+    from the configuration's reference package `ref`
+    (`spec.reference`)."""
 
-    def __init__(self, config: dict, shape: str, size: float, device,
-                 bundle, control: bool):
-        from .reference import backends, case as rcase, engine, geometry, \
-            pipeline, pressure
-
-        self.engine, self.rcase, self.pressure = engine, rcase, pressure
+    def __init__(self, config: dict, ref, shape: str, size: float,
+                 device, bundle, control: bool):
+        backends, rcase, engine, geometry, pipeline = (
+            ref.backends, ref.case, ref.engine, ref.geometry, ref.pipeline)
+        self.engine, self.rcase, self.pressure = engine, rcase, ref.pressure
         g = config["grid"]
         geom = geometry.channel_case_geometry(
             shape, length=g["length"], height=g["height"],
             obstacle_size=size, cx=spec.obstacle_x(config, size),
-            nu=config["nu"])
+            nu=config["nu"], **spec.geometry_options(config))
         self.case = rcase.build_channel_case(
             geom, delta=g["height"] / g["ny"], device=device)
         self.cfg = engine.PisoConfig(**config["piso"])
         self.backend = spec.backend(backends, config["backend"])
-        sm = config["surrogate"]
-        self.predict = pipeline.make_predictor(
-            bundle, stitch=sm["stitch"], precision=sm["precision"]
-        ).bind(self.case)
+        opts = spec.surrogate_options(config)
+        self.predict = pipeline.make_predictor(bundle, **opts).bind(
+            self.case)
         self.dt0 = config["dt0"]
         if control:
             # the control: the reference with its state, its prediction
             # and its pressure solutions stored in bfloat16, and its PCA
             # products on bfloat16 operands
-            low = pipeline.make_predictor(bundle, stitch=sm["stitch"],
-                                          precision="bf16").bind(self.case)
+            low = pipeline.make_predictor(
+                bundle, **{**opts, "precision": "bf16"}).bind(self.case)
             solve = self.backend
             self.low_predict = lambda c, p, a: _lowp(low(c, p, a))
             self.low_backend = lambda c, k, r, x, a: _lowp(solve(c, k, r,
@@ -285,12 +287,12 @@ def reference_gaps(config: dict, members: list, prog_case, pairs: list,
     the reference's own initial flow, after(k): its state after, calls(k):
     its recorded calls). With `control`, the reference stored in bfloat16
     takes the program's place, and the program's states after and calls
-    are not read."""
-    from .reference import pipeline
-
+    are not read. Every reference module is the configuration's reference
+    package's (`spec.reference`)."""
+    ref_pkg = spec.reference(config)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    bundle = pipeline.SurrogateBundle.load(
+    bundle = ref_pkg.pipeline.SurrogateBundle.load(
         os.path.join(spec.ROOT, config["surrogate"]["bundle"]),
         device=device)
     spec.check_family(bundle.family, config["surrogate"])
@@ -299,7 +301,8 @@ def reference_gaps(config: dict, members: list, prog_case, pairs: list,
     with torch.no_grad():
         for i in checked:
             shape, size = members[i]
-            ref = _Reference(config, shape, size, device, bundle, control)
+            ref = _Reference(config, ref_pkg, shape, size, device,
+                             bundle, control)
             fields = prog_case(i)
             for f in CASE_FIELDS:
                 r = getattr(ref.case, f)

@@ -7,8 +7,12 @@ One run is one process: it loads the cell's files by name (spec), builds
 the cases from the seed (traffic), warms the step up, measures a closed
 loop of the cell's entry for `--seconds` (at least the cell's
 `min_steps`), checks `correct` (check) and prints one JSON line last.
-`--trace 1` profiles `trace_steps` steps instead of the window and
-prints the per-layer metrics (metrics/<name>.py) with a breakdown. The
+`--trace 1` runs, in place of the window, `probe_steps` untraced steps
+with the program's spans off (the step's time), `span_steps` untraced
+steps with spans on (the spans' host times) and `trace_steps` steps under
+torch.profiler with spans on, and prints the per-layer metrics
+(metrics/<name>.py) with a breakdown. The window of `--trace 0` runs
+with spans off. The
 run needs as many CUDA devices as the cell asks for, and exits with 2
 otherwise; `--device cpu` rehearses the whole run on the CPU (the
 program's plain versions), which no measurement uses.
@@ -45,7 +49,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "tpufoam")
 # 128 wide), one case of each class, a few steps
 REHEARSAL = {"grid": {"ny": 128, "nx": 960},
              "mix": {"per_class": 1, "warmup_steps": 2, "min_steps": 3,
-                     "probe_steps": 2, "trace_steps": 2}}
+                     "probe_steps": 2, "span_steps": 2, "trace_steps": 2}}
 GiB = 2 ** 30
 
 
@@ -89,8 +93,12 @@ def _fields(obj, names, k=None):
 
 class Program:
     """The system under test, set up from the cell's files and the seed:
-    the stacked cases (or the one case), their initial state, the bound
-    predictor, the pressure backend and one step of the cell's entry."""
+    the stacked cases (or the one case), their initial state, the
+    predictor (whose counters the traced run reads) and its bound form,
+    the pressure backend and one step of the cell's entry. The
+    configuration's `geometry` and `surrogate` options reach the program
+    whole (spec.geometry_options, spec.surrogate_options): a key it does
+    not take fails the build."""
 
     def __init__(self, config: dict, workload: dict, members: list,
                  device):
@@ -108,7 +116,8 @@ class Program:
         cases = [build_channel_case(channel_case_geometry(
             shape, length=g["length"], height=g["height"],
             obstacle_size=size, cx=spec.obstacle_x(config, size),
-            nu=config["nu"]), delta=delta, device=device)
+            nu=config["nu"], **spec.geometry_options(config)),
+            delta=delta, device=device)
             for shape, size in members]
         if (cases[0].grid.ny, cases[0].grid.nx) != (g["ny"], g["nx"]):
             raise SystemExit("cfdbench: the case's grid is not the "
@@ -128,9 +137,9 @@ class Program:
         bundle = SurrogateBundle.load(os.path.join(ROOT, sm["bundle"]),
                                       device=device)
         spec.check_family(bundle.family, sm)
-        predictor = make_predictor(bundle, stitch=sm["stitch"],
-                                   precision=sm["precision"])
-        self.predict = predictor.bind(self.case)
+        self.predictor = make_predictor(bundle,
+                                        **spec.surrogate_options(config))
+        self.predict = self.predictor.bind(self.case)
 
     def step(self, flow, backend=None, predict=None):
         return self.entry(self.case, flow, 1, cfg=self.cfg,
@@ -190,12 +199,26 @@ def _readers(names: list) -> dict:
 
 
 def _bundle_manifest(config: dict) -> dict:
-    from cfdbench.reference.features import FAMILIES
     with open(os.path.join(ROOT, config["surrogate"]["bundle"],
                            "manifest.json")) as f:
         m = json.load(f)
-    m["n_in"] = FAMILIES[m["family"]].n_in
+    m["n_in"] = spec.reference(config).pipeline.FAMILIES[m["family"]].n_in
     return m
+
+
+def _counters(predictor) -> dict:
+    """The program's counters that the per-layer metrics read: host reads
+    (and uploads), the safeguard's rescue solves and the cases they
+    served, the predictor's calls and the cases its CUDA graphs
+    predicted."""
+    from tpufoam_torch.piso import engine
+    from tpufoam_torch.utils import profiling
+    rescue = engine._rescue_if_unconverged
+    return {"host_reads": profiling.host_read.count,
+            "rescue_solves": rescue.solves, "rescue_cases": rescue.cases,
+            "predictor_calls": predictor.calls,
+            "graph_replays": predictor.graph_replays}
+
 
 
 def run_cell(name: str, seed: int, seconds: float, traced: bool,
@@ -247,14 +270,16 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
     _log(f"set-up: {wl['warmup_steps']} warm-up steps done at "
          f"{time.time() - T0:.2f} s")
     from tpufoam_torch.solvers import multigrid
+    from tpufoam_torch.utils import profiling
 
     clock, rows = _Clock(device), []
     backend, predict, undo, prof = prog.backend, prog.predict, None, None
     calls = {"momentum_multisweep": [], "stencil_matvec": []}
-    probe_s = None
+    probe_s = span_host = counters0 = None
     if traced:
-        # untraced steps, timed as the window times them, just before the
-        # traced ones: the step's time without the profiler's overhead
+        counters0 = _counters(prog.predictor)
+        # untraced steps, timed as the window times them, with spans off:
+        # the step's time without the profiler's or the spans' overhead
         probe = _Clock(device)
         probe.mark()
         for _ in range(int(wl["probe_steps"])):
@@ -262,6 +287,21 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
             probe.mark()
         _sync(device)
         probe_s = sum(probe.step_ms()) / 1e3 / int(wl["probe_steps"])
+        # untraced steps with the program's spans on: their host times
+        profiling.reset_spans()
+        profiling.enable_spans(True)
+        on = _Clock(device)
+        on.mark()
+        for _ in range(int(wl["span_steps"])):
+            flow = prog.step(flow)
+            on.mark()
+        _sync(device)
+        span_host = {"steps": int(wl["span_steps"]),
+                     "step_s": sum(on.step_ms()) / 1e3
+                     / int(wl["span_steps"]),
+                     "spans": profiling.span_table()}
+        # the traced steps keep spans on: the profiler puts each kernel
+        # under the span that launched it
         from torch.profiler import ProfilerActivity, profile
         backend, predict, undo = _ranges(prog, calls)
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
@@ -301,7 +341,14 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
     v_cycles = multigrid.v_cycle.cycles - cycles0
     if traced:
         prof.__exit__(None, None, None)
+        profiling.enable_spans(False)
         undo()
+        counters = {k: v - counters0[k]
+                    for k, v in _counters(prog.predictor).items()}
+        counters["steps"] = (int(wl["probe_steps"])
+                             + int(wl["span_steps"]) + steps)
+        _log(f"the program's counters over the traced run's steps: "
+             f"{counters}")
         _log(f"the profiler's overhead: {window_s / steps * 1e3:.1f} ms a "
              f"traced step against {probe_s * 1e3:.1f} ms untraced")
     step_ms = clock.step_ms()
@@ -368,16 +415,23 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
         wanted = spec.metrics_of(name, "end_to_end")
     else:
         d = {"steps": steps, "window_s": window_s, "cases": cases,
-             "probe_step_s": probe_s, "config": config, "bundle": _bundle_manifest(config),
-             "v_cycles": v_cycles, "calls": calls, "trace": data}
+             "probe_step_s": probe_s, "config": config,
+             "bundle": _bundle_manifest(config), "v_cycles": v_cycles,
+             "calls": calls, "trace": data, "spans": data["spans"],
+             "span_host": span_host, "counters": counters}
         wanted = spec.metrics_of(name, "per_layer")
         readers = _readers([m["name"] for m in wanted])
         values = {n: r(d) for n, r in readers.items()}
         if device == "cuda":
             dev["busy_s"] = data["busy_s"]
             dev["window_s"] = window_s
-            result["breakdown"] = {"device_ops": data["device_ops"],
-                                   "idle_gaps": data["idle_gaps"]}
+            result["breakdown"] = {
+                "device_ops": data["device_ops"],
+                "idle_gaps": data["idle_gaps"],
+                "spans": sorted(([n, v["device_s"]] for n, v in
+                                 data["spans"].items()),
+                                key=lambda r: -r[1])[:10],
+                "idle_gaps_by_span": data["idle_gaps_by_span"][:10]}
     result["metrics"] = {m["name"]: {"value": values[m["name"]],
                                      "unit": m["unit"]}
                          for m in wanted if values.get(m["name"]) is not None}

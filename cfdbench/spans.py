@@ -45,7 +45,9 @@ def events(prof) -> tuple[list, list]:
     return cpu, kernels
 
 
-def _launch_times(cpu: list) -> tuple[dict, dict]:
+def launch_times(cpu: list) -> tuple[dict, dict]:
+    """({correlation id: start of the runtime call}, {correlation id:
+    start of a host operation that other events link to}) in ns."""
     launch, op_start = {}, {}
     for s, _, name, _, corr, linked in cpu:
         if name.startswith("cuda"):
@@ -82,7 +84,7 @@ def reduce(cpu: list, kernels: list) -> dict:
     thread = next((c[3] for c in cpu if c[2].startswith(PROGRAM)), None)
     spans = [(s, e, name) for s, e, name, tid, _, _ in cpu
              if name.startswith(PROGRAM) and tid == thread]
-    launch, op_start = _launch_times(cpu)
+    launch, op_start = launch_times(cpu)
     timed = []
     for ks, ke, _, cid, lid in kernels:
         t = launch.get(cid, op_start.get(lid))
@@ -128,7 +130,7 @@ def launched_in(cpu: list, kernels: list, name: str) -> tuple[int, int]:
     against it."""
     ranges = sorted((s, e) for s, e, n, _, _, _ in cpu if n == name)
     starts = [s for s, _ in ranges]
-    launch, op_start = _launch_times(cpu)
+    launch, op_start = launch_times(cpu)
     inside = 0
     for _, _, _, cid, lid in kernels:
         t = launch.get(cid, op_start.get(lid))

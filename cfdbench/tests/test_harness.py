@@ -148,9 +148,14 @@ def test_a_traced_rehearsal_run_is_correct_and_well_formed():
     assert out["attempted"] == 4 * run.REHEARSAL["mix"]["trace_steps"]
     names = {m["name"] for m in spec.metrics_of("cyl512_hybrid.fleet16",
                                                 "per_layer")}
-    # the CPU has no device kernels: the readers of device time are silent
+    # the CPU has no device kernels: the readers of device time are silent;
+    # those of the program's counters and its spans' host times read
     assert set(out["metrics"]) <= names
-    assert "v_cycles_per_step" in out["metrics"]
+    assert {"v_cycles_per_step", "rescue_useful_share",
+            "host_reads_per_step", "host_busy_share",
+            "graph_replay_share"} <= set(out["metrics"])
+    assert not {"fv_device_ms_per_step", "safeguard_device_ms_per_step",
+                "launches_per_step"} & set(out["metrics"])
 
 
 def test_the_control_is_not_correct():

@@ -2,13 +2,16 @@
 as the union of its kernels' intervals, the device time of the kernels
 launched inside each of the benchmark's named ranges, the launches, the
 top device operations and the longest idle gaps by what the host was
-doing.
+doing; and, through `spans`, the same of the program's own spans.
 
 Ranges are opened by the benchmark around the calls it makes into the
 program (the bound predictor, the pressure backend) and around the
 module attributes the program's callers look up (`Ranged`). A kernel
 belongs to a range when the runtime call that launched it (the same
-correlation id) was made inside the range.
+correlation id) was made inside the range. The program's spans
+(`tpufoam_torch.*`, when they are on) are neither kernels nor host
+operations here: `launches`, `busy_s` and `idle_gaps` read the same with
+spans on as off.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from collections import defaultdict
 
 import torch
 
-PREFIX = "cfdbench."
+from . import spans
+
+PREFIX = spans.OUR
 
 
 class Ranged:
@@ -58,54 +63,45 @@ def _union(intervals: list) -> tuple[float, list]:
 
 
 def read(prof) -> dict:
-    """Reduce a finished torch.profiler.profile to plain numbers:
-    `kernels` (device operations, memory copies and sets left out),
-    `busy_s`, `range_s` {range name: device seconds of its kernels},
-    `device_ops` [[name, seconds]] (top 10) and `idle_gaps`
-    [[host operation, seconds]] (top 10)."""
-    cpu, kernels = [], []
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CPU:
-            s = e.start_ns()
-            cpu.append((s, e.end_ns(), e.name(),
-                        e.start_thread_id(), e.correlation_id(),
-                        e.linked_correlation_id()))
-        elif e.device_type() == torch.autograd.DeviceType.CUDA:
-            name = e.name()
-            if name.startswith(("Memcpy", "Memset", PREFIX)):
-                continue
-            s = e.start_ns()
-            kernels.append((s, e.end_ns(), name, e.correlation_id(),
-                            e.linked_correlation_id()))
+    """Reduce a finished torch.profiler.profile to plain numbers
+    (`reduce` of its `spans.events`)."""
+    return reduce(*spans.events(prof))
+
+
+def reduce(cpu: list, kernels: list) -> dict:
+    """`launches` (device operations; memory copies and sets and the
+    ranges' user annotations are not among `kernels`), `busy_s`,
+    `range_s` {range name: device seconds of its kernels}, `device_ops`
+    [[name, seconds]] (top 10), `idle_gaps` [[host operation, seconds]]
+    (top 10), and the program's spans as `spans.reduce` gives them:
+    `spans`, `outside` and `idle_gaps_by_span`."""
     # the launching thread: the one that opened the benchmark's ranges
     thread = next((c[3] for c in cpu if c[2].startswith(PREFIX)), None)
     # a kernel's launch time: its runtime call's (the same correlation
     # id), else the start of the host operation it is linked to
-    launch, op_start, host = {}, {}, []
+    launch, op_start = spans.launch_times(cpu)
+    host = []
     ranges = defaultdict(list)
-    for s, e, name, tid, corr, linked in cpu:
-        if name.startswith("cuda"):
-            launch[corr] = s
-        elif linked == 0:
-            op_start[corr] = s
+    for s, e, name, tid, _, _ in cpu:
         if name.startswith(PREFIX):
             ranges[name[len(PREFIX):]].append((s, e))
-        elif tid == thread and e > s:
+        elif tid == thread and e > s and not name.startswith(
+                spans.PROGRAM):
             host.append((s, e, name))
     busy_ns, merged = _union([(k[0], k[1]) for k in kernels])
 
     # the kernels' device time in each range, by their launching op
     range_ns = {}
-    for name, spans in ranges.items():
-        spans.sort()
-        starts = [s for s, _ in spans]
+    for name, ivals in ranges.items():
+        ivals.sort()
+        starts = [s for s, _ in ivals]
         tot = 0
         for ks, ke, _, cid, lid in kernels:
             t = launch.get(cid, op_start.get(lid))
             if t is None:
                 continue
             i = bisect.bisect_right(starts, t) - 1
-            if i >= 0 and t <= spans[i][1]:
+            if i >= 0 and t <= ivals[i][1]:
                 tot += ke - ks
         range_ns[name] = tot
 
@@ -139,4 +135,5 @@ def read(prof) -> dict:
         "range_s": {k: v / 1e9 for k, v in range_ns.items()},
         "device_ops": [[n, v / 1e9] for n, v in top],
         "idle_gaps": [[n, v / 1e9] for n, v in idle],
+        **spans.reduce(cpu, kernels),
     }
